@@ -1,0 +1,118 @@
+"""The game runtime of the port: single logic thread + batched tick phases.
+
+A slimmed port of the JAX package's ``engine/runtime.py``.  Each tick runs,
+in this order (part of the engine contract):
+
+  1. timers -- user logic (AI moves, scheduled callbacks);
+  2. AOI    -- submit dirty spaces, one batched device step per bucket,
+               replay enter/leave events through entity hooks;
+  3. sync   -- position/yaw records for every entity flagged dirty, and
+               attr deltas;
+  4. post   -- callbacks queued during the tick.
+
+Placement, cohorts, checkpoints, fault plans, telemetry and the crontab of
+the JAX runtime are not in this slice (ROADMAP.md lists them).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+from .aoi import AOIEngine
+from .entity import SYNC_NEIGHBORS, SYNC_OWN, Entity
+from .manager import EntityManager
+from .post import PostQueue
+from .timers import TimerQueue
+
+
+class Runtime:
+    def __init__(
+        self,
+        device="cuda",
+        aoi_delta_staging: bool = True,
+        aoi_flush_sched: bool = True,
+        aoi_emit: str = "auto",
+        now: Callable[[], float] = time.monotonic,
+        on_error: Callable[[BaseException], None] | None = None,
+    ):
+        self.now = now
+        self.on_error = on_error or self._default_on_error
+        self.aoi = AOIEngine(device=device, delta_staging=aoi_delta_staging,
+                             flush_sched=aoi_flush_sched, emit=aoi_emit)
+        self.timers = TimerQueue(now)
+        self.post = PostQueue()
+        self.entities = EntityManager(self)
+        self.tick_count = 0
+        # entities with pending sync flags / attr deltas; the sync phase
+        # walks only these.  The set object is stable (entities cache it).
+        self._dirty_entities: set[Entity] = set()
+        # position sync records collected this tick:
+        # (client_id, gate_id, entity_id, x, y, z, yaw)
+        self.sync_out: list[tuple] = []
+
+    def _default_on_error(self, e: BaseException):
+        import traceback
+
+        traceback.print_exception(type(e), e, e.__traceback__)
+
+    # -- the tick ----------------------------------------------------------
+    def tick(self):
+        self.tick_count += 1
+        self.timers.tick(self.on_error)
+        self._aoi_phase()
+        self._sync_phase()
+        self.post.tick(self.on_error)
+
+    def _aoi_phase(self):
+        spaces = list(self.entities.spaces.values())
+        staged = False
+        for sp in spaces:
+            staged = sp.submit_aoi() or staged
+        if staged or self.aoi.has_pending():
+            self.aoi.flush()
+            for sp in spaces:
+                sp.dispatch_aoi_events()
+        # slots freed last tick become reusable only now, after event
+        # delivery
+        for sp in spaces:
+            sp.recycle_aoi_slots()
+
+    def _sync_phase(self):
+        """Collect position sync + flush attr deltas for DIRTY entities
+        only; the dirty set is drained in place, never swapped."""
+        ds = self._dirty_entities
+        if not ds:
+            return
+        dirty = list(ds)
+        ds.clear()
+        for e in dirty:
+            if e.destroyed:
+                continue
+            flags = e._sync_flags
+            if flags:
+                e._sync_flags = 0
+                if (e.client is not None or
+                        (flags & SYNC_NEIGHBORS and e._watcher_clients > 0)):
+                    self._collect_sync(e, flags)
+            if e._attr_deltas:
+                e._flush_attr_deltas()
+
+    def _collect_sync(self, e: Entity, flags: int):
+        """One record per flagged entity per tick."""
+        x, y, z = e.position.to_tuple()
+        if flags & SYNC_OWN and e.client is not None:
+            self.sync_out.append(
+                (e.client.client_id, e.client.gate_id, e.id, x, y, z, e.yaw)
+            )
+        if flags & SYNC_NEIGHBORS and e._watcher_clients > 0:
+            for other in e.interested_by:
+                if other.client is not None:
+                    self.sync_out.append(
+                        (other.client.client_id, other.client.gate_id,
+                         e.id, x, y, z, e.yaw))
+
+    def drain_sync(self) -> list[tuple]:
+        out = self.sync_out
+        self.sync_out = []
+        return out

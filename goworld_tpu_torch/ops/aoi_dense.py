@@ -1,0 +1,62 @@
+"""Plain PyTorch version of the AOI step (the kernel's reference).
+
+Evaluates the predicate of :mod:`aoi_predicate` over all pairs of each
+space, packs it into planar int32 words and XOR-diffs against the previous
+tick.  This is what the CPU runs (the tests) and what the hand-written
+kernel (:mod:`aoi_cuda`, ``csrc/aoi_step.cu``) is held to on the card,
+bit for bit.  It is the counterpart of the JAX package's
+``ops/aoi_dense.py`` (``interest_words_dense``, ``aoi_step_chg_dense``).
+
+The predicate is exactly ``|x_j - x_i| <= r_i & |z_j - z_i| <= r_i &
+act_i & act_j & i != j`` in float32, computed as sub -> abs -> compare
+(no squared distance).  Activity is applied with masks, never by folding
+it into the coordinates.  Packing ORs the 32 bit planes together: a
+``sum`` would promote int32 to int64 and the bit-31 plane would not wrap
+back into the int32 word.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .aoi_predicate import WORD_BITS, words_per_row
+
+# observer rows per evaluation block: bounds the [rows, C] boolean
+# intermediate (16 MiB at C = 16384)
+_ROW_BLOCK = 1024
+
+
+def _pack_planes(m: torch.Tensor, w: int) -> torch.Tensor:
+    """bool [R, 32 * W] -> int32 [R, W], bit k of word w = m[:, k*W + w]."""
+    planes = m.view(m.shape[0], WORD_BITS, w)
+    acc = planes[:, 0, :].to(torch.int32)
+    for k in range(1, WORD_BITS):
+        acc |= planes[:, k, :].to(torch.int32) << k
+    return acc
+
+
+def interest_words_dense(x, z, radius, active) -> torch.Tensor:
+    """Predicate over all pairs of one space, packed.  [C] f32 inputs
+    (``active`` bool) -> [C, W] int32."""
+    c = x.shape[0]
+    w = words_per_row(c)
+    out = torch.empty((c, w), dtype=torch.int32, device=x.device)
+    cols = torch.arange(c, device=x.device)
+    for lo in range(0, c, _ROW_BLOCK):
+        hi = min(lo + _ROW_BLOCK, c)
+        r = radius[lo:hi, None]
+        m = (x[None, :] - x[lo:hi, None]).abs() <= r
+        m &= (z[None, :] - z[lo:hi, None]).abs() <= r
+        m &= active[lo:hi, None] & active[None, :]
+        m &= cols[lo:hi, None] != cols[None, :]
+        out[lo:hi] = _pack_planes(m, w)
+    return out
+
+
+def aoi_step_chg_dense(x, z, radius, active, prev_words):
+    """Batched ``emit="chg"`` step: [S, C] inputs and [S, C, W] int32
+    ``prev_words`` -> ``(new, new ^ prev)``, both [S, C, W] int32."""
+    new = torch.stack([interest_words_dense(x[s], z[s], radius[s], active[s])
+                       for s in range(x.shape[0])]) if x.shape[0] else \
+        torch.empty_like(prev_words)
+    return new, new ^ prev_words

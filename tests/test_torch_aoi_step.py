@@ -1,0 +1,159 @@
+"""The port's plain AOI step (goworld_tpu_torch.ops.aoi_dense, what the CPU
+runs and what the CUDA kernel is held to on the card) against the JAX
+package: the Pallas kernel in interpret mode and the dense XLA step.
+Tolerance: exact equality -- the predicate is IEEE sub/abs/compare in f32
+and packing is integer, so no rounding or summation order is involved.
+
+One known divergence is pinned separately: XLA's CPU backend flushes
+subnormals to zero, so on subnormal inputs the JAX functions run on the
+CPU disagree with the IEEE predicate; there the port is held to the JAX
+package's own numpy reference (``aoi_predicate.interest_matrix``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from goworld_tpu.ops import aoi_dense as JD
+from goworld_tpu.ops import aoi_predicate as JP
+from goworld_tpu.ops.aoi_pallas import aoi_step_pallas
+from goworld_tpu_torch.ops import aoi_cuda as AK
+from goworld_tpu_torch.ops import aoi_predicate as TP
+from test_aoi_parity import random_walk_scenario
+
+
+def edge_inputs(s, c, seed, subnormal=False, inf_radius=False):
+    """[S, C] numpy inputs with the predicate's edge cases: a tie lattice,
+    -0.0, NaN, +-inf positions, r = 0, partially active rows, and prev
+    words with bit 31 set; optionally subnormal gaps under r = 0 and
+    r = +inf observers."""
+    rng = np.random.default_rng(seed)
+    w = c // 32
+    x = (np.round(rng.uniform(0, 200, (s, c)) * 4) / 4).astype(np.float32)
+    z = (np.round(rng.uniform(0, 200, (s, c)) * 4) / 4).astype(np.float32)
+    r = rng.choice([0.0, 10.0, 25.0, 50.0], (s, c)).astype(np.float32)
+    act = rng.random((s, c)) < 0.8
+    n = min(c, 64)
+    x[:, :n:8] = 0.0
+    x[:, 1:n:8] = -0.0
+    z[:, :n:4] = 0.0
+    r[:, :n:2] = 0.0
+    x[:, 4:n:8] = np.nan
+    z[:, 5:n:8] = np.inf
+    x[:, 6:n:8] = -np.inf
+    r[:, 15:n:16] = np.nan
+    if subnormal:
+        x[:, 2:n:8] = np.float32(1e-40)
+        x[:, 3:n:8] = np.float32(-3e-45)
+        z[:, 2:n:8] = z[:, 3:n:8] = 0.0
+        act[:, :8] = True
+    if inf_radius:
+        r[:, 7:n:16] = np.inf
+    prev = rng.integers(0, 2**32, (s, c, w), dtype=np.uint64)
+    prev = prev.astype(np.uint32)
+    prev[:, :, 0] |= np.uint32(1 << 31)
+    return x, z, r, act, prev
+
+
+def port_step(x, z, r, act, prev):
+    t = [torch.from_numpy(a) for a in (x, z, r, act)]
+    new, chg = AK.aoi_step_chg(*t, TP.words_to_torch(prev, "cpu"))
+    return TP.words_to_numpy(new), TP.words_to_numpy(chg)
+
+
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("c", [128, 256, 384])
+def test_plain_step_matches_pallas_interpret(s, c):
+    """Port vs the JAX Pallas kernel (interpret mode, emit="chg"), with the
+    edge inputs it shares with the IEEE predicate (its +inf folding
+    diverges from the masks for r = +inf, so no +inf radius here)."""
+    x, z, r, act, prev = edge_inputs(s, c, seed=s * 1000 + c)
+    new_j, chg_j = aoi_step_pallas(
+        jnp.asarray(x), jnp.asarray(z), jnp.asarray(r), jnp.asarray(act),
+        jnp.asarray(prev), emit="chg", interpret=True)
+    new_t, chg_t = port_step(x, z, r, act, prev)
+    np.testing.assert_array_equal(new_t, np.asarray(new_j))
+    np.testing.assert_array_equal(chg_t, np.asarray(chg_j))
+
+
+@pytest.mark.parametrize("c", [1024, 4096])
+def test_plain_step_matches_jax_dense(c):
+    """Port vs the JAX dense step at larger capacities, +inf radii and a
+    seeded random walk's second tick included."""
+    x, z, r, act, prev = edge_inputs(2, c, seed=c, inf_radius=True)
+    new_j, chg_j = JD.aoi_step_chg_dense(
+        jnp.asarray(x), jnp.asarray(z), jnp.asarray(r), jnp.asarray(act),
+        jnp.asarray(prev))
+    new_t, chg_t = port_step(x, z, r, act, prev)
+    np.testing.assert_array_equal(new_t, np.asarray(new_j))
+    np.testing.assert_array_equal(chg_t, np.asarray(chg_j))
+    walk = list(random_walk_scenario(c, c, c - 100, 2, tie_lattice=True))
+    prev = np.asarray(new_j)[:1]
+    x, z, r, act = (a[None] for a in walk[1])
+    new_j, chg_j = JD.aoi_step_chg_dense(
+        jnp.asarray(x), jnp.asarray(z), jnp.asarray(r), jnp.asarray(act),
+        jnp.asarray(prev))
+    new_t, chg_t = port_step(x, z, r, act, prev)
+    np.testing.assert_array_equal(new_t, np.asarray(new_j))
+    np.testing.assert_array_equal(chg_t, np.asarray(chg_j))
+
+
+@pytest.mark.parametrize("c", [128, 384])
+def test_plain_step_subnormals_follow_ieee(c):
+    """r = 0 with subnormal gaps: the port keeps IEEE subnormals, exactly
+    as the JAX package's numpy predicate does (|1e-40 - 0| <= 0 is
+    false)."""
+    x, z, r, act, prev = edge_inputs(2, c, seed=7 + c, subnormal=True,
+                                     inf_radius=True)
+    new_t, chg_t = port_step(x, z, r, act, prev)
+    with np.errstate(invalid="ignore"):  # inf - inf is NaN, as intended
+        for s in range(2):
+            want = JP.pack_rows(JP.interest_matrix(x[s], z[s], r[s], act[s]))
+            np.testing.assert_array_equal(new_t[s], want)
+            np.testing.assert_array_equal(chg_t[s], want ^ prev[s])
+        # the case is live: flushing the subnormals to zero changes it
+        tiny = np.finfo(np.float32).tiny
+        xf = np.where(np.abs(x) < tiny, np.float32(0), x)
+        flushed = JP.pack_rows(JP.interest_matrix(xf[0], z[0], r[0], act[0]))
+    assert not np.array_equal(flushed, new_t[0])
+
+
+def test_word_carry_roundtrip_and_layout_helpers():
+    """words_to_torch / words_to_numpy keep every bit (bit 31 included)
+    and never alias; the layout helpers equal the JAX package's."""
+    rng = np.random.default_rng(3)
+    w = rng.integers(0, 2**32, (5, 12), dtype=np.uint64).astype(np.uint32)
+    t = TP.words_to_torch(w, "cpu")
+    assert t.dtype == torch.int32
+    back = TP.words_to_numpy(t)
+    assert back.dtype == np.uint32
+    np.testing.assert_array_equal(back, w)
+    t[0, 0] = 0
+    assert back[0, 0] == w[0, 0]
+    m = rng.random((384, 384)) < 0.1
+    np.testing.assert_array_equal(TP.pack_rows(m), JP.pack_rows(m))
+    words = JP.pack_rows(m)
+    np.testing.assert_array_equal(TP.unpack_rows(words, 384), m)
+    np.testing.assert_array_equal(TP.pairs_from_words(words, 384),
+                                  JP.pairs_from_words(words, 384))
+    for cap in (128, 256):
+        mm = rng.random((cap, cap)) < 0.05
+        np.testing.assert_array_equal(
+            TP.repack_columns_double(JP.pack_rows(mm), cap),
+            JP.repack_columns_double(JP.pack_rows(mm), cap))
+    for n in (1, 128, 129, 1000):
+        assert TP.round_capacity(n) == JP.round_capacity(n)
+    assert TP.word_bit_for_column(77, 384) == JP.word_bit_for_column(77, 384)
+
+
+def test_cpu_step_launches_no_kernel_and_checks_inputs():
+    AK.reset_launches()
+    x, z, r, act, prev = edge_inputs(1, 128, seed=1)
+    port_step(x, z, r, act, prev)
+    assert AK.launches["aoi_step"] == 0
+    t = [torch.from_numpy(a) for a in (x, z, r, act)]
+    with pytest.raises(ValueError):
+        AK.aoi_step_chg(t[0].double(), *t[1:],
+                        TP.words_to_torch(prev, "cpu"))
+    with pytest.raises(ValueError):
+        AK.aoi_step_chg_cuda(*t, TP.words_to_torch(prev, "cpu"))

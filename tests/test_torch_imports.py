@@ -1,0 +1,88 @@
+"""Boundaries of the port: goworld_tpu_torch and chip_smoke.py import
+neither jax nor the goworld_tpu package; the default device is CUDA and
+its absence raises (no quiet CPU carry-on); the CPU path launches no
+kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _forbidden(name: str) -> bool:
+    """jax*, or the goworld_tpu package itself (goworld_tpu_torch shares
+    its prefix and is allowed)."""
+    return name.startswith("jax") or name == "goworld_tpu" \
+        or name.startswith("goworld_tpu.")
+
+
+def test_port_modules_import_no_jax_and_no_goworld_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import goworld_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240,
+                         check=True).stdout.split()
+    assert int(out[0]) >= 19  # every module of the slice was imported
+    loaded = out[1:]
+    assert "goworld_tpu_torch.engine.runtime" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_chip_smoke_imports_no_jax_and_no_goworld_tpu():
+    path = os.path.join(ROOT, "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert "goworld_tpu_torch.engine.runtime" in names
+    assert sorted(n for n in names if _forbidden(n)) == []
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=240)
+    assert r.returncode != 0 and r.stdout == ""
+
+
+def test_default_device_raises_without_cuda():
+    from goworld_tpu_torch.engine.aoi import AOIEngine
+    from goworld_tpu_torch.engine.runtime import Runtime
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    for make in (Runtime, AOIEngine, lambda: Runtime(device="cuda:0")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_cpu_path_launches_no_kernel():
+    from goworld_tpu_torch.engine.aoi import AOIEngine
+    from goworld_tpu_torch.ops import aoi_cuda as AK
+
+    AK.reset_launches()
+    eng = AOIEngine(device="cpu")
+    h = eng.create_space(128)
+    x = np.arange(128, dtype=np.float32)
+    eng.submit(h, x, x, np.full(128, 3.0, np.float32), np.ones(128, bool))
+    eng.flush()
+    assert len(eng.take_events(h)[0]) > 0
+    assert AK.launches == {"aoi_step": 0}
