@@ -21,15 +21,36 @@ Phases (any failure raises, so the exit code is non-zero):
                 that every tick launched the kernel;
   5. parity  -- the same seeded walk at 2 spaces x 2,000 entities on
                 device="cuda" and device="cpu": the CRCs of the delivered
-                enter/leave arrays must be equal.
+                enter/leave arrays must be equal;
+  6. giant kernels -- the rectangular step and the two block-culled
+                kernels against their plain versions on the card,
+                bit-exact, over edge-case inputs (NaN and +inf radii,
+                inactive tails, nearly sorted orders) at BASELINE's giant
+                shapes and around them; the culled step also against the
+                dense kernel at full size;
+  7. grid    -- the fixed-order culled tick (ops/cadence.FixedOrderGrid)
+                at BASELINE's `million` (64 x 16384) and `zipf100k`
+                (1 x 131072, 100k active, 90% in a hot zone): a re-sort,
+                16 ticks, a re-sort, 4 ticks; each tick runs the culled
+                step, encodes the row stream on the device, fetches it,
+                decodes it and replays it onto a host copy of the words,
+                which must equal the device words (the replay is the
+                check, timed apart from the decode); the final words
+                must equal the plain dense words of the final positions;
+  8. zipfshare -- one device's 16,384-row block of a row-sharded
+                `zipf100k` through the rectangular step, with the same
+                codec and replay checks.
 
 The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Kernel launches counted on the main path
-are those of phase 4 alone (counts are reset just before it).
+{"ok": true, "device": {...}}.  Kernel launches are counted on the path
+each kernel serves, with the counts reset just before it: the square
+step in phase 4, the culled kernels in phase 7, the rectangular step in
+phase 8.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +66,8 @@ F32_OPS_PER_S = 67e12
 # f32 operations per pair test of the AOI predicate: two subtracts, two
 # abs, two compares
 OPS_PER_PAIR = 6
+
+DEV = "cuda"  # every phase's tensors live on the current card
 
 KERNEL_SHAPES = [(1, 128), (3, 384), (8, 4096), (8, 16384), (64, 16384)]
 MAIN_SHAPE = (8, 16384)
@@ -66,10 +89,11 @@ def log(*a):
 # -- phase 3: kernel vs plain ------------------------------------------------
 
 
-def edge_inputs(s, c, seed):
+def edge_inputs(s, c, seed, with_prev=True):
     """[S, C] inputs with the predicate's edge cases: a tie lattice, -0.0,
     NaN, +-inf, r = 0 with subnormal gaps, r = +inf, partially active
-    rows, and prev words with bit 31 set."""
+    rows, and (unless ``with_prev`` is false) prev words with bit 31
+    set."""
     rng = np.random.default_rng(seed)
     w = c // 32
     x = (np.round(rng.uniform(0, 400, (s, c)) * 4) / 4).astype(np.float32)
@@ -91,13 +115,14 @@ def edge_inputs(s, c, seed):
     x[:, 6:n:8] = -np.inf
     r[:, 7:n:16] = np.inf
     r[:, 15:n:16] = np.nan
-    prev = rng.integers(-2**31, 2**31, (s, c, w), dtype=np.int64)
-    prev = prev.astype(np.int32)
-    prev[:, :, 0] |= np.int32(-2**31)  # bit 31 set
-    dev = "cuda"
-    return (torch.from_numpy(x).to(dev), torch.from_numpy(z).to(dev),
-            torch.from_numpy(r).to(dev), torch.from_numpy(act).to(dev),
-            torch.from_numpy(prev).to(dev))
+    dev = DEV
+    out = [torch.from_numpy(a).to(dev) for a in (x, z, r, act)]
+    if with_prev:
+        prev = rng.integers(-2**31, 2**31, (s, c, w), dtype=np.int64)
+        prev = prev.astype(np.int32)
+        prev[:, :, 0] |= np.int32(-2**31)  # bit 31 set
+        out.append(torch.from_numpy(prev).to(dev))
+    return out
 
 
 def cuda_ms(fn, reps, warm=2):
@@ -237,13 +262,13 @@ class DeviceTimer:
         self.events = []
         setattr(module, name, self)
 
-    def __call__(self, *a):
+    def __call__(self, *a, **kw):
         if not self.on:
-            return self.inner(*a)
+            return self.inner(*a, **kw)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = self.inner(*a)
+        out = self.inner(*a, **kw)
         e1.record()
         self.events.append((e0, e1))
         return out
@@ -366,6 +391,428 @@ def phase_parity(Runtime):
     return crcs
 
 
+# -- phase 6: the giant path's kernels vs plain --------------------------------
+
+RECT_SHAPES = [(1, 128, 384), (3, 256, 4096), (1, 16384, 131072)]
+CULLED_SHAPES = [(1, 4096), (8, 16384), (64, 16384), (1, 131072)]
+FULL = 131072  # from this many slots on: the dense-kernel check, fewer reps
+
+
+def words_equal(name, got, want):
+    """Bit-exact check of two int32 word tensors; returns max |diff| (0)."""
+    if torch.equal(got, want):
+        return 0
+    err = int((got.long() - want.long()).abs().max())
+    raise RuntimeError(f"chip smoke check failed: {name} (max |diff| {err})")
+
+
+def random_words(shape, seed):
+    """int32 words with random bits (bit 31 included) made on the card
+    from a seed."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                         device=DEV, generator=g)
+
+
+def rect_inputs(s, c_rows, c_cols, seed):
+    """:func:`edge_inputs` over a whole space of c_cols slots, rolled so
+    the edge cases land in the observer block [row0, row0 + c_rows) in
+    the middle of the space; row ids are the block's global slots."""
+    x, z, r, act = edge_inputs(s, c_cols, seed, with_prev=False)
+    row0 = (c_cols - c_rows) // 2
+    x, z, r, act = (torch.roll(a, row0, dims=1) for a in (x, z, r, act))
+    act[:, row0 + c_rows - c_rows // 8:row0 + c_rows] = False  # inactive tail
+    b = slice(row0, row0 + c_rows)
+    rows = [a[:, b].contiguous() for a in (x, z, r, act)]
+    rid = torch.arange(row0, row0 + c_rows, dtype=torch.int32,
+                       device=DEV).expand(s, c_rows).contiguous()
+    prev = random_words((s, c_rows, c_cols // 32), seed)
+    return rows, (x, z, act), rid, prev
+
+
+def culled_inputs(AG, s, c, seed):
+    """x-sorted inputs at `million`'s density (world 11314 per 16384 slots,
+    r = 100) with a NaN radius on one active row, a +inf radius, NaN and
+    infinite positions, -0.0, subnormal and tie-lattice slots, an inactive
+    tail, then 1% of the slots swapped (a nearly sorted order)."""
+    rng = np.random.default_rng(seed)
+    world = 11314.0 * (c / 16384) ** 0.5
+    x = rng.uniform(0, world, (s, c)).astype(np.float32)
+    z = rng.uniform(0, world, (s, c)).astype(np.float32)
+    r = np.full((s, c), 100.0, np.float32)
+    act = np.ones((s, c), bool)
+    act[:, c - c // 16:] = False  # inactive tail
+    x[:, :64:4] = np.round(x[:, :64:4] / 50) * 50  # ties at |dx| == r / 2
+    x[:, 1], x[:, 2], x[:, 3] = -0.0, np.float32(1e-40), np.nan
+    z[:, 5], x[:, 6] = np.inf, -np.inf
+    r[:, 2] = 0.0
+    r[:, c // 3] = np.nan  # one active row with a NaN radius
+    r[:, c // 2] = np.inf
+    dev = DEV
+    xs, zs, rs, acts, _ = AG.sort_spaces(*(torch.from_numpy(a).to(dev)
+                                           for a in (x, z, r, act)))
+    n = max(1, c // 100)
+    perm = np.tile(np.arange(c), (s, 1))
+    for si in range(s):  # n disjoint swaps per space
+        a, b = rng.choice(c, 2 * n, replace=False).reshape(2, n)
+        perm[si, a], perm[si, b] = perm[si, b], perm[si, a]
+    perm = torch.from_numpy(perm).to(dev)
+    return [t.gather(1, perm) for t in (xs, zs, rs, acts)]
+
+
+def bytes_ops_bound(nbytes, pair_tests):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = pair_tests * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def phase_rect(AK, AD):
+    rows_out = []
+    for i, (s, cr, cc) in enumerate(RECT_SHAPES):
+        rows, cols, rid, prev = rect_inputs(s, cr, cc, seed=300 + i)
+        new_k, chg_k = AK.aoi_step_chg_cuda(*rows, prev, cols=cols,
+                                            row_ids=rid)
+        new_p, chg_p = AD.aoi_step_chg_dense(*rows, prev, cols=cols,
+                                             row_ids=rid)
+        err = max(words_equal(f"rect new at {(s, cr, cc)}", new_k, new_p),
+                  words_equal(f"rect chg at {(s, cr, cc)}", chg_k, chg_p))
+        del new_k, chg_k, new_p, chg_p
+
+        def run():
+            return AK.aoi_step_chg_cuda(*rows, prev, cols=cols, row_ids=rid)
+
+        ms = cuda_ms(run, reps=20 if cr * cc >= 16384 * 16384 else 100)
+        plain_ms = cuda_ms(lambda: AD.aoi_step_chg_dense(
+            *rows, prev, cols=cols, row_ids=rid), reps=1, warm=1)
+        w = cc // 32
+        bound_ms, bound_by = bytes_ops_bound(
+            s * cr * (13 + 4) + s * cc * 9 + 3 * s * cr * w * 4, s * cr * cc)
+        row = {"shape": [s, cr, cc], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": err}
+        log("kernel aoi_step rect", json.dumps(row))
+        rows_out.append(row)
+        del rows, cols, rid, prev
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_culled(AG, AK):
+    out = {"aoi_words_culled": [], "aoi_step_culled": []}
+    for i, (s, c) in enumerate(CULLED_SHAPES):
+        x, z, r, act = culled_inputs(AG, s, c, seed=400 + i)
+        w = c // 32
+        prev = random_words((s, c, w), seed=500 + i)
+        words_k, frac_w = AG.aoi_words_culled_cuda(x, z, r, act)
+        new_k, chg_k, frac_s = AG.aoi_step_culled_cuda(x, z, r, act, prev)
+        t0 = time.perf_counter()
+        plain, _ = AG.aoi_words_culled_plain(x, z, r, act)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(words_equal(f"culled words at {(s, c)}", words_k, plain),
+                  words_equal(f"culled step new at {(s, c)}", new_k, plain))
+        del words_k
+        plain ^= prev  # the plain chg, in place
+        err = max(err, words_equal(f"culled step chg at {(s, c)}", chg_k,
+                                   plain))
+        del plain
+        dense_ms = yard = None
+        if s * c >= FULL:
+            # the culled step against the dense kernel on the same inputs
+            new_d, chg_d = AK.aoi_step_chg_cuda(x, z, r, act, prev)
+            words_equal(f"culled vs dense kernel new at {(s, c)}", new_k,
+                        new_d)
+            words_equal(f"culled vs dense kernel chg at {(s, c)}", chg_k,
+                        chg_d)
+            del new_d, chg_d
+            # memory yardsticks for one [S, C, W] word array: a fill
+            # (write only, as the words kernel) and a copy (read + write)
+            yard = {"fill_ms": cuda_ms(lambda: chg_k.fill_(1), 10),
+                    "copy_ms": cuda_ms(lambda: chg_k.copy_(prev), 10)}
+            dense_ms = cuda_ms(lambda: AK.aoi_step_chg_cuda(
+                x, z, r, act, prev), reps=3, warm=1)
+        del new_k, chg_k
+        frac_w, frac_s = float(frac_w), float(frac_s)
+        check(0.0 < frac_s < 1.0 and frac_w == frac_s,
+              f"culled_frac {frac_w} / {frac_s} at {(s, c)}")
+        reps = 10 if s * c >= FULL else 30
+        ms_w = cuda_ms(lambda: AG.aoi_words_culled_cuda(x, z, r, act), reps)
+        ms_s = cuda_ms(lambda: AG.aoi_step_culled_cuda(x, z, r, act, prev),
+                       reps)
+        pairs = (1.0 - frac_s) * s * c * c  # the admitted pair tests
+        ins = s * c * 13
+        for name, ms, outs in (("aoi_words_culled", ms_w, 1),
+                               ("aoi_step_culled", ms_s, 3)):
+            bound_ms, bound_by = bytes_ops_bound(ins + outs * s * c * w * 4,
+                                                 pairs)
+            row = {"shape": [s, c], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "max_abs_err": err, "culled_frac": frac_s,
+                   "dense_kernel_ms": dense_ms, "words_yardstick": yard}
+            log(f"kernel {name}", json.dumps(row))
+            out[name].append(row)
+        del x, z, r, act, prev
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 7-8: the giant-capacity tick ---------------------------------------
+
+QMAX = 80  # walk step 5: int8 deltas in [-80, 80] x 1/16
+GIANT = {
+    # BASELINE's north-star shapes, as bench.py:170-196 configures them
+    "million": dict(s=64, cap=16384, world=11314.0, radius=100.0,
+                    n_active=64 * 16384, zipf=False),
+    "zipf100k": dict(s=1, cap=131072, world=60000.0, radius=100.0,
+                     n_active=100_000, zipf=True),
+}
+RESORT_K, TAIL_TICKS = 16, 4  # a re-sort, 16 ticks, a re-sort, 4 ticks
+SHARE_ROWS, SHARE_TICKS = 16384, 8
+
+
+def make_initial(cfg, rng):
+    """Initial positions (bench.py make_initial): uniform, or with 90% of
+    the entities in the central 10%-linear hot zone."""
+    s, cap, world = cfg["s"], cfg["cap"], cfg["world"]
+    if cfg["zipf"]:
+        hot = rng.random((s, cap)) < 0.9
+        lo, hi = 0.45 * world, 0.55 * world
+        x = np.where(hot, rng.uniform(lo, hi, (s, cap)),
+                     rng.uniform(0, world, (s, cap)))
+        z = np.where(hot, rng.uniform(lo, hi, (s, cap)),
+                     rng.uniform(0, world, (s, cap)))
+    else:
+        x = rng.uniform(0, world, (s, cap))
+        z = rng.uniform(0, world, (s, cap))
+    return x.astype(np.float32), z.astype(np.float32)
+
+
+def make_walk(cfg, rng, ticks):
+    """int8 per-tick deltas and the host positions they lead to (bench.py
+    make_walk): ``x = clip(x + q / 16, 0, world)`` in f32, products exact,
+    so host and device positions agree bit for bit."""
+    s, cap = cfg["s"], cfg["cap"]
+    qx = rng.integers(-QMAX, QMAX + 1, (ticks, s, cap)).astype(np.int8)
+    qz = rng.integers(-QMAX, QMAX + 1, (ticks, s, cap)).astype(np.int8)
+    x, z = make_initial(cfg, rng)
+    xs = np.empty((ticks + 1, s, cap), np.float32)
+    zs = np.empty((ticks + 1, s, cap), np.float32)
+    xs[0], zs[0] = x, z
+    w = np.float32(cfg["world"])
+    scale = np.float32(1.0 / 16.0)
+    for t in range(ticks):
+        x = np.clip(x + qx[t].astype(np.float32) * scale, np.float32(0), w)
+        z = np.clip(z + qz[t].astype(np.float32) * scale, np.float32(0), w)
+        xs[t + 1], zs[t + 1] = x, z
+    return qx, qz, xs, zs
+
+
+def make_state(cfg):
+    """Device radius/activity (bench.py make_radius/make_active) and the
+    seeded walk."""
+    s, cap = cfg["s"], cfg["cap"]
+    act = np.zeros((s, cap), bool)
+    per = cfg["n_active"] // s
+    act[:, :per] = True
+    act[0, per:per + cfg["n_active"] - per * s] = True
+    r = torch.full((s, cap), cfg["radius"], dtype=torch.float32,
+                   device=DEV)
+    return r, torch.from_numpy(act).to(DEV)
+
+
+def host_words(words):
+    return words.cpu().numpy().view(np.uint32).reshape(-1)
+
+
+class StreamRun:
+    """Codec, fetch, decode and host replay of a run's ticks, with the
+    per-tick timing splits (CUDA events for device work, the host clock
+    for the fetch, the decode and the replay).  The decode is the path's
+    work; the replay (the decoded chg XORed into a host copy of the
+    words) is this script's check, timed apart so that it stays out of
+    the path's numbers."""
+
+    def __init__(self, CD, words, n_stream_chunks, grid):
+        self.CD = CD
+        self.host = host_words(words)
+        self.n = n_stream_chunks
+        self.caps = CD.Caps.first_guess(n_stream_chunks, grid=grid)
+        self.ms = {"encode": 0.0, "fetch": 0.0, "decode": 0.0, "replay": 0.0}
+        self.events, self.ticks, self.overflow = 0, 0, 0
+        self.peaks = {}
+
+    def warm(self, new, chg):
+        """The warm-up tick: refit the caps to its density (the counts are
+        exact past the caps) until its stream fits, then replay it."""
+        for _ in range(4):
+            buf = self.CD.encode_tick(new, chg, self.caps).cpu().numpy()
+            sc, dec = self.CD.decode_tick(buf, self.caps)
+            fit = self.caps.refit(self.n, sc)
+            if dec is not None and fit == self.caps:
+                break
+            self.caps = fit
+        else:
+            check(dec is not None, f"warm-up stream overflows: {sc}")
+        log("caps", json.dumps(dataclasses.asdict(self.caps)), json.dumps(sc))
+        self.host[dec[2]] ^= dec[0]
+
+    def tick(self, new, chg):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        enc = self.CD.encode_tick(new, chg, self.caps)
+        e1.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = enc.cpu().numpy()
+        t1 = time.perf_counter()
+        sc, dec = self.CD.decode_tick(buf, self.caps)
+        t2 = time.perf_counter()
+        if dec is None:
+            self.overflow += 1
+            check(False, f"stream overflowed its refit caps: {sc}")
+        chg_vals, _, gidx = dec
+        self.host[gidx] ^= chg_vals
+        t3 = time.perf_counter()
+        self.ms["encode"] += e0.elapsed_time(e1)
+        self.ms["fetch"] += (t1 - t0) * 1e3
+        self.ms["decode"] += (t2 - t1) * 1e3
+        self.ms["replay"] += (t3 - t2) * 1e3
+        self.events += int(np.unpackbits(chg_vals.view(np.uint8)).sum())
+        self.ticks += 1
+        for k, v in sc.items():
+            self.peaks[k] = max(self.peaks.get(k, 0), v)
+
+    def replay_check(self, words, what):
+        check(np.array_equal(self.host, host_words(words)),
+              f"{what}: stream replay != device words")
+
+    def report(self):
+        t = max(self.ticks, 1)
+        return {"encode_ms": self.ms["encode"] / t,
+                "fetch_ms": self.ms["fetch"] / t,
+                "decode_ms": self.ms["decode"] / t,
+                "replay_check_ms": self.ms["replay"] / t,
+                "events_per_tick": self.events / t,
+                "overflow_ticks": self.overflow, "ticks": self.ticks,
+                "caps": dataclasses.asdict(self.caps), "peaks": self.peaks}
+
+
+def phase_grid(AG, CD, name):
+    cfg = GIANT[name]
+    qx, qz, xs, zs = make_walk(cfg, np.random.default_rng(0),
+                               RESORT_K + TAIL_TICKS)
+    r, act = make_state(cfg)
+    dev = torch.device(DEV)
+    timers = [DeviceTimer(AG, "aoi_step_culled"),
+              DeviceTimer(AG, "aoi_words_culled")]
+    resort_ms = []
+
+    def timed_resort(grid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words = grid.resort()
+        torch.cuda.synchronize()
+        resort_ms.append((time.perf_counter() - t0) * 1e3)
+        return words
+
+    launches0 = dict(AG.launches)
+    try:
+        for t in timers:
+            t.on = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = CD.FixedOrderGrid(torch.from_numpy(xs[0]).to(dev),
+                                 torch.from_numpy(zs[0]).to(dev), r, act,
+                                 cfg["world"])
+        torch.cuda.synchronize()
+        resort_ms.append((time.perf_counter() - t0) * 1e3)
+        run = StreamRun(CD, grid.words, grid.n_stream_chunks, grid=True)
+        fracs = []
+        new, chg, frac = grid.step(qx[0], qz[0])
+        run.warm(new, chg)
+        step_timer = timers[0]
+        step_timer.events.clear()
+        for t in range(1, RESORT_K + TAIL_TICKS):
+            if t == RESORT_K:
+                run.replay_check(grid.words, f"{name} before the re-sort")
+                del new, chg
+                run.host = host_words(timed_resort(grid))
+            new, chg, frac = grid.step(qx[t], qz[t])
+            run.tick(new, chg)
+            fracs.append(float(frac))
+        del new, chg
+        kernel_ms = step_timer.ms() / run.ticks
+        timers[1].ms()  # synchronizes
+        words_ms = [a.elapsed_time(b) for a, b in timers[1].events]
+    finally:
+        for t in timers:
+            t.restore()
+    run.replay_check(grid.words, f"{name} at the end")
+    check(np.array_equal(grid.x.cpu().numpy(), xs[-1]) and
+          np.array_equal(grid.sx.cpu().numpy(), np.take_along_axis(
+              xs[-1], grid.perm_host, axis=1)),
+          f"{name}: device positions != the host walk")
+    plain, _ = AG.aoi_words_culled_plain(grid.sx, grid.sz, grid.rs,
+                                         grid.acts)
+    words_equal(f"{name}: final words vs plain dense", grid.words, plain)
+    del plain, grid
+    torch.cuda.empty_cache()
+    out = {"config": name, "spaces": cfg["s"], "capacity": cfg["cap"],
+           "active": cfg["n_active"], "ticks": RESORT_K + TAIL_TICKS,
+           "measured": run.ticks, "kernel_ms": kernel_ms,
+           **run.report(), "resort_ms": resort_ms,
+           "resort_words_kernel_ms": words_ms,
+           "culled_frac_mean": sum(fracs) / len(fracs),
+           "culled_frac_min": min(fracs),
+           "launches": {k: v - launches0[k] for k, v in AG.launches.items()}}
+    log("grid", json.dumps(out))
+    return out
+
+
+def phase_share(AK, AD, CD):
+    cfg = GIANT["zipf100k"]
+    qx, qz, xs, zs = make_walk(cfg, np.random.default_rng(0),
+                               SHARE_TICKS + 1)
+    r, act = make_state(cfg)
+    dev = torch.device(DEV)
+    timer = DeviceTimer(AK, "aoi_step_chg")
+    try:
+        blk = CD.RowBlock(torch.from_numpy(xs[0]).to(dev),
+                          torch.from_numpy(zs[0]).to(dev), r, act,
+                          cfg["world"], SHARE_ROWS)
+        run = StreamRun(CD, blk.words, blk.n_stream_chunks, grid=False)
+        new, chg = blk.step(qx[0], qz[0])
+        run.warm(new, chg)
+        timer.on = True
+        for t in range(1, SHARE_TICKS + 1):
+            new, chg = blk.step(qx[t], qz[t])
+            run.tick(new, chg)
+        del new, chg
+        timer.on = False
+        kernel_ms = timer.ms() / run.ticks
+    finally:
+        timer.restore()
+    run.replay_check(blk.words, "zipfshare")
+    check(np.array_equal(blk.x.cpu().numpy(), xs[-1]),
+          "zipfshare: device positions != the host walk")
+    b = blk.rows
+    plain, _ = AD.aoi_step_chg_dense(
+        blk.x[:, b], blk.z[:, b], blk.r[:, b], blk.act[:, b], blk.words,
+        cols=(blk.x, blk.z, blk.act), row_ids=blk.row_ids)
+    words_equal("zipfshare: final words vs plain dense", blk.words, plain)
+    del plain, blk
+    torch.cuda.empty_cache()
+    out = {"config": "zipfshare", "rows": SHARE_ROWS,
+           "candidates": cfg["cap"], "ticks": SHARE_TICKS + 1,
+           "measured": run.ticks, "kernel_ms": kernel_ms, **run.report(),
+           "launches": dict(AK.launches)}
+    log("zipfshare", json.dumps(out))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
@@ -374,6 +821,8 @@ def main():
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import aoi_cuda as AK
     from goworld_tpu_torch.ops import aoi_dense as AD
+    from goworld_tpu_torch.ops import aoi_grid as AG
+    from goworld_tpu_torch.ops import cadence as CD
     from goworld_tpu_torch.ops import events as EV
 
     smi = subprocess.run(
@@ -381,7 +830,7 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     card = smi.strip().splitlines()[0]
-    log("torch", torch.__version__, "cuda", torch.version.cuda)
+    log("torch", torch.__version__, "cuda", torch.version.cuda, "card", card)
     t0 = time.perf_counter()
     _build.build_all(force=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -391,24 +840,53 @@ def main():
     rows = phase_kernels(AK, AD)
     main_out = phase_main(Runtime, AK, AD, EV)
     phase_parity(Runtime)
+    rect_rows = phase_rect(AK, AD)
+    culled_rows = phase_culled(AG, AK)
+    AG.reset_launches()  # phase 7 is the culled kernels' path
+    grid_out = [phase_grid(AG, CD, name) for name in GIANT]
+    culled_launches = dict(AG.launches)
+    AK.reset_launches()  # phase 8 is the rectangular step's path
+    share_out = phase_share(AK, AD, CD)
+    rect_launches = AK.launches["aoi_step"]
+    for name, n in (*culled_launches.items(), ("aoi_step rect",
+                                               rect_launches)):
+        check(n > 0, f"{name}: no launch on its path")
 
-    at_main = next(r for r in rows if tuple(r["shape"]) == MAIN_SHAPE)
-    kernels = {"kernels": [{
-        "name": "aoi_step", "route": "cuda",
-        "source": "goworld_tpu_torch/csrc/aoi_step.cu",
-        "replaces": "goworld_tpu/ops/aoi_pallas.py:176",
-        "launches": main_out["kernel_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
-        "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
-        "library_ms": None, "shape": list(MAIN_SHAPE),
-        "main_path_ms": main_out["kernel_ms"], "shapes": rows}]}
+    def entry(name, replaces, launches, shape_rows, shape, **extra):
+        at = next(r for r in shape_rows if tuple(r["shape"]) == shape)
+        return {"name": name, "route": "cuda",
+                "source": "goworld_tpu_torch/csrc/" + (
+                    "aoi_grid.cu" if "culled" in name else "aoi_step.cu"),
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in shape_rows),
+                "ms": at["ms"], "plain_ms": at["plain_ms"],
+                "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+                "library_ms": None, "shape": list(shape), **extra,
+                "shapes": shape_rows}
+
+    grid_ms = {g["config"]: g["kernel_ms"] for g in grid_out}
+    kernels = {"kernels": [
+        entry("aoi_step", "goworld_tpu/ops/aoi_pallas.py:176",
+              main_out["kernel_launches"], rows, MAIN_SHAPE,
+              main_path_ms=main_out["kernel_ms"]),
+        entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
+              rect_launches, rect_rows, tuple(RECT_SHAPES[-1]),
+              main_path_ms=share_out["kernel_ms"]),
+        entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
+              culled_launches["aoi_words_culled"],
+              culled_rows["aoi_words_culled"], (64, 16384),
+              main_path_ms=grid_out[0]["resort_words_kernel_ms"]),
+        entry("aoi_step_culled", "goworld_tpu/ops/aoi_grid.py:235",
+              culled_launches["aoi_step_culled"],
+              culled_rows["aoi_step_culled"], (64, 16384),
+              main_path_ms=grid_ms)]}
     print(card)
     print(json.dumps({"main_path": main_out}))
+    print(json.dumps({"giant": grid_out + [share_out]}))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))  # every phase runs on the one current card
     return 0
 
 

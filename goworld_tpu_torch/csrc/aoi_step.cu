@@ -1,27 +1,36 @@
 // AOI neighbor step for Hopper (sm_90a): predicate -> planar bit pack ->
 // diff against the previous tick, one launch for every space of a bucket.
 //
-// Replaces: goworld_tpu/ops/aoi_pallas.py aoi_step_pallas (square mode,
-// emit="chg"; Pallas bodies _aoi_kernel / _aoi_kernel_slicepack /
-// _aoi_kernel_planewise).  Plain version it is held to bit for bit:
-// goworld_tpu_torch/ops/aoi_dense.py aoi_step_chg_dense.
+// Replaces: goworld_tpu/ops/aoi_pallas.py aoi_step_pallas (emit="chg",
+// square and rectangular mode; Pallas bodies _aoi_kernel /
+// _aoi_kernel_slicepack / _aoi_kernel_planewise).  Plain version it is
+// held to bit for bit: goworld_tpu_torch/ops/aoi_dense.py
+// aoi_step_chg_dense.
 //
-// What it computes, for every space s, observer row i and word w:
+// What it computes, for every space s, observer row i < R and word w:
 //   new[s, i, w] bit k  <=>  j = k*W + w satisfies
-//       |x_j - x_i| <= r_i  &&  |z_j - z_i| <= r_i  &&  act_i && act_j && i != j
+//       |xc_j - x_i| <= r_i  &&  |zc_j - z_i| <= r_i  &&  act_i && actc_j
+//       && g_i != j
 //   chg[s, i, w] = new[s, i, w] ^ prev[s, i, w]
-// in IEEE float32 (sub -> abs -> compare).  Built without fast math: its
+// in IEEE float32 (sub -> abs -> compare), with W = C / 32.  Square mode
+// is the call with the candidates equal to the rows (xc = x, R = C) and
+// g_i = i; rectangular mode evaluates a block of R observers against all
+// C candidates and g_i = row_ids[s, i] is the observer's global column
+// (an id outside [0, C) excludes nothing).  Built without fast math: its
 // flush-to-zero would make |subnormal| <= 0 true where IEEE says false.
 //
 // What bounds it: at the main path's shape (S = 8, C = 16384, W = 512) it
 // moves 805 MB (prev in, new and chg out: 0.24 ms at 3.35 TB/s) and makes
 // 2.1 G pair tests (two subtracts, two abs, two compares each: 0.19 ms at
-// the 67 TFLOP/s f32 peak).  By those peaks bytes bound it; but none of
-// the pair test's operations is an FMA (the peak counts an FMA as two)
-// and each pair also costs a predicated integer OR, so in practice the
-// issue rate of the pair tests is the limit (about 0.5 ms).
+// the 67 TFLOP/s f32 peak); the rectangular zipfshare block (R = 16384,
+// C = 131072, W = 4096) has the same byte and pair counts.  By those
+// peaks bytes bound it; but none of the pair test's operations is an FMA
+// (the peak counts an FMA as two) and each pair also costs a predicated
+// integer OR, so in practice the issue rate of the pair tests is the
+// limit (about 0.5 ms).
 //
-// What the design does about that:
+// What the design does about that: the tile of aoi_tile.cuh (shared with
+// the culled kernels of aoi_grid.cu):
 //   * a thread owns one word column w and RPT observer rows, so each
 //     candidate (x_j, z_j) read from shared memory serves RPT rows from
 //     registers, and the 32-plane loop is unrolled so every shift is an
@@ -31,118 +40,74 @@
 //     so activity and self-exclusion cost one AND per word, not per pair
 //     (they are masks, exactly as in the plain version -- no +inf/-1
 //     folding, which diverges from it when a radius is +inf);
+//   * ragged row counts (R not a multiple of the block's rows) and word
+//     counts (W not a multiple of TW) are masks, not padding;
 //   * prev reads and new/chg writes are coalesced along w (a warp covers
 //     32 consecutive words of one row); offsets are 64-bit.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "aoi_tile.cuh"
 
 namespace {
 
-constexpr int TW = 32;   // words per block (threadIdx.x)
-constexpr int TY = 8;    // row groups per block (threadIdx.y)
-constexpr int RPT = 8;   // observer rows per thread
-constexpr int TR = TY * RPT;  // observer rows per block
-constexpr int PLANES = 32;
+using namespace aoi_tile;
 
 __global__ void __launch_bounds__(TW * TY)
 aoi_step_chg_kernel(const float* __restrict__ x, const float* __restrict__ z,
                     const float* __restrict__ r,
                     const uint8_t* __restrict__ act,
+                    const float* __restrict__ xc,
+                    const float* __restrict__ zc,
+                    const uint8_t* __restrict__ actc,
+                    const int32_t* __restrict__ row_ids,
                     const int32_t* __restrict__ prev,
                     int32_t* __restrict__ new_out,
-                    int32_t* __restrict__ chg_out, int C, int W) {
-  __shared__ float xs[PLANES][TW];
-  __shared__ float zs[PLANES][TW];
-  __shared__ uint32_t actw[TW];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int w0 = blockIdx.x * TW;
+                    int32_t* __restrict__ chg_out, int R, int C, int W) {
+  __shared__ Cols cols;
+  const int w = blockIdx.x * TW + threadIdx.x;
   const int row0 = blockIdx.y * TR;
   const int64_t s = blockIdx.z;
-  const int64_t in_base = s * C;
-  const int w = w0 + tx;
+  const int64_t row_base = s * R;
 
-  // stage the tile's candidate columns j = k*W + w, k = 0..31
-  for (int k = ty; k < PLANES; k += TY) {
-    float xv = 0.f, zv = 0.f;
-    if (w < W) {
-      const int64_t j = in_base + (int64_t)k * W + w;
-      xv = x[j];
-      zv = z[j];
-    }
-    xs[k][tx] = xv;
-    zs[k][tx] = zv;
-  }
-  if (ty == 0) {
-    uint32_t m = 0;
-    if (w < W) {
-      for (int k = 0; k < PLANES; ++k)
-        m |= (act[in_base + (int64_t)k * W + w] ? 1u : 0u) << k;
-    }
-    actw[tx] = m;
-  }
-  __syncthreads();
-
-  float xi[RPT], zi[RPT], ri[RPT];
-  uint32_t acc[RPT];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int i = row0 + ty + q * TY;
-    const bool ok = i < C;
-    xi[q] = ok ? x[in_base + i] : 0.f;
-    zi[q] = ok ? z[in_base + i] : 0.f;
-    // a row past C never stores; NaN keeps its tests false
-    ri[q] = ok ? r[in_base + i] : __int_as_float(0x7fc00000);
-    acc[q] = 0u;
-  }
-
-#pragma unroll
-  for (int k = 0; k < PLANES; ++k) {
-    const float xj = xs[k][tx];
-    const float zj = zs[k][tx];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const bool hit = (fabsf(xj - xi[q]) <= ri[q]) &&
-                       (fabsf(zj - zi[q]) <= ri[q]);
-      acc[q] |= (hit ? 1u : 0u) << k;
-    }
-  }
-
-  if (w >= W) return;
-  const uint32_t am = actw[tx];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int i = row0 + ty + q * TY;
-    if (i >= C) continue;
-    uint32_t v = act[in_base + i] ? (acc[q] & am) : 0u;
-    if (w == i % W) v &= ~(1u << (i / W));  // self: j == i
-    const int64_t o = (in_base + i) * (int64_t)W + w;
-    const uint32_t p = (uint32_t)prev[o];
-    new_out[o] = (int32_t)v;
-    chg_out[o] = (int32_t)(v ^ p);
-  }
+  stage_cols(cols, xc, zc, actc, s * C, W, w);
+  Rows rows;
+  load_rows(rows, x, z, r, act, row_base, row0, R);
+  uint32_t acc[RPT], pv[RPT];
+  test_planes<false>(cols, rows, FULL, acc);
+  load_prev(pv, prev, row_base, row0, R, W, w);
+  if (row_ids)
+    store_rows<true>(cols, rows, acc, pv, SelfIds{row_ids, C}, row_base,
+                     row0, R, W, w, new_out, chg_out);
+  else
+    store_rows<true>(cols, rows, acc, pv, SelfSquare(row0, W), row_base,
+                     row0, R, W, w, new_out, chg_out);
 }
 
 }  // namespace
 
-// x, z, r: float32 [S, C]; act: uint8 (torch.bool) [S, C];
-// prev, new_out, chg_out: int32 [S, C, W], all contiguous on one device.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Rows x, z, r: float32 [S, R]; act: uint8 (torch.bool) [S, R];
+// candidates xc, zc: float32 [S, C]; actc: uint8 [S, C]; row_ids: int32
+// [S, R] or null (square mode: then the candidates must be the rows and
+// R == C); prev, new_out, chg_out: int32 [S, R, C / 32]; all contiguous
+// on one device.  Launches on `stream` and returns cudaGetLastError()
+// (0 = launched).
 extern "C" int gw_aoi_step_chg(const void* x, const void* z, const void* r,
-                               const void* act, const void* prev,
+                               const void* act, const void* xc,
+                               const void* zc, const void* actc,
+                               const void* row_ids, const void* prev,
                                void* new_out, void* chg_out, int64_t S,
-                               int64_t C, int64_t W, void* stream) {
-  if (S <= 0 || C <= 0) return 0;
-  if (W * 32 != C || S > 65535 || C > (1 << 30))
+                               int64_t R, int64_t C, void* stream) {
+  if (S <= 0 || R <= 0 || C <= 0) return 0;
+  if (C % 32 != 0 || S > 65535 || C > (1 << 30) || R > (1 << 30) ||
+      (!row_ids && R != C))
     return (int)cudaErrorInvalidValue;
+  const int64_t W = C / 32;
   const dim3 block(TW, TY);
-  const dim3 grid((unsigned)((W + TW - 1) / TW), (unsigned)((C + TR - 1) / TR),
+  const dim3 grid((unsigned)((W + TW - 1) / TW), (unsigned)((R + TR - 1) / TR),
                   (unsigned)S);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   aoi_step_chg_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)z, (const float*)r, (const uint8_t*)act,
-      (const int32_t*)prev, (int32_t*)new_out, (int32_t*)chg_out, (int)C,
-      (int)W);
+      (const float*)xc, (const float*)zc, (const uint8_t*)actc,
+      (const int32_t*)row_ids, (const int32_t*)prev, (int32_t*)new_out,
+      (int32_t*)chg_out, (int)R, (int)C, (int)W);
   return (int)cudaGetLastError();
 }

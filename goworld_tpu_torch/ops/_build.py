@@ -8,7 +8,8 @@ root, listed in ``.gitignore``) with::
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 The sources expose a plain C interface (no PyTorch headers), so a build
-takes seconds.  ``--use_fast_math`` is never passed: its flush-to-zero
+takes seconds; they may include the shared headers ``csrc/*.cuh``, and a
+change to one rebuilds every source.  ``--use_fast_math`` is never passed: its flush-to-zero
 changes the AOI predicate on subnormal inputs.  :func:`build_all` starts
 one ``nvcc`` per source, all together, and waits for every one.  Nothing
 here runs at import time; the CPU never builds.
@@ -57,9 +58,12 @@ def _so_path(name: str) -> str:
 
 
 def _fresh(name: str) -> bool:
+    """The library is newer than its source and every shared header."""
     so = _so_path(name)
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src)
+    deps = [f"{name}.cu"] + [f for f in os.listdir(CSRC_DIR)
+                             if f.endswith(".cuh")]
+    return os.path.exists(so) and os.path.getmtime(so) >= max(
+        os.path.getmtime(os.path.join(CSRC_DIR, f)) for f in deps)
 
 
 def build_all(force: bool = False) -> dict[str, str]:

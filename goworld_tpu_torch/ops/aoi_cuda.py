@@ -3,11 +3,12 @@ plain PyTorch version on CPU tensors.
 
 ``aoi_step_chg`` is the port's counterpart of the JAX package's
 ``ops/aoi_dense.aoi_step_chg`` router, which sends the TPU to the Pallas
-kernel ``ops/aoi_pallas.aoi_step_pallas(emit="chg")``.  Here the inputs'
-device decides: a CUDA tensor launches ``csrc/aoi_step.cu`` (and raises
-if the launch is refused -- there is no fallback), a CPU tensor runs
+kernel ``ops/aoi_pallas.aoi_step_pallas(emit="chg")``, in square mode and
+in rectangular mode (``cols=``, ``row_ids=``).  Here the inputs' device
+decides: a CUDA tensor launches ``csrc/aoi_step.cu`` (and raises if the
+launch is refused -- there is no fallback), a CPU tensor runs
 :func:`aoi_dense.aoi_step_chg_dense`.  ``launches["aoi_step"]`` counts
-kernel launches, and nothing else.
+kernel launches of both modes, and nothing else.
 """
 
 from __future__ import annotations
@@ -29,62 +30,94 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _check(x, z, radius, active, prev_words):
-    s, c = x.shape
-    w = words_per_row(c)
+def _want(name, t, dt, shape):
+    if t.dtype != dt or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want {dt} {list(shape)}, got "
+                         f"{t.dtype} {list(t.shape)}")
+
+
+def check_inputs(x, z, radius, active, prev_words, cols=None, row_ids=None):
+    """Validate the step's dtypes, shapes and devices (``prev_words`` may
+    be None where a kernel takes none); returns the candidate arrays (the
+    rows themselves in square mode)."""
+    s, c_rows = x.shape
     for name, t, dt in (("x", x, torch.float32), ("z", z, torch.float32),
                         ("radius", radius, torch.float32),
                         ("active", active, torch.bool)):
-        if t.dtype != dt or tuple(t.shape) != (s, c):
-            raise ValueError(f"{name}: want {dt} [{s}, {c}], got "
-                             f"{t.dtype} {list(t.shape)}")
-    if prev_words.dtype != torch.int32 or \
-            tuple(prev_words.shape) != (s, c, w):
-        raise ValueError(f"prev_words: want int32 [{s}, {c}, {w}], got "
-                         f"{prev_words.dtype} {list(prev_words.shape)}")
-    devs = {t.device for t in (x, z, radius, active, prev_words)}
+        _want(name, t, dt, (s, c_rows))
+    if cols is None:
+        if row_ids is not None:
+            raise ValueError("row_ids needs cols (rectangular mode)")
+        cols = (x, z, active)
+    else:
+        x_c = cols[0]
+        if x_c.dim() != 2 or x_c.shape[0] != s:
+            raise ValueError(f"cols: want [{s}, C_cols], got "
+                             f"{list(x_c.shape)}")
+        for name, t, dt in zip(("x_c", "z_c", "act_c"), cols,
+                               (torch.float32, torch.float32, torch.bool)):
+            _want(name, t, dt, (s, x_c.shape[1]))
+        if row_ids is None:
+            raise ValueError("rectangular mode needs row_ids")
+        _want("row_ids", row_ids, torch.int32, (s, c_rows))
+    w = words_per_row(cols[0].shape[1])
+    if prev_words is not None:
+        _want("prev_words", prev_words, torch.int32, (s, c_rows, w))
+    ts = [t for t in (x, z, radius, active, prev_words, *cols, row_ids)
+          if t is not None]
+    devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
+    return cols
 
 
 def _lib():
     fn = _build.library("aoi_step").gw_aoi_step_chg
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + \
             [ctypes.c_void_p]
     return fn
 
 
-def aoi_step_chg_cuda(x, z, radius, active, prev_words):
-    """Launch the kernel: [S, C] inputs, [S, C, W] int32 prev ->
-    ``(new, chg)``, both fresh [S, C, W] int32 tensors."""
-    _check(x, z, radius, active, prev_words)
+def aoi_step_chg_cuda(x, z, radius, active, prev_words, cols=None,
+                      row_ids=None):
+    """Launch the kernel: [S, C_rows] inputs, [S, C_rows, W] int32 prev
+    (W = C_cols / 32; square mode C_cols = C_rows) -> ``(new, chg)``, both
+    fresh [S, C_rows, W] int32 tensors."""
+    cols = check_inputs(x, z, radius, active, prev_words, cols, row_ids)
     if x.device.type != "cuda":
         raise ValueError(f"the AOI kernel runs on CUDA tensors, got "
                          f"{x.device}")
-    ins = [t.contiguous() for t in (x, z, radius, active, prev_words)]
-    new = torch.empty_like(ins[4])
-    chg = torch.empty_like(ins[4])
-    s, c = x.shape
-    if s == 0:
+    rows = [t.contiguous() for t in (x, z, radius, active)]
+    cand = [t.contiguous() for t in cols]
+    rid = None if row_ids is None else row_ids.contiguous()
+    prev = prev_words.contiguous()
+    new = torch.empty_like(prev)
+    chg = torch.empty_like(prev)
+    s, c_rows = x.shape
+    if s == 0 or c_rows == 0:
         return new, chg
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in ins), new.data_ptr(),
-                chg.data_ptr(), s, c, words_per_row(c), stream)
+        rc = fn(*(t.data_ptr() for t in rows + cand),
+                None if rid is None else rid.data_ptr(), prev.data_ptr(),
+                new.data_ptr(), chg.data_ptr(), s, c_rows,
+                cand[0].shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"aoi_step kernel launch failed: CUDA error {rc}")
     launches["aoi_step"] += 1
     return new, chg
 
 
-def aoi_step_chg(x, z, radius, active, prev_words):
-    """THE step entry for the engine bucket (``emit="chg"``, square
-    mode): the kernel on CUDA tensors, the plain version on CPU tensors,
-    an error on anything else."""
+def aoi_step_chg(x, z, radius, active, prev_words, cols=None, row_ids=None):
+    """THE step entry (``emit="chg"``, square or rectangular mode): the
+    kernel on CUDA tensors, the plain version on CPU tensors, an error on
+    anything else."""
     if x.device.type == "cpu":
-        _check(x, z, radius, active, prev_words)
-        return aoi_step_chg_dense(x, z, radius, active, prev_words)
-    return aoi_step_chg_cuda(x, z, radius, active, prev_words)
+        check_inputs(x, z, radius, active, prev_words, cols, row_ids)
+        return aoi_step_chg_dense(x, z, radius, active, prev_words,
+                                  cols=cols, row_ids=row_ids)
+    return aoi_step_chg_cuda(x, z, radius, active, prev_words, cols=cols,
+                             row_ids=row_ids)

@@ -35,28 +35,46 @@ def _pack_planes(m: torch.Tensor, w: int) -> torch.Tensor:
     return acc
 
 
-def interest_words_dense(x, z, radius, active) -> torch.Tensor:
+def interest_words_dense(x, z, radius, active, cols=None,
+                         row_ids=None) -> torch.Tensor:
     """Predicate over all pairs of one space, packed.  [C] f32 inputs
-    (``active`` bool) -> [C, W] int32."""
-    c = x.shape[0]
+    (``active`` bool) -> [C, W] int32.
+
+    Rectangular mode: with ``cols=(x_c, z_c, act_c)`` ([C_cols]) the row
+    arrays are a block of C_rows observers evaluated against all C_cols
+    candidates, ``row_ids`` ([C_rows] integer) their global column ids for
+    self-exclusion, and the result is [C_rows, C_cols / 32]."""
+    x_c, z_c, act_c = (x, z, active) if cols is None else cols
+    c_rows, c = x.shape[0], x_c.shape[0]
     w = words_per_row(c)
-    out = torch.empty((c, w), dtype=torch.int32, device=x.device)
-    cols = torch.arange(c, device=x.device)
-    for lo in range(0, c, _ROW_BLOCK):
-        hi = min(lo + _ROW_BLOCK, c)
+    out = torch.empty((c_rows, w), dtype=torch.int32, device=x.device)
+    col_ids = torch.arange(c, device=x.device)
+    if row_ids is None:
+        row_ids = torch.arange(c_rows, device=x.device)
+    for lo in range(0, c_rows, _ROW_BLOCK):
+        hi = min(lo + _ROW_BLOCK, c_rows)
         r = radius[lo:hi, None]
-        m = (x[None, :] - x[lo:hi, None]).abs() <= r
-        m &= (z[None, :] - z[lo:hi, None]).abs() <= r
-        m &= active[lo:hi, None] & active[None, :]
-        m &= cols[lo:hi, None] != cols[None, :]
+        m = (x_c[None, :] - x[lo:hi, None]).abs() <= r
+        m &= (z_c[None, :] - z[lo:hi, None]).abs() <= r
+        m &= active[lo:hi, None] & act_c[None, :]
+        m &= row_ids[lo:hi, None] != col_ids[None, :]
         out[lo:hi] = _pack_planes(m, w)
     return out
 
 
-def aoi_step_chg_dense(x, z, radius, active, prev_words):
+def aoi_step_chg_dense(x, z, radius, active, prev_words, cols=None,
+                       row_ids=None):
     """Batched ``emit="chg"`` step: [S, C] inputs and [S, C, W] int32
-    ``prev_words`` -> ``(new, new ^ prev)``, both [S, C, W] int32."""
-    new = torch.stack([interest_words_dense(x[s], z[s], radius[s], active[s])
-                       for s in range(x.shape[0])]) if x.shape[0] else \
-        torch.empty_like(prev_words)
+    ``prev_words`` -> ``(new, new ^ prev)``, both [S, C, W] int32.  With
+    ``cols=(x_c, z_c, act_c)`` ([S, C_cols]) and ``row_ids`` ([S, C_rows])
+    it is the rectangular step: [S, C_rows] rows, [S, C_rows, C_cols / 32]
+    words (see :func:`interest_words_dense`)."""
+    s_n = x.shape[0]
+    if s_n == 0:
+        return torch.empty_like(prev_words), torch.empty_like(prev_words)
+    new = torch.stack([interest_words_dense(
+        x[s], z[s], radius[s], active[s],
+        cols=None if cols is None else tuple(t[s] for t in cols),
+        row_ids=None if row_ids is None else row_ids[s])
+        for s in range(s_n)])
     return new, new ^ prev_words

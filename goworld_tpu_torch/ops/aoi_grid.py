@@ -1,0 +1,249 @@
+"""Block-culled AOI words and step for large capacities.
+
+Port of the JAX package's ``ops/aoi_grid.py``.  Each space's slots are put
+in x order once (:func:`sort_spaces`), so index-contiguous groups are
+spatially compact; the kernels then skip every (row block, column group)
+step whose widened x windows are disjoint, while the words stay the dense
+definition's bit for bit.  The order only needs to be roughly sorted: the
+bounds come from the data, so a stale order widens windows and never
+drops a pair.
+
+On CUDA tensors :func:`aoi_words_culled` and :func:`aoi_step_culled`
+launch the hand-written kernels of ``csrc/aoi_grid.cu`` (and raise if a
+launch is refused -- there is no fallback); on CPU tensors they run the
+plain versions, which are the dense words of :mod:`aoi_dense` plus
+:func:`cull_table`'s fraction.  ``launches`` counts kernel launches per
+kernel, and nothing else.
+
+The culled fraction is what each side's own tiles skip: the plain version
+uses the JAX package's table at the same ``(block_rows, col_words)``,
+the kernel its own 64-row x 32-word tiles, so the two fractions differ
+while the words agree.
+
+One repair against the JAX package: its cull table widens every bound by
+a margin built from ``max(radius)`` over all slots, so one NaN radius
+makes every bound NaN and culls every block (the words come out empty).
+Here non-finite radii and NaN positions never widen or poison a bound;
+a row block holding an active +inf radius needs every column group.  On
+finite inputs the table is the JAX package's exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .aoi_cuda import check_inputs
+from .aoi_dense import aoi_step_chg_dense
+from .aoi_predicate import WORD_BITS, words_per_row
+
+# kernel launches by kernel name; reset by whoever reads them
+launches = {"aoi_words_culled": 0, "aoi_step_culled": 0}
+
+_INF = float("inf")
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def legal_blocks(c: int, block_rows: int, col_words: int) -> tuple[int, int]:
+    """``(ti, wb)``: the row block and word window the JAX package's
+    culled kernels use for ``block_rows``/``col_words`` at capacity
+    ``c`` (its ``_legal_blocks``, without the TPU lane rule)."""
+    w = words_per_row(c)
+    if block_rows <= 0 or col_words < 0:
+        raise ValueError(f"block_rows {block_rows} / col_words {col_words}")
+    ti = min(block_rows, c)
+    if ti != c:
+        ti = (ti // 128) * 128
+        if ti == 0 or c % ti != 0:
+            ti = c
+    wb = col_words or min(w, 512)
+    while w % wb:
+        wb //= 2
+    return ti, wb
+
+
+def cull_table(x, radius, active, block_rows: int = 128, col_words: int = 0):
+    """``need[s, bi, wo, k]`` (int32) and the culled fraction (f32 scalar)
+    of the JAX package's cull table (``_cull_table``) for [S, C] inputs.
+
+    Row block ``bi`` (``ti`` rows) reaches x in ``[min(x - r), max(x +
+    r)]`` over its active rows; column group ``(wo, k)`` covers slots
+    ``[k*W + wo*wb, k*W + (wo+1)*wb)`` and spans ``[min x, max x]`` over
+    its active slots; both are widened by ``1e-3 + 1e-5 * (max active |x|
+    + max r)``.  Only finite positions and radii enter the bounds and the
+    margin, and a row block with an active +inf radius needs every group,
+    so the table can only admit (see the module docstring)."""
+    s, c = x.shape
+    ti, wb = legal_blocks(c, block_rows, col_words)
+    w = words_per_row(c)
+    n_bi, n_wo = c // ti, w // wb
+    fin_x = torch.isfinite(x)
+    fin_r = torch.isfinite(radius)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    ninf = torch.full((), -_INF, dtype=torch.float32, device=x.device)
+    ax = torch.where(active & fin_x, x.abs(), zero).amax() if x.numel() \
+        else zero
+    rm = torch.where(fin_r, radius, ninf).amax() if x.numel() else zero
+    rm = torch.where(torch.isinf(rm), zero, rm)  # no finite radius at all
+    margin = torch.tensor(1e-3, dtype=torch.float32, device=x.device) + \
+        torch.tensor(1e-5, dtype=torch.float32, device=x.device) * (ax + rm)
+    row_in = (active & fin_x & fin_r).reshape(s, n_bi, ti)
+    xr = x.reshape(s, n_bi, ti)
+    rr = radius.reshape(s, n_bi, ti)
+    row_lo = torch.where(row_in, xr - rr, _INF).amin(2) - margin
+    row_hi = torch.where(row_in, xr + rr, -_INF).amax(2) + margin
+    all_cols = (active & (radius == _INF)).reshape(s, n_bi, ti).any(2)
+    col_in = (active & fin_x).reshape(s, WORD_BITS, n_wo, wb)
+    xc = x.reshape(s, WORD_BITS, n_wo, wb)
+    col_lo = torch.where(col_in, xc, _INF).amin(3)
+    col_hi = torch.where(col_in, xc, -_INF).amax(3)
+    need = ((col_lo[:, None] <= row_hi[:, :, None, None])
+            & (col_hi[:, None] >= row_lo[:, :, None, None]))
+    need |= all_cols[:, :, None, None]
+    need = need.transpose(2, 3).to(torch.int32)  # -> [s, bi, wo, k]
+    culled_frac = 1.0 - need.to(torch.float32).mean()
+    return need, culled_frac
+
+
+# -- plain versions (what the CPU runs; the kernels' references) -------------
+
+
+def aoi_words_culled_plain(x, z, radius, active, *, block_rows=128,
+                           col_words=0):
+    """``(words [S, C, W] int32, culled_frac)``: the dense words and the
+    JAX package's culled fraction at ``(block_rows, col_words)``."""
+    check_inputs(x, z, radius, active, None)
+    s, c = x.shape
+    zero = torch.zeros((s, c, words_per_row(c)), dtype=torch.int32,
+                       device=x.device)
+    words, _ = aoi_step_chg_dense(x, z, radius, active, zero)
+    _, frac = cull_table(x, radius, active, block_rows, col_words)
+    return words, frac
+
+
+def aoi_step_culled_plain(x, z, radius, active, prev_words, *, block_rows=512,
+                          col_words=0):
+    """``(new, new ^ prev, culled_frac)`` as :func:`aoi_words_culled_plain`
+    computes them."""
+    check_inputs(x, z, radius, active, prev_words)
+    new, chg = aoi_step_chg_dense(x, z, radius, active, prev_words)
+    _, frac = cull_table(x, radius, active, block_rows, col_words)
+    return new, chg, frac
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def _lib():
+    fn = _build.library("aoi_grid").gw_aoi_culled
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2 + \
+            [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+    return fn
+
+
+def _launch(name, x, z, radius, active, prev_words):
+    if x.device.type != "cuda":
+        raise ValueError(f"the culled kernels run on CUDA tensors, got "
+                         f"{x.device}")
+    ins = [t.contiguous() for t in (x, z, radius, active)]
+    s, c = x.shape
+    shape = (s, c, words_per_row(c))
+    new = torch.empty(shape, dtype=torch.int32, device=x.device)
+    prev = chg = None
+    if prev_words is not None:
+        prev = prev_words.contiguous()
+        chg = torch.empty(shape, dtype=torch.int32, device=x.device)
+    skipped = torch.zeros((), dtype=torch.int64, device=x.device)
+    tiles = ctypes.c_int64(0)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in ins),
+                None if prev is None else prev.data_ptr(), new.data_ptr(),
+                None if chg is None else chg.data_ptr(), skipped.data_ptr(),
+                s, c, ctypes.byref(tiles), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+    frac = (skipped.to(torch.float64) / max(tiles.value, 1)).to(torch.float32)
+    return new, chg, frac
+
+
+def aoi_words_culled_cuda(x, z, radius, active):
+    """Launch the words kernel: ``(words [S, C, W] int32, culled_frac f32
+    device scalar)``."""
+    check_inputs(x, z, radius, active, None)
+    new, _, frac = _launch("aoi_words_culled", x, z, radius, active, None)
+    return new, frac
+
+
+def aoi_step_culled_cuda(x, z, radius, active, prev_words):
+    """Launch the step kernel: ``(new, chg, culled_frac)``."""
+    check_inputs(x, z, radius, active, prev_words)
+    return _launch("aoi_step_culled", x, z, radius, active, prev_words)
+
+
+# -- the entries -----------------------------------------------------------------
+
+
+def aoi_words_culled(x, z, radius, active, *, block_rows=128, col_words=0):
+    """Packed interest words for the current positions, with block
+    culling: [S, C] inputs in the caller's (x-sorted) slot order ->
+    ``(words [S, C, W] int32, culled_frac f32 scalar)``.  The kernel on
+    CUDA tensors, the plain version on CPU tensors.  ``block_rows`` and
+    ``col_words`` are the JAX package's tiles: they shape only the plain
+    version's table and its fraction; the CUDA kernel ignores them (it
+    culls by its own 64-row x 32-word tiles)."""
+    legal_blocks(x.shape[1], block_rows, col_words)
+    if x.device.type == "cpu":
+        return aoi_words_culled_plain(x, z, radius, active,
+                                      block_rows=block_rows,
+                                      col_words=col_words)
+    return aoi_words_culled_cuda(x, z, radius, active)
+
+
+def aoi_step_culled(x, z, radius, active, prev_words, *, block_rows=512,
+                    col_words=0):
+    """One culled tick with the diff fused: ``(new, chg, culled_frac)``.
+    ``prev_words`` must be in the same slot order as the inputs (the
+    caller holds one x-sorted order fixed across ticks).  Kernel on CUDA
+    tensors, plain version on CPU tensors; the CUDA kernel ignores
+    ``block_rows`` and ``col_words``, as :func:`aoi_words_culled`'s."""
+    legal_blocks(x.shape[1], block_rows, col_words)
+    if x.device.type == "cpu":
+        return aoi_step_culled_plain(x, z, radius, active, prev_words,
+                                     block_rows=block_rows,
+                                     col_words=col_words)
+    return aoi_step_culled_cuda(x, z, radius, active, prev_words)
+
+
+def sort_spaces(x, z, radius, active):
+    """Order each space's slots by x, inactive slots last (keyed +inf).
+    Returns ``(xs, zs, rs, acts, perm)``; ``perm`` (int64 [S, C]) maps
+    sorted index -> original index.  Stable, so the order equals
+    ``jnp.argsort``'s on every key, ties, -0.0 and NaN included."""
+    key = torch.where(active, x, _INF)
+    perm = torch.sort(key, dim=1, stable=True).indices
+
+    def take(a):
+        return torch.gather(a, 1, perm)
+
+    return take(x), take(z), take(radius), take(active), perm
+
+
+def resort(x, z, radius, active):
+    """A fresh x order and the current positions' words under it (one
+    culled words pass): ``(perm, sx, sz, rs, acts, words)``.  The next
+    culled step diffs against ``words`` in the new order, so events stay
+    exact across a re-sort."""
+    sx, sz, rs, acts, perm = sort_spaces(x, z, radius, active)
+    words, _ = aoi_words_culled(sx, sz, rs, acts)
+    return perm, sx, sz, rs, acts, words

@@ -157,3 +157,83 @@ def test_cpu_step_launches_no_kernel_and_checks_inputs():
                         TP.words_to_torch(prev, "cpu"))
     with pytest.raises(ValueError):
         AK.aoi_step_chg_cuda(*t, TP.words_to_torch(prev, "cpu"))
+
+
+def rect_inputs(s, c_rows, c_cols, row0, seed, inf_radius=False):
+    """Rectangular operands: the candidates are a whole edge-case space
+    of ``c_cols`` slots, the rows its block ``[row0, row0 + c_rows)``
+    (their global ids offset into the middle), prev [S, c_rows, W]."""
+    x, z, r, act, _ = edge_inputs(s, c_cols, seed, inf_radius=inf_radius)
+    rng = np.random.default_rng(seed + 1)
+    b = slice(row0, row0 + c_rows)
+    rid = np.broadcast_to(np.arange(row0, row0 + c_rows, dtype=np.int32),
+                          (s, c_rows)).copy()
+    prev = rng.integers(0, 2**32, (s, c_rows, c_cols // 32),
+                        dtype=np.uint64).astype(np.uint32)
+    prev[:, :, -1] |= np.uint32(1 << 31)
+    rows = tuple(np.ascontiguousarray(a[:, b]) for a in (x, z, r, act))
+    return rows, (x, z, act), rid, prev
+
+
+def port_rect(rows, cols, rid, prev):
+    new, chg = AK.aoi_step_chg(
+        *(torch.from_numpy(a) for a in rows), TP.words_to_torch(prev, "cpu"),
+        cols=tuple(torch.from_numpy(a) for a in cols),
+        row_ids=torch.from_numpy(rid))
+    return TP.words_to_numpy(new), TP.words_to_numpy(chg)
+
+
+@pytest.mark.parametrize("s,c_rows,c_cols,row0", [
+    (1, 128, 384, 128), (2, 96, 256, 70), (3, 256, 512, 200)])
+def test_plain_rect_step_matches_pallas_interpret(s, c_rows, c_cols, row0):
+    """Rectangular mode (a block of observer rows against every
+    candidate, self-exclusion by global row id) vs the JAX Pallas kernel
+    in interpret mode (no +inf radius: its folding diverges there)."""
+    rows, cols, rid, prev = rect_inputs(s, c_rows, c_cols, row0,
+                                        seed=c_rows + c_cols)
+    new_j, chg_j = aoi_step_pallas(
+        *map(jnp.asarray, rows), jnp.asarray(prev), emit="chg",
+        cols=tuple(map(jnp.asarray, cols)), row_ids=jnp.asarray(rid),
+        interpret=True)
+    new_t, chg_t = port_rect(rows, cols, rid, prev)
+    np.testing.assert_array_equal(new_t, np.asarray(new_j))
+    np.testing.assert_array_equal(chg_t, np.asarray(chg_j))
+    # the block's rows of the square step over the whole space are the
+    # same words (self-exclusion by global id lands on the diagonal)
+    x, z, r, act, _ = edge_inputs(s, c_cols, seed=c_rows + c_cols)
+    sq_new, _ = port_step(x, z, r, act,
+                          np.zeros((s, c_cols, c_cols // 32), np.uint32))
+    np.testing.assert_array_equal(new_t, sq_new[:, row0:row0 + c_rows])
+
+
+@pytest.mark.parametrize("c_cols", [1024, 4096])
+def test_plain_rect_step_matches_jax_dense(c_cols):
+    """Rectangular mode vs the JAX dense step at larger widths, +inf
+    radii and out-of-range row ids (which exclude nothing) included."""
+    s, c_rows, row0 = 2, 320, c_cols // 2 - 100
+    rows, cols, rid, prev = rect_inputs(s, c_rows, c_cols, row0,
+                                        seed=c_cols, inf_radius=True)
+    rid[1, :3] = [-1, c_cols, c_cols + 5]
+    new_j, chg_j = JD.aoi_step_chg_dense(
+        *map(jnp.asarray, rows), jnp.asarray(prev),
+        cols=tuple(map(jnp.asarray, cols)), row_ids=jnp.asarray(rid))
+    new_t, chg_t = port_rect(rows, cols, rid, prev)
+    np.testing.assert_array_equal(new_t, np.asarray(new_j))
+    np.testing.assert_array_equal(chg_t, np.asarray(chg_j))
+
+
+def test_rect_mode_checks_its_operands():
+    rows, cols, rid, prev = rect_inputs(1, 128, 256, 64, seed=3)
+    tr = [torch.from_numpy(a) for a in rows]
+    tc = tuple(torch.from_numpy(a) for a in cols)
+    tp = TP.words_to_torch(prev, "cpu")
+    with pytest.raises(ValueError, match="row_ids"):
+        AK.aoi_step_chg(*tr, tp, cols=tc)
+    with pytest.raises(ValueError, match="row_ids"):
+        AK.aoi_step_chg(*tr, tp, cols=tc,
+                        row_ids=torch.from_numpy(rid).long())
+    with pytest.raises(ValueError, match="prev_words"):
+        AK.aoi_step_chg(*tr, tp[:, :, :4], cols=tc,
+                        row_ids=torch.from_numpy(rid))
+    with pytest.raises(ValueError, match="CUDA"):
+        AK.aoi_step_chg_cuda(*tr, tp, cols=tc, row_ids=torch.from_numpy(rid))

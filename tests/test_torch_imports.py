@@ -35,9 +35,11 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240,
                          check=True).stdout.split()
-    assert int(out[0]) >= 19  # every module of the slice was imported
+    assert int(out[0]) >= 21  # every module of both slices was imported
     loaded = out[1:]
-    assert "goworld_tpu_torch.engine.runtime" in loaded
+    for mod in ("engine.runtime", "ops.aoi_grid", "ops.cadence",
+                "ops.events"):
+        assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -77,12 +79,21 @@ def test_default_device_raises_without_cuda():
 def test_cpu_path_launches_no_kernel():
     from goworld_tpu_torch.engine.aoi import AOIEngine
     from goworld_tpu_torch.ops import aoi_cuda as AK
+    from goworld_tpu_torch.ops import aoi_grid as AG
+    from goworld_tpu_torch.ops import cadence as CD
 
     AK.reset_launches()
+    AG.reset_launches()
     eng = AOIEngine(device="cpu")
     h = eng.create_space(128)
     x = np.arange(128, dtype=np.float32)
     eng.submit(h, x, x, np.full(128, 3.0, np.float32), np.ones(128, bool))
     eng.flush()
     assert len(eng.take_events(h)[0]) > 0
+    t = [torch.from_numpy(a).reshape(1, 128) for a in
+         (x, x, np.full(128, 3.0, np.float32), np.ones(128, bool))]
+    grid = CD.FixedOrderGrid(*t, 200.0)
+    grid.step(np.ones((1, 128), np.int8), np.zeros((1, 128), np.int8))
+    CD.RowBlock(*t, 200.0, rows=64, row0=32)
     assert AK.launches == {"aoi_step": 0}
+    assert AG.launches == {"aoi_words_culled": 0, "aoi_step_culled": 0}
