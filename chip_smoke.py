@@ -39,13 +39,38 @@ Phases (any failure raises, so the exit code is non-zero):
                 must equal the plain dense words of the final positions;
   8. zipfshare -- one device's 16,384-row block of a row-sharded
                 `zipf100k` through the rectangular step, with the same
-                codec and replay checks.
+                codec and replay checks;
+  9. entlv   -- the step kernel's emit="entlv" mode (new, enter, leave)
+                against its plain version, bit-exact, on phase 3's edge
+                inputs at (1, 128), (4, 256), (16, 128), (8, 16384),
+                (64, 16384) and the rectangular (3, 256, 4096); its new
+                words against the chg mode's;
+ 10. sharded step -- parallel.make_sharded_aoi_step at `million` (64 x
+                16384) on one shard, on 4 virtual shards of the card and,
+                where torch sees several cards, on distinct cards: a prime
+                tick and a walk tick, each mesh's words equal to the plain
+                version, its total to the plain popcount, each shard's
+                stream (max_words) to exactly its enter words;
+ 11. engine on the mesh -- (a) Runtime on 4 virtual shards against the
+                single-device Runtime on phase 4's world and walk, equal
+                event CRC at every tick; (b) AOIEngine(mesh=...) at
+                `million` on one shard and on 4 virtual shards: a prime
+                tick (the counted recovery), 3 warm-up and 8 measured
+                ticks decoding the per-shard streams, equal per-tick CRCs,
+                final words equal to the plain dense words;
+ 12. row-sharded -- one `zipf100k` space (1 x 131072) on the row-sharded
+                bucket, on one shard and on 8 virtual shards (each then
+                `zipfshare`'s 16384 x 131072 block): a prime tick and 4
+                ticks, equal per-tick CRCs, the shards' words equal to the
+                square kernel's, derive_row/derive_col equal to them.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Kernel launches are counted on the path
-each kernel serves, with the counts reset just before it: the square
-step in phase 4, the culled kernels in phase 7, the rectangular step in
-phase 8.
+Virtual shards are shards of one card taking turns on it: their times
+are one card's, not a multi-card layout's.  The last lines are
+{"mesh": ...}, {"kernels": [...]} and {"ok": true, "device": {...}}.
+Kernel launches are counted on the path each kernel serves, with the
+counts reset just before it: the square step in phase 4, the culled
+kernels in phase 7, the rectangular step in phase 8, the entlv mode in
+phase 10.
 """
 
 from __future__ import annotations
@@ -138,12 +163,13 @@ def cuda_ms(fn, reps, warm=2):
     return e0.elapsed_time(e1) / reps
 
 
-def aoi_step_bound(s, c):
+def aoi_step_bound(s, c, word_arrays=3):
     """Least time for one step at [S, C]: each input read once, each
     output written once, over the memory rate; the pair tests' f32
-    operations over the f32 rate.  Returns (bound_ms, bound_by)."""
+    operations over the f32 rate.  ``word_arrays``: prev in plus the
+    outputs (3 for chg, 4 for entlv).  Returns (bound_ms, bound_by)."""
     w = c // 32
-    nbytes = s * c * (4 + 4 + 4 + 1) + 3 * s * c * w * 4
+    nbytes = s * c * (4 + 4 + 4 + 1) + word_arrays * s * c * w * 4
     ops = s * c * c * OPS_PER_PAIR
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -183,7 +209,7 @@ def phase_kernels(AK, AD):
 # -- phase 4/5: the main path -------------------------------------------------
 
 
-def build_world(Runtime, device, spaces, per_space, capacity, seed):
+def build_world(Runtime, device, spaces, per_space, capacity, seed, **rt_kw):
     from goworld_tpu_torch.engine.entity import Entity
     from goworld_tpu_torch.engine.space import Space
     from goworld_tpu_torch.engine.vector import Vector3
@@ -202,7 +228,7 @@ def build_world(Runtime, device, spaces, per_space, capacity, seed):
         def on_enter_aoi(self, other):  # non-plain: eager replay
             pass
 
-    rt = Runtime(device=device)
+    rt = Runtime(device=device, **rt_kw)
     for cls in (SmokeScene, SmokeMob, SmokeWatcher):
         rt.entities.register(cls)
     crc = {"v": 0, "events": 0}
@@ -570,6 +596,10 @@ GIANT = {
 }
 RESORT_K, TAIL_TICKS = 16, 4  # a re-sort, 16 ticks, a re-sort, 4 ticks
 SHARE_ROWS, SHARE_TICKS = 16384, 8
+MESH_RT_TICKS = 5  # phase 11a: a prime tick and 4 walk ticks
+MESH_WARMUP, MESH_MEASURED = 3, 8  # phase 11b, after a prime tick
+ROWSHARD_TICKS = 4  # phase 12, after a prime tick
+ROWSHARD_MIN = 65536  # phase 12's row-shard threshold (the engine default)
 
 
 def make_initial(cfg, rng):
@@ -813,10 +843,382 @@ def phase_share(AK, AD, CD):
     return out
 
 
+# -- phase 9: the entlv mode of the step kernel vs plain ---------------------
+
+ENTLV_SHAPES = [(1, 128), (4, 256), (16, 128), (8, 16384), (64, 16384)]
+ENTLV_RECT = (3, 256, 4096)
+ENTLV_PATH_SHAPE = (64, 16384)  # phase 10 (`million`)
+
+
+def phase_entlv(AK, AD):
+    """emit="entlv" (new, enter, leave) against its plain version on the
+    edge inputs of phase 3 (prev words with bit 31 set), square and one
+    rectangular shape; its new words against the chg kernel's."""
+    rows_out = []
+    shapes = [(s, c, None) for s, c in ENTLV_SHAPES] + [ENTLV_RECT]
+    for i, (s, cr, cc) in enumerate(shapes):
+        if cc is None:
+            x, z, r, act, prev = edge_inputs(s, cr, seed=900 + i)
+            args, kw, c_cols = (x, z, r, act, prev), {}, cr
+        else:
+            rows, cols, rid, prev = rect_inputs(s, cr, cc, seed=900 + i)
+            args, kw, c_cols = (*rows, prev), {"cols": cols,
+                                                "row_ids": rid}, cc
+        shape = [s, cr] if cc is None else [s, cr, cc]
+        got = AK.aoi_step_entlv_cuda(*args, **kw)
+        new_c, _chg = AK.aoi_step_chg_cuda(*args, **kw)
+        del _chg
+        err = words_equal(f"entlv new vs chg new at {shape}", got[0], new_c)
+        del new_c
+        want = AD.aoi_step_entlv_dense(*args, **kw)
+        for g, w_, name in zip(got, want, ("new", "enter", "leave")):
+            err = max(err, words_equal(f"entlv {name} at {shape}", g, w_))
+        del got, want
+        torch.cuda.empty_cache()
+        big = s * cr * c_cols >= 8 * 16384 * 16384
+        ms = cuda_ms(lambda: AK.aoi_step_entlv_cuda(*args, **kw),
+                     reps=10 if big else 100)
+        plain_ms = cuda_ms(lambda: AD.aoi_step_entlv_dense(*args, **kw),
+                           reps=1 if big else 3, warm=1)
+        if cc is None:
+            bound_ms, bound_by = aoi_step_bound(s, cr, word_arrays=4)
+        else:
+            bound_ms, bound_by = bytes_ops_bound(
+                s * cr * (13 + 4) + s * cc * 9 + 4 * s * cr * (cc // 32) * 4,
+                s * cr * cc)
+        row = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": err}
+        log("kernel aoi_step_entlv", json.dumps(row))
+        rows_out.append(row)
+        del args, kw, prev
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+# -- phases 10-12: the multi-device tier on one card ---------------------------
+
+
+def meshes(SpaceMesh, n_virtual):
+    """(label, mesh): one shard on the card, ``n_virtual`` virtual shards
+    of it, and -- where torch sees more cards -- distinct cards."""
+    dev = torch.device(DEV)
+    out = [("1 shard", SpaceMesh([dev])),
+           (f"{n_virtual} virtual shards of one card",
+            SpaceMesh([dev] * n_virtual))]
+    n = torch.cuda.device_count()
+    if n > 1:
+        out.append((f"{n} cards", SpaceMesh([torch.device("cuda", i)
+                                             for i in range(n)])))
+    return out
+
+
+def shard_block(parts, lo, hi):
+    """Global spaces [lo, hi) of per-shard tensors, on the card."""
+    b = parts[0].shape[0]
+    return torch.cat([parts[d][max(lo, d * b) - d * b:
+                               min(hi, (d + 1) * b) - d * b].to(DEV)
+                      for d in range(lo // b, (hi - 1) // b + 1)])
+
+
+def million_inputs():
+    """`million` (bench.py:193-195): 64 x 16384, all active, world 11314,
+    r = 100, uniform, seed 0; the positions of the prime tick and of one
+    tick of the int8 walk."""
+    cfg = GIANT["million"]
+    _qx, _qz, xs, zs = make_walk(cfg, np.random.default_rng(0), 1)
+    s, c = cfg["s"], cfg["cap"]
+    r = np.full((s, c), cfg["radius"], np.float32)
+    act = np.ones((s, c), bool)
+    return xs, zs, r, act
+
+
+def phase_sharded_step(AK, AD, EV, SpaceMesh, make_sharded_aoi_step):
+    """The space-sharded entlv step at `million` on each mesh: a prime
+    tick from zero prev, then a tick after a walk.  Each mesh's new,
+    enter and leave words equal the plain version's, 8 spaces at a time
+    (so they equal across meshes), its total the plain popcount, and each
+    shard's stream (max_words) exactly its enter words."""
+    xs, zs, r, act = million_inputs()
+    s, c = r.shape
+    w = c // 32
+    rt_, at = torch.from_numpy(r).to(DEV), torch.from_numpy(act).to(DEV)
+    timer = DeviceTimer(AK, "aoi_step_entlv")
+    runs = []
+    try:
+        for label, mesh in meshes(SpaceMesh, 4):
+            step = make_sharded_aoi_step(mesh)
+            put = mesh.device_put
+            stat = [put(r), put(act)]
+            prev = put(np.zeros((s, c, w), np.uint32))
+            run = {"mesh": label, "shards": mesh.n_devices,
+                   "cards": mesh.n_distinct, "ticks": []}
+            for t in range(2):
+                x, z = put(xs[t]), put(zs[t])
+                timer.events.clear()
+                timer.on = True
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, ent, lv, total = step(x, z, *stat, prev)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                timer.on = False
+                xt = torch.from_numpy(xs[t]).to(DEV)
+                zt = torch.from_numpy(zs[t]).to(DEV)
+                plain_total = 0
+                for lo in range(0, s, 8):
+                    hi = lo + 8
+                    want = AD.aoi_step_entlv_dense(
+                        xt[lo:hi], zt[lo:hi], rt_[lo:hi], at[lo:hi],
+                        shard_block(prev, lo, hi))
+                    for g, w_, name in zip((new, ent, lv), want,
+                                           ("new", "enter", "leave")):
+                        words_equal(f"sharded {name} vs plain, {label}, "
+                                    f"tick {t}, spaces {lo}..{hi - 1}",
+                                    shard_block(g, lo, hi), w_)
+                    plain_total += int(EV.popcount_total(want[1])
+                                       + EV.popcount_total(want[2]))
+                    del want
+                check(total == plain_total, f"{label} tick {t}: total "
+                      f"{total} != plain {plain_total}")
+                if runs:
+                    check(total == runs[0]["ticks"][t]["total_events"],
+                          f"{label} tick {t}: total differs from "
+                          f"{runs[0]['mesh']}")
+                run["ticks"].append({"total_events": total,
+                                     "step_ms": step_ms,
+                                     "kernel_ms": timer.ms()})
+                if t == 1:
+                    run["streams"] = check_streams(
+                        make_sharded_aoi_step, mesh, x, z, stat, prev, ent)
+                prev = new
+                del ent, lv
+            runs.append(run)
+            log("sharded step", json.dumps(run))
+            del prev, stat, new
+            torch.cuda.empty_cache()
+    finally:
+        timer.restore()
+    return {"config": "million", "spaces": s, "capacity": c, "meshes": runs}
+
+
+def check_streams(make_sharded_aoi_step, mesh, x, z, stat, prev, ent):
+    """The walk tick again with shard-local extraction (max_words sized to
+    the largest shard's nonzero enter words, chunk_k = 128): every shard's
+    stream must be complete and hold exactly its nonzero enter words, in
+    ascending order."""
+    nnz = [int(torch.count_nonzero(e)) for e in ent]
+    max_words = 128 * (max(nnz) + 1)
+    step = make_sharded_aoi_step(mesh, max_words=max_words, chunk_k=128)
+    _new, streams, _lv, _total = step(x, z, *stat, prev)
+    for d, (vals, idx, n_words, nd, mcc) in enumerate(streams):
+        check(int(nd) <= max_words // 128 and int(mcc) <= 128,
+              f"shard {d}: stream overflow ({int(nd)}, {int(mcc)})")
+        valid = idx >= 0
+        flat = ent[d].reshape(-1)
+        want_idx = torch.nonzero(flat).reshape(-1)
+        check(int(n_words) == nnz[d] == int(valid.sum()),
+              f"shard {d}: {int(n_words)} words extracted, {nnz[d]} nonzero")
+        check(torch.equal(idx[valid], want_idx) and
+              torch.equal(vals[valid], flat[want_idx]),
+              f"shard {d}: stream != its enter words")
+    return {"max_words": max_words, "words_per_shard": nnz}
+
+
+def walk_crcs(Runtime, mesh, ticks):
+    """Phase 4's world and seeded walk on one Runtime; the event CRC after
+    each tick."""
+    kw = {} if mesh is None else {"aoi_mesh": mesh}
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, DEV, SPACES, PER_SPACE, CAPACITY, seed=7, **kw)
+    crcs = []
+    for t in range(ticks):
+        if t:
+            walk(spaces_l, slots, pos, rng)
+        rt.tick()
+        torch.cuda.synchronize()
+        crcs.append((f"{crc['v']:08x}", crc["events"]))
+    stats = dict(bucket_of(rt).stats)
+    del rt
+    torch.cuda.empty_cache()
+    return crcs, stats
+
+
+def engine_run(AOIEngine, mesh, cfg, xs, zs, r, act, ticks, measured,
+               **eng_kw):
+    """``ticks`` flushes of one engine on ``mesh`` through submit/flush:
+    per-tick event CRC and decode_overflow, the bucket's perf split over
+    the last ``measured`` ticks, device peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = AOIEngine(device=DEV, mesh=mesh, **eng_kw)
+    hs = [eng.create_space(cfg["cap"]) for _ in range(cfg["s"])]
+    bucket = hs[0].bucket
+    rows, t_ms, perf0 = [], 0.0, None
+    for t in range(ticks):
+        if t == ticks - measured:
+            perf0 = dict(bucket.perf)
+            ev0 = sum(r_["events"] for r_ in rows)
+        ov0 = bucket.stats["decode_overflow"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for si, h in enumerate(hs):
+            eng.submit(h, xs[t][si], zs[t][si], r[si], act[si])
+        eng.flush()
+        crc, n_ev = 0, 0
+        for h in hs:
+            for a in eng.take_events(h):
+                crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+                n_ev += len(a)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if t >= ticks - measured:
+            t_ms += dt
+        rows.append({"crc": f"{crc:08x}", "events": n_ev, "tick_ms": dt,
+                     "decode_overflow": bucket.stats["decode_overflow"]
+                     - ov0})
+    perf = {k[:-2] + "_ms": (bucket.perf[k] - perf0[k]) * 1e3 / measured
+            for k in bucket.perf}
+    out = {"ticks": rows, "tick_ms": t_ms / measured, "perf_ms": perf,
+           "events_per_tick": (sum(r_["events"] for r_ in rows) - ev0)
+           / measured,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "caps": [bucket._max_chunks, bucket._kcap, bucket._max_gaps,
+                    bucket._max_exc],
+           "stats": dict(bucket.stats)}
+    return eng, hs, out
+
+
+def phase_engine_mesh(Runtime, AOIEngine, AK, AD, SpaceMesh):
+    """(a) Runtime on 4 virtual shards vs the single-device Runtime on
+    phase 4's world and walk, per-tick CRC; (b) AOIEngine on the mesh at
+    `million`, 1 shard and 4 virtual shards: a prime tick, 3 warm-up and
+    8 measured, per-tick CRCs equal, final words equal to the plain dense
+    words of the final positions."""
+    dev = torch.device(DEV)
+    single, s_stats = walk_crcs(Runtime, None, MESH_RT_TICKS)
+    AK.reset_launches()
+    virt, v_stats = walk_crcs(Runtime, SpaceMesh([dev] * 4), MESH_RT_TICKS)
+    check(AK.launches["aoi_step"] == 4 * MESH_RT_TICKS,
+          f"mesh Runtime step launches {AK.launches}")
+    check(single == virt, f"mesh Runtime CRCs {virt} != single-device "
+          f"Runtime {single}")
+    rt_out = {"ticks": MESH_RT_TICKS, "crcs": virt,
+              "single_device_crcs": single, "mesh_stats": v_stats,
+              "single_stats": s_stats}
+    log("engine on mesh (Runtime)", json.dumps(rt_out))
+
+    cfg = GIANT["million"]
+    ticks = 1 + MESH_WARMUP + MESH_MEASURED
+    _qx, _qz, xs, zs = make_walk(cfg, np.random.default_rng(0), ticks - 1)
+    s, c = cfg["s"], cfg["cap"]
+    r = np.full((s, c), cfg["radius"], np.float32)
+    act = np.ones((s, c), bool)
+    runs = []
+    for label, mesh in meshes(SpaceMesh, 4):
+        AK.reset_launches()
+        eng, hs, run = engine_run(AOIEngine, mesh, cfg, xs, zs, r, act,
+                                  ticks, MESH_MEASURED)
+        run.update(mesh=label, shards=mesh.n_devices,
+                   cards=mesh.n_distinct, launches=dict(AK.launches))
+        check(AK.launches["aoi_step"] == mesh.n_devices * ticks,
+              f"{label}: step launches {AK.launches}")
+        check(run["ticks"][0]["decode_overflow"] > 0,
+              f"{label}: the prime tick did not take the counted recovery")
+        late = [t_["decode_overflow"] for t_ in run["ticks"][-MESH_MEASURED:]]
+        check(sum(late) <= 1 and late[-2:] == [0, 0],
+              f"{label}: the measured ticks did not decode from the stream "
+              f"({late})")
+        if runs:
+            check([t_["crc"] for t_ in run["ticks"]] ==
+                  [t_["crc"] for t_ in runs[0]["ticks"]],
+                  f"{label}: per-tick CRCs differ from {runs[0]['mesh']}")
+        # final words vs the plain dense words of the final positions
+        xt, zt = (torch.from_numpy(a[-1]).to(DEV) for a in (xs, zs))
+        rt_, at = torch.from_numpy(r).to(DEV), torch.from_numpy(act).to(DEV)
+        for si, h in enumerate(hs):
+            want = AD.interest_words_dense(xt[si], zt[si], rt_[si], at[si])
+            check(np.array_equal(h.bucket.get_prev(h.slot),
+                                 want.cpu().numpy().view(np.uint32)),
+                  f"{label}: slot {si} words != plain dense")
+        del eng, hs
+        torch.cuda.empty_cache()
+        log("engine on mesh (million)", json.dumps(run))
+        runs.append(run)
+    return {"runtime": rt_out, "million": runs}
+
+
+def phase_rowshard(AOIEngine, AK, SpaceMesh):
+    """The row-sharded bucket at `zipf100k` on 1 shard and on 8 virtual
+    shards (each then `zipfshare`'s 16384 x 131072 block): a prime tick
+    and 4 ticks, per-tick CRCs equal, the shards' words equal to the
+    square step kernel's words of the final positions, derive_row and
+    derive_col equal to those words."""
+    cfg = GIANT["zipf100k"]
+    ticks = 1 + ROWSHARD_TICKS
+    _qx, _qz, xs, zs = make_walk(cfg, np.random.default_rng(0), ticks - 1)
+    c = cfg["cap"]
+    r_t, act_t = make_state(cfg)
+    r, act = r_t.cpu().numpy(), act_t.cpu().numpy()
+    del r_t, act_t
+    dev = torch.device(DEV)
+    runs = []
+    sq = None
+    for label, mesh in (("1 shard", SpaceMesh([dev])),
+                        ("8 virtual shards of one card",
+                         SpaceMesh([dev] * 8))):
+        AK.reset_launches()
+        eng, hs, run = engine_run(AOIEngine, mesh, cfg, xs, zs, r, act,
+                                  ticks, ROWSHARD_TICKS,
+                                  rowshard_min_capacity=ROWSHARD_MIN)
+        b = hs[0].bucket
+        check(type(b).__name__ == "_RowShardCUDABucket",
+              f"{label}: zipf100k landed on {type(b).__name__}")
+        run.update(mesh=label, shards=mesh.n_devices,
+                   launches=dict(AK.launches))
+        check(AK.launches["aoi_step"] == mesh.n_devices * ticks,
+              f"{label}: rect launches {AK.launches}")
+        if runs:
+            check([t_["crc"] for t_ in run["ticks"]] ==
+                  [t_["crc"] for t_ in runs[0]["ticks"]],
+                  f"{label}: per-tick CRCs differ from {runs[0]['mesh']}")
+        if sq is None:
+            # the square kernel over the final positions, once
+            xt, zt = (torch.from_numpy(a[-1]).to(DEV) for a in (xs, zs))
+            rt_ = torch.from_numpy(r).to(DEV)
+            at = torch.from_numpy(act).to(DEV)
+            zero = torch.zeros((1, c, c // 32), dtype=torch.int32,
+                               device=DEV)
+            sq, _chg = AK.aoi_step_chg_cuda(xt, zt, rt_, at, zero)
+            del _chg, zero
+            sq = sq[0]
+        cl = b.c_local
+        for d, blk in enumerate(b.prev):
+            words_equal(f"{label}: shard {d} words vs the square kernel",
+                        blk, sq[d * cl:(d + 1) * cl])
+        for e in (0, 7, c // 2 + 3, cfg["n_active"] - 1):
+            row = b.derive_row(0, e)
+            check(np.array_equal(row, sq[e].cpu().numpy().view(np.uint32)),
+                  f"{label}: derive_row({e})")
+            w, bit = e % (c // 32), e // (c // 32)
+            colw = sq[:, w].cpu().numpy().view(np.uint32)
+            check(np.array_equal(b.derive_col(0, e), np.nonzero(
+                colw & (np.uint32(1) << np.uint32(bit)))[0]),
+                f"{label}: derive_col({e})")
+        eng.release_space(hs[0])
+        del eng, hs, b
+        torch.cuda.empty_cache()
+        log("rowshard (zipf100k)", json.dumps(run))
+        runs.append(run)
+    del sq
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
         return 2
+    from goworld_tpu_torch.engine.aoi import AOIEngine
     from goworld_tpu_torch.engine.runtime import Runtime
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import aoi_cuda as AK
@@ -824,6 +1226,7 @@ def main():
     from goworld_tpu_torch.ops import aoi_grid as AG
     from goworld_tpu_torch.ops import cadence as CD
     from goworld_tpu_torch.ops import events as EV
+    from goworld_tpu_torch.parallel import SpaceMesh, make_sharded_aoi_step
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -848,8 +1251,16 @@ def main():
     AK.reset_launches()  # phase 8 is the rectangular step's path
     share_out = phase_share(AK, AD, CD)
     rect_launches = AK.launches["aoi_step"]
+    entlv_rows = phase_entlv(AK, AD)
+    AK.reset_launches()  # phase 10 is the entlv mode's path
+    sharded = phase_sharded_step(AK, AD, EV, SpaceMesh,
+                                 make_sharded_aoi_step)
+    entlv_launches = AK.launches["aoi_step_entlv"]
+    engine_mesh = phase_engine_mesh(Runtime, AOIEngine, AK, AD, SpaceMesh)
+    rowshard = phase_rowshard(AOIEngine, AK, SpaceMesh)
     for name, n in (*culled_launches.items(), ("aoi_step rect",
-                                               rect_launches)):
+                                               rect_launches),
+                    ("aoi_step_entlv", entlv_launches)):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -865,6 +1276,8 @@ def main():
                 "shapes": shape_rows}
 
     grid_ms = {g["config"]: g["kernel_ms"] for g in grid_out}
+    entlv_path_ms = {m["mesh"]: m["ticks"][1]["kernel_ms"]
+                     for m in sharded["meshes"]}
     kernels = {"kernels": [
         entry("aoi_step", "goworld_tpu/ops/aoi_pallas.py:176",
               main_out["kernel_launches"], rows, MAIN_SHAPE,
@@ -879,14 +1292,22 @@ def main():
         entry("aoi_step_culled", "goworld_tpu/ops/aoi_grid.py:235",
               culled_launches["aoi_step_culled"],
               culled_rows["aoi_step_culled"], (64, 16384),
-              main_path_ms=grid_ms)]}
+              main_path_ms=grid_ms),
+        entry("aoi_step_entlv", "goworld_tpu/ops/aoi_pallas.py:176",
+              entlv_launches, entlv_rows, ENTLV_PATH_SHAPE,
+              main_path_ms=entlv_path_ms)]}
     print(card)
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"giant": grid_out + [share_out]}))
+    print(json.dumps({"mesh": {
+        "note": "virtual shards are shards of one card taking turns; "
+                "their times are one card's",
+        "sharded_step": sharded, "engine": engine_mesh,
+        "rowshard": rowshard}}))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))  # every phase runs on the one current card
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

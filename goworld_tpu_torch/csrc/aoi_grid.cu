@@ -178,8 +178,9 @@ aoi_culled_kernel(const float* __restrict__ x, const float* __restrict__ z,
 
     uint32_t acc[RPT];
     test_planes<true>(cols, rows, need_s, acc);
-    store_rows<STEP>(cols, rows, acc, pv, SelfSquare(row0, W), base, row0,
-                     C, W, w, new_out, chg_out);
+    store_rows<STEP ? Emit::kChg : Emit::kWords>(
+        cols, rows, acc, pv, SelfSquare(row0, W), base, row0, C, W, w,
+        new_out, chg_out, nullptr);
     __syncthreads();  // the next tile reuses part_* and need_s
   }
   if (tx == 0 && ty == 0 && culled)

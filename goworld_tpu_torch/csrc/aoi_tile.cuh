@@ -159,7 +159,7 @@ struct SelfIds {
   }
 };
 
-// The thread's prev words of its rows (0 past R or W), for chg = new ^ prev.
+// The thread's prev words of its rows (0 past R or W), for the diff words.
 __device__ __forceinline__ void load_prev(uint32_t* pv,
                                           const int32_t* __restrict__ prev,
                                           int64_t row_base, int row0, int R,
@@ -173,16 +173,22 @@ __device__ __forceinline__ void load_prev(uint32_t* pv,
   }
 }
 
-// Write new (and, with STEP, chg = new ^ prev) for the thread's rows below R,
+// What the masked store writes beside new: nothing (the words kernel),
+// chg = new ^ prev (out1), or enter = new & ~prev (out1) and leave =
+// prev & ~new (out2), all from the prev words already in registers.
+enum class Emit { kWords, kChg, kEntlv };
+
+// Write new and the words of mode E for the thread's rows below R,
 // coalesced along w.  Every word is written, zero where nothing was tested.
-template <bool STEP, class Self>
+template <Emit E, class Self>
 __device__ __forceinline__ void store_rows(const Cols& c, const Rows& rw,
                                            const uint32_t* acc,
                                            const uint32_t* pv, Self self,
                                            int64_t row_base, int row0, int R,
                                            int W, int w,
                                            int32_t* __restrict__ new_out,
-                                           int32_t* __restrict__ chg_out) {
+                                           int32_t* __restrict__ out1,
+                                           int32_t* __restrict__ out2) {
   if (w >= W) return;
   const uint32_t am = c.actw[threadIdx.x];
   const int64_t row = row_base + row0 + threadIdx.y;
@@ -194,7 +200,11 @@ __device__ __forceinline__ void store_rows(const Cols& c, const Rows& rw,
       const uint32_t keep = self.keep(row + q * TY, w, W);
       const uint32_t v = ((rw.act >> q) & 1u) ? (acc[q] & am & keep) : 0u;
       new_out[o] = (int32_t)v;
-      if constexpr (STEP) chg_out[o] = (int32_t)(v ^ pv[q]);
+      if constexpr (E == Emit::kChg) out1[o] = (int32_t)(v ^ pv[q]);
+      if constexpr (E == Emit::kEntlv) {
+        out1[o] = (int32_t)(v & ~pv[q]);
+        out2[o] = (int32_t)(pv[q] & ~v);
+      }
     }
     o += (int64_t)TY * W;
   }

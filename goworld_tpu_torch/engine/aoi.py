@@ -50,6 +50,9 @@ from ..ops import events as EV
 # take the counted full-grid recovery (decode_overflow)
 _TRI_MAX = 1 << 18
 
+# words per extraction chunk of the sharded buckets' row-stream codec
+_LANES = 128
+
 # backend names of the JAX package that the port does not have yet, and
 # the ROADMAP.md entry that brings each
 _LATER_BACKENDS = {
@@ -59,6 +62,27 @@ _LATER_BACKENDS = {
             "queue 1, item 11)",
     "tpu": "nothing: the port's device backend is named 'cuda'",
 }
+
+
+# options of the JAX package's AOIEngine/Runtime and bucket methods that
+# the port does not have yet, and the ROADMAP.md entry that brings each
+_LATER_OPTIONS = {
+    "pipeline": "pipelining (ROADMAP.md queue 1, item 1)",
+    "cross_tick": "cross-tick pipelining (ROADMAP.md queue 1, item 1)",
+    "fused": "the fused tick (ROADMAP.md queue 1, item 2)",
+    "fault_plan": "the fault seams (ROADMAP.md queue 1, item 4)",
+    "paged": "paged storage (ROADMAP.md queue 1, item 5)",
+    "export_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
+    "import_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
+    "evacuate": "failover (ROADMAP.md queue 1, item 9)",
+}
+
+
+def refuse_later(name: str):
+    """Raise for an option or method the port does not have yet, naming
+    the ROADMAP.md entry that brings it (never silently ignored)."""
+    raise ValueError(f"{name} is not in the port yet; it comes with "
+                     f"{_LATER_OPTIONS[name]}")
 
 
 def resolve_device(device) -> torch.device:
@@ -107,6 +131,61 @@ def _split_rows(tri: np.ndarray) -> dict[int, np.ndarray]:
     return out
 
 
+class _CapDecay:
+    """Windowed decay of the sharded buckets' chunk-extraction caps
+    (``max_chunks``, ``kcap``): growth on overflow is the owner's job;
+    this tracks window peaks and proposes shrinks on a doubling window (a
+    one-off mass tick must not keep storm-sized extraction buffers) and
+    reports ``steady`` once the caps are final."""
+
+    def __init__(self, nd_floor: int):
+        self.nd_floor = nd_floor
+        self.peak_nd = 0
+        self.peak_mcc = 0
+        self.flushes = 0
+        self.refit_at = 8
+        self.steady = False
+
+    def reset_after_growth(self) -> None:
+        self.peak_nd = self.peak_mcc = 0
+        self.flushes = 0
+        self.refit_at = 8
+        self.steady = False
+
+    def observe(self, nd: int, mcc: int, cur_nd: int,
+                cur_k: int) -> tuple[int, int] | None:
+        """Track one flush's peaks; at the window boundary return the
+        shrunk ``(max_chunks, kcap)`` to adopt, or None."""
+        self.peak_nd = max(self.peak_nd, nd)
+        self.peak_mcc = max(self.peak_mcc, mcc)
+        self.flushes += 1
+        if self.flushes < self.refit_at:
+            return None
+        fit_nd = max(self.nd_floor, -(-self.peak_nd * 3 // 2 // 512) * 512)
+        fit_k = min(max(8, 1 << (self.peak_mcc * 2 - 1).bit_length()),
+                    _LANES)
+        self.peak_nd = self.peak_mcc = 0
+        self.flushes = 0
+        self.refit_at = min(self.refit_at * 2, 128)
+        if fit_nd < cur_nd or fit_k < cur_k:
+            self.steady = False  # one more clean window confirms
+            return min(cur_nd, fit_nd), min(cur_k, fit_k)
+        self.steady = True
+        return None
+
+
+def _emit_expand(bucket, chg_vals, ent_vals, gidx):
+    """Classified word stream -> sorted (enter, leave) (space, observer,
+    observed) rows through the bucket's emit path: the C++ expansion when
+    the bucket runs ``emit="native"``, the numpy one otherwise (equal
+    either way).  Harvest-phase numpy on already-fetched arrays."""
+    if bucket._emit == "native" and len(chg_vals):
+        return AE.expand_words_native(chg_vals, ent_vals, gidx,
+                                      bucket.capacity)
+    return EV.expand_classified_host(chg_vals, ent_vals, gidx,
+                                     bucket.capacity)
+
+
 class _TriCapDecay:
     """Windowed decay of the triples-path extraction cap: growth on
     overflow is the owner's job; this proposes post-storm shrinks on a
@@ -149,7 +228,7 @@ class _TriCapDecay:
 class SpaceAOIHandle:
     backend: str
     capacity: int
-    bucket: "_CUDABucket"
+    bucket: "_Bucket"
     slot: int
     released: bool = False
 
@@ -162,11 +241,38 @@ class AOIEngine:
     ships sparse x/z packets instead of whole input arrays;
     ``flush_sched`` dispatches every bucket before the first harvest
     (False: each bucket dispatches and harvests in turn); ``emit`` picks
-    the fan-out (``auto`` | ``native`` | ``vector``)."""
+    the fan-out (``auto`` | ``native`` | ``vector``).
+
+    ``mesh`` (a :class:`..parallel.SpaceMesh`, or a device count for that
+    many distinct CUDA devices) puts the engine on several shards, as the
+    JAX package routes (``engine/aoi.py`` ``create_space``): a space of
+    capacity at least ``rowshard_min_capacity`` and a multiple of
+    ``n_shards * 128`` gets its own row-sharded bucket
+    (:mod:`.aoi_rowshard`), every other space the mesh bucket of its
+    capacity (:mod:`.aoi_mesh`).  The mesh's devices must be of
+    ``device``'s type.  ``pipeline``, ``cross_tick``, ``fused`` and
+    ``paged`` are not in the port yet and raise."""
 
     def __init__(self, device="cuda", delta_staging: bool = True,
-                 flush_sched: bool = True, emit: str = "auto"):
+                 flush_sched: bool = True, emit: str = "auto", mesh=None,
+                 rowshard_min_capacity: int = 65536, pipeline: bool = False,
+                 cross_tick: bool = False, fused: bool = False,
+                 paged: bool = False):
+        for name, on in (("pipeline", pipeline), ("cross_tick", cross_tick),
+                         ("fused", fused), ("paged", paged)):
+            if on:
+                refuse_later(name)
         self.device = resolve_device(device)
+        if isinstance(mesh, int):
+            from ..parallel import SpaceMesh, multichip_devices
+
+            mesh = SpaceMesh(multichip_devices(mesh))
+        if mesh is not None and mesh.platform != self.device.type:
+            raise ValueError(f"a {mesh.platform} mesh on a {self.device.type} "
+                             f"engine: pass device={mesh.platform!r}")
+        self.mesh = mesh
+        self.rowshard_min_capacity = rowshard_min_capacity
+        self._rowshard_serial = 0
         if emit != "auto" and emit not in AE.EMIT_MODES:
             raise ValueError(
                 f"aoi_emit must be one of {('auto',) + AE.EMIT_MODES}, "
@@ -175,7 +281,9 @@ class AOIEngine:
         self._emit_resolved: str | None = None
         self.delta_staging = delta_staging
         self.flush_sched = flush_sched
-        self._buckets: dict[int, _CUDABucket] = {}
+        # (kind, capacity or serial) -> bucket; kinds "cuda", "mesh",
+        # "rowshard" (one exclusive bucket per space)
+        self._buckets: dict[tuple, _Bucket] = {}
 
     def _resolve_emit(self) -> str:
         """Resolve the requested emit mode once (resolution may build
@@ -188,12 +296,33 @@ class AOIEngine:
                      backend: str | None = None) -> SpaceAOIHandle:
         _check_backend(backend)
         capacity = P.round_capacity(capacity)
-        bucket = self._buckets.get(capacity)
-        if bucket is None:
-            bucket = _CUDABucket(capacity, self.device,
-                                 delta_staging=self.delta_staging,
-                                 emit=self._resolve_emit())
-            self._buckets[capacity] = bucket
+        mesh = self.mesh
+        if (mesh is not None and capacity >= self.rowshard_min_capacity
+                and capacity % (mesh.n_devices * 128) == 0):
+            # oversized single space: its interest rows shard over the
+            # mesh, in a bucket of its own, freed with the space
+            from .aoi_rowshard import _RowShardCUDABucket
+
+            bucket = _RowShardCUDABucket(capacity, mesh,
+                                         delta_staging=self.delta_staging,
+                                         emit=self._resolve_emit())
+            self._rowshard_serial += 1
+            self._buckets[("rowshard", self._rowshard_serial)] = bucket
+        else:
+            key = ("cuda" if mesh is None else "mesh", capacity)
+            bucket = self._buckets.get(key)
+            if bucket is None:
+                if mesh is None:
+                    bucket = _CUDABucket(capacity, self.device,
+                                         delta_staging=self.delta_staging,
+                                         emit=self._resolve_emit())
+                else:
+                    from .aoi_mesh import _MeshCUDABucket
+
+                    bucket = _MeshCUDABucket(
+                        capacity, mesh, delta_staging=self.delta_staging,
+                        emit=self._resolve_emit())
+                self._buckets[key] = bucket
         slot = bucket.acquire_slot()
         return SpaceAOIHandle("cuda", capacity, bucket, slot)
 
@@ -201,6 +330,11 @@ class AOIEngine:
         if not h.released:
             h.bucket.release_slot(h.slot)
             h.released = True
+            if getattr(h.bucket, "exclusive", False):
+                # a row-sharded space's bucket frees with it
+                for k, b in list(self._buckets.items()):
+                    if b is h.bucket:
+                        del self._buckets[k]
 
     def submit(self, h: SpaceAOIHandle, x, z, radius, active) -> None:
         """Stage one space's tick inputs (numpy arrays of length <=
@@ -216,7 +350,7 @@ class AOIEngine:
         Split-phase: every bucket dispatches (maintenance, staging, kernel,
         compaction and the async count copy -- no waits) before the first
         harvest blocks, so bucket N+1's device work overlaps bucket N's
-        host decode.  Buckets go in capacity order.  ``flush_sched=False``
+        host decode.  Buckets go in key order (kind, capacity).  ``flush_sched=False``
         runs each bucket's dispatch and harvest before the next starts."""
         buckets = [self._buckets[k] for k in sorted(self._buckets)]
         if not self.flush_sched:

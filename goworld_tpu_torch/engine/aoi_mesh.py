@@ -1,0 +1,605 @@
+"""Mesh-sharded AOI bucket: the engine's multi-device path.
+
+Port of the JAX package's ``engine/aoi_mesh.py`` (``_MeshTPUBucket``),
+without its pipelined, fused, paged and fault-recovery modes (ROADMAP.md
+queue 1 names the item that brings each).  The bucket's slots (spaces)
+are placed across a :class:`..parallel.SpaceMesh`: shard d holds slots
+``[d * S/n, (d + 1) * S/n)`` on its device, so every space's [C] rows
+live wholly on one shard and the tick needs no cross-device collective.
+
+Per flush, every shard's work is enqueued before the first wait:
+
+    per shard:  the AOI step (ops/aoi_cuda.aoi_step_chg: the Hopper kernel
+                on a CUDA shard, its plain version on a CPU shard)
+                -> subscription mask
+                -> chunk-compacted diff extraction (ops/events.extract_chunks)
+                -> row-stream encode (ops/events.encode_row_stream)
+                -> five scalars, copied asynchronously to pinned host memory
+
+Harvest then waits for each shard's scalars, fetches and decodes its
+stream (``decode_row_stream``) with the same overflow contract as the JAX
+bucket -- a shard past its chunk caps is recovered from its raw grids, a
+shard past its encode caps from its chunk grids, both counted in
+``stats["decode_overflow"]``, and the caps grow -- offsets the shard-local
+word indices to global ones and publishes per-slot enter/leave pairs,
+equal to every other backend's.
+
+Differences from the single-device bucket (as in the JAX package):
+
+  * ALL slots step every flush (no gather across shards).  Unstaged slots
+    re-step their cached previous inputs: identical inputs give a zero
+    diff, so they emit nothing and their words are rewritten unchanged.
+    ``clear_entity`` marks the departed entity inactive in the cached
+    inputs too, so a cleared-but-unstaged slot stays silent.
+  * A slot whose words were seeded with ``set_prev`` (growth) MUST be
+    staged before the next flush -- stepping cached zero inputs against
+    carried state would emit a mass leave; ``flush`` raises instead.
+
+Where JAX donates its scratch buffers to the jitted step, each shard here
+keeps one reusable pair of word arrays (the step's ``new`` and ``chg``
+outputs): after a step the old ``prev`` becomes the next step's ``new``
+buffer, so a steady tick allocates no word array.  Maintenance never
+round-trips the full state: resets and clears are in-place tensor ops on
+the slot's shard, ``set_prev``/``get_prev`` move one slot's [C, W] words,
+and growth regroups the shards device to device.  ``full_roundtrips``
+counts full-state host copies (the first mirror seed only), so tests can
+pin the steady state to zero.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import aoi_cuda as AK
+from ..ops import aoi_emit as AE
+from ..ops import aoi_predicate as P
+from ..ops import aoi_stage as AS
+from ..ops import events as EV
+from .aoi import (_LANES, _Bucket, _CapDecay, _emit_expand, _split_rows,
+                  refuse_later)
+
+
+def _np_words(t: torch.Tensor) -> np.ndarray:
+    """Fetched int32 device words as host uint32."""
+    return t.cpu().numpy().view(np.uint32)
+
+
+class _ShardCodec:
+    """The per-shard event path both sharded buckets share: the encoded
+    stream of one shard's diff, and its decode at harvest with the JAX
+    buckets' overflow contract (``_harvest`` of ``aoi_mesh.py`` and
+    ``aoi_rowshard.py``).  The owner sets the caps and ``stats``."""
+
+    def _init_codec(self, max_chunks: int, max_exc: int) -> None:
+        # per-shard extraction caps: grow on overflow, decay through the
+        # shared window so a mass-enter storm stops sizing later ticks
+        self._max_chunks = max_chunks
+        self._kcap = 8
+        self._max_gaps = 2048
+        self._max_exc = max_exc
+        self._caps = _CapDecay(nd_floor=max_chunks)
+        # per shard: (buffer for the next step's new words, chg buffer)
+        self._scratch: list | None = None
+
+    def _caps_now(self) -> tuple:
+        return (self._max_chunks, self._kcap, self._max_gaps, self._max_exc)
+
+    def _step_out(self, d: int, prev: torch.Tensor):
+        """Shard d's reusable output pair for a step from ``prev``."""
+        if self._scratch is None:
+            self._scratch = [None] * self.n_dev
+        sc = self._scratch[d]
+        if sc is None or sc[0].shape != prev.shape:
+            sc = (torch.empty_like(prev), torch.empty_like(prev))
+            self._scratch[d] = sc
+        return sc
+
+    def _encode_shard(self, new, chg, caps) -> dict:
+        """Enqueue the extraction, the encode and the async copy of the
+        five control scalars of one shard's (masked) diff."""
+        mc, kcap, mg, mx = caps
+        vals, nv, lane, csel, ccnt, nd, mcc = EV.extract_chunks(
+            chg, mc, kcap, aux=new, lanes=_LANES)
+        (rowb, bitpos, woff, base_row, n_esc, esc_rows, exc_gidx, exc_chg,
+         exc_new, exc_n) = EV.encode_row_stream(
+            vals, nv, lane, csel, ccnt, w=_LANES, max_gaps=mg, max_exc=mx)
+        scalars = torch.stack([nd, mcc, base_row, n_esc, exc_n]).to(
+            torch.int64)
+        ready = None
+        if scalars.device.type == "cuda":
+            scal_h = torch.empty(5, dtype=torch.int64, pin_memory=True)
+            scal_h.copy_(scalars, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(scalars.device))
+        else:
+            scal_h = scalars
+        return {"chg": chg, "chunks": (vals, nv, lane, csel),
+                "streams": (rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg,
+                            exc_new),
+                "scal": scal_h, "ready": ready}
+
+    def _decode_shards(self, rec, shard_words: int, new_of):
+        """Wait for every shard's scalars, then fetch and decode its
+        stream (or recover it past a cap).  ``new_of(d)`` is shard d's
+        words of this tick (``self.prev`` is not written again before the
+        harvest).  Returns the classified stream ``(chg_vals, ent_vals,
+        gidx)`` with global flat word indices (shard d's offset by ``d *
+        shard_words``), or None when every shard is empty."""
+        mc, kcap, mg, mx = rec["caps"]
+        t0 = time.perf_counter()
+        scal = np.zeros((self.n_dev, 5), np.int64)
+        for d, sh in enumerate(rec["shards"]):
+            if sh is not None:
+                if sh["ready"] is not None:
+                    sh["ready"].synchronize()
+                scal[d] = sh["scal"].numpy()
+        self.perf["fetch_s"] += time.perf_counter() - t0
+        all_c, all_e, all_g = [], [], []
+        grew = False
+        peak_nd = peak_mcc = 0
+        for d, sh in enumerate(rec["shards"]):
+            nd, mcc, base_row, n_esc, exc_n = (int(v) for v in scal[d])
+            if nd == 0 and exc_n == 0:
+                continue
+            t0 = time.perf_counter()
+            if nd > mc or mcc > kcap:
+                # the shard's stream is incomplete: recover from its raw
+                # grids (the nonzero words found on the device) and grow
+                # the chunk caps for the next flush
+                self._max_chunks = max(self._max_chunks, 2 * nd)
+                self._kcap = min(max(self._kcap, 2 * mcc), _LANES)
+                self.stats["decode_overflow"] += 1
+                grew = True
+                flat = sh["chg"].reshape(-1)
+                gi = torch.nonzero(flat).reshape(-1)
+                cv = flat[gi]
+                ev = cv & new_of(d).reshape(-1)[gi]
+                gidx = gi.cpu().numpy()
+                chg_vals, ent_vals = _np_words(cv), _np_words(ev)
+                self.perf["fetch_s"] += time.perf_counter() - t0
+            elif n_esc > mg or exc_n > mx:
+                # encode overflow: rebuild from the kept chunk grids
+                self._max_gaps = max(mg, 2 * n_esc)
+                self._max_exc = max(mx, 2 * exc_n)
+                self.stats["decode_overflow"] += 1
+                grew = True
+                vals, nv, lane, csel = sh["chunks"]
+                vh, nh = _np_words(vals), _np_words(nv)
+                lh, ch = lane.cpu().numpy(), csel.cpu().numpy()
+                valid = lh >= 0
+                chg_vals = vh[valid]
+                ent_vals = chg_vals & nh[valid]
+                gidx = (ch[:, None].astype(np.int64) * _LANES + lh)[valid]
+                self.perf["fetch_s"] += time.perf_counter() - t0
+            else:
+                rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg, exc_new = \
+                    sh["streams"]
+                nds, ne, nx = max(nd, 1), max(n_esc, 1), max(exc_n, 1)
+                hb = [a.cpu().numpy() for a in (
+                    rowb[:nds], bitpos[:nds], woff[:nds], esc_rows[:ne],
+                    exc_gidx[:nx], exc_chg[:nx], exc_new[:nx])]
+                self.perf["fetch_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                chg_vals, ent_vals, gidx = EV.decode_row_stream(
+                    hb[0], hb[1], hb[2].astype(np.uint16), base_row, nd,
+                    _LANES, hb[3], hb[4], hb[5], hb[6])
+                self.perf["decode_s"] += time.perf_counter() - t0
+            peak_nd = max(peak_nd, nd)
+            peak_mcc = max(peak_mcc, mcc)
+            all_c.append(chg_vals)
+            all_e.append(ent_vals)
+            all_g.append(np.asarray(gidx, np.int64) + d * shard_words)
+        if grew:
+            self._caps.reset_after_growth()
+        else:
+            shrink = self._caps.observe(peak_nd, peak_mcc, self._max_chunks,
+                                        self._kcap)
+            if shrink is not None:
+                self._max_chunks, self._kcap = shrink
+        if not all_c:
+            return None
+        return (np.concatenate(all_c), np.concatenate(all_e),
+                np.concatenate(all_g))
+
+    # -- not in the port yet ------------------------------------------------
+
+    def export_snapshot(self, slot: int):
+        refuse_later("export_snapshot")
+
+    def import_snapshot(self, slot: int, snap) -> None:
+        refuse_later("import_snapshot")
+
+    def evacuate(self):
+        refuse_later("evacuate")
+
+
+class _MeshCUDABucket(_ShardCodec, _Bucket):
+    """Interest state [S, C, W] int32 split over the mesh's shards (S a
+    multiple of the shard count, grown from ``n_dev`` by doubling); one
+    step per shard per flush, every slot stepped."""
+
+    def __init__(self, capacity: int, mesh, delta_staging: bool = True,
+                 emit: str = "vector"):
+        super().__init__(capacity)
+        self._emit = emit
+        self.mesh = mesh
+        self.n_dev = mesh.n_devices
+        self.delta_staging = delta_staging
+        self.s_max = 0
+        self.prev: list[torch.Tensor] | None = None  # per shard [b, C, W]
+        # host shadows of the staged inputs, persistent: unstaged slots
+        # re-step their previous values (zero diff)
+        self._hx = np.zeros((0, capacity), np.float32)
+        self._hz = np.zeros((0, capacity), np.float32)
+        self._hr = np.zeros((0, capacity), np.float32)
+        self._hact = np.zeros((0, capacity), bool)
+        self._hsub = np.ones(0, bool)
+        self._unsub: set[int] = set()
+        self._mirror_stale: set[int] = set()
+        self._pending_reset: set[int] = set()
+        self._pending_clear: list[tuple[int, int]] = []
+        # slots seeded via set_prev and not staged since (module docstring)
+        self._seeded_unstaged: set[int] = set()
+        self._init_codec(max_chunks=1024, max_exc=8192)
+        # device copies of r/act/sub, re-uploaded only when values change
+        self._h2d_cache: dict[str, tuple] = {}
+        # per-shard device x/z, bitwise equal to the shadows; steady
+        # flushes scatter a sparse packet into each shard's own rows
+        self._dx: list | None = None
+        self._dz: list | None = None
+        self._xz_stale = True
+        self._delta_max_frac = 0.25
+        self._inflight: dict | None = None  # dispatched, awaiting harvest
+        # per-slot release epoch: a harvest must not publish events (or XOR
+        # mirror words) for a slot released after its dispatch
+        self._slot_epoch: dict[int, int] = {}
+        # lazy host mirror of the words (see _CUDABucket.peek_words); clears
+        # issued between a dispatch and its harvest apply after its stream
+        self._mirror: np.ndarray | None = None
+        self._mirror_ops: list[tuple] = []
+        self.full_roundtrips = 0
+        self.stats = {"h2d_bytes": 0, "delta_flushes": 0, "full_flushes": 0,
+                      "decode_overflow": 0, "emit_path": AE.EMIT_LEVEL[emit]}
+        self.perf = {"stage_s": 0.0, "fetch_s": 0.0, "decode_s": 0.0,
+                     "emit_s": 0.0}
+
+    # -- slot management ---------------------------------------------------
+
+    def _loc(self, slot: int) -> tuple[int, int]:
+        """(shard, row within the shard) of a slot."""
+        b = self.s_max // self.n_dev
+        return slot // b, slot % b
+
+    def _grow_to(self, n_slots: int) -> None:
+        if n_slots <= self.s_max:
+            return
+        self.harvest()
+        new_s = max(self.n_dev, self.s_max)
+        while new_s < n_slots:
+            new_s *= 2
+        for name in ("_hx", "_hz", "_hr"):
+            arr = getattr(self, name)
+            grown = np.zeros((new_s, self.capacity), np.float32)
+            grown[: arr.shape[0]] = arr
+            setattr(self, name, grown)
+        hact = np.zeros((new_s, self.capacity), bool)
+        hact[: self._hact.shape[0]] = self._hact
+        self._hact = hact
+        hsub = np.ones(new_s, bool)
+        hsub[: self._hsub.shape[0]] = self._hsub
+        self._hsub = hsub
+        # regroup the words into the new blocks, device to device
+        b_old, b_new = self.s_max // self.n_dev, new_s // self.n_dev
+        prev = []
+        for d, dev in enumerate(self.mesh.devices):
+            blk = torch.zeros((b_new, self.capacity, self.W),
+                              dtype=torch.int32, device=dev)
+            lo = d * b_new
+            for e in range(self.n_dev if self.prev is not None else 0):
+                a, b = max(lo, e * b_old), min(lo + b_new, (e + 1) * b_old)
+                if a < b:
+                    blk[a - lo:b - lo] = self.prev[e][a - e * b_old:
+                                                      b - e * b_old].to(dev)
+            prev.append(blk)
+        self.prev = prev
+        if self._mirror is not None:
+            grown = np.zeros((new_s, self.capacity, self.W), np.uint32)
+            grown[: self._mirror.shape[0]] = self._mirror
+            self._mirror = grown
+        self.s_max = new_s
+        self._h2d_cache.clear()
+        self._dx = self._dz = None
+        self._xz_stale = True
+        self._scratch = None
+
+    def _reset_slot(self, slot: int) -> None:
+        self._pending_reset.add(slot)
+        # a reused slot's cached inputs are stale: it steps inert until its
+        # space stages real arrays
+        self._hx[slot] = 0.0
+        self._hz[slot] = 0.0
+        self._hr[slot] = 0.0
+        self._hact[slot] = False
+        self._xz_stale = True
+        self._seeded_unstaged.discard(slot)
+        self._unsub.discard(slot)  # subscription is per-occupant
+        self._hsub[slot] = True
+        self._mirror_stale.discard(slot)
+        if self._mirror is not None:
+            self._mirror[slot] = 0
+
+    def release_slot(self, slot: int) -> None:
+        self._slot_epoch[slot] = self._slot_epoch.get(slot, 0) + 1
+        # a seeded slot released before staging is dead, not mis-staged
+        self._seeded_unstaged.discard(slot)
+        super().release_slot(slot)
+
+    def set_subscribed(self, slot: int, flag: bool) -> None:
+        if flag:
+            self._unsub.discard(slot)
+        else:
+            self._unsub.add(slot)
+        if slot < self._hsub.shape[0]:
+            self._hsub[slot] = flag
+
+    def clear_entity(self, slot: int, entity_slot: int) -> None:
+        self._pending_clear.append((slot, entity_slot))
+        # the departed entity is inactive in the cached inputs too, so an
+        # unstaged re-step cannot re-derive the cleared pairs
+        if slot < self._hact.shape[0]:
+            self._hact[slot, entity_slot] = False
+        if self._mirror is not None:
+            if self._inflight is not None:
+                self._mirror_ops.append(
+                    (slot, entity_slot, self._slot_epoch.get(slot, 0)))
+            else:
+                self._mirror_clear(slot, entity_slot)
+
+    def _mirror_clear(self, slot: int, entity_slot: int) -> None:
+        self._mirror[slot, entity_slot, :] = 0
+        w, b = P.word_bit_for_column(entity_slot, self.capacity)
+        self._mirror[slot, :, w] &= np.uint32(
+            ~(np.uint32(1) << np.uint32(b)) & 0xFFFFFFFF)
+
+    # -- state carry and host views ----------------------------------------
+
+    def peek_words(self, slot: int) -> np.ndarray:
+        """Host mirror of the slot's words [C, W] uint32 (seeded with one
+        fetch of the whole state, then kept current by each harvest; a
+        slot that was unsubscribed refreshes its rows on demand)."""
+        if self._mirror is None:
+            self.flush()
+            self._mirror = np.concatenate(
+                [P.words_to_numpy(p) for p in self.prev])
+            self.full_roundtrips += 1  # the one-time mirror seed
+            for s in sorted(self._pending_reset):
+                self._mirror[s] = 0
+            for s, e in self._pending_clear:
+                self._mirror_clear(s, e)
+            self._mirror_stale.clear()
+        elif slot in self._mirror_stale:
+            self.flush()
+            d, i = self._loc(slot)
+            self._mirror[slot] = P.words_to_numpy(self.prev[d][i])
+            self._mirror_stale.discard(slot)
+        return self._mirror[slot]
+
+    def get_prev(self, slot: int) -> np.ndarray:
+        """The slot's previous-tick words [C, W] uint32 (one slot's
+        fetch, after the staged work)."""
+        self.flush()
+        d, i = self._loc(slot)
+        return P.words_to_numpy(self.prev[d][i])
+
+    def set_prev(self, slot: int, words: np.ndarray) -> None:
+        """Seed the slot's words [C, W] uint32; the slot must be staged
+        before the next flush."""
+        self.flush()
+        self._pending_reset.discard(slot)
+        words = np.ascontiguousarray(words, np.uint32)
+        d, i = self._loc(slot)
+        self.prev[d][i] = P.words_to_torch(words, self.prev[d].device)
+        self._seeded_unstaged.add(slot)
+        self._mirror_stale.discard(slot)
+        if self._mirror is not None:
+            self._mirror[slot] = words
+
+    # -- the tick ----------------------------------------------------------
+
+    def flush(self) -> None:
+        """Dispatch immediately followed by harvest."""
+        self.dispatch()
+        self.harvest()
+
+    def _apply_maintenance(self) -> None:
+        """Land queued slot resets and entity clears on each slot's shard,
+        in place."""
+        c = self.capacity
+        if self._pending_reset:
+            for s in sorted(self._pending_reset):
+                d, i = self._loc(s)
+                self.prev[d][i] = 0
+            self._pending_reset.clear()
+        if not self._pending_clear:
+            return
+        col_mask: dict[tuple[int, int], int] = {}
+        for slot, e in self._pending_clear:
+            d, i = self._loc(slot)
+            self.prev[d][i, e, :] = 0
+            w, b = P.word_bit_for_column(e, c)
+            col_mask[(slot, w)] = col_mask.get((slot, w), 0xFFFFFFFF) & (
+                ~(1 << b) & 0xFFFFFFFF)
+        self._pending_clear.clear()
+        for (slot, w), m in sorted(col_mask.items()):
+            d, i = self._loc(slot)
+            self.prev[d][i, :, w] &= int(np.uint32(m).view(np.int32))
+
+    def _restage_shadows(self) -> list[int]:
+        """Copy staged tick inputs into the persistent host shadows."""
+        slots = sorted(self._staged)
+        for slot in slots:
+            sx, sz, sr, sa = self._staged[slot]
+            n = len(sx)
+            self._hx[slot, :n] = sx
+            self._hx[slot, n:] = 0.0
+            self._hz[slot, :n] = sz
+            self._hz[slot, n:] = 0.0
+            self._hr[slot, :n] = sr
+            self._hr[slot, n:] = 0.0
+            self._hact[slot, :n] = sa
+            self._hact[slot, n:] = False
+            self._seeded_unstaged.discard(slot)
+        self._staged.clear()
+        return slots
+
+    def _stage_xz(self, sl, old_x, old_z) -> None:
+        """Bring each shard's device x/z up to date with the shadows: a
+        sparse packet of its own changed rows on the steady path, a full
+        upload after growth or a reset, when the changed fraction exceeds
+        _delta_max_frac, or without delta staging.  The diff compares
+        float BIT PATTERNS, so the device copy stays byte-identical."""
+        new_x, new_z = self._hx[sl], self._hz[sl]
+        diff = (new_x.view(np.uint32) != old_x.view(np.uint32)) \
+            | (new_z.view(np.uint32) != old_z.view(np.uint32))
+        n_changed = np.count_nonzero(diff)
+        if (self.delta_staging and not self._xz_stale and self._dx is not None
+                and n_changed <= self._delta_max_frac * max(diff.size, 1)):
+            if n_changed:
+                rows, cols = np.nonzero(diff)
+                grows = sl[rows]
+                b = self.s_max // self.n_dev
+                shard = grows // b
+                for d in np.unique(shard).tolist():
+                    m = shard == d
+                    pkt = AS.pad_packet(grows[m] - d * b, cols[m],
+                                        new_x[rows[m], cols[m]],
+                                        new_z[rows[m], cols[m]])
+                    AS.apply_packet(self._dx[d], self._dz[d], *pkt)
+                    self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
+            self.stats["delta_flushes"] += 1
+            return
+        self._dx = self.mesh.device_put(self._hx)
+        self._dz = self.mesh.device_put(self._hz)
+        self.stats["h2d_bytes"] += self._hx.nbytes + self._hz.nbytes
+        self._xz_stale = False
+        self.stats["full_flushes"] += 1
+
+    def _h2d(self, role: str, arr: np.ndarray) -> list[torch.Tensor]:
+        cached = self._h2d_cache.get(role)
+        if cached is not None and np.array_equal(cached[0], arr):
+            return cached[1]
+        dev = self.mesh.device_put(arr)
+        self._h2d_cache[role] = (arr.copy(), dev)
+        self.stats["h2d_bytes"] += arr.nbytes
+        return dev
+
+    def dispatch(self) -> None:
+        """Phase 1: maintenance, staging and every shard's step, mask,
+        extraction, encode and scalar copy, enqueued without waiting."""
+        if self._inflight is not None:
+            self.harvest()  # re-entrant flush: finish the previous first
+        if not (self._staged or self._pending_reset or self._pending_clear):
+            return
+        self._apply_maintenance()
+        if not self._staged:
+            return
+        t0 = time.perf_counter()
+        slots = sorted(self._staged)
+        sl = np.array(slots, np.intp)
+        old_x, old_z = self._hx[sl], self._hz[sl]
+        self._restage_shadows()
+        if self._seeded_unstaged:
+            raise RuntimeError(
+                "mesh AOI bucket: slots %r carry seeded interest state but "
+                "were not staged before flush -- stepping them would emit a "
+                "spurious mass-leave (stage the space first)"
+                % sorted(self._seeded_unstaged))
+        if self._mirror is not None and self._unsub:
+            self._mirror_stale.update(s for s in slots if s in self._unsub)
+        self._stage_xz(sl, old_x, old_z)
+        r = self._h2d("r", self._hr)
+        act = self._h2d("act", self._hact)
+        sub = self._h2d("sub", self._hsub)
+        # every staged slot unsubscribed (unstaged ones re-step identical
+        # inputs): the stream is empty by construction, nothing to extract
+        all_unsub = bool(self._unsub) and all(s in self._unsub for s in slots)
+        masked = not self._hsub.all()
+        caps = self._caps_now()
+        shards = []
+        for d in range(self.n_dev):
+            new, chg = AK.aoi_step_chg(self._dx[d], self._dz[d], r[d], act[d],
+                                       self.prev[d],
+                                       out=self._step_out(d, self.prev[d]))
+            # the old words' buffer takes the next step's new words
+            self._scratch[d] = (self.prev[d], chg)
+            self.prev[d] = new
+            if all_unsub:
+                shards.append(None)
+                continue
+            # slots with no event consumers contribute nothing to the
+            # stream (``new`` stays unmasked: prev stays authoritative)
+            if masked:
+                chg.masked_fill_(~sub[d][:, None, None], 0)
+            shards.append(self._encode_shard(new, chg, caps))
+        self._inflight = {
+            "slots": slots, "caps": caps, "shards": shards,
+            "b": self.s_max // self.n_dev,
+            "epochs": np.fromiter((self._slot_epoch.get(s, 0)
+                                   for s in range(self.s_max)), np.int64,
+                                  self.s_max)}
+        self.perf["stage_s"] += time.perf_counter() - t0
+
+    def harvest(self) -> None:
+        """Phase 2: wait for each shard's scalars, fetch and decode its
+        stream, update the mirror and publish per-slot events."""
+        rec, self._inflight = self._inflight, None
+        if rec is None:
+            return
+        c, W = self.capacity, self.W
+        got = self._decode_shards(rec, rec["b"] * c * W,
+                                  lambda d: self.prev[d])
+        t0 = time.perf_counter()
+        cur = np.fromiter((self._slot_epoch.get(s, 0)
+                           for s in range(self.s_max)), np.int64, self.s_max)
+        live = cur == rec["epochs"]
+        if self._mirror is not None and got is not None:
+            cv, gx = got[0], got[2]
+            # epoch guard: a slot released since dispatch had its mirror
+            # reset at re-acquire; its dead stream must not XOR back in.  A
+            # stale row refreshes from the device on the next peek instead.
+            keep = live[gx // (c * W)]
+            if self._mirror_stale:
+                stale = np.zeros(self.s_max, bool)
+                stale[list(self._mirror_stale)] = True
+                keep &= ~stale[gx // (c * W)]
+            self._mirror.reshape(-1)[gx[keep]] ^= cv[keep]
+        if self._mirror_ops:
+            # clears issued after this tick's dispatch land after its stream
+            ops, self._mirror_ops = self._mirror_ops, []
+            for slot, e, ep in ops:
+                if self._slot_epoch.get(slot, 0) == ep:
+                    self._mirror_clear(slot, e)
+        self.perf["decode_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        empty = np.empty((0, 2), np.int32)
+        if got is not None:
+            pe, pl = _emit_expand(self, *got)
+            ent_rows, lv_rows = _split_rows(pe), _split_rows(pl)
+        else:
+            ent_rows = lv_rows = {}
+        for slot in rec["slots"]:
+            if not live[slot]:
+                continue  # released since dispatch: events of a dead space
+            e = ent_rows.get(slot, empty)
+            lv = lv_rows.get(slot, empty)
+            pend = self._events.get(slot)
+            if pend is not None:
+                # a mid-dispatch harvest with undelivered prior events:
+                # append, oldest first
+                e = np.concatenate([pend[0], e])
+                lv = np.concatenate([pend[1], lv])
+            self._events[slot] = (e, lv)
+        self.perf["emit_s"] += time.perf_counter() - t0

@@ -10,8 +10,9 @@ in this order (part of the engine contract):
                attr deltas;
   4. post   -- callbacks queued during the tick.
 
-Placement, cohorts, checkpoints, fault plans, telemetry and the crontab of
-the JAX runtime are not in this slice (ROADMAP.md lists them).
+Placement, cohorts, checkpoints, fault plans, pipelining, telemetry and
+the crontab of the JAX runtime are not in the port yet (ROADMAP.md lists
+them; the options that select them raise).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import time
 from typing import Callable
 
-from .aoi import AOIEngine
+from .aoi import AOIEngine, refuse_later
 from .entity import SYNC_NEIGHBORS, SYNC_OWN, Entity
 from .manager import EntityManager
 from .post import PostQueue
@@ -33,13 +34,28 @@ class Runtime:
         aoi_delta_staging: bool = True,
         aoi_flush_sched: bool = True,
         aoi_emit: str = "auto",
+        aoi_mesh=None,
+        aoi_rowshard_min_capacity: int = 65536,
+        aoi_pipeline: bool = False,
+        aoi_cross_tick: bool = False,
+        aoi_fused: bool = False,
+        aoi_paged: bool = False,
+        fault_plan=None,
         now: Callable[[], float] = time.monotonic,
         on_error: Callable[[BaseException], None] | None = None,
     ):
+        if fault_plan is not None:
+            refuse_later("fault_plan")
         self.now = now
         self.on_error = on_error or self._default_on_error
+        # aoi_mesh: a SpaceMesh (or a CUDA device count) puts the AOI pass
+        # on several shards (see AOIEngine)
         self.aoi = AOIEngine(device=device, delta_staging=aoi_delta_staging,
-                             flush_sched=aoi_flush_sched, emit=aoi_emit)
+                             flush_sched=aoi_flush_sched, emit=aoi_emit,
+                             mesh=aoi_mesh,
+                             rowshard_min_capacity=aoi_rowshard_min_capacity,
+                             pipeline=aoi_pipeline, cross_tick=aoi_cross_tick,
+                             fused=aoi_fused, paged=aoi_paged)
         self.timers = TimerQueue(now)
         self.post = PostQueue()
         self.entities = EntityManager(self)

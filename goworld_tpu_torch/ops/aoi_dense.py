@@ -5,7 +5,8 @@ space, packs it into planar int32 words and XOR-diffs against the previous
 tick.  This is what the CPU runs (the tests) and what the hand-written
 kernel (:mod:`aoi_cuda`, ``csrc/aoi_step.cu``) is held to on the card,
 bit for bit.  It is the counterpart of the JAX package's
-``ops/aoi_dense.py`` (``interest_words_dense``, ``aoi_step_chg_dense``).
+``ops/aoi_dense.py`` (``interest_words_dense``, ``aoi_step_chg_dense``,
+``aoi_step_dense_batched``).
 
 The predicate is exactly ``|x_j - x_i| <= r_i & |z_j - z_i| <= r_i &
 act_i & act_j & i != j`` in float32, computed as sub -> abs -> compare
@@ -62,6 +63,18 @@ def interest_words_dense(x, z, radius, active, cols=None,
     return out
 
 
+def _new_words(x, z, radius, active, prev_words, cols, row_ids):
+    """[S, C_rows, W] new words of a batched step (see
+    :func:`interest_words_dense`)."""
+    if x.shape[0] == 0:
+        return torch.empty_like(prev_words)
+    return torch.stack([interest_words_dense(
+        x[s], z[s], radius[s], active[s],
+        cols=None if cols is None else tuple(t[s] for t in cols),
+        row_ids=None if row_ids is None else row_ids[s])
+        for s in range(x.shape[0])])
+
+
 def aoi_step_chg_dense(x, z, radius, active, prev_words, cols=None,
                        row_ids=None):
     """Batched ``emit="chg"`` step: [S, C] inputs and [S, C, W] int32
@@ -69,12 +82,15 @@ def aoi_step_chg_dense(x, z, radius, active, prev_words, cols=None,
     ``cols=(x_c, z_c, act_c)`` ([S, C_cols]) and ``row_ids`` ([S, C_rows])
     it is the rectangular step: [S, C_rows] rows, [S, C_rows, C_cols / 32]
     words (see :func:`interest_words_dense`)."""
-    s_n = x.shape[0]
-    if s_n == 0:
-        return torch.empty_like(prev_words), torch.empty_like(prev_words)
-    new = torch.stack([interest_words_dense(
-        x[s], z[s], radius[s], active[s],
-        cols=None if cols is None else tuple(t[s] for t in cols),
-        row_ids=None if row_ids is None else row_ids[s])
-        for s in range(s_n)])
+    new = _new_words(x, z, radius, active, prev_words, cols, row_ids)
     return new, new ^ prev_words
+
+
+def aoi_step_entlv_dense(x, z, radius, active, prev_words, cols=None,
+                         row_ids=None):
+    """Batched ``emit="entlv"`` step (the JAX package's
+    ``aoi_step_dense_batched`` and the Pallas kernel's default mode):
+    -> ``(new, new & ~prev, prev & ~new)``, all int32 words shaped like
+    ``prev_words``; square or rectangular as :func:`aoi_step_chg_dense`."""
+    new = _new_words(x, z, radius, active, prev_words, cols, row_ids)
+    return new, new & ~prev_words, prev_words & ~new

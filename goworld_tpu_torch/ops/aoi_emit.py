@@ -9,8 +9,11 @@ unique within a tick.  Everything here is harvest-phase numpy on
 already-fetched arrays.
 
 The ``host`` mode of the JAX package (its per-word decode oracle) is not
-in this slice; the overflow recovery's word-stream expansion is the numpy
-:func:`..ops.events.expand_classified_host` in both modes.
+in this slice; the single-device bucket's overflow recovery expands its
+word stream with the numpy :func:`..ops.events.expand_classified_host` in
+both modes.  The sharded buckets decode word streams every tick and
+expand them with :func:`expand_words_native` in ``native`` mode (the JAX
+package's ``expand_words_native``, over the same library).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import subprocess
 import threading
 
 import numpy as np
+
+from .aoi_predicate import words_per_row
 
 EMIT_MODES = ("native", "vector")
 # stats["emit_path"] levels, as in the JAX package (native 0, vector 1)
@@ -63,6 +68,16 @@ def _load():
         lib.gwemit_fanout.argtypes = [
             i32p, ctypes.c_int64, ctypes.c_int32, i32p, i32p,
             ctypes.POINTER(ctypes.c_int64),
+        ]
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.gwemit_count.restype = ctypes.c_int64
+        lib.gwemit_count.argtypes = [u32p, ctypes.c_int64]
+        lib.gwemit_words.restype = ctypes.c_int64
+        lib.gwemit_words.argtypes = [
+            u32p, u32p, i64p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, i32p, ctypes.c_int64, i32p, ctypes.c_int64,
+            i64p,
         ]
         _lib = lib
         return _lib
@@ -127,3 +142,34 @@ def fanout_triples(tri, capacity: int, native: bool = True):
     return (np.ascontiguousarray(out[ent]),
             np.ascontiguousarray(out[~ent]))
 
+
+def expand_words_native(chg_vals, ent_vals, gidx, capacity: int):
+    """Classified word stream (``chg`` words, their enter subsets ``chg &
+    new``, flat word indices over [s, capacity, W] grids) -> (enter
+    [K, 3], leave [L, 3]) int32 (space, observer, observed) rows, each
+    sorted lexicographically: the bit expansion, partition and sort in
+    C++, equal to :func:`..ops.events.expand_classified_host`.  Raises
+    when the library is missing or rejects the stream."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("libgwemit.so unavailable")
+    cv = np.ascontiguousarray(chg_vals, np.uint32)
+    ev = np.ascontiguousarray(ent_vals, np.uint32)
+    gi = np.ascontiguousarray(gidx, np.int64)
+    n = len(cv)
+    if n == 0:
+        e = np.empty((0, 3), np.int32)
+        return e, e
+    total = lib.gwemit_count(_ptr(cv, ctypes.c_uint32), n)
+    enter = np.empty((total, 3), np.int32)
+    leave = np.empty((total, 3), np.int32)
+    nl = ctypes.c_int64(0)
+    ne = lib.gwemit_words(
+        _ptr(cv, ctypes.c_uint32), _ptr(ev, ctypes.c_uint32),
+        _ptr(gi, ctypes.c_int64), n, capacity, words_per_row(capacity),
+        _ptr(enter, ctypes.c_int32), total,
+        _ptr(leave, ctypes.c_int32), total, ctypes.byref(nl),
+    )
+    if ne < 0:
+        raise RuntimeError("gwemit_words rejected the word stream")
+    return enter[:ne].copy(), leave[:nl.value].copy()

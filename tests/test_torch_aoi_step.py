@@ -237,3 +237,92 @@ def test_rect_mode_checks_its_operands():
                         row_ids=torch.from_numpy(rid))
     with pytest.raises(ValueError, match="CUDA"):
         AK.aoi_step_chg_cuda(*tr, tp, cols=tc, row_ids=torch.from_numpy(rid))
+
+
+# -- emit="entlv": new, enter = new & ~prev, leave = prev & ~new --------------
+
+
+def port_entlv(x, z, r, act, prev, cols=None, row_ids=None):
+    out = AK.aoi_step_entlv(
+        *(torch.from_numpy(a) for a in (x, z, r, act)),
+        TP.words_to_torch(prev, "cpu"),
+        cols=None if cols is None else tuple(map(torch.from_numpy, cols)),
+        row_ids=None if row_ids is None else torch.from_numpy(row_ids))
+    return tuple(TP.words_to_numpy(t) for t in out)
+
+
+def assert_entlv(got, want):
+    for g, w, name in zip(got, want, ("new", "enter", "leave")):
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("s,c", [(1, 128), (3, 256), (2, 384), (1, 4096)])
+def test_plain_entlv_matches_pallas_interpret(s, c):
+    """The port's entlv step vs the JAX Pallas kernel in its default mode
+    (interpret; C = 4096 reaches its slice-pack body, the others its MXU
+    body), and its new words vs the chg mode's."""
+    x, z, r, act, prev = edge_inputs(s, c, seed=50 + s * c)
+    want = aoi_step_pallas(*map(jnp.asarray, (x, z, r, act, prev)),
+                           interpret=True)
+    got = port_entlv(x, z, r, act, prev)
+    assert_entlv(got, want)
+    new_c, _ = port_step(x, z, r, act, prev)
+    np.testing.assert_array_equal(got[0], new_c)
+    assert got[1].any() and got[2].any()
+
+
+@pytest.mark.parametrize("s,c_rows,c_cols,row0", [
+    (2, 96, 256, 70), (1, 128, 65536, 30000)])
+def test_plain_rect_entlv_matches_pallas_interpret(s, c_rows, c_cols, row0):
+    """Rectangular entlv vs the Pallas kernel (C_cols = 65536 reaches its
+    plane-wise body)."""
+    rows, cols, rid, prev = rect_inputs(s, c_rows, c_cols, row0,
+                                        seed=c_rows + 7)
+    want = aoi_step_pallas(*map(jnp.asarray, rows), jnp.asarray(prev),
+                           cols=tuple(map(jnp.asarray, cols)),
+                           row_ids=jnp.asarray(rid), interpret=True)
+    assert_entlv(port_entlv(*rows, prev, cols=cols, row_ids=rid), want)
+
+
+@pytest.mark.parametrize("c", [1024, 4096])
+def test_plain_entlv_matches_jax_dense_batched(c):
+    """The port's entlv step vs JAX ``aoi_step_dense_batched``, +inf radii
+    included (the dense step masks activity, as the port does)."""
+    x, z, r, act, prev = edge_inputs(2, c, seed=c + 3, inf_radius=True)
+    want = JD.aoi_step_dense_batched(*map(jnp.asarray, (x, z, r, act, prev)))
+    assert_entlv(port_entlv(x, z, r, act, prev), want)
+
+
+@pytest.mark.parametrize("c", [128, 384])
+def test_plain_entlv_subnormals_and_inf_radii_follow_ieee(c):
+    """Subnormal gaps under r = 0 and r = +inf observers: held to the JAX
+    package's numpy predicate (XLA's CPU backend flushes subnormals, and
+    the Pallas folding sees inactive slots under r = +inf)."""
+    x, z, r, act, prev = edge_inputs(2, c, seed=11 + c, subnormal=True,
+                                     inf_radius=True)
+    new, ent, lv = port_entlv(x, z, r, act, prev)
+    with np.errstate(invalid="ignore"):  # inf - inf is NaN, as intended
+        for s in range(2):
+            want = JP.pack_rows(JP.interest_matrix(x[s], z[s], r[s], act[s]))
+            np.testing.assert_array_equal(new[s], want)
+            np.testing.assert_array_equal(ent[s], want & ~prev[s])
+            np.testing.assert_array_equal(lv[s], prev[s] & ~want)
+
+
+def test_entlv_entry_checks_and_counts():
+    """The CPU path launches nothing; ``out=`` fills the caller's
+    tensors; a CPU tensor at the kernel wrapper raises."""
+    AK.reset_launches()
+    x, z, r, act, prev = edge_inputs(1, 128, seed=2)
+    t = [torch.from_numpy(a) for a in (x, z, r, act)]
+    tp = TP.words_to_torch(prev, "cpu")
+    out = tuple(torch.empty_like(tp) for _ in range(3))
+    got = AK.aoi_step_entlv(*t, tp, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    np.testing.assert_array_equal(TP.words_to_numpy(out[1]),
+                                  port_entlv(x, z, r, act, prev)[1])
+    assert AK.launches == {"aoi_step": 0, "aoi_step_entlv": 0}
+    with pytest.raises(ValueError, match="out"):
+        AK.aoi_step_entlv(*t, tp, out=out[:2])
+    with pytest.raises(ValueError, match="CUDA"):
+        AK.aoi_step_entlv_cuda(*t, tp)

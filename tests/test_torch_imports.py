@@ -35,10 +35,11 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240,
                          check=True).stdout.split()
-    assert int(out[0]) >= 21  # every module of both slices was imported
+    assert int(out[0]) >= 26  # every module of the three slices
     loaded = out[1:]
     for mod in ("engine.runtime", "ops.aoi_grid", "ops.cadence",
-                "ops.events"):
+                "ops.events", "parallel.mesh", "engine.aoi_mesh",
+                "engine.aoi_rowshard", "entry"):
         assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -76,6 +77,23 @@ def test_default_device_raises_without_cuda():
             make()
 
 
+def test_mesh_engine_raises_without_cuda():
+    """A mesh of CUDA devices needs them: no quiet carry-on on the CPU or
+    on the plain version."""
+    from goworld_tpu_torch.engine.aoi import AOIEngine
+    from goworld_tpu_torch.engine.runtime import Runtime
+    from goworld_tpu_torch.parallel import SpaceMesh, multichip_devices
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    for make in (lambda: AOIEngine(mesh=2),
+                 lambda: AOIEngine(device="cpu", mesh=2),
+                 lambda: AOIEngine(mesh=SpaceMesh(multichip_devices(2))),
+                 lambda: Runtime(aoi_mesh=4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
 def test_cpu_path_launches_no_kernel():
     from goworld_tpu_torch.engine.aoi import AOIEngine
     from goworld_tpu_torch.ops import aoi_cuda as AK
@@ -95,5 +113,17 @@ def test_cpu_path_launches_no_kernel():
     grid = CD.FixedOrderGrid(*t, 200.0)
     grid.step(np.ones((1, 128), np.int8), np.zeros((1, 128), np.int8))
     CD.RowBlock(*t, 200.0, rows=64, row0=32)
-    assert AK.launches == {"aoi_step": 0}
+    from goworld_tpu_torch.entry import dryrun_multichip
+    from goworld_tpu_torch.parallel import SpaceMesh
+
+    dryrun_multichip(2, device="cpu")
+    mesh_eng = AOIEngine(device="cpu", mesh=SpaceMesh(["cpu"] * 2),
+                         rowshard_min_capacity=256)
+    for cap in (128, 256):
+        hm = mesh_eng.create_space(cap)
+        mesh_eng.submit(hm, x, x, np.full(128, 3.0, np.float32),
+                        np.ones(128, bool))
+    mesh_eng.flush()
+    assert len(mesh_eng.take_events(hm)[0]) > 0
+    assert AK.launches == {"aoi_step": 0, "aoi_step_entlv": 0}
     assert AG.launches == {"aoi_words_culled": 0, "aoi_step_culled": 0}
