@@ -9,7 +9,9 @@ Phases (any failure raises, so the exit code is non-zero):
   2. build   -- compiles every csrc/*.cu of the port with nvcc (sm_90a);
   3. kernels -- each kernel against its plain PyTorch version on the
                 card, bit-exact, over edge-case inputs at the main path's
-                shapes and around them, timed with CUDA events;
+                shapes and around them (the persistent tile's edges too:
+                W = 33 with R % 64 = 32, fewer work units than the
+                resident grid and many more), timed with CUDA events;
   4. main    -- the port's main path at full size: Runtime(device="cuda"),
                 8 spaces x 10,000 entities (capacity 16384, radius 100,
                 world 4000, walk step 5), one hook-overriding watcher per
@@ -26,8 +28,15 @@ Phases (any failure raises, so the exit code is non-zero):
                 kernels against their plain versions on the card,
                 bit-exact, over edge-case inputs (NaN and +inf radii,
                 inactive tails, nearly sorted orders) at BASELINE's giant
-                shapes and around them; the culled step also against the
-                dense kernel at full size;
+                shapes and around them (ragged: a 100-row rect block over
+                1056 candidates, culled at C = 1056 and 4160); the culled
+                step also against the dense kernel at full size, the
+                words kernel's culled fraction equal to the step's;
+  6b. plans  -- both step modes (square and rect) and both culled kernels
+                at the tile's edge shapes under three launch plans other
+                than the card's own (its occupancy stood in for: one
+                block, a few, one per SM), bit-exact against the plain
+                versions, the culled fraction the same under each;
   7. grid    -- the fixed-order culled tick (ops/cadence.FixedOrderGrid)
                 at BASELINE's `million` (64 x 16384) and `zipf100k`
                 (1 x 131072, 100k active, 90% in a hot zone): a re-sort,
@@ -43,8 +52,9 @@ Phases (any failure raises, so the exit code is non-zero):
   9. entlv   -- the step kernel's emit="entlv" mode (new, enter, leave)
                 against its plain version, bit-exact, on phase 3's edge
                 inputs at (1, 128), (4, 256), (16, 128), (8, 16384),
-                (64, 16384) and the rectangular (3, 256, 4096); its new
-                words against the chg mode's;
+                (64, 16384), the rectangular (3, 256, 4096) and the
+                tile's edges (2, 1056), (3, 96), rect (2, 100, 1056); its
+                new words against the chg mode's;
  10. sharded step -- parallel.make_sharded_aoi_step at `million` (64 x
                 16384) on one shard, on 4 virtual shards of the card and,
                 where torch sees several cards, on distinct cards: a prime
@@ -66,7 +76,10 @@ Phases (any failure raises, so the exit code is non-zero):
 
 Virtual shards are shards of one card taking turns on it: their times
 are one card's, not a multi-card layout's.  The last lines are
-{"mesh": ...}, {"kernels": [...]} and {"ok": true, "device": {...}}.
+{"mesh": ...}, {"issue_floor": [...]} (each kernel's SASS instructions
+per pair test, counted with cuobjdump in the libraries this run built,
+and the least time to issue its pair tests at the SM clock read in phase
+3), {"kernels": [...]} and {"ok": true, "device": {...}}.
 Kernel launches are counted on the path each kernel serves, with the
 counts reset just before it: the square step in phase 4, the culled
 kernels in phase 7, the rectangular step in phase 8, the entlv mode in
@@ -77,6 +90,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -91,10 +106,15 @@ F32_OPS_PER_S = 67e12
 # f32 operations per pair test of the AOI predicate: two subtracts, two
 # abs, two compares
 OPS_PER_PAIR = 6
+ISSUE_LANES = 128  # thread-instructions an SM issues per clock (4 x 32)
+SM_CLOCK_HZ = []   # SM clocks read during phase 3's timings
 
 DEV = "cuda"  # every phase's tensors live on the current card
 
-KERNEL_SHAPES = [(1, 128), (3, 384), (8, 4096), (8, 16384), (64, 16384)]
+# the last two: the persistent tile's edges (W = 33 with R % 64 = 32;
+# W = 3 and S above one SM's blocks)
+KERNEL_SHAPES = [(1, 128), (3, 384), (8, 4096), (8, 16384), (64, 16384),
+                 (2, 1056), (3, 96)]
 MAIN_SHAPE = (8, 16384)
 
 SPACES, PER_SPACE, CAPACITY = 8, 10_000, 16384
@@ -177,8 +197,107 @@ def aoi_step_bound(s, c, word_arrays=3):
                                  "operations")
 
 
+def read_sm_clock():
+    """The SM clock now (Hz), as nvidia-smi reads it; kept for the issue
+    floors."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    SM_CLOCK_HZ.append(float(out.split()[0]) * 1e6)
+
+
+# the kernels whose pair region sass_per_pair reads: library, the
+# function name's mark of the instantiation, and whether its plane loop is
+# unrolled (the dense step) or walks the voted planes (the culled kernels)
+SASS_KERNELS = {"aoi_step": ("aoi_step", "aoi_step_kernelILN8aoi_tile4EmitE1E",
+                             True),
+                "aoi_step_entlv": ("aoi_step",
+                                   "aoi_step_kernelILN8aoi_tile4EmitE2E",
+                                   True),
+                "aoi_words_culled": ("aoi_grid", "aoi_culled_kernelILb0E",
+                                     False),
+                "aoi_step_culled": ("aoi_grid", "aoi_culled_kernelILb1E",
+                                    False)}
+SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z0-9_.]+)([^;]*);")
+
+
+def pair_region(ins, unrolled):
+    """Instructions per pair test of one kernel's SASS ``ins`` ([(address,
+    opcode, operands)]); a pair test has two FSETP.  Unrolled: from the
+    first to the last FSETP, over the pairs there.  Otherwise: the
+    shortest loop (a backward branch) holding one plane's pairs, 2 x 8
+    FSETP, over its pairs."""
+    fsetp = [k for k, (_, op, _) in enumerate(ins) if op.startswith("FSETP")]
+    if unrolled:
+        return (fsetp[-1] - fsetp[0] + 1) / (len(fsetp) / 2)
+    at = {a: k for k, (a, _, _) in enumerate(ins)}
+    best = None
+    for k, (a, op, args) in enumerate(ins):
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if not op.startswith("BRA") or not m:
+            continue
+        head = at.get(int(m.group(1), 16))
+        if head is None or head > k:
+            continue
+        n = sum(head <= j <= k for j in fsetp)
+        if n >= 2 * 8 and (best is None or k - head + 1 < best[0]):
+            best = (k - head + 1, n)
+    return best[0] / (best[1] / 2)
+
+
+def sass_per_pair(_build):
+    """SASS instructions per pair test of each kernel, counted in the
+    libraries this run built (``cuobjdump -sass``); None where the dump
+    or the count fails (the issue floors are then not measured)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    dumps, got = {}, {}
+    for name, (lib, mark, unrolled) in SASS_KERNELS.items():
+        try:
+            if lib not in dumps:
+                dumps[lib] = subprocess.run(
+                    [tool, "-sass", os.path.join(_build.BUILD_DIR,
+                                                 f"lib{lib}.so")],
+                    capture_output=True, text=True, check=True,
+                    timeout=120).stdout
+            ins, inside = [], False
+            for line in dumps[lib].splitlines():
+                if "Function : " in line:
+                    inside = mark in line
+                elif inside and (m := SASS_LINE.match(line)):
+                    if m.group(2) != "NOP":
+                        ins.append((int(m.group(1), 16), m.group(2),
+                                    m.group(3)))
+            got[name] = pair_region(ins, unrolled)
+        except (OSError, subprocess.SubprocessError, IndexError,
+                TypeError) as e:
+            log(f"sass_per_pair {name}: not measured ({e!r})")
+            got[name] = None
+    return got
+
+
+def issue_floors(name, shape_rows, per_pair):
+    """Least time to issue each shape's pair tests (the culled kernels':
+    those their vote admits) at ``per_pair`` instructions a pair on every
+    SM at the highest SM clock read in this run; None where the count is
+    missing."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = n_sms * ISSUE_LANES * max(SM_CLOCK_HZ)
+    out = []
+    for r in shape_rows:
+        s, *rc = r["shape"]
+        pairs = s * rc[0] * rc[-1] * (1.0 - r.get("culled_frac", 0.0))
+        out.append({"shape": r["shape"], "ms": r["ms"],
+                    "bound_ms": r["bound_ms"],
+                    "issue_floor_ms": (None if per_pair is None
+                                       else pairs * per_pair / rate * 1e3)})
+    return {"name": name, "sass_per_pair": per_pair,
+            "sm_clock_hz": max(SM_CLOCK_HZ), "shapes": out}
+
+
 def phase_kernels(AK, AD):
-    rows = []
+    rows, units = [], []
     for i, (s, c) in enumerate(KERNEL_SHAPES):
         x, z, r, act, prev = edge_inputs(s, c, seed=100 + i)
         new_k, chg_k = AK.aoi_step_chg_cuda(x, z, r, act, prev)
@@ -193,16 +312,25 @@ def phase_kernels(AK, AD):
         del new_k, chg_k, new_p, chg_p
         ms = cuda_ms(lambda: AK.aoi_step_chg_cuda(x, z, r, act, prev),
                      reps=20 if c >= 16384 else 100)
+        read_sm_clock()  # just after the kernel's timing, under load
         plain_ms = cuda_ms(lambda: AD.aoi_step_chg_dense(x, z, r, act, prev),
                            reps=1 if s * c >= 64 * 16384 else 3, warm=1)
         bound_ms, bound_by = aoi_step_bound(s, c)
+        n_sms, bps = AK.occupancy("aoi_step", "gw_aoi_step_occupancy", 0,
+                                  torch.device(DEV))
+        plan = AK.last_plan["aoi_step"]  # what the timed launches walked
+        units.append(plan.units / (n_sms * bps))
         row = {"shape": [s, c], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "max_abs_err": err}
-        log("kernel aoi_step", json.dumps(row))
+        log("kernel aoi_step", json.dumps(row), "plan",
+            json.dumps(dataclasses.asdict(plan)), "resident", n_sms * bps)
         rows.append(row)
         del x, z, r, act, prev
         torch.cuda.empty_cache()
+    check(min(units) < 1 < max(units),
+          f"phase 3 wants a shape with fewer work units than the resident "
+          f"grid and one with more ({units})")
     return rows
 
 
@@ -419,8 +547,11 @@ def phase_parity(Runtime):
 
 # -- phase 6: the giant path's kernels vs plain --------------------------------
 
-RECT_SHAPES = [(1, 128, 384), (3, 256, 4096), (1, 16384, 131072)]
-CULLED_SHAPES = [(1, 4096), (8, 16384), (64, 16384), (1, 131072)]
+RECT_PATH_SHAPE = (1, 16384, 131072)  # phase 8 (`zipfshare`'s block)
+RECT_SHAPES = [(1, 128, 384), (3, 256, 4096), RECT_PATH_SHAPE,
+               (2, 100, 1056)]
+CULLED_SHAPES = [(1, 4096), (8, 16384), (64, 16384), (1, 131072),
+                 (2, 1056), (1, 4160)]
 FULL = 131072  # from this many slots on: the dense-kernel check, fewer reps
 
 
@@ -582,6 +713,68 @@ def phase_culled(AG, AK):
         del x, z, r, act, prev
         torch.cuda.empty_cache()
     return out
+
+
+# occupancies stood in for the card's own, so the kernels walk other
+# launch plans: one block with long runs, a few blocks, one block per SM
+# with one tile per unit
+FORCED_OCCUPANCY = [(1, 1), (3, 2), (132, 1)]
+PLAN_SHAPES = [(2, 1056, None), (3, 96, None), (2, 100, 1056),
+               (8, 4096, None)]
+PLAN_CULLED = [(2, 1056), (1, 4160)]
+
+
+def phase_plans(AK, AG, AD):
+    """Both dense modes and both culled kernels under launch plans other
+    than the card's own, bit-exact against the plain versions at the
+    tile's edge shapes; the culled fraction must not depend on the plan.
+    The kernels' decoding of a unit is checked here and only here."""
+    real = (AK.occupancy, AG.occupancy)
+    plans, fracs = set(), {}
+    modes = (("aoi_step", AK.aoi_step_chg_cuda, AD.aoi_step_chg_dense),
+             ("aoi_step_entlv", AK.aoi_step_entlv_cuda,
+              AD.aoi_step_entlv_dense))
+    try:
+        for occ in FORCED_OCCUPANCY:
+            AK.occupancy = AG.occupancy = lambda *a, occ=occ: occ
+            for i, (s, cr, cc) in enumerate(PLAN_SHAPES):
+                if cc is None:
+                    x, z, r, act, prev = edge_inputs(s, cr, seed=700 + i)
+                    args, kw = (x, z, r, act, prev), {}
+                else:
+                    rows, cols, rid, prev = rect_inputs(s, cr, cc,
+                                                        seed=710 + i)
+                    args, kw = (*rows, prev), {"cols": cols, "row_ids": rid}
+                for mode, kernel, plain in modes:
+                    got, want = kernel(*args, **kw), plain(*args, **kw)
+                    for g, w_ in zip(got, want):
+                        words_equal(f"{mode} at {(s, cr, cc)} under "
+                                    f"occupancy {occ}", g, w_)
+                    plans.add(AK.last_plan[mode])
+            for i, (s, c) in enumerate(PLAN_CULLED):
+                x, z, r, act = culled_inputs(AG, s, c, seed=720 + i)
+                prev = random_words((s, c, c // 32), seed=730 + i)
+                words, frac_w = AG.aoi_words_culled_cuda(x, z, r, act)
+                new, chg, frac_s = AG.aoi_step_culled_cuda(x, z, r, act,
+                                                           prev)
+                plain, _ = AG.aoi_words_culled_plain(x, z, r, act)
+                at = f"{(s, c)} under occupancy {occ}"
+                words_equal(f"culled words at {at}", words, plain)
+                words_equal(f"culled step new at {at}", new, plain)
+                words_equal(f"culled step chg at {at}", chg, plain ^ prev)
+                fracs.setdefault((s, c), set()).update(
+                    (float(frac_w), float(frac_s)))
+                plans.add(AG.last_plan["aoi_step_culled"])
+    finally:
+        AK.occupancy, AG.occupancy = real
+    check(all(len(f) == 1 for f in fracs.values()),
+          f"culled_frac depends on the launch plan: {fracs}")
+    grids = sorted({p.grid for p in plans})
+    tiles = sorted({p.tiles for p in plans})
+    check(grids[0] == 1 and len(tiles) > 1,
+          f"phase 6b walked too few plans: grids {grids}, tiles {tiles}")
+    log("phase 6b: launch plans", json.dumps({"grids": grids,
+                                                "tiles": tiles}))
 
 
 # -- phases 7-8: the giant-capacity tick ---------------------------------------
@@ -847,6 +1040,7 @@ def phase_share(AK, AD, CD):
 
 ENTLV_SHAPES = [(1, 128), (4, 256), (16, 128), (8, 16384), (64, 16384)]
 ENTLV_RECT = (3, 256, 4096)
+ENTLV_EDGE = [(2, 1056, None), (3, 96, None), (2, 100, 1056)]
 ENTLV_PATH_SHAPE = (64, 16384)  # phase 10 (`million`)
 
 
@@ -855,7 +1049,8 @@ def phase_entlv(AK, AD):
     edge inputs of phase 3 (prev words with bit 31 set), square and one
     rectangular shape; its new words against the chg kernel's."""
     rows_out = []
-    shapes = [(s, c, None) for s, c in ENTLV_SHAPES] + [ENTLV_RECT]
+    shapes = [(s, c, None) for s, c in ENTLV_SHAPES] + [ENTLV_RECT] + \
+        ENTLV_EDGE
     for i, (s, cr, cc) in enumerate(shapes):
         if cc is None:
             x, z, r, act, prev = edge_inputs(s, cr, seed=900 + i)
@@ -1239,12 +1434,15 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_log.items():
         log(f"--- {name}.cu\n{text.strip()}")
+    per_pair = sass_per_pair(_build)
+    log("SASS instructions per pair test", json.dumps(per_pair))
 
     rows = phase_kernels(AK, AD)
     main_out = phase_main(Runtime, AK, AD, EV)
     phase_parity(Runtime)
     rect_rows = phase_rect(AK, AD)
     culled_rows = phase_culled(AG, AK)
+    phase_plans(AK, AG, AD)
     AG.reset_launches()  # phase 7 is the culled kernels' path
     grid_out = [phase_grid(AG, CD, name) for name in GIANT]
     culled_launches = dict(AG.launches)
@@ -1283,7 +1481,7 @@ def main():
               main_out["kernel_launches"], rows, MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"]),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
-              rect_launches, rect_rows, tuple(RECT_SHAPES[-1]),
+              rect_launches, rect_rows, RECT_PATH_SHAPE,
               main_path_ms=share_out["kernel_ms"]),
         entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
               culled_launches["aoi_words_culled"],
@@ -1296,6 +1494,13 @@ def main():
         entry("aoi_step_entlv", "goworld_tpu/ops/aoi_pallas.py:176",
               entlv_launches, entlv_rows, ENTLV_PATH_SHAPE,
               main_path_ms=entlv_path_ms)]}
+    issue = {"issue_floor": [
+        issue_floors("aoi_step", rows, per_pair["aoi_step"]),
+        issue_floors("aoi_step_rect", rect_rows, per_pair["aoi_step"]),
+        *(issue_floors(name, culled_rows[name], per_pair[name])
+          for name in ("aoi_words_culled", "aoi_step_culled")),
+        issue_floors("aoi_step_entlv", entlv_rows,
+                     per_pair["aoi_step_entlv"])]}
     print(card)
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"giant": grid_out + [share_out]}))
@@ -1304,6 +1509,7 @@ def main():
                 "their times are one card's",
         "sharded_step": sharded, "engine": engine_mesh,
         "rowshard": rowshard}}))
+    print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,32 +42,42 @@
 // 2 GiB.  The step reads prev and writes new and chg (6 GiB, 1.92 ms at
 // 3.35 TB/s); the words kernel writes new only (2 GiB, 0.64 ms).  The
 // pair tests are the admitted fraction of 17.2 G (about 2-3 % on sorted
-// inputs), so bytes bound both.
+// inputs), so bytes bound both.  On the H100 a fill plus a copy of the
+// same arrays take 2.06 ms in two passes; one pass that reads prev and
+// writes both outputs, as the step must, is slower (its reads and writes
+// mix, and a tile touches 128-byte pieces of 64 rows), and the step now
+// runs at about the speed of such a pass with its vote left out
+// (PERF.md section 6).
 //
-// What the design does about that (measured on the H100: the first
-// design spent its time issuing per-word instructions, not moving bytes):
-//   * the tile of aoi_tile.cuh, shared with aoi_step.cu: a thread owns one
-//     word column and RPT observer rows, the block stages its 32 planes x
-//     TW columns of x and z in shared memory once, and activity and
-//     self-exclusion are one AND per word;
-//   * the cull is decided inside the block from data it stages anyway:
-//     one warp shuffle reduction per plane for the column bounds, one
-//     per-warp reduction for the row reach, and warp 0 votes the 32
-//     plane flags into one word (no cull table in device memory, no
-//     pre-pass, no host sync);
-//   * only the needed planes are visited (a loop over the set bits of
-//     that word, uniform across the block, so no warp diverges), and the
-//     self bit's word and plane are carried from row to row without a
-//     division;
-//   * the words kernel walks RT row tiles per block with the staged
-//     columns (amortizing the staging); the step prefetches its prev
-//     words before the cull decision, so their latency overlaps it (one
-//     tile per block keeps it within 64 registers);
-//   * new (and chg) are written for every word, culled or not, coalesced
-//     along w; offsets are 64-bit;
+// What the design does about that:
+//   * the persistent walk of aoi_tile.cuh (the grid is what fits on the
+//     card, gw_aoi_culled_occupancy; ops/aoi_grid.py culled_plan chooses
+//     the row tiles per unit): a unit's 32 planes x TW columns of x and z
+//     are staged in shared memory once, and its 32 plane bounds are
+//     reduced once (one warp shuffle reduction per plane), for all its
+//     tiles;
+//   * the next tile's rows (one register per lane) and, in the step, its
+//     prev words (cp.async into the tile's three-slot ring, 16 bytes a
+//     thread where rows are aligned) are in flight while the current
+//     tile votes and stores, so prev holds no registers;
+//   * the cull is decided per (64-row tile, 32-word group, plane) from
+//     data the block holds anyway: the row reach reduced across lanes
+//     (one row a lane), one barrier per tile (the reach is double-
+//     buffered by tile parity, and the barrier also makes the ring
+//     readable), then every warp reduces the block's reach and votes the
+//     32 plane flags into one word itself (no cull table in device
+//     memory, no pre-pass, no host sync);
+//   * a tile with no plane to test writes new = 0 and chg = prev straight
+//     from the ring, 16 bytes a store where rows are aligned; otherwise
+//     only the voted planes are visited (a loop over the set bits,
+//     uniform across the block, so no warp diverges) and the rows are
+//     spread to registers only then;
+//   * new (and chg) are written for every word, culled or not; offsets
+//     are 64-bit;
 //   * each block adds its count of culled planes to one device counter
 //     (one atomicAdd per block), so the culled fraction is a device
 //     scalar with no sync.
+// Outputs may not alias prev.
 #include "aoi_tile.cuh"
 
 namespace {
@@ -86,9 +96,37 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// at most 64 registers, so 4 blocks share an SM (at 70 the words kernel
-// ran 30% slower on the path)
-template <bool STEP, int RT>
+// A tile with no plane to test: new = 0 and, in the step, chg = prev from
+// the ring, 4-word chunks (copy_prev's) as one 16-byte store where `vec`.
+template <bool STEP>
+__device__ __forceinline__ void store_culled(const PrevSlot& pv,
+                                             int64_t row_base, int row0,
+                                             int R, int W, int g, bool vec,
+                                             int32_t* __restrict__ new_out,
+                                             int32_t* __restrict__ chg_out) {
+  const int tid = threadIdx.y * TW + threadIdx.x;
+  const int c4 = (tid % CHUNKS) * 4, w0 = g * TW + c4;
+  if (w0 >= W) return;
+#pragma unroll
+  for (int rr = tid / CHUNKS; rr < TR; rr += CH_ROWS) {
+    if (row0 + rr >= R) break;
+    const int64_t o = (row_base + row0 + rr) * (int64_t)W + w0;
+    if (vec) {
+      *reinterpret_cast<uint4*>(new_out + o) = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (STEP)
+        *reinterpret_cast<uint4*>(chg_out + o) =
+            *reinterpret_cast<const uint4*>(&pv[rr][c4]);
+    } else {
+      for (int e = 0; e < 4 && w0 + e < W; ++e) {
+        new_out[o + e] = 0;
+        if constexpr (STEP) chg_out[o + e] = (int32_t)pv[rr][c4 + e];
+      }
+    }
+  }
+}
+
+// at most 64 registers, so 4 blocks share an SM
+template <bool STEP>
 __global__ void __launch_bounds__(TW * TY, 4)
 aoi_culled_kernel(const float* __restrict__ x, const float* __restrict__ z,
                   const float* __restrict__ r,
@@ -96,139 +134,191 @@ aoi_culled_kernel(const float* __restrict__ x, const float* __restrict__ z,
                   const int32_t* __restrict__ prev,
                   int32_t* __restrict__ new_out,
                   int32_t* __restrict__ chg_out,
-                  unsigned long long* __restrict__ skipped, int C, int W) {
+                  unsigned long long* __restrict__ skipped, int C, int W,
+                  const Plan plan) {
   __shared__ Cols cols;
+  __shared__ __align__(16) PrevSlot ring[STEP ? SLOTS : 1];
   __shared__ float col_lo[PLANES], col_hi[PLANES];
-  __shared__ float part_lo[TY], part_hi[TY], part_mag[TY];
-  __shared__ int part_all[TY];
-  __shared__ uint32_t need_s;
+  __shared__ float part_lo[2][TY], part_hi[2][TY], part_mag[2][TY];
+  __shared__ int part_all[2][TY];
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int w = blockIdx.x * TW + tx;
-  const int64_t base = (int64_t)blockIdx.z * C;
   const float inf = __int_as_float(0x7f800000);
 
-  stage_cols(cols, x, z, act, base, W, w);
-  // each plane's x bounds over its active columns with a finite x (read
-  // by warp 0's vote after the tile loop's first __syncthreads)
-  for (int k = ty; k < PLANES; k += TY) {
-    const float xv = cols.xs[k][tx];
-    const bool in = ((cols.act_plane[k] >> tx) & 1u) && isfinite(xv);
-    const float lo = warp_min(in ? xv : inf);
-    const float hi = warp_max(in ? xv : -inf);
-    if (tx == 0) {
-      col_lo[k] = lo;
-      col_hi[k] = hi;
-    }
+  Cursor cur;
+  cur.enter(plan, blockIdx.x);
+  if (!cur.ok(plan)) return;  // the whole block
+  RowFetch f = fetch_rows(x, z, r, act, nullptr, (int64_t)cur.s * C,
+                          cur.t * TR, C);
+  const bool vec = rows_aligned16(new_out, W) &&
+                   (!STEP || (rows_aligned16(prev, W) &&
+                              rows_aligned16(chg_out, W)));
+  if constexpr (STEP) {
+    copy_prev(ring[0], prev, (int64_t)cur.s * C, cur.t * TR, C, W, cur.g,
+              vec);
+    cp_async_commit();
   }
-
+  int staged = -1, slot = 0, par = 0;
   int culled = 0;  // thread (0, 0): culled planes of the block's tiles
-  for (int t = 0; t < RT; ++t) {
-    const int row0 = (blockIdx.y * RT + t) * TR;
-    if (row0 >= C) break;  // uniform across the block
-    uint32_t pv[RPT] = {};
-    // prefetch prev: its latency overlaps the cull decision
-    if constexpr (STEP) load_prev(pv, prev, base, row0, C, W, w);
-    Rows rows;
-    load_rows(rows, x, z, r, act, base, row0, C);
+  for (;;) {
+    const int64_t base = (int64_t)cur.s * C;
+    const int row0 = cur.t * TR;
+    const int w = cur.g * TW + tx;
+    if (cur.u != staged) {  // uniform across the block
+      stage_cols(cols, x, z, act, base, W, w);
+      // each plane's x bounds over its active columns with a finite x
+      // (read by the votes after this tile's barrier)
+      for (int k = ty; k < PLANES; k += TY) {
+        const float xv = cols.xs[k][tx];
+        const bool in = ((cols.act_plane[k] >> tx) & 1u) && isfinite(xv);
+        const float lo = warp_min(in ? xv : inf);
+        const float hi = warp_max(in ? xv : -inf);
+        if (tx == 0) {
+          col_lo[k] = lo;
+          col_hi[k] = hi;
+        }
+      }
+      staged = cur.u;
+    }
+    RowFetch fn = f;
+    Cursor nxt = cur;
+    nxt.next(plan);
+    const bool more = nxt.ok(plan);
+    if (more) {  // the next tile's rows (and prev), in flight from here
+      fn = fetch_rows(x, z, r, act, nullptr, (int64_t)nxt.s * C, nxt.t * TR,
+                      C);
+      if constexpr (STEP)
+        copy_prev(ring[(slot + 1) % SLOTS], prev, (int64_t)nxt.s * C,
+                  nxt.t * TR, C, W, nxt.g, vec);
+    }
+    if constexpr (STEP) cp_async_commit();
 
-    // the row tile's reach over its active rows with finite x and r
+    // the warp's reach over its active rows with finite x and r: lane l
+    // takes row l % RPT, then the 8 lanes of a row set reduce
     float lo = inf, hi = -inf, mag = 0.f;
-    bool all = false;
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      const bool a = (rows.act >> q) & 1u;
-      const float xi = rows.x[q], ri = rows.r[q];
+    {
+      const int q = tx % RPT;
+      const float xi = __uint_as_float(__shfl_sync(FULL, f.v, q));
+      const float ri = __uint_as_float(__shfl_sync(FULL, f.v, 2 * RPT + q));
+      const bool a = (__ballot_sync(FULL, f.v != 0u) >> (3 * RPT + q)) & 1u;
       if (a && isfinite(xi) && isfinite(ri)) {
-        lo = fminf(lo, xi - ri);
-        hi = fmaxf(hi, xi + ri);
-        mag = fmaxf(mag, fabsf(xi) + fabsf(ri));
+        lo = xi - ri;
+        hi = xi + ri;
+        mag = fabsf(xi) + fabsf(ri);
       }
-      all |= a && ri == inf;
-    }
-    if (tx == 0) {  // every lane of a warp holds the same rows
-      part_lo[ty] = lo;
-      part_hi[ty] = hi;
-      part_mag[ty] = mag;
-      part_all[ty] = all;
-    }
-    __syncthreads();
-
-    if (ty == 0) {  // warp 0: lane k decides plane k
-      float blo = inf, bhi = -inf, bmag = 0.f;
-      bool ball = false;
+      const bool all = __ballot_sync(FULL, a && ri == inf) != 0u;
 #pragma unroll
-      for (int u = 0; u < TY; ++u) {
-        blo = fminf(blo, part_lo[u]);
-        bhi = fmaxf(bhi, part_hi[u]);
-        bmag = fmaxf(bmag, part_mag[u]);
-        ball |= part_all[u] != 0;
+      for (int o = 1; o < RPT; o <<= 1) {
+        lo = fminf(lo, __shfl_xor_sync(FULL, lo, o));
+        hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, o));
+        mag = fmaxf(mag, __shfl_xor_sync(FULL, mag, o));
       }
-      const float m = 1e-3f + 1e-5f * bmag;
-      const bool need =
-          ball || (col_lo[tx] <= bhi + m && col_hi[tx] >= blo - m);
-      const uint32_t mask = __ballot_sync(FULL, need);
       if (tx == 0) {
-        need_s = mask;
-        culled += PLANES - __popc(mask);
+        part_lo[par][ty] = lo;
+        part_hi[par][ty] = hi;
+        part_mag[par][ty] = mag;
+        part_all[par][ty] = all;
       }
     }
+    // this thread's copies of this tile landed; after the barrier, every
+    // other thread's too
+    if constexpr (STEP) cp_async_wait_prior();
     __syncthreads();
 
-    uint32_t acc[RPT];
-    test_planes<true>(cols, rows, need_s, acc);
-    store_rows<STEP ? Emit::kChg : Emit::kWords>(
-        cols, rows, acc, pv, SelfSquare(row0, W), base, row0, C, W, w,
-        new_out, chg_out, nullptr);
-    __syncthreads();  // the next tile reuses part_* and need_s
+    // every warp votes: the block's reach reduced over the TY parts (lane
+    // l reads part l % TY), then lane k decides plane k
+    float blo = part_lo[par][tx % TY], bhi = part_hi[par][tx % TY];
+    float bmag = part_mag[par][tx % TY];
+#pragma unroll
+    for (int o = 1; o < TY; o <<= 1) {
+      blo = fminf(blo, __shfl_xor_sync(FULL, blo, o));
+      bhi = fmaxf(bhi, __shfl_xor_sync(FULL, bhi, o));
+      bmag = fmaxf(bmag, __shfl_xor_sync(FULL, bmag, o));
+    }
+    const bool ball = __ballot_sync(FULL, part_all[par][tx % TY] != 0) != 0u;
+    const float m = 1e-3f + 1e-5f * bmag;
+    const uint32_t need = __ballot_sync(
+        FULL, ball || (col_lo[tx] <= bhi + m && col_hi[tx] >= blo - m));
+    if (tx == 0 && ty == 0) culled += PLANES - __popc(need);
+
+    if (need) {  // uniform across the block
+      Rows rows;
+      take_rows(rows, f);
+      uint32_t acc[RPT];
+      test_planes<true>(cols, rows, need, acc);
+      store_rows<STEP ? Emit::kChg : Emit::kWords>(
+          cols, rows, acc, ring[slot], plan, C, base, row0, C, W, w, new_out,
+          chg_out, nullptr);
+    } else {
+      store_culled<STEP>(ring[slot], base, row0, C, W, cur.g, vec, new_out,
+                         chg_out);
+    }
+    if (!more) break;
+    cur = nxt;
+    f = fn;
+    if constexpr (STEP) slot = (slot + 1) % SLOTS;
+    par ^= 1;
   }
   if (tx == 0 && ty == 0 && culled)
     atomicAdd(skipped, (unsigned long long)culled);
 }
 
-// row tiles per block: the words kernel amortizes its staging over
-// several; the step keeps one (its prefetched prev would push a
-// multi-tile loop past 64 registers)
-constexpr int RT_WORDS = 4;
-constexpr int RT_STEP = 1;
-
 }  // namespace
+
+// The persistent grid's inputs for one kernel (step != 0: the step, else
+// the words kernel) on the current device: its SM count and how many
+// blocks of the kernel fit on one SM.  Returns a CUDA error code (0 =
+// read).
+extern "C" int gw_aoi_culled_occupancy(int step, int* n_sms,
+                                       int* blocks_per_sm) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = step ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, aoi_culled_kernel<true>, TW * TY, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, aoi_culled_kernel<false>, TW * TY, 0);
+  return (int)e;
+}
 
 // x, z, r: float32 [S, C]; act: uint8 (torch.bool) [S, C]; prev, chg_out:
 // int32 [S, C, C / 32] for the step, both null for the words kernel;
-// new_out: int32 [S, C, C / 32]; skipped: one uint64 the kernel adds its
-// culled (row tile, plane) steps to (the caller zeroes it).  All
-// contiguous on one device.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).  *tiles receives the number of
-// (row tile, plane) steps of the launch.
+// new_out: int32 [S, C, C / 32], no output aliasing prev; skipped: one
+// uint64 the kernel adds its culled (row tile, word group, plane) steps
+// to (the caller zeroes it).  All contiguous on one device.  grid and
+// tiles are the plan of ops/aoi_grid.py culled_plan (blocks, row tiles
+// per unit).  Launches on `stream` and returns cudaGetLastError() (0 =
+// launched).  *tiles receives the number of (row tile, word group,
+// plane) steps of the launch.
 extern "C" int gw_aoi_culled(const void* x, const void* z, const void* r,
                              const void* act, const void* prev,
                              void* new_out, void* chg_out, void* skipped,
                              int64_t S, int64_t C, int64_t* tiles,
-                             void* stream) {
+                             void* stream, int64_t grid,
+                             int64_t tiles_per_unit) {
   const int64_t W = C / 32;
-  const int64_t row_tiles = (C + TR - 1) / TR;
-  const int rt = prev ? RT_STEP : RT_WORDS;
-  const dim3 block(TW, TY);
-  const dim3 grid((unsigned)((W + TW - 1) / TW),
-                  (unsigned)((row_tiles + rt - 1) / rt), (unsigned)S);
-  *tiles = (int64_t)grid.x * row_tiles * S * PLANES;
+  *tiles = ((W + TW - 1) / TW) * ((C + TR - 1) / TR) * S * PLANES;
   if (S <= 0 || C <= 0) return 0;
-  if (C % 32 != 0 || S > 65535 || C > (1 << 30) || grid.y > 65535 ||
-      (prev == nullptr) != (chg_out == nullptr))
+  Plan plan;
+  if (C % 32 != 0 || C > (1 << 30) ||
+      (prev == nullptr) != (chg_out == nullptr) ||
+      !make_plan(plan, S, C, W, grid, tiles_per_unit))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (prev) {
-    aoi_culled_kernel<true, RT_STEP><<<grid, block, 0, st>>>(
+    aoi_culled_kernel<true><<<(unsigned)grid, dim3(TW, TY), 0, st>>>(
         (const float*)x, (const float*)z, (const float*)r,
         (const uint8_t*)act, (const int32_t*)prev, (int32_t*)new_out,
-        (int32_t*)chg_out, (unsigned long long*)skipped, (int)C, (int)W);
+        (int32_t*)chg_out, (unsigned long long*)skipped, (int)C, (int)W,
+        plan);
   } else {
-    aoi_culled_kernel<false, RT_WORDS><<<grid, block, 0, st>>>(
+    aoi_culled_kernel<false><<<(unsigned)grid, dim3(TW, TY), 0, st>>>(
         (const float*)x, (const float*)z, (const float*)r,
         (const uint8_t*)act, nullptr, (int32_t*)new_out, nullptr,
-        (unsigned long long*)skipped, (int)C, (int)W);
+        (unsigned long long*)skipped, (int)C, (int)W, plan);
   }
   return (int)cudaGetLastError();
 }

@@ -430,7 +430,7 @@ class _Bucket:
 
     def __init__(self, capacity: int):
         self.capacity = capacity
-        self.W = P.words_per_row(capacity)
+        self.W = P.check_capacity(capacity)
         self.n_slots = 0
         self._free: list[int] = []
         self._staged: dict[int, tuple] = {}

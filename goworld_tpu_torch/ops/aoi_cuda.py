@@ -13,12 +13,20 @@ launches of the chg mode (square and rectangular),
 ``launches["aoi_step_entlv"]`` those of the entlv mode, and nothing else.
 
 ``out=`` hands the step preallocated output tensors (the buckets keep one
-reusable set per shard); every output word is written.
+reusable set per shard); every output word is written, and no output may
+be ``prev_words`` itself.
+
+The kernel is persistent: :func:`step_plan` sizes its grid from what fits
+on the card at once (read on the card by ``gw_aoi_step_occupancy``) and
+cuts the work into units of (space, 32-word group, a run of 64-row tiles)
+that the blocks walk (a pure function, tested on the CPU); ``last_plan``
+holds the plan of each mode's last launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -28,6 +36,8 @@ from .aoi_predicate import words_per_row
 
 # kernel launches by kernel name; reset by whoever reads them
 launches = {"aoi_step": 0, "aoi_step_entlv": 0}
+# the StepPlan of each mode's last launch
+last_plan: dict[str, StepPlan] = {}
 
 
 def reset_launches() -> None:
@@ -76,6 +86,81 @@ def check_inputs(x, z, radius, active, prev_words, cols=None, row_ids=None):
     return cols
 
 
+# -- the launch plan ------------------------------------------------------------
+
+TILE_ROWS = 64    # observer rows per tile (csrc/aoi_tile.cuh TR)
+GROUP_WORDS = 32  # words per group (TW)
+UNITS_PER_BLOCK = 8  # at least this many units per resident block, where
+                     # the shape has the tiles: a short tail
+MAX_UNITS = 1 << 30  # the kernel's unit index stays an int
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """The persistent kernel's grid and work units.  The C entry takes
+    ``grid`` and ``tiles``; make_plan in ``csrc/aoi_tile.cuh`` derives the
+    rest from them and refuses a plan that does not fit the shape.  Unit
+    u is (space u // groups // runs, word group u % groups, row tiles
+    [t0, min(t0 + tiles, row_tiles)) with t0 = (u // groups % runs) *
+    tiles), and block b walks units b, b + grid, ... (``Cursor`` there)."""
+
+    grid: int       # blocks, at most what fits on the card at once
+    tiles: int      # row tiles per unit (the last run of a group may hold fewer)
+    row_tiles: int  # ceil(R / 64) per space
+    groups: int     # ceil(W / 32) per row
+    runs: int       # units per (space, group)
+    units: int      # S * runs * groups
+
+
+def step_plan(s: int, r: int, w: int, n_sms: int,
+              blocks_per_sm: int) -> StepPlan:
+    """The plan for S spaces of R observer rows and W words per row on a
+    card with ``n_sms`` SMs that hold ``blocks_per_sm`` blocks each.  The
+    units number at least ``UNITS_PER_BLOCK`` x the resident blocks (or
+    one per tile where there are fewer tiles), the runs of a group are as
+    even as they can be, and the grid never exceeds the resident blocks or
+    the units.  Raises ValueError on a shape the kernel refuses."""
+    if min(s, r, w) < 1 or r > 1 << 30 or w > 1 << 25:
+        raise ValueError(f"step_plan: shape S={s} R={r} W={w} out of range")
+    if n_sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"step_plan: {n_sms} SMs x {blocks_per_sm} blocks")
+    row_tiles = -(-r // TILE_ROWS)
+    groups = -(-w // GROUP_WORDS)
+    resident = n_sms * blocks_per_sm
+    most = max(1, s * groups * row_tiles // (UNITS_PER_BLOCK * resident))
+    runs = -(-row_tiles // min(most, row_tiles))
+    tiles = -(-row_tiles // runs)
+    units = s * runs * groups
+    if units > MAX_UNITS:
+        raise ValueError(f"step_plan: {units} units at S={s} R={r} W={w}")
+    return StepPlan(grid=min(resident, units), tiles=tiles,
+                    row_tiles=row_tiles, groups=groups, runs=runs,
+                    units=units)
+
+
+_occupancy: dict[tuple, tuple[int, int]] = {}
+
+
+def occupancy(lib_name: str, fn_name: str, kind: int,
+              device: torch.device) -> tuple[int, int]:
+    """``(n_sms, blocks_per_sm)`` of one kernel on ``device``, from the C
+    query ``fn_name`` of ``csrc/<lib_name>.cu`` (read once per device)."""
+    key = (fn_name, kind, device.index)
+    got = _occupancy.get(key)
+    if got is None:
+        fn = getattr(_build.library(lib_name), fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        n_sms, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(kind, ctypes.byref(n_sms), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+        got = _occupancy[key] = (n_sms.value, blocks.value)
+    return got
+
+
 # C entry point and output count of each mode
 _MODES = {"aoi_step": ("gw_aoi_step_chg", 2),
           "aoi_step_entlv": ("gw_aoi_step_entlv", 3)}
@@ -87,7 +172,7 @@ def _lib(mode):
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * (9 + n_out) + \
-            [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+            [ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 2
     return fn
 
 
@@ -119,16 +204,23 @@ def _launch(mode, x, z, radius, active, prev_words, cols, row_ids, out):
     s, c_rows = x.shape
     if s == 0 or c_rows == 0:
         return outs
+    if any(o.data_ptr() == prev.data_ptr() for o in outs):
+        raise ValueError("out: an output may not be prev_words")
     fn = _lib(mode)
+    c_cols = cand[0].shape[1]
+    plan = step_plan(s, c_rows, words_per_row(c_cols), *occupancy(
+        "aoi_step", "gw_aoi_step_occupancy", int(mode == "aoi_step_entlv"),
+        x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in rows + cand),
                 None if rid is None else rid.data_ptr(), prev.data_ptr(),
-                *(t.data_ptr() for t in outs), s, c_rows,
-                cand[0].shape[1], stream)
+                *(t.data_ptr() for t in outs), s, c_rows, c_cols, stream,
+                plan.grid, plan.tiles)
     if rc != 0:
         raise RuntimeError(f"{mode} kernel launch failed: CUDA error {rc}")
     launches[mode] += 1
+    last_plan[mode] = plan
     return outs
 
 

@@ -15,6 +15,10 @@ plain versions, which are the dense words of :mod:`aoi_dense` plus
 :func:`cull_table`'s fraction.  ``launches`` counts kernel launches per
 kernel, and nothing else.
 
+The kernels are persistent: :func:`culled_plan` sizes the grid from what
+fits on the card and cuts the work into the dense step's units (see
+:mod:`.aoi_cuda`).
+
 The culled fraction is what each side's own tiles skip: the plain version
 uses the JAX package's table at the same ``(block_rows, col_words)``,
 the kernel its own 64-row x 32-word tiles, so the two fractions differ
@@ -35,12 +39,14 @@ import ctypes
 import torch
 
 from . import _build
-from .aoi_cuda import check_inputs
+from .aoi_cuda import StepPlan, check_inputs, occupancy, step_plan
 from .aoi_dense import aoi_step_chg_dense
 from .aoi_predicate import WORD_BITS, words_per_row
 
 # kernel launches by kernel name; reset by whoever reads them
 launches = {"aoi_words_culled": 0, "aoi_step_culled": 0}
+# the StepPlan of each kernel's last launch
+last_plan: dict[str, StepPlan] = {}
 
 _INF = float("inf")
 
@@ -140,12 +146,24 @@ def aoi_step_culled_plain(x, z, radius, active, prev_words, *, block_rows=512,
 # -- the kernels ---------------------------------------------------------------
 
 
+def culled_plan(s: int, c: int, n_sms: int, blocks_per_sm: int) -> StepPlan:
+    """The persistent culled kernels' plan for S spaces of capacity C (the
+    dense step's walk, :func:`.aoi_cuda.step_plan`, over the square
+    [S, C, C / 32] words).  Raises ValueError on a shape the kernels
+    refuse."""
+    if c % WORD_BITS != 0:
+        raise ValueError(f"culled_plan: capacity {c} not a multiple of "
+                         f"{WORD_BITS}")
+    return step_plan(s, c, c // WORD_BITS, n_sms, blocks_per_sm)
+
+
 def _lib():
     fn = _build.library("aoi_grid").gw_aoi_culled
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2 + \
-            [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+            [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p] + \
+            [ctypes.c_int64] * 2
     return fn
 
 
@@ -162,17 +180,23 @@ def _launch(name, x, z, radius, active, prev_words):
         prev = prev_words.contiguous()
         chg = torch.empty(shape, dtype=torch.int32, device=x.device)
     skipped = torch.zeros((), dtype=torch.int64, device=x.device)
+    if s == 0 or c == 0:
+        return new, chg, skipped.to(torch.float32)
     tiles = ctypes.c_int64(0)
     fn = _lib()
+    plan = culled_plan(s, c, *occupancy(
+        "aoi_grid", "gw_aoi_culled_occupancy", int(prev is not None),
+        x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in ins),
                 None if prev is None else prev.data_ptr(), new.data_ptr(),
                 None if chg is None else chg.data_ptr(), skipped.data_ptr(),
-                s, c, ctypes.byref(tiles), stream)
+                s, c, ctypes.byref(tiles), stream, plan.grid, plan.tiles)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1
+    last_plan[name] = plan
     frac = (skipped.to(torch.float64) / max(tiles.value, 1)).to(torch.float32)
     return new, chg, frac
 

@@ -31,8 +31,10 @@ import torch
 
 WORD_BITS = 32
 
-# Capacities are a multiple of LANE so W is a multiple of 4 (the JAX
-# package's lane rule; kept so both packages accept the same capacities).
+# Space capacities are a multiple of LANE so W is a multiple of 4 (the JAX
+# package's lane rule; kept so both packages accept the same capacities,
+# and the event stream's 128-word chunks tile a space).  The word layout
+# and the step itself need only a multiple of WORD_BITS.
 LANE = 128
 
 
@@ -42,9 +44,18 @@ def round_capacity(n: int) -> int:
 
 
 def words_per_row(capacity: int) -> int:
+    """W = C / 32 words per row of the planar layout."""
+    if capacity % WORD_BITS != 0:
+        raise ValueError(f"capacity {capacity} not a multiple of "
+                         f"{WORD_BITS}")
+    return capacity // WORD_BITS
+
+
+def check_capacity(capacity: int) -> int:
+    """A space's capacity must be a multiple of LANE; returns its W."""
     if capacity % LANE != 0:
         raise ValueError(f"capacity {capacity} not a multiple of {LANE}")
-    return capacity // WORD_BITS
+    return words_per_row(capacity)
 
 
 def pack_rows(m: np.ndarray) -> np.ndarray:

@@ -31,7 +31,7 @@ import torch
 from . import aoi_cuda as AK
 from . import aoi_grid as AG
 from . import events as EV
-from .aoi_predicate import words_per_row
+from .aoi_predicate import check_capacity, words_per_row
 
 LANES = 128  # stream chunk width in words
 QSCALE = np.float32(1.0 / 16.0)  # int8 walk delta unit: 1/16 world unit
@@ -128,6 +128,7 @@ class FixedOrderGrid:
     ``words`` in sorted order."""
 
     def __init__(self, x, z, radius, active, world: float):
+        check_capacity(x.shape[1])  # the stream's chunks tile the words
         self.x, self.z, self.r, self.act = x, z, radius, active
         self.world = world
         self.resort()
@@ -181,7 +182,7 @@ class RowBlock:
         self.row_ids = torch.arange(row0, row0 + rows, dtype=torch.int32,
                                     device=x.device).expand(s, rows)
         self.row_ids = self.row_ids.contiguous()
-        zero = torch.zeros((s, rows, words_per_row(c)), dtype=torch.int32,
+        zero = torch.zeros((s, rows, check_capacity(c)), dtype=torch.int32,
                            device=x.device)
         self.words, _ = self._step(zero)
 

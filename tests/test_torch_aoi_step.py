@@ -326,3 +326,95 @@ def test_entlv_entry_checks_and_counts():
         AK.aoi_step_entlv(*t, tp, out=out[:2])
     with pytest.raises(ValueError, match="CUDA"):
         AK.aoi_step_entlv_cuda(*t, tp)
+
+
+# -- the persistent kernel's launch plan (pure Python, as the C entry takes it)
+
+
+def unit_tiles(plan, u):
+    """``(space, group, first row tile, end row tile)`` of unit ``u`` in
+    the order StepPlan documents (the kernel's ``Cursor::enter``)."""
+    g = u % plan.groups
+    v = u // plan.groups
+    t0 = (v % plan.runs) * plan.tiles
+    return v // plan.runs, g, t0, min(t0 + plan.tiles, plan.row_tiles)
+
+
+def covered_tiles(plan, s):
+    """(space, row tile, word group) of every tile the plan's blocks walk,
+    block by block as the kernel does (block b: units b, b + grid, ...)."""
+    seen = []
+    for b in range(plan.grid):
+        for u in range(b, plan.units, plan.grid):
+            sp, g, t0, t1 = unit_tiles(plan, u)
+            assert 0 <= sp < s and 0 <= g < plan.groups and t0 < t1
+            seen += [(sp, t, g) for t in range(t0, t1)]
+    return seen
+
+
+PLAN_SHAPES = [  # (S, R, W, SMs, blocks per SM)
+    (1, 128, 4, 132, 3),       # tiny C: one unit, one tile
+    (2, 1056, 33, 132, 3),     # ragged R (R % 64 = 32) and W (W % 32 = 1)
+    (3, 96, 3, 2, 2),          # S larger than the grid
+    (2, 100, 33, 1, 1),        # rect block, one resident block
+    (1, 16384, 4096, 132, 3),  # zipfshare's block
+    (8, 16384, 512, 132, 3),   # the engine path
+    (64, 16384, 512, 132, 3),  # `million`
+    (1, 131072, 4096, 132, 4),  # `zipf100k`, culled occupancy
+    (5, 4160, 130, 7, 3),      # more units than tiles per group
+]
+
+
+@pytest.mark.parametrize("s,r,w,n_sms,bps", PLAN_SHAPES)
+def test_step_plan_covers_every_tile_once(s, r, w, n_sms, bps):
+    plan = AK.step_plan(s, r, w, n_sms, bps)
+    seen = covered_tiles(plan, s)
+    want = {(sp, t, g) for sp in range(s) for t in range(-(-r // 64))
+            for g in range(-(-w // 32))}
+    assert len(seen) == len(want) and set(seen) == want
+
+
+@pytest.mark.parametrize("s,r,w,n_sms,bps", PLAN_SHAPES)
+def test_step_plan_grid_within_the_resident_limit(s, r, w, n_sms, bps):
+    """The grid never exceeds what fits at once, nor the units; the units
+    number at least 8x the resident blocks where there are that many
+    tiles, and the runs of a group differ by at most one unit's worth."""
+    plan = AK.step_plan(s, r, w, n_sms, bps)
+    resident = n_sms * bps
+    assert 1 <= plan.grid <= min(resident, plan.units)
+    total = s * plan.groups * plan.row_tiles
+    assert plan.units >= min(AK.UNITS_PER_BLOCK * resident, total)
+    lengths = {unit_tiles(plan, u)[3] - unit_tiles(plan, u)[2]
+               for u in range(plan.units)}
+    assert max(lengths) == plan.tiles and plan.tiles <= plan.row_tiles
+
+
+@pytest.mark.parametrize("args", [
+    (0, 128, 4, 132, 3), (1, 0, 4, 132, 3), (1, 128, 0, 132, 3),
+    (1, (1 << 30) + 1, 4, 132, 3), (1, 128, (1 << 25) + 1, 132, 3),
+    (1, 128, 4, 0, 3), (1, 128, 4, 132, 0), (1 << 31, 64, 32, 1, 1)])
+def test_step_plan_refuses_what_the_kernel_refuses(args):
+    with pytest.raises(ValueError, match="step_plan"):
+        AK.step_plan(*args)
+
+
+def test_step_at_ragged_widths_on_the_cpu():
+    """C = 1056 (W = 33, R % 64 = 32) and a 100-row rect block: the step
+    entries accept any multiple of 32 candidates (the kernel's rule);
+    spaces keep the lane rule (check_capacity)."""
+    x, z, r, act, prev = edge_inputs(2, 1056, seed=5)
+    new, chg = port_step(x, z, r, act, prev)
+    with np.errstate(invalid="ignore"):
+        for s in range(2):
+            # the JAX package packs only multiples of 128 columns
+            want = TP.pack_rows(JP.interest_matrix(x[s], z[s], r[s], act[s]))
+            np.testing.assert_array_equal(new[s], want)
+            np.testing.assert_array_equal(chg[s], want ^ prev[s])
+    rows, cols, rid, prev = rect_inputs(2, 100, 1056, 300, seed=9)
+    new_r, _ = port_rect(rows, cols, rid, prev)
+    sq, _ = port_step(*edge_inputs(2, 1056, seed=9)[:4],
+                      np.zeros((2, 1056, 33), np.uint32))
+    np.testing.assert_array_equal(new_r, sq[:, 300:400])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        TP.check_capacity(1056)
+    assert TP.check_capacity(1152) == 36

@@ -17,8 +17,10 @@ import jax
 import jax.numpy as jnp
 from goworld_tpu.ops import aoi_dense as JD
 from goworld_tpu.ops import aoi_grid as JG
+from goworld_tpu.ops import aoi_predicate as JP
 from goworld_tpu_torch.ops import aoi_grid as TG
 from goworld_tpu_torch.ops import aoi_predicate as TP
+from test_torch_aoi_step import covered_tiles
 
 CW = 32  # col_words the JAX kernels take in interpret mode
 # the JAX cull table jitted (eager mode compiles every primitive anew)
@@ -244,3 +246,66 @@ def test_resort_and_entries_on_the_cpu_launch_nothing():
         TG.aoi_words_culled_cuda(*_t(x, z, r, act))
     with pytest.raises(ValueError):
         TG.aoi_step_culled(*_t(x, z, r, act), words[:, :5])
+
+
+# -- the persistent culled kernels' launch plan (pure Python) ----------------
+
+
+CULLED_PLAN_SHAPES = [  # (S, C, SMs, blocks per SM)
+    (64, 16384, 132, 4),   # `million`
+    (1, 131072, 132, 4),   # `zipf100k`
+    (2, 1056, 132, 4),     # W = 33, C % 64 = 32
+    (1, 4160, 132, 4),     # W = 130
+    (40, 128, 2, 2),       # S larger than the grid
+    (1, 32, 132, 4),       # one word per row
+]
+
+
+@pytest.mark.parametrize("s,c,n_sms,bps", CULLED_PLAN_SHAPES)
+def test_culled_plan_covers_every_tile_once(s, c, n_sms, bps):
+    """Every (space, 64-row tile, 32-word group) once, walked block by
+    block as the kernels do; the cull counter's denominator (tiles x 32
+    planes) is those tiles."""
+    plan = TG.culled_plan(s, c, n_sms, bps)
+    seen = covered_tiles(plan, s)
+    w = c // 32
+    want = {(sp, t, g) for sp in range(s) for t in range(-(-c // 64))
+            for g in range(-(-w // 32))}
+    assert len(seen) == len(want) and set(seen) == want
+
+
+@pytest.mark.parametrize("s,c,n_sms,bps", CULLED_PLAN_SHAPES)
+def test_culled_plan_grid_within_the_resident_limit(s, c, n_sms, bps):
+    plan = TG.culled_plan(s, c, n_sms, bps)
+    assert 1 <= plan.grid <= min(n_sms * bps, plan.units)
+    assert plan.units >= min(8 * n_sms * bps,
+                             s * plan.row_tiles * plan.groups)
+
+
+@pytest.mark.parametrize("args", [(1, 100, 132, 4), (0, 128, 132, 4),
+                                  (1, 128, 0, 4), (1, 128, 132, 0)])
+def test_culled_plan_refuses_what_the_kernels_refuse(args):
+    with pytest.raises(ValueError, match="plan"):
+        TG.culled_plan(*args)
+
+
+def test_plain_culled_step_at_a_ragged_width():
+    """C = 1056 (W = 33: a ragged word group, and 32 rows past the last
+    full 64-row tile): the plain culled step equals the JAX package's
+    numpy predicate (its packing takes only multiples of 128 columns, so
+    the port's packs it)."""
+    s, c = 2, 1056
+    x, z, r, act = sorted_layout(s, c, seed=12, swap=0.01)
+    r[:, 7], r[:, 500] = np.nan, np.inf
+    prev = np.random.default_rng(1).integers(
+        0, 2**32, (s, c, c // 32), dtype=np.uint64).astype(np.uint32)
+    new, chg, frac = TG.aoi_step_culled(*_t(x, z, r, act),
+                                        TP.words_to_torch(prev, "cpu"))
+    with np.errstate(invalid="ignore"):
+        for sp in range(s):
+            want = TP.pack_rows(JP.interest_matrix(x[sp], z[sp], r[sp],
+                                                   act[sp]))
+            np.testing.assert_array_equal(TP.words_to_numpy(new)[sp], want)
+            np.testing.assert_array_equal(TP.words_to_numpy(chg)[sp],
+                                          want ^ prev[sp])
+    assert 0.0 <= float(frac) < 1.0
