@@ -31,12 +31,15 @@ Phases (any failure raises, so the exit code is non-zero):
                 shapes and around them (ragged: a 100-row rect block over
                 1056 candidates, culled at C = 1056 and 4160); the culled
                 step also against the dense kernel at full size, the
-                words kernel's culled fraction equal to the step's;
+                words kernel's culled fraction equal to the step's and
+                to the plain version of their vote (aoi_grid.tile_votes);
   6b. plans  -- both step modes (square and rect) and both culled kernels
-                at the tile's edge shapes under three launch plans other
-                than the card's own (its occupancy stood in for: one
-                block, a few, one per SM), bit-exact against the plain
-                versions, the culled fraction the same under each;
+                at the tile's edge shapes (and the words kernel's 16-byte
+                stores at 8 x 4096) under three launch plans other than
+                the card's own (its occupancy stood in for: one block, a
+                few, one per SM), bit-exact against the plain versions,
+                the culled fraction the same under each and equal to the
+                plain vote's;
   7. grid    -- the fixed-order culled tick (ops/cadence.FixedOrderGrid)
                 at BASELINE's `million` (64 x 16384) and `zipf100k`
                 (1 x 131072, 100k active, 90% in a hot zone): a re-sort,
@@ -46,6 +49,10 @@ Phases (any failure raises, so the exit code is non-zero):
                 which must equal the device words (the replay is the
                 check, timed apart from the decode); the final words
                 must equal the plain dense words of the final positions;
+                each re-sort's time is split into the sort and gathers,
+                the words kernel's launch alone (CUDA events around the
+                C call), the rest of its wrapper's bracket and the host
+                remainder;
   8. zipfshare -- one device's 16,384-row block of a row-sharded
                 `zipf100k` through the rectangular step, with the same
                 codec and replay checks;
@@ -60,7 +67,8 @@ Phases (any failure raises, so the exit code is non-zero):
                 where torch sees several cards, on distinct cards: a prime
                 tick and a walk tick, each mesh's words equal to the plain
                 version, its total to the plain popcount, each shard's
-                stream (max_words) to exactly its enter words;
+                stream (max_words) to exactly its enter words; the
+                kernel's launches are timed alone beside the wrapper's;
  11. engine on the mesh -- (a) Runtime on 4 virtual shards against the
                 single-device Runtime on phase 4's world and walk, equal
                 event CRC at every tick; (b) AOIEngine(mesh=...) at
@@ -208,16 +216,16 @@ def read_sm_clock():
 
 
 # the kernels whose pair region sass_per_pair reads: library, the
-# function name's mark of the instantiation, and whether its plane loop is
+# function name's mark of the kernel, and whether its plane loop is
 # unrolled (the dense step) or walks the voted planes (the culled kernels)
-SASS_KERNELS = {"aoi_step": ("aoi_step", "aoi_step_kernelILN8aoi_tile4EmitE1E",
+SASS_KERNELS = {"aoi_step": ("aoi_step", "aoi_step_kernelILN8aoi_tile4EmitE0E",
                              True),
                 "aoi_step_entlv": ("aoi_step",
-                                   "aoi_step_kernelILN8aoi_tile4EmitE2E",
+                                   "aoi_step_kernelILN8aoi_tile4EmitE1E",
                                    True),
-                "aoi_words_culled": ("aoi_grid", "aoi_culled_kernelILb0E",
+                "aoi_words_culled": ("aoi_grid", "culled_words_kernel",
                                      False),
-                "aoi_step_culled": ("aoi_grid", "aoi_culled_kernelILb1E",
+                "aoi_step_culled": ("aoi_grid", "culled_step_kernel",
                                     False)}
 SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                        r"([A-Z0-9_.]+)([^;]*);")
@@ -227,8 +235,8 @@ def pair_region(ins, unrolled):
     """Instructions per pair test of one kernel's SASS ``ins`` ([(address,
     opcode, operands)]); a pair test has two FSETP.  Unrolled: from the
     first to the last FSETP, over the pairs there.  Otherwise: the
-    shortest loop (a backward branch) holding one plane's pairs, 2 x 8
-    FSETP, over its pairs."""
+    shortest loop (a backward branch) holding one plane's pairs, at least
+    2 x 8 FSETP, over its pairs."""
     fsetp = [k for k, (_, op, _) in enumerate(ins) if op.startswith("FSETP")]
     if unrolled:
         return (fsetp[-1] - fsetp[0] + 1) / (len(fsetp) / 2)
@@ -407,32 +415,55 @@ def bucket_of(rt):
 
 class DeviceTimer:
     """Wraps ``module.name`` so that, while ``on``, each call is bracketed
-    by CUDA events; ``ms()`` sums the device time of the timed calls."""
+    by CUDA events (and the host clock: what the call blocks the host
+    for, allocations included); ``ms()`` sums the device time of the
+    timed calls, ``each()`` lists it."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.inner = getattr(module, name)
         self.on = False
-        self.events = []
+        self.events, self.host_ms = [], []
         setattr(module, name, self)
 
     def __call__(self, *a, **kw):
         if not self.on:
             return self.inner(*a, **kw)
+        return self.timed(self.inner, *a, **kw)
+
+    def timed(self, fn, *a, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         e0.record()
-        out = self.inner(*a, **kw)
+        out = fn(*a, **kw)
         e1.record()
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
         self.events.append((e0, e1))
         return out
 
     def restore(self):
         setattr(self.module, self.name, self.inner)
 
-    def ms(self):
+    def each(self):
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events)
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def ms(self):
+        return sum(self.each())
+
+
+class LaunchTimer(DeviceTimer):
+    """Wraps a wrapper module's getter of its C entry (``_lib``): while
+    ``on``, each call of the C function it hands out -- the kernel's
+    launch alone, without the wrapper's checks and allocations -- is
+    bracketed by CUDA events."""
+
+    def __call__(self, *a, **kw):
+        fn = self.inner(*a, **kw)
+        if not self.on:
+            return fn
+        return lambda *args: self.timed(fn, *args)
 
 
 def phase_main(Runtime, AK, AD, EV):
@@ -618,6 +649,15 @@ def culled_inputs(AG, s, c, seed):
     return [t.gather(1, perm) for t in (xs, zs, rs, acts)]
 
 
+def vote_frac(AG, x, r, act):
+    """The culled fraction of the kernels' vote in its plain version
+    (:func:`aoi_grid.tile_votes`), rounded as the wrappers round theirs."""
+    votes = AG.tile_votes(x, r, act).cpu().numpy().astype(np.uint32)
+    n = votes.size * 32
+    kept = int(np.unpackbits(votes.view(np.uint8)).sum())
+    return float(np.float32((n - kept) / n))
+
+
 def bytes_ops_bound(nbytes, pair_tests):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = pair_tests * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
@@ -694,6 +734,9 @@ def phase_culled(AG, AK):
         frac_w, frac_s = float(frac_w), float(frac_s)
         check(0.0 < frac_s < 1.0 and frac_w == frac_s,
               f"culled_frac {frac_w} / {frac_s} at {(s, c)}")
+        frac_v = vote_frac(AG, x, r, act)
+        check(frac_w == frac_v, f"culled_frac {frac_w} != the plain "
+              f"vote's {frac_v} at {(s, c)}")
         reps = 10 if s * c >= FULL else 30
         ms_w = cuda_ms(lambda: AG.aoi_words_culled_cuda(x, z, r, act), reps)
         ms_s = cuda_ms(lambda: AG.aoi_step_culled_cuda(x, z, r, act, prev),
@@ -721,7 +764,7 @@ def phase_culled(AG, AK):
 FORCED_OCCUPANCY = [(1, 1), (3, 2), (132, 1)]
 PLAN_SHAPES = [(2, 1056, None), (3, 96, None), (2, 100, 1056),
                (8, 4096, None)]
-PLAN_CULLED = [(2, 1056), (1, 4160)]
+PLAN_CULLED = [(2, 1056), (1, 4160), (8, 4096)]
 
 
 def phase_plans(AK, AG, AD):
@@ -763,8 +806,13 @@ def phase_plans(AK, AG, AD):
                 words_equal(f"culled step new at {at}", new, plain)
                 words_equal(f"culled step chg at {at}", chg, plain ^ prev)
                 fracs.setdefault((s, c), set()).update(
-                    (float(frac_w), float(frac_s)))
+                    (float(frac_w), float(frac_s),
+                     vote_frac(AG, x, r, act)))
                 plans.add(AG.last_plan["aoi_step_culled"])
+                plans.add(AG.last_plan["aoi_words_culled"])
+                check(AG.last_plan["aoi_words_culled"].tiles
+                      <= AG.WORDS_UNIT_TILES,
+                      f"words plan {AG.last_plan['aoi_words_culled']}")
     finally:
         AK.occupancy, AG.occupancy = real
     check(all(len(f) == 1 for f in fracs.values()),
@@ -930,26 +978,30 @@ def phase_grid(AG, CD, name):
     r, act = make_state(cfg)
     dev = torch.device(DEV)
     timers = [DeviceTimer(AG, "aoi_step_culled"),
-              DeviceTimer(AG, "aoi_words_culled")]
+              DeviceTimer(AG, "aoi_words_culled"),
+              DeviceTimer(AG, "sort_spaces"), LaunchTimer(AG, "_lib")]
     resort_ms = []
 
     def timed_resort(grid):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        timers[3].on = True  # the words kernel's launch alone
         words = grid.resort()
+        timers[3].on = False
         torch.cuda.synchronize()
         resort_ms.append((time.perf_counter() - t0) * 1e3)
         return words
 
     launches0 = dict(AG.launches)
     try:
-        for t in timers:
+        for t in timers:  # the launch timer only around the re-sorts
             t.on = True
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         grid = CD.FixedOrderGrid(torch.from_numpy(xs[0]).to(dev),
                                  torch.from_numpy(zs[0]).to(dev), r, act,
                                  cfg["world"])
+        timers[3].on = False
         torch.cuda.synchronize()
         resort_ms.append((time.perf_counter() - t0) * 1e3)
         run = StreamRun(CD, grid.words, grid.n_stream_chunks, grid=True)
@@ -968,8 +1020,19 @@ def phase_grid(AG, CD, name):
             fracs.append(float(frac))
         del new, chg
         kernel_ms = step_timer.ms() / run.ticks
-        timers[1].ms()  # synchronizes
-        words_ms = [a.elapsed_time(b) for a, b in timers[1].events]
+        words_ms = timers[1].each()
+        # each re-sort's time split: the sort and gathers and the words
+        # wrapper on the device clock, the wrapper's launch alone (the
+        # rest of its bracket is the device waiting for the host: the
+        # output's allocation), the wrapper's host time, and what is
+        # left of the host clock (the permutation's fetch to the host)
+        split = [{"resort_ms": rs, "sort_gather_ms": sg,
+                  "words_bracket_ms": wb, "words_launch_ms": wl,
+                  "words_wait_ms": wb - wl, "words_host_ms": wh,
+                  "rest_ms": rs - sg - wb}
+                 for rs, sg, wb, wl, wh in zip(
+                     resort_ms, timers[2].each(), words_ms,
+                     timers[3].each(), timers[1].host_ms)]
     finally:
         for t in timers:
             t.restore()
@@ -988,6 +1051,8 @@ def phase_grid(AG, CD, name):
            "measured": run.ticks, "kernel_ms": kernel_ms,
            **run.report(), "resort_ms": resort_ms,
            "resort_words_kernel_ms": words_ms,
+           "resort_words_launch_ms": [d["words_launch_ms"] for d in split],
+           "resort_split": split,
            "culled_frac_mean": sum(fracs) / len(fracs),
            "culled_frac_min": min(fracs),
            "launches": {k: v - launches0[k] for k, v in AG.launches.items()}}
@@ -1139,6 +1204,7 @@ def phase_sharded_step(AK, AD, EV, SpaceMesh, make_sharded_aoi_step):
     w = c // 32
     rt_, at = torch.from_numpy(r).to(DEV), torch.from_numpy(act).to(DEV)
     timer = DeviceTimer(AK, "aoi_step_entlv")
+    launch = LaunchTimer(AK, "_lib")  # the kernel's launches alone
     runs = []
     try:
         for label, mesh in meshes(SpaceMesh, 4):
@@ -1151,13 +1217,14 @@ def phase_sharded_step(AK, AD, EV, SpaceMesh, make_sharded_aoi_step):
             for t in range(2):
                 x, z = put(xs[t]), put(zs[t])
                 timer.events.clear()
-                timer.on = True
+                launch.events.clear()
+                timer.on = launch.on = True
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 new, ent, lv, total = step(x, z, *stat, prev)
                 torch.cuda.synchronize()
                 step_ms = (time.perf_counter() - t0) * 1e3
-                timer.on = False
+                timer.on = launch.on = False
                 xt = torch.from_numpy(xs[t]).to(DEV)
                 zt = torch.from_numpy(zs[t]).to(DEV)
                 plain_total = 0
@@ -1182,7 +1249,8 @@ def phase_sharded_step(AK, AD, EV, SpaceMesh, make_sharded_aoi_step):
                           f"{runs[0]['mesh']}")
                 run["ticks"].append({"total_events": total,
                                      "step_ms": step_ms,
-                                     "kernel_ms": timer.ms()})
+                                     "kernel_ms": timer.ms(),
+                                     "launch_ms": launch.ms()})
                 if t == 1:
                     run["streams"] = check_streams(
                         make_sharded_aoi_step, mesh, x, z, stat, prev, ent)
@@ -1194,6 +1262,7 @@ def phase_sharded_step(AK, AD, EV, SpaceMesh, make_sharded_aoi_step):
             torch.cuda.empty_cache()
     finally:
         timer.restore()
+        launch.restore()
     return {"config": "million", "spaces": s, "capacity": c, "meshes": runs}
 
 
@@ -1474,6 +1543,8 @@ def main():
                 "shapes": shape_rows}
 
     grid_ms = {g["config"]: g["kernel_ms"] for g in grid_out}
+    words_full = next(r for r in culled_rows["aoi_words_culled"]
+                      if tuple(r["shape"]) == (64, 16384))
     entlv_path_ms = {m["mesh"]: m["ticks"][1]["kernel_ms"]
                      for m in sharded["meshes"]}
     kernels = {"kernels": [
@@ -1486,7 +1557,11 @@ def main():
         entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
               culled_launches["aoi_words_culled"],
               culled_rows["aoi_words_culled"], (64, 16384),
-              main_path_ms=grid_out[0]["resort_words_kernel_ms"]),
+              main_path_ms={g["config"]: g["resort_words_kernel_ms"]
+                            for g in grid_out},
+              main_path_launch_ms={g["config"]: g["resort_words_launch_ms"]
+                                   for g in grid_out},
+              fill_ms=words_full["words_yardstick"]["fill_ms"]),
         entry("aoi_step_culled", "goworld_tpu/ops/aoi_grid.py:235",
               culled_launches["aoi_step_culled"],
               culled_rows["aoi_step_culled"], (64, 16384),

@@ -1,9 +1,10 @@
 // The AOI predicate's block tile and the persistent walk, shared by
 // aoi_step.cu (dense square and rectangular step) and aoi_grid.cu
-// (block-culled words and step): the launch plan and its unit walk, the
-// staging of 32 candidate planes, the observer rows, the asynchronous copy
-// of prev, the pair test and the masked, coalesced store.  One copy, so
-// the kernels cannot drift apart.
+// (block-culled step): the launch plan and its unit walk, the staging of
+// 32 candidate planes, the observer rows, the asynchronous copy of prev,
+// the pair test and the masked, coalesced store.  The culled words pass
+// (aoi_grid.cu) takes the plan, the staging and the pair test.  One copy,
+// so the kernels cannot drift apart.
 //
 // Layout (block TW x TY threads): a thread owns one word column w and RPT
 // consecutive observer rows i = row0 + ty*RPT + q of a TR-row tile; the
@@ -303,10 +304,10 @@ __device__ __forceinline__ void test_planes(const Cols& c, const Rows& rw,
   }
 }
 
-// What the masked store writes beside new: nothing (the words kernel),
-// chg = new ^ prev (out1), or enter = new & ~prev (out1) and leave =
-// prev & ~new (out2), prev read back from the thread's ring slot.
-enum class Emit { kWords, kChg, kEntlv };
+// What the masked store writes beside new: chg = new ^ prev (out1), or
+// enter = new & ~prev (out1) and leave = prev & ~new (out2), prev read
+// back from the thread's ring slot.
+enum class Emit { kChg, kEntlv };
 
 // Write new and the words of mode E for the thread's rows below R,
 // coalesced along w.  Every word is written, zero where nothing was
@@ -338,13 +339,11 @@ __device__ __forceinline__ void store_rows(const Cols& c, const Rows& rw,
       const uint32_t keep = w == (self >> 5) ? ~(1u << (self & 31)) : FULL;
       const uint32_t v = ((rw.act >> q) & 1u) ? (acc[q] & am & keep) : 0u;
       new_out[o] = (int32_t)v;
-      if constexpr (E != Emit::kWords) {
-        const uint32_t p = pv[threadIdx.y * RPT + q][threadIdx.x];
-        if constexpr (E == Emit::kChg) out1[o] = (int32_t)(v ^ p);
-        if constexpr (E == Emit::kEntlv) {
-          out1[o] = (int32_t)(v & ~p);
-          out2[o] = (int32_t)(p & ~v);
-        }
+      const uint32_t p = pv[threadIdx.y * RPT + q][threadIdx.x];
+      if constexpr (E == Emit::kChg) out1[o] = (int32_t)(v ^ p);
+      if constexpr (E == Emit::kEntlv) {
+        out1[o] = (int32_t)(v & ~p);
+        out2[o] = (int32_t)(p & ~v);
       }
     }
     o += W;

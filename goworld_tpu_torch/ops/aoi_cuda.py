@@ -112,23 +112,26 @@ class StepPlan:
     units: int      # S * runs * groups
 
 
-def step_plan(s: int, r: int, w: int, n_sms: int,
-              blocks_per_sm: int) -> StepPlan:
+def step_plan(s: int, r: int, w: int, n_sms: int, blocks_per_sm: int,
+              max_tiles: int | None = None) -> StepPlan:
     """The plan for S spaces of R observer rows and W words per row on a
     card with ``n_sms`` SMs that hold ``blocks_per_sm`` blocks each.  The
     units number at least ``UNITS_PER_BLOCK`` x the resident blocks (or
-    one per tile where there are fewer tiles), the runs of a group are as
-    even as they can be, and the grid never exceeds the resident blocks or
-    the units.  Raises ValueError on a shape the kernel refuses."""
+    one per tile where there are fewer tiles), hold at most ``max_tiles``
+    row tiles each (where given), the runs of a group are as even as they
+    can be, and the grid never exceeds the resident blocks or the units.
+    Raises ValueError on a shape the kernel refuses."""
     if min(s, r, w) < 1 or r > 1 << 30 or w > 1 << 25:
         raise ValueError(f"step_plan: shape S={s} R={r} W={w} out of range")
     if n_sms < 1 or blocks_per_sm < 1:
         raise ValueError(f"step_plan: {n_sms} SMs x {blocks_per_sm} blocks")
+    if max_tiles is not None and max_tiles < 1:
+        raise ValueError(f"step_plan: max_tiles {max_tiles}")
     row_tiles = -(-r // TILE_ROWS)
     groups = -(-w // GROUP_WORDS)
     resident = n_sms * blocks_per_sm
     most = max(1, s * groups * row_tiles // (UNITS_PER_BLOCK * resident))
-    runs = -(-row_tiles // min(most, row_tiles))
+    runs = -(-row_tiles // min(most, row_tiles, max_tiles or row_tiles))
     tiles = -(-row_tiles // runs)
     units = s * runs * groups
     if units > MAX_UNITS:

@@ -15,9 +15,13 @@ plain versions, which are the dense words of :mod:`aoi_dense` plus
 :func:`cull_table`'s fraction.  ``launches`` counts kernel launches per
 kernel, and nothing else.
 
-The kernels are persistent: :func:`culled_plan` sizes the grid from what
-fits on the card and cuts the work into the dense step's units (see
-:mod:`.aoi_cuda`).
+The kernels are persistent: :func:`culled_plan` (the step) and
+:func:`words_plan` (the words pass, whose units hold at most
+``WORDS_UNIT_TILES`` row tiles) size the grid from what fits on the card
+and cut the work into the dense step's units (see :mod:`.aoi_cuda`).
+Both kernels decide the cull per (64-row tile, 32-word group, plane) by
+the same rule, so their culled fractions are equal; :func:`tile_votes`
+is that decision's plain version.
 
 The culled fraction is what each side's own tiles skip: the plain version
 uses the JAX package's table at the same ``(block_rows, col_words)``,
@@ -117,6 +121,70 @@ def cull_table(x, radius, active, block_rows: int = 128, col_words: int = 0):
     return need, culled_frac
 
 
+def _pad_last(t, n, value):
+    """``t`` padded along its last dimension to ``n`` with ``value``."""
+    if t.shape[-1] == n:
+        return t
+    fill = torch.full((*t.shape[:-1], n - t.shape[-1]), value, dtype=t.dtype,
+                      device=t.device)
+    return torch.cat([t, fill], -1)
+
+
+def _fma_f32(a, b: float, c: float):
+    """``fl32(a * b + c)`` rounded once, as a float32 fused multiply-add
+    rounds it (``a`` float32; ``b``, ``c`` taken as float32): the product
+    is exact in float64, the sum is rounded to odd there (TwoSum's error
+    decides the last bit), and float64 -> float32 then rounds as one
+    rounding of the exact value would."""
+    b32 = torch.tensor(b, dtype=torch.float32).item()
+    c32 = torch.tensor(c, dtype=torch.float32).item()
+    p = a.double() * b32
+    s = p + c32
+    t = s - p
+    err = (p - (s - t)) + (c32 - t)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.float()
+
+
+def tile_votes(x, radius, active):
+    """``need[s, t, g]`` (int64, bits 0-31): the planes the CUDA kernels
+    test for 64-row tile ``t`` and 32-word group ``g`` of [S, C] inputs
+    in slot order, and the culled (tile, group, plane) steps they count.
+
+    Plane ``k`` of group ``g`` holds the columns ``j = k*W + 32g + l``
+    (``l < 32``, ``32g + l < W``); it spans ``[min x, max x]`` over those
+    active with a finite x.  The tile reaches ``[min(x - r), max(x + r)]``
+    over its active rows with finite x and r, widened by ``m = 1e-3 +
+    1e-5 * max(|x| + |r|)`` over the same rows (one fused multiply-add in
+    the kernels); a tile holding an active r = +inf needs every plane.
+    Float32 throughout, the margin rounded once."""
+    s, c = x.shape
+    w = words_per_row(c)
+    rt, gr = -(-c // 64), -(-w // 32)
+    row_in = _pad_last(active & torch.isfinite(x) & torch.isfinite(radius),
+                       rt * 64, False).reshape(s, rt, 64)
+    xr = _pad_last(x, rt * 64, 0.0).reshape(s, rt, 64)
+    rr = _pad_last(radius, rt * 64, 0.0).reshape(s, rt, 64)
+    lo = torch.where(row_in, xr - rr, _INF).amin(2)
+    hi = torch.where(row_in, xr + rr, -_INF).amax(2)
+    mag = torch.where(row_in, xr.abs() + rr.abs(), 0.0).amax(2)
+    every = _pad_last(active & (radius == _INF), rt * 64,
+                      False).reshape(s, rt, 64).any(2)
+    m = _fma_f32(mag, 1e-5, 1e-3)
+    col_in = _pad_last((active & torch.isfinite(x)).reshape(s, WORD_BITS, w),
+                       gr * 32, False).reshape(s, WORD_BITS, gr, 32)
+    xc = _pad_last(x.reshape(s, WORD_BITS, w), gr * 32,
+                   0.0).reshape(s, WORD_BITS, gr, 32)
+    col_lo = torch.where(col_in, xc, _INF).amin(3).transpose(1, 2)
+    col_hi = torch.where(col_in, xc, -_INF).amax(3).transpose(1, 2)
+    need = ((col_lo[:, None] <= (hi + m)[:, :, None, None])
+            & (col_hi[:, None] >= (lo - m)[:, :, None, None]))
+    need |= every[:, :, None, None]  # [s, t, g, k]
+    bits = torch.arange(WORD_BITS, dtype=torch.int64, device=x.device)
+    return (need.to(torch.int64) << bits).sum(3)
+
+
 # -- plain versions (what the CPU runs; the kernels' references) -------------
 
 
@@ -146,15 +214,28 @@ def aoi_step_culled_plain(x, z, radius, active, prev_words, *, block_rows=512,
 # -- the kernels ---------------------------------------------------------------
 
 
-def culled_plan(s: int, c: int, n_sms: int, blocks_per_sm: int) -> StepPlan:
-    """The persistent culled kernels' plan for S spaces of capacity C (the
+# row tiles a unit of the words kernel holds at most: its rows are staged
+# in shared memory (csrc/aoi_grid.cu UNIT_TILES)
+WORDS_UNIT_TILES = 32
+
+
+def culled_plan(s: int, c: int, n_sms: int, blocks_per_sm: int,
+                max_tiles: int | None = None) -> StepPlan:
+    """The persistent culled step's plan for S spaces of capacity C (the
     dense step's walk, :func:`.aoi_cuda.step_plan`, over the square
-    [S, C, C / 32] words).  Raises ValueError on a shape the kernels
+    [S, C, C / 32] words); ``max_tiles`` caps the row tiles a unit
+    holds (:func:`words_plan`).  Raises ValueError on a shape the kernels
     refuse."""
     if c % WORD_BITS != 0:
         raise ValueError(f"culled_plan: capacity {c} not a multiple of "
                          f"{WORD_BITS}")
-    return step_plan(s, c, c // WORD_BITS, n_sms, blocks_per_sm)
+    return step_plan(s, c, c // WORD_BITS, n_sms, blocks_per_sm, max_tiles)
+
+
+def words_plan(s: int, c: int, n_sms: int, blocks_per_sm: int) -> StepPlan:
+    """The words kernel's plan: :func:`culled_plan` with at most
+    ``WORDS_UNIT_TILES`` row tiles a unit."""
+    return culled_plan(s, c, n_sms, blocks_per_sm, WORDS_UNIT_TILES)
 
 
 def _lib():
@@ -179,14 +260,15 @@ def _launch(name, x, z, radius, active, prev_words):
     if prev_words is not None:
         prev = prev_words.contiguous()
         chg = torch.empty(shape, dtype=torch.int32, device=x.device)
-    skipped = torch.zeros((), dtype=torch.int64, device=x.device)
+    # the culled steps and the words kernel's unit queue
+    skipped = torch.zeros(2, dtype=torch.int64, device=x.device)
     if s == 0 or c == 0:
-        return new, chg, skipped.to(torch.float32)
+        return new, chg, skipped[0].to(torch.float32)
     tiles = ctypes.c_int64(0)
     fn = _lib()
-    plan = culled_plan(s, c, *occupancy(
-        "aoi_grid", "gw_aoi_culled_occupancy", int(prev is not None),
-        x.device))
+    plan = (culled_plan if prev is not None else words_plan)(
+        s, c, *occupancy("aoi_grid", "gw_aoi_culled_occupancy",
+                         int(prev is not None), x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in ins),
@@ -197,7 +279,8 @@ def _launch(name, x, z, radius, active, prev_words):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1
     last_plan[name] = plan
-    frac = (skipped.to(torch.float64) / max(tiles.value, 1)).to(torch.float32)
+    frac = (skipped[0].to(torch.float64) / max(tiles.value, 1)).to(
+        torch.float32)
     return new, chg, frac
 
 

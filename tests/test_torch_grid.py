@@ -9,6 +9,8 @@ Non-finite radii are held to the JAX package's DENSE words: its cull
 table's margin is max(radius) over all slots, so one NaN radius culls
 every block and its culled words come out empty (pinned below)."""
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -158,10 +160,11 @@ def test_nan_radius_culls_everything_in_jax_but_not_in_the_port():
     assert float(frac) > 0.5
 
 
-@pytest.mark.parametrize("case", ["nan-radius", "inf-radius", "nan-x",
-                                  "inf-positions"])
-def test_non_finite_inputs_equal_jax_dense_words(case):
-    s, c = 2, 1024
+NON_FINITE = ["nan-radius", "inf-radius", "nan-x", "inf-positions"]
+
+
+def non_finite_layout(case, s=2, c=1024):
+    """A nearly sorted layout with the non-finite inputs of ``case``."""
     x, z, r, act = sorted_layout(s, c, seed=len(case), swap=0.01)
     if case == "nan-radius":
         r[:, 300] = np.nan
@@ -169,13 +172,20 @@ def test_non_finite_inputs_equal_jax_dense_words(case):
     elif case == "inf-radius":
         r[0, 700] = np.inf
         r[1, 0] = np.inf
-        x[1, 1000] = np.inf  # an infinite position only r = +inf reaches
+        x[1, 1000 * c // 1024] = np.inf  # only r = +inf reaches it
     elif case == "nan-x":
         x[:, 400] = np.nan
         z[0, 401] = np.nan
     else:
         x[0, 10], x[0, 11], z[1, 12] = np.inf, -np.inf, np.inf
         r[0, 11] = np.inf
+    return x, z, r, act
+
+
+@pytest.mark.parametrize("case", NON_FINITE)
+def test_non_finite_inputs_equal_jax_dense_words(case):
+    s, c = 2, 1024
+    x, z, r, act = non_finite_layout(case, s, c)
     rng = np.random.default_rng(1)
     prev = rng.integers(0, 2**32, (s, c, c // 32), dtype=np.uint64)
     prev = prev.astype(np.uint32)
@@ -309,3 +319,125 @@ def test_plain_culled_step_at_a_ragged_width():
             np.testing.assert_array_equal(TP.words_to_numpy(chg)[sp],
                                           want ^ prev[sp])
     assert 0.0 <= float(frac) < 1.0
+
+
+# -- the words kernel: its launch plan and its vote (plain versions) ----------
+
+
+@pytest.mark.parametrize("s,c,n_sms,bps", CULLED_PLAN_SHAPES)
+def test_words_plan_covers_every_tile_once_in_short_units(s, c, n_sms, bps):
+    """The words kernel stages a unit's rows in shared memory, so its
+    units hold at most WORDS_UNIT_TILES row tiles; they still cover every
+    (space, row tile, word group) once, and where the step's units are
+    that short already the plans are the same."""
+    plan = TG.words_plan(s, c, n_sms, bps)
+    assert 1 <= plan.tiles <= TG.WORDS_UNIT_TILES
+    assert 1 <= plan.grid <= min(n_sms * bps, plan.units)
+    seen = covered_tiles(plan, s)
+    want = {(sp, t, g) for sp in range(s) for t in range(-(-c // 64))
+            for g in range(-(-(c // 32) // 32))}
+    assert len(seen) == len(want) and set(seen) == want
+    step = TG.culled_plan(s, c, n_sms, bps)
+    assert (plan == step) == (step.tiles <= TG.WORDS_UNIT_TILES)
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((1, 100, 132, 4), {}), ((0, 128, 132, 4), {}), ((1, 128, 0, 4), {}),
+    ((1, 128, 132, 0), {}), ((1, 128, 132, 4), {"max_tiles": 0})])
+def test_words_plan_refuses_what_the_kernel_refuses(args, kw):
+    with pytest.raises(ValueError, match="plan"):
+        if kw:
+            TG.culled_plan(*args, **kw)
+        else:
+            TG.words_plan(*args)
+
+
+def _round_f32(q):
+    """The float32 nearest the rational ``q`` (ties to even)."""
+    v = np.float32(float(q))
+    best = None
+    for cand in (np.nextafter(v, np.float32(-np.inf)), v,
+                 np.nextafter(v, np.float32(np.inf))):
+        d = abs(Fraction(float(cand)) - q)
+        key = (d, int(np.array(cand).view(np.uint32)) & 1)
+        if best is None or key < best[0]:
+            best = (key, cand)
+    return best[1]
+
+
+def numpy_votes(x, r, act):
+    """The kernels' vote, one tile and group at a time: ``need[s, t, g]``
+    with bit k set where plane k is tested."""
+    s, c = x.shape
+    w = c // 32
+    f32 = np.float32
+    b, a = Fraction(float(f32(1e-5))), Fraction(float(f32(1e-3)))
+    need = np.zeros((s, -(-c // 64), -(-w // 32)), np.int64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for sp in range(s):
+            for t in range(need.shape[1]):
+                lo, hi, mag, every = f32(np.inf), f32(-np.inf), f32(0), False
+                for i in range(64 * t, min(64 * t + 64, c)):
+                    xi, ri = x[sp, i], r[sp, i]
+                    every |= bool(act[sp, i] and ri == np.inf)
+                    if act[sp, i] and np.isfinite(xi) and np.isfinite(ri):
+                        lo = min(lo, f32(xi - ri))
+                        hi = max(hi, f32(xi + ri))
+                        mag = max(mag, f32(abs(xi) + abs(ri)))
+                m = _round_f32(Fraction(float(mag)) * b + a)
+                for g in range(need.shape[2]):
+                    for k in range(32):
+                        j = k * w + np.arange(32 * g, min(32 * g + 32, w))
+                        on = act[sp, j] & np.isfinite(x[sp, j])
+                        if every or (on.any() and
+                                     x[sp, j][on].min() <= f32(hi + m) and
+                                     x[sp, j][on].max() >= f32(lo - m)):
+                            need[sp, t, g] |= 1 << k
+    return need
+
+
+VOTE_CASES = [("sorted", 1024), ("nearly-sorted", 1024), ("hotspot", 1024),
+              ("tie-lattice", 1024), ("nearly-sorted", 1056)] + \
+    [(case, 1024) for case in NON_FINITE]
+
+
+def vote_layout(name, c):
+    if name in NON_FINITE:
+        return non_finite_layout(name, 2, c)
+    return layout(name, 2, c, seed=c + len(name))
+
+
+@pytest.mark.parametrize("name,c", VOTE_CASES)
+def test_tile_votes_match_a_numpy_loop(name, c):
+    """tile_votes (what the kernels' culled count is held to on the card)
+    against a loop over tiles, groups and planes; the margin rounded once
+    from its exact value."""
+    x, z, r, act = vote_layout(name, c)
+    got = TG.tile_votes(*_t(x, r, act))
+    np.testing.assert_array_equal(got.numpy(), numpy_votes(x, r, act))
+    assert 0 < int(got.ne(0xFFFFFFFF).sum())  # some tile culls a plane
+
+
+@pytest.mark.parametrize("name,c", VOTE_CASES)
+def test_tile_votes_only_admit(name, c):
+    """Every bit of the JAX package's dense words lies in a (64-row tile,
+    32-word group, plane) the kernels' vote admits, and a tile holding an
+    active +inf radius admits every plane."""
+    x, z, r, act = vote_layout(name, c)
+    need = TG.tile_votes(*_t(x, r, act)).numpy()
+    s, w = x.shape[0], c // 32
+    if c % 128 == 0:
+        dense, _ = JD.aoi_step_chg_dense(*map(jnp.asarray, (x, z, r, act)),
+                                         jnp.zeros((s, c, w), jnp.uint32))
+        pairs = [TP.unpack_rows(np.asarray(dense)[sp], c) for sp in range(s)]
+    else:  # its packing takes multiples of 128 columns: its numpy predicate
+        with np.errstate(invalid="ignore"):
+            pairs = [JP.interest_matrix(x[sp], z[sp], r[sp], act[sp])
+                     for sp in range(s)]
+    for sp in range(s):
+        i, j = np.nonzero(pairs[sp])
+        assert i.size > 0
+        k, word = j // w, j % w
+        assert ((need[sp, i // 64, word // 32] >> k) & 1).all()
+        for t in np.unique(np.nonzero(act[sp] & (r[sp] == np.inf))[0] // 64):
+            assert (need[sp, t] == 0xFFFFFFFF).all()
