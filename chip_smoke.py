@@ -24,6 +24,24 @@ Phases (any failure raises, so the exit code is non-zero):
   5. parity  -- the same seeded walk at 2 spaces x 2,000 entities on
                 device="cuda" and device="cpu": the CRCs of the delivered
                 enter/leave arrays must be equal;
+ 13. deferred -- phase 4's world and walk on Runtime(aoi_pipeline=True),
+                (aoi_cross_tick=True) and both, in turns with the
+                sequential Runtime (each twice): the sequential per-tick
+                CRCs equal phase 4's, a deferred run's equal them shifted
+                by one tick (tick 0 empty, the last out of
+                AOIEngine.drain); tick, loop (walk + tick) and split
+                times, the triple prefetch's hit rate;
+ 14. fused   -- phase 4's world under a sparse walk (10% movers a tick,
+                bench.py's movers_frac=0.1) with one r-change tick and one
+                tick moving everyone (both restage in full: the unfused
+                flow): unfused, fused (aoi_fused=True: a steady tick is one
+                replay of a CUDA graph around csrc/aoi_step.cu) and fused
+                + cross-tick in turns; fused CRCs equal the unfused ones
+                per tick, fused + cross-tick's shifted by one; a measured
+                tick counts 1 dispatch fused and 2 unfused; the fused
+                dispatches equal the eligible ticks; no new capture key
+                after warm-up; every aoi_step launch a replay, an unfused
+                tick's or a capture's warm-up; graphs, their pool bytes;
   6. giant kernels -- the rectangular step and the two block-culled
                 kernels against their plain versions on the card,
                 bit-exact, over edge-case inputs (NaN and +inf radii,
@@ -75,23 +93,27 @@ Phases (any failure raises, so the exit code is non-zero):
                 `million` on one shard and on 4 virtual shards: a prime
                 tick (the counted recovery), 3 warm-up and 8 measured
                 ticks decoding the per-shard streams, equal per-tick CRCs,
-                final words equal to the plain dense words;
+                final words equal to the plain dense words; then each
+                mesh pipelined, its CRCs the same shifted by one tick;
  12. row-sharded -- one `zipf100k` space (1 x 131072) on the row-sharded
                 bucket, on one shard and on 8 virtual shards (each then
                 `zipfshare`'s 16384 x 131072 block): a prime tick and 4
                 ticks, equal per-tick CRCs, the shards' words equal to the
                 square kernel's, derive_row/derive_col equal to them.
 
-Virtual shards are shards of one card taking turns on it: their times
-are one card's, not a multi-card layout's.  The last lines are
+Phases 13 and 14 run after phase 5.  Virtual shards are shards of one
+card taking turns on it: their times are one card's, not a multi-card
+layout's.  The last lines are {"deferred": ...} (phases 13-14),
 {"mesh": ...}, {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
 3), {"kernels": [...]} and {"ok": true, "device": {...}}.
 Kernel launches are counted on the path each kernel serves, with the
-counts reset just before it: the square step in phase 4, the culled
-kernels in phase 7, the rectangular step in phase 8, the entlv mode in
-phase 10.
+counts reset just before it: the square step in phase 4 and in each
+deferred and fused run of phases 13 and 14 (a graph replay counts one
+launch; its entry's "launches" is their sum, "path_launches" each),
+the culled kernels in phase 7, the rectangular step in phase 8, the
+entlv mode in phase 10.
 """
 
 from __future__ import annotations
@@ -367,14 +389,19 @@ def build_world(Runtime, device, spaces, per_space, capacity, seed, **rt_kw):
     rt = Runtime(device=device, **rt_kw)
     for cls in (SmokeScene, SmokeMob, SmokeWatcher):
         rt.entities.register(cls)
-    crc = {"v": 0, "events": 0}
+    # v/events: the run's CRC and event count; t/te: the current tick's
+    # (zeroed before each tick by the phase that ticks)
+    crc = {"v": 0, "events": 0, "t": 0, "te": 0}
     take = rt.aoi.take_events
 
     def folding_take(h):
         ev = take(h)
         for a in ev:
-            crc["v"] = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc["v"])
+            b = np.ascontiguousarray(a).tobytes()
+            crc["v"] = zlib.crc32(b, crc["v"])
+            crc["t"] = zlib.crc32(b, crc["t"])
             crc["events"] += len(a)
+            crc["te"] += len(a)
         return ev
 
     rt.aoi.take_events = folding_take
@@ -478,11 +505,18 @@ def phase_main(Runtime, AK, AD, EV):
     # path: CUDA events around each call the bucket makes (the wrappers
     # launch nothing of their own)
     timers = [DeviceTimer(AK, "aoi_step_chg"), DeviceTimer(EV, "extract_triples")]
+    tick_crcs = []  # per tick: (CRC of its delivered arrays, their count)
+
+    def tick():
+        crc["t"] = crc["te"] = 0
+        rt.tick()
+        tick_crcs.append((f"{crc['t']:08x}", crc["te"]))
+
     try:
         AK.reset_launches()
         ticks = 0
         t0 = time.perf_counter()
-        rt.tick()  # prime: the mass enter
+        tick()  # prime: the mass enter
         ticks += 1
         torch.cuda.synchronize()
         prime_s = time.perf_counter() - t0
@@ -492,7 +526,7 @@ def phase_main(Runtime, AK, AD, EV):
               " (want the counted full-grid recovery)")
         for _ in range(WARMUP):
             walk(spaces_l, slots, pos, rng)
-            rt.tick()
+            tick()
             ticks += 1
         overflow0 = bucket.stats["decode_overflow"]
         perf0 = dict(bucket.perf)
@@ -505,7 +539,7 @@ def phase_main(Runtime, AK, AD, EV):
             td = time.perf_counter()
             walk(spaces_l, slots, pos, rng)
             tt = time.perf_counter()
-            rt.tick()
+            tick()
             ticks += 1
             torch.cuda.synchronize()
             drive_s += tt - td
@@ -553,7 +587,7 @@ def phase_main(Runtime, AK, AD, EV):
            "emit": bucket._emit, "crc": f"{crc['v']:08x}",
            "kernel_launches": launches}
     log("main", json.dumps(out))
-    return out
+    return out, tick_crcs
 
 
 def phase_parity(Runtime):
@@ -574,6 +608,222 @@ def phase_parity(Runtime):
     log("parity", json.dumps({d: f"{v[0]:08x} ({v[1]} events)"
                               for d, v in crcs.items()}))
     return crcs
+
+
+# -- phases 13/14: the deferred and the fused tick at phase 4's world ---------
+
+RT_MODES = {"sequential": {}, "pipeline": {"aoi_pipeline": True},
+            "cross_tick": {"aoi_cross_tick": True},
+            "both": {"aoi_pipeline": True, "aoi_cross_tick": True},
+            "unfused": {}, "fused": {"aoi_fused": True},
+            "fused+cross_tick": {"aoi_fused": True, "aoi_cross_tick": True}}
+# phase 13: phase 4's schedule (a prime tick, 3 warm-up, 20 measured, the
+# full walk); the modes in turns, each twice
+PIPE_TURNS = ["sequential", "pipeline", "cross_tick", "both", "both",
+              "cross_tick", "pipeline", "sequential"]
+PIPE_SCHEDULE = [None] + [1.0] * (WARMUP + MEASURED)
+# phase 14: a prime tick, then bench.py's movers_frac=0.1 walk with one
+# r-change tick and one tick where every entity moves (both restage in
+# full: the unfused flow), then warm-up ticks until the triple cap has
+# settled; measured from FUSED_MEASURE_FROM on
+FUSED_TURNS = ["unfused", "fused", "fused+cross_tick", "fused+cross_tick",
+               "fused", "unfused"]
+FUSED_SCHEDULE = [None, 0.1, 0.1, 0.1, "radius", 1.0] + [0.1] * 40
+FUSED_FALLBACK = [0, 4, 5]  # the ticks that restage in full
+FUSED_MEASURE_FROM = 30
+
+
+def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
+    """Phase 4's world (same seed, same walk) on ``Runtime(**RT_MODES[
+    mode])`` through ``schedule`` (per tick: None for the prime tick, a
+    walk fraction, or "radius": one entity's r changes and 10% move).
+    Per tick: the CRC and count of the arrays it delivered and its
+    dispatches; the deferred trailing tick out of ``AOIEngine.drain``.
+    Times over the ticks from ``measure_from`` on: ``tick_ms`` (the host
+    in ``Runtime.tick``, no sync), ``loop_ms`` (walk + tick, one sync at
+    the end: a deferred tick's device work overlaps the next walk), the
+    bucket's perf split."""
+    import gc
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, DEV, SPACES, PER_SPACE, CAPACITY, seed=7, **RT_MODES[mode])
+    bucket = bucket_of(rt)
+    AK.reset_launches()
+    DC.clear_keys()
+    rows, tick_s, mem1 = [], 0.0, None
+    for t, what in enumerate(schedule):
+        if t == measure_from:
+            torch.cuda.synchronize()
+            perf0, stats0 = dict(bucket.perf), dict(bucket.stats)
+            mem1 = torch.cuda.memory_stats()
+            DC.reset_keys()
+            t_loop = time.perf_counter()
+        if what == "radius":
+            spaces_l[0]._cols.r[slots[0][1]] += 7.0
+            walk(spaces_l, slots, pos, rng, frac=0.1)
+        elif what is not None:
+            walk(spaces_l, slots, pos, rng, frac=what)
+        crc["t"] = crc["te"] = 0
+        DC.reset()
+        t0 = time.perf_counter()
+        rt.tick()
+        if t >= measure_from:
+            tick_s += time.perf_counter() - t0
+        rows.append((f"{crc['t']:08x}", crc["te"], DC.read(),
+                     bucket._max_triples))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    n = len(schedule) - measure_from
+    crc["t"] = crc["te"] = 0
+    rt.aoi.drain()
+    for sp in spaces_l:
+        sp.dispatch_aoi_events()
+    trailing = (f"{crc['t']:08x}", crc["te"])
+    st = dict(bucket.stats)
+    fz = bucket._fz
+    out = {"mode": mode, "ticks": len(schedule), "measured": n,
+           "tick_ms": tick_s * 1e3 / n, "loop_ms": loop_s * 1e3 / n,
+           "perf_ms": {k[:-2] + "_ms": (bucket.perf[k] - perf0[k]) * 1e3 / n
+                       for k in bucket.perf},
+           "stats": st, "measured_stats": {k: st[k] - stats0[k]
+                                           for k in ("prefetch_hits",
+                                                     "prefetch_misses",
+                                                     "fused_dispatches")},
+           "launches": AK.launches["aoi_step"],
+           "new_keys_measured": DC.new_keys(),
+           "graphs": 0 if fz is None else len(fz.graphs),
+           "captures": 0 if fz is None else fz.captures,
+           "graph_pool_bytes": 0 if fz is None else fz.pool_bytes(),
+           # torch.cuda.memory_stats before the world and after warm-up
+           "reserved_bytes": [mem0["reserved_bytes.all.current"],
+                              mem1["reserved_bytes.all.current"]],
+           "allocated_bytes": [mem0["allocated_bytes.all.current"],
+                               mem1["allocated_bytes.all.current"]]}
+    # a space's slot -> entity object array is not traversed by the cycle
+    # collector, so a world never frees by itself (ROADMAP.md queue 3);
+    # cut it, so each run starts from the memory the last one found
+    for sp in spaces_l:
+        sp._slot_np[:] = None
+    del rt, bucket, fz, spaces_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows, trailing
+
+
+def shifted(label, rows, trailing, ref):
+    """A deferred run's per-tick CRCs: tick 0 empty, tick t+1 the
+    reference's tick t, the drained trailing tick its last."""
+    check(rows[0][1] == 0, f"{label}: tick 0 delivered {rows[0][1]} events")
+    got = [r[:2] for r in rows[1:]] + [trailing]
+    check(got == [r[:2] for r in ref],
+          f"{label}: CRCs are not the reference's shifted by one tick")
+
+
+def mean_of(runs, mode, key):
+    vals = [r[key] for r in runs if r["mode"] == mode]
+    return sum(vals) / len(vals)
+
+
+def phase_pipeline(Runtime, AK, DC, main_crcs, main_out):
+    """Phase 13: the pipelined and cross-tick Runtime (and both flags) at
+    phase 4's world and walk, the modes in turns with the sequential
+    one: every per-tick CRC equal to phase 4's, a deferred run's shifted
+    by one tick; times beside phase 4's; the prefetch's hit rate."""
+    runs = []
+    for mode in PIPE_TURNS:
+        out, rows, trailing = run_schedule(Runtime, AK, DC, mode,
+                                           PIPE_SCHEDULE, 1 + WARMUP)
+        check(out["launches"] == len(PIPE_SCHEDULE),
+              f"{mode}: aoi_step launches {out['launches']}")
+        if mode == "sequential":
+            check([r[:2] for r in rows] == [tuple(c) for c in main_crcs],
+                  "sequential run: CRCs differ from phase 4's")
+            check(trailing[1] == 0, "sequential run left a tick in flight")
+        else:
+            shifted(mode, rows, trailing, main_crcs)
+            h, m = (out["stats"][k] for k in ("prefetch_hits",
+                                              "prefetch_misses"))
+            out["prefetch_hit_rate"] = h / max(h + m, 1)
+        runs.append(out)
+        log("pipeline", json.dumps(out))
+    summary = {m: {k: mean_of(runs, m, k) for k in ("tick_ms", "loop_ms")}
+               for m in dict.fromkeys(PIPE_TURNS)}
+    for m in summary:
+        summary[m]["perf_ms"] = {
+            k: mean_of([dict(r["perf_ms"], mode=r["mode"]) for r in runs],
+                       m, k) for k in runs[0]["perf_ms"]}
+    summary["phase_4"] = {"tick_ms": main_out["tick_ms"],
+                          "loop_ms": main_out["tick_ms"]
+                          + main_out["drive_ms"],
+                          "perf_ms": main_out["perf_ms"]}
+    return {"runs": runs, "summary": summary,
+            "launches": sum(r["launches"] for r in runs
+                            if r["mode"] != "sequential")}
+
+
+def phase_fused(Runtime, AK, DC):
+    """Phase 14: the fused tick at phase 4's world under a sparse walk
+    (10% movers a tick), with one r-change tick and one mass move, which
+    fall back to the unfused flow.  Fused, unfused and fused + cross-tick
+    in turns: fused CRCs equal the unfused ones per tick, fused +
+    cross-tick's shifted by one; a measured tick counts 1 dispatch fused
+    and 2 unfused; ``fused_dispatches`` equals the eligible ticks; no new
+    capture key after warm-up; every aoi_step launch is a replay, an
+    unfused tick's or a capture's warm-up."""
+    eligible = len(FUSED_SCHEDULE) - len(FUSED_FALLBACK)
+    runs, ref = [], None
+    for mode in FUSED_TURNS:
+        out, rows, trailing = run_schedule(Runtime, AK, DC, mode,
+                                           FUSED_SCHEDULE, FUSED_MEASURE_FROM)
+        st = out["stats"]
+        measured = [r[2] for r in rows[FUSED_MEASURE_FROM:]]
+        if mode == "unfused":
+            check(st["delta_flushes"] == eligible
+                  and st["full_flushes"] == len(FUSED_FALLBACK),
+                  f"unfused: {st['delta_flushes']} delta ticks, want "
+                  f"{eligible}")
+            check(measured == [2] * len(measured),
+                  f"unfused: dispatches per tick {measured}")
+            check(out["launches"] == len(FUSED_SCHEDULE),
+                  f"unfused: launches {out['launches']}")
+            if ref is None:
+                ref = rows
+            check([r[:2] for r in rows] == [r[:2] for r in ref],
+                  "unfused runs differ")
+        else:
+            check(st["fused_dispatches"] == eligible
+                  and st["fused_demotions"] == 0,
+                  f"{mode}: fused_dispatches {st['fused_dispatches']}, "
+                  f"want {eligible}")
+            check(measured == [1] * len(measured),
+                  f"{mode}: dispatches per tick {measured}")
+            check(out["new_keys_measured"] == 0,
+                  f"{mode}: {out['new_keys_measured']} new capture keys "
+                  f"after warm-up")
+            check(out["launches"] == len(FUSED_FALLBACK) + eligible
+                  + out["captures"],
+                  f"{mode}: aoi_step launches {out['launches']} != "
+                  f"unfused ticks + replays + captures")
+            if mode == "fused":
+                check([r[:2] for r in rows] == [r[:2] for r in ref],
+                      "fused CRCs differ from the unfused ones")
+            else:
+                shifted(mode, rows, trailing, [r[:2] for r in ref])
+        out["caps"] = sorted({r[3] for r in rows})
+        runs.append(out)
+        log("fused", json.dumps(out))
+    summary = {m: {k: mean_of(runs, m, k) for k in ("tick_ms", "loop_ms")}
+               for m in dict.fromkeys(FUSED_TURNS)}
+    for m in summary:
+        summary[m]["stage_ms"] = mean_of(
+            [dict(mode=r["mode"], v=r["perf_ms"]["stage_ms"]) for r in runs],
+            m, "v")
+    return {"runs": runs, "summary": summary, "eligible": eligible,
+            "replays": sum(r["stats"]["fused_dispatches"] for r in runs),
+            "launches": sum(r["launches"] for r in runs
+                            if r["mode"] != "unfused")}
 
 
 # -- phase 6: the giant path's kernels vs plain --------------------------------
@@ -1318,6 +1568,15 @@ def engine_run(AOIEngine, mesh, cfg, xs, zs, r, act, ticks, measured,
     hs = [eng.create_space(cfg["cap"]) for _ in range(cfg["s"])]
     bucket = hs[0].bucket
     rows, t_ms, perf0 = [], 0.0, None
+
+    def fold():
+        crc, n_ev = 0, 0
+        for h in hs:
+            for a in eng.take_events(h):
+                crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+                n_ev += len(a)
+        return crc, n_ev
+
     for t in range(ticks):
         if t == ticks - measured:
             perf0 = dict(bucket.perf)
@@ -1328,11 +1587,7 @@ def engine_run(AOIEngine, mesh, cfg, xs, zs, r, act, ticks, measured,
         for si, h in enumerate(hs):
             eng.submit(h, xs[t][si], zs[t][si], r[si], act[si])
         eng.flush()
-        crc, n_ev = 0, 0
-        for h in hs:
-            for a in eng.take_events(h):
-                crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
-                n_ev += len(a)
+        crc, n_ev = fold()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         if t >= ticks - measured:
@@ -1342,7 +1597,13 @@ def engine_run(AOIEngine, mesh, cfg, xs, zs, r, act, ticks, measured,
                      - ov0})
     perf = {k[:-2] + "_ms": (bucket.perf[k] - perf0[k]) * 1e3 / measured
             for k in bucket.perf}
+    trailing = None
+    if eng.has_pending():  # deferred: the last tick comes out of drain()
+        eng.drain()
+        crc, n_ev = fold()
+        trailing = {"crc": f"{crc:08x}", "events": n_ev}
     out = {"ticks": rows, "tick_ms": t_ms / measured, "perf_ms": perf,
+           "trailing": trailing,
            "events_per_tick": (sum(r_["events"] for r_ in rows) - ev0)
            / measured,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -1408,6 +1669,25 @@ def phase_engine_mesh(Runtime, AOIEngine, AK, AD, SpaceMesh):
         torch.cuda.empty_cache()
         log("engine on mesh (million)", json.dumps(run))
         runs.append(run)
+        # the same run pipelined: the CRCs shifted by one tick
+        AK.reset_launches()
+        eng, hs, prun = engine_run(AOIEngine, mesh, cfg, xs, zs, r, act,
+                                   ticks, MESH_MEASURED, pipeline=True)
+        prun.update(mesh=label, shards=mesh.n_devices, pipeline=True,
+                    launches=dict(AK.launches))
+        check(AK.launches["aoi_step"] == mesh.n_devices * ticks,
+              f"{label} pipelined: step launches {AK.launches}")
+        check(prun["ticks"][0]["events"] == 0,
+              f"{label} pipelined: tick 0 delivered events")
+        got = [(t_["crc"], t_["events"]) for t_ in prun["ticks"][1:]]
+        got.append((prun["trailing"]["crc"], prun["trailing"]["events"]))
+        check(got == [(t_["crc"], t_["events"]) for t_ in run["ticks"]],
+              f"{label} pipelined: CRCs are not the sequential run's "
+              f"shifted by one tick")
+        del eng, hs
+        torch.cuda.empty_cache()
+        log("engine on mesh (million, pipelined)", json.dumps(prun))
+        runs.append(prun)
     return {"runtime": rt_out, "million": runs}
 
 
@@ -1489,6 +1769,7 @@ def main():
     from goworld_tpu_torch.ops import aoi_dense as AD
     from goworld_tpu_torch.ops import aoi_grid as AG
     from goworld_tpu_torch.ops import cadence as CD
+    from goworld_tpu_torch.ops import dispatch_count as DC
     from goworld_tpu_torch.ops import events as EV
     from goworld_tpu_torch.parallel import SpaceMesh, make_sharded_aoi_step
 
@@ -1507,8 +1788,10 @@ def main():
     log("SASS instructions per pair test", json.dumps(per_pair))
 
     rows = phase_kernels(AK, AD)
-    main_out = phase_main(Runtime, AK, AD, EV)
+    main_out, main_crcs = phase_main(Runtime, AK, AD, EV)
     phase_parity(Runtime)
+    pipelined = phase_pipeline(Runtime, AK, DC, main_crcs, main_out)
+    fused = phase_fused(Runtime, AK, DC)
     rect_rows = phase_rect(AK, AD)
     culled_rows = phase_culled(AG, AK)
     phase_plans(AK, AG, AD)
@@ -1527,7 +1810,9 @@ def main():
     rowshard = phase_rowshard(AOIEngine, AK, SpaceMesh)
     for name, n in (*culled_launches.items(), ("aoi_step rect",
                                                rect_launches),
-                    ("aoi_step_entlv", entlv_launches)):
+                    ("aoi_step_entlv", entlv_launches),
+                    ("aoi_step deferred", pipelined["launches"]),
+                    ("aoi_step fused replays", fused["replays"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -1549,8 +1834,13 @@ def main():
                      for m in sharded["meshes"]}
     kernels = {"kernels": [
         entry("aoi_step", "goworld_tpu/ops/aoi_pallas.py:176",
-              main_out["kernel_launches"], rows, MAIN_SHAPE,
-              main_path_ms=main_out["kernel_ms"]),
+              main_out["kernel_launches"] + pipelined["launches"]
+              + fused["launches"], rows, MAIN_SHAPE,
+              main_path_ms=main_out["kernel_ms"],
+              path_launches={"main": main_out["kernel_launches"],
+                             "deferred": pipelined["launches"],
+                             "fused": fused["launches"],
+                             "fused_replays": fused["replays"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
               rect_launches, rect_rows, RECT_PATH_SHAPE,
               main_path_ms=share_out["kernel_ms"]),
@@ -1579,6 +1869,14 @@ def main():
     print(card)
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"giant": grid_out + [share_out]}))
+    print(json.dumps({"deferred": {"pipelined": pipelined["summary"],
+                                   "fused": fused["summary"],
+                                   "fused_runs": [
+                                       {k: r[k] for k in (
+                                           "mode", "captures", "graphs",
+                                           "graph_pool_bytes",
+                                           "reserved_bytes", "caps")}
+                                       for r in fused["runs"]]}}))
     print(json.dumps({"mesh": {
         "note": "virtual shards are shards of one card taking turns; "
                 "their times are one card's",

@@ -43,7 +43,9 @@ from ..ops import aoi_cuda as AK
 from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
+from ..ops import dispatch_count as DC
 from ..ops import events as EV
+from ..ops import fused as FZ
 
 # triples-path extraction cap ceiling: the [max_triples, 32] bit matrix in
 # extract_triples grows with it, so growth stops here and larger ticks
@@ -67,9 +69,6 @@ _LATER_BACKENDS = {
 # options of the JAX package's AOIEngine/Runtime and bucket methods that
 # the port does not have yet, and the ROADMAP.md entry that brings each
 _LATER_OPTIONS = {
-    "pipeline": "pipelining (ROADMAP.md queue 1, item 1)",
-    "cross_tick": "cross-tick pipelining (ROADMAP.md queue 1, item 1)",
-    "fused": "the fused tick (ROADMAP.md queue 1, item 2)",
     "fault_plan": "the fault seams (ROADMAP.md queue 1, item 4)",
     "paged": "paged storage (ROADMAP.md queue 1, item 5)",
     "export_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
@@ -250,18 +249,29 @@ class AOIEngine:
     ``n_shards * 128`` gets its own row-sharded bucket
     (:mod:`.aoi_rowshard`), every other space the mesh bucket of its
     capacity (:mod:`.aoi_mesh`).  The mesh's devices must be of
-    ``device``'s type.  ``pipeline``, ``cross_tick``, ``fused`` and
-    ``paged`` are not in the port yet and raise."""
+    ``device``'s type.
+
+    ``pipeline`` and ``cross_tick`` each request the same one-tick
+    deferral (either flag, or both, shifts delivery by exactly one tick):
+    a flush dispatches tick T and delivers tick T-1, whose count and an
+    optimistic slice of its triples were copied to the host while the
+    host ran the tick between; :meth:`drain` delivers the tick still in
+    flight.  The row-sharded bucket accepts them and stays synchronous.
+    ``fused`` runs each eligible steady tick of the single-device bucket
+    as one CUDA graph replay (:mod:`..ops.fused`); the sharded buckets
+    accept it and run unfused.  ``paged`` is not in the port yet and
+    raises."""
 
     def __init__(self, device="cuda", delta_staging: bool = True,
                  flush_sched: bool = True, emit: str = "auto", mesh=None,
                  rowshard_min_capacity: int = 65536, pipeline: bool = False,
                  cross_tick: bool = False, fused: bool = False,
                  paged: bool = False):
-        for name, on in (("pipeline", pipeline), ("cross_tick", cross_tick),
-                         ("fused", fused), ("paged", paged)):
-            if on:
-                refuse_later(name)
+        if paged:
+            refuse_later("paged")
+        self.pipeline = bool(pipeline)
+        self.cross_tick = bool(cross_tick)
+        self.fused = bool(fused)
         self.device = resolve_device(device)
         if isinstance(mesh, int):
             from ..parallel import SpaceMesh, multichip_devices
@@ -292,6 +302,10 @@ class AOIEngine:
             self._emit_resolved = AE.resolve_mode(self.emit)
         return self._emit_resolved
 
+    def _modes(self) -> dict:
+        return {"pipeline": self.pipeline, "cross_tick": self.cross_tick,
+                "fused": self.fused}
+
     def create_space(self, capacity: int,
                      backend: str | None = None) -> SpaceAOIHandle:
         _check_backend(backend)
@@ -305,7 +319,8 @@ class AOIEngine:
 
             bucket = _RowShardCUDABucket(capacity, mesh,
                                          delta_staging=self.delta_staging,
-                                         emit=self._resolve_emit())
+                                         emit=self._resolve_emit(),
+                                         **self._modes())
             self._rowshard_serial += 1
             self._buckets[("rowshard", self._rowshard_serial)] = bucket
         else:
@@ -315,13 +330,14 @@ class AOIEngine:
                 if mesh is None:
                     bucket = _CUDABucket(capacity, self.device,
                                          delta_staging=self.delta_staging,
-                                         emit=self._resolve_emit())
+                                         emit=self._resolve_emit(),
+                                         **self._modes())
                 else:
                     from .aoi_mesh import _MeshCUDABucket
 
                     bucket = _MeshCUDABucket(
                         capacity, mesh, delta_staging=self.delta_staging,
-                        emit=self._resolve_emit())
+                        emit=self._resolve_emit(), **self._modes())
                 self._buckets[key] = bucket
         slot = bucket.acquire_slot()
         return SpaceAOIHandle("cuda", capacity, bucket, slot)
@@ -345,7 +361,8 @@ class AOIEngine:
 
     def flush(self) -> None:
         """Execute all staged steps (one kernel launch per bucket); the
-        results are then available per space via :meth:`take_events`.
+        results are then available per space via :meth:`take_events` (one
+        tick late under ``pipeline``/``cross_tick``).
 
         Split-phase: every bucket dispatches (maintenance, staging, kernel,
         compaction and the async count copy -- no waits) before the first
@@ -364,9 +381,16 @@ class AOIEngine:
             bucket.harvest()
 
     def has_pending(self) -> bool:
-        """True when a bucket holds a dispatched-but-unharvested tick."""
+        """True when a bucket holds a dispatched-but-undelivered tick (the
+        runtime keeps flushing until it is delivered)."""
         return any(self._buckets[k]._inflight is not None
                    for k in sorted(self._buckets))
+
+    def drain(self) -> None:
+        """Deliver every tick still in flight without dispatching a new
+        one (shutdown, state carry-over, tests); buckets in key order."""
+        for k in sorted(self._buckets):
+            self._buckets[k].drain()
 
     def take_events(self, h: SpaceAOIHandle):
         """(enter_pairs, leave_pairs) for this space from the last flush."""
@@ -395,6 +419,8 @@ class AOIEngine:
             raise ValueError("grow_space requires a larger capacity")
         nh = self.create_space(new_capacity)
         target = nh.capacity
+        # get_prev delivers the old bucket's tick in flight first, so its
+        # events land in _events and move with the space below
         old_words = h.bucket.get_prev(h.slot)
         ratio = target // h.capacity
         if target == h.capacity * ratio and ratio & (ratio - 1) == 0:
@@ -457,6 +483,11 @@ class _Bucket:
     def take_events(self, slot: int):
         return self._events.pop(slot, (np.empty((0, 2), np.int32),) * 2)
 
+    def drain(self) -> None:
+        """Deliver a tick still in flight (no-op for a synchronous
+        bucket)."""
+        self.harvest()
+
     # subclass API
     def _grow_to(self, n_slots: int) -> None:
         raise NotImplementedError
@@ -465,7 +496,54 @@ class _Bucket:
         raise NotImplementedError
 
 
-class _CUDABucket(_Bucket):
+class _Deferred:
+    """The flush schedule of a bucket that can defer delivery by one tick.
+    The bucket sets ``pipeline``, ``cross_tick``, ``_inflight`` (the
+    record parked across flushes) and ``_due`` (the record the next
+    harvest() delivers), and provides ``_dispatch_tick()`` (enqueue one
+    tick: its record, or None when nothing was staged) and
+    ``_harvest(rec)``."""
+
+    @property
+    def _defer(self) -> bool:
+        """One-tick deferral in effect: ``pipeline`` and ``cross_tick``
+        request the same mechanics, so any combination is one shift."""
+        return self.pipeline or self.cross_tick
+
+    def flush(self) -> None:
+        """Dispatch immediately followed by harvest."""
+        self.dispatch()
+        self.harvest()
+
+    def dispatch(self) -> None:
+        """Phase 1: enqueue the staged tick without waiting on the device.
+        Deferred, tick T parks and T-1's record becomes due (a flush with
+        nothing new delivers the parked record)."""
+        if self._due is not None:
+            # re-entrant flush (get_prev mid-scheduler): deliver the
+            # record already due first
+            self.harvest()
+        rec = self._dispatch_tick()
+        if self._defer:
+            self._due, self._inflight = self._inflight, rec
+        else:
+            self._due = rec
+
+    def harvest(self) -> None:
+        """Phase 2: deliver the record dispatch() made due."""
+        rec, self._due = self._due, None
+        if rec is not None:
+            self._harvest(rec)
+
+    def drain(self) -> None:
+        """Deliver the record in flight without dispatching a new one."""
+        self.harvest()
+        rec, self._inflight = self._inflight, None
+        if rec is not None:
+            self._harvest(rec)
+
+
+class _CUDABucket(_Deferred, _Bucket):
     """Device-resident interest state [S, C, W] int32 on the engine's
     device; one kernel launch per flush for every staged slot.
 
@@ -476,15 +554,41 @@ class _CUDABucket(_Bucket):
     entries whose bit patterns changed, and a lazy MIRROR of the packed
     words (seeded on the first :meth:`peek_words`, then kept current by
     XORing each harvested tick) so plain entities' interest sets derive on
-    the host without a device round trip."""
+    the host without a device round trip.
+
+    ``pipeline`` / ``cross_tick`` (either, or both: ``_defer``) park each
+    dispatched record one flush: ``dispatch()`` of tick T parks T and
+    hands T-1's record to ``harvest()``, so T's staging and kernel overlap
+    T-1's fetch and fan-out and events arrive one tick late.  Each record
+    copies its count and an optimistic slice of its triples (``_pred_tri``
+    rows, refit to every harvested count) to pinned host memory at its
+    dispatch; the harvest uses that slice when it holds every triple.
+    :meth:`drain` delivers the parked record without dispatching.  Every
+    read or replacement of the state drains first; mirror clears issued
+    while a record is in flight apply after its stream (``_mirror_ops``).
+
+    ``fused`` runs each eligible steady tick (delta staging on, no stale
+    device role, r and act unchanged, at most ``_delta_max_frac`` of the
+    entries changed, every acquired slot staged) as one replay of a CUDA
+    graph over the whole [S] grid
+    (:mod:`..ops.fused`); any other tick runs the unfused flow, and both
+    records take the same harvest."""
 
     def __init__(self, capacity: int, device: torch.device,
-                 delta_staging: bool = True, emit: str = "vector"):
+                 delta_staging: bool = True, emit: str = "vector",
+                 pipeline: bool = False, cross_tick: bool = False,
+                 fused: bool = False):
         super().__init__(capacity)
         self.device = device
         self.delta_staging = delta_staging
+        self.pipeline = bool(pipeline)
+        self.cross_tick = bool(cross_tick)
+        self.fused = bool(fused)
         self._emit = emit
-        self._inflight: dict | None = None  # dispatched, awaiting harvest
+        # the record parked across flushes (deferral), and the record the
+        # next harvest() delivers
+        self._inflight: dict | None = None
+        self._due: dict | None = None
         # per-slot release epoch: a harvest must not publish events for a
         # slot released (and possibly reused) after its dispatch
         self._slot_epoch: dict[int, int] = {}
@@ -496,7 +600,12 @@ class _CUDABucket(_Bucket):
         # _TRI_MAX, decays back through _tri
         self._max_triples = 16384
         self._tri = _TriCapDecay(floor=16384)
+        # rows of the optimistic triple prefetch of a deferred record
+        self._pred_tri = 2048
         self._mirror: np.ndarray | None = None
+        # mirror clears issued while a record is in flight, tagged with
+        # the slot's epoch: they apply after that record's XOR
+        self._mirror_ops: list[tuple] = []
         # slots opted out of the event stream: their mirror rows go stale
         # (_mirror_stale) and refresh from the device on the next peek
         self._unsub: set[int] = set()
@@ -506,18 +615,26 @@ class _CUDABucket(_Bucket):
         self._hr = np.zeros((0, capacity), np.float32)
         self._hact = np.zeros((0, capacity), bool)
         self._hsub = np.ones(0, bool)
-        # device copies of the shadows; _dev_stale names the roles that
-        # must fully re-upload (grow/reset, r/act change)
+        # device copies of the shadows (updated in place, so a captured
+        # graph keeps reading them); _dev_stale names the roles that must
+        # fully re-upload (grow/reset, r/act change)
         self._dev: dict[str, torch.Tensor] = {}
         self._dev_stale: set[str] = {"xz", "ra"}
         # delta path bails to a full restage past this changed fraction
         self._delta_max_frac = 0.25
+        self._fz: FZ.FusedTri | None = None  # the fused tick's buffers
         # h2d_bytes: wire bytes shipped; delta/full_flushes: how each
         # tick's inputs were staged; decode_overflow: ticks recovered from
-        # the full grids; emit_path: 0 native, 1 vector
+        # the full grids; emit_path: 0 native, 1 vector; fused_dispatches:
+        # ticks run as one graph replay; fused_demotions: fused attempts
+        # a fault moved to the unfused flow (0: the port has no fault
+        # seams yet); prefetch_hits/misses: deferred harvests whose
+        # triples the optimistic slice held / did not hold
         self.stats = {"h2d_bytes": 0, "delta_flushes": 0, "full_flushes": 0,
                       "decode_overflow": 0,
-                      "emit_path": AE.EMIT_LEVEL[emit]}
+                      "emit_path": AE.EMIT_LEVEL[emit],
+                      "fused_dispatches": 0, "fused_demotions": 0,
+                      "prefetch_hits": 0, "prefetch_misses": 0}
         # cumulative seconds: stage = host pack + H2D + enqueue (dispatch),
         # fetch = waits for the count and the triples or grids, decode =
         # mirror upkeep (and the overflow expansion), emit = fan-out +
@@ -528,6 +645,7 @@ class _CUDABucket(_Bucket):
     def _grow_to(self, n_slots: int) -> None:
         if n_slots <= self.s_max:
             return
+        self.drain()
         new_s = max(1, self.s_max)
         while new_s < n_slots:
             new_s *= 2
@@ -553,6 +671,7 @@ class _CUDABucket(_Bucket):
         self._hsub = hsub
         self._dev.clear()
         self._dev_stale = {"xz", "ra"}
+        self._fz = None  # its buffers and graphs have the old shapes
         self.s_max = new_s
 
     def _reset_slot(self, slot: int) -> None:
@@ -566,6 +685,8 @@ class _CUDABucket(_Bucket):
         self._dev_stale.update(("xz", "ra"))
         self._mirror_stale.discard(slot)
         if self._mirror is not None:
+            # at once even with a tick in flight: its stream is epoch-
+            # guarded, so a dead occupant's rows cannot XOR back over it
             self._mirror_apply(("reset", slot))
 
     def release_slot(self, slot: int) -> None:
@@ -582,8 +703,15 @@ class _CUDABucket(_Bucket):
 
     def clear_entity(self, slot: int, entity_slot: int) -> None:
         self._pending_clear.append((slot, entity_slot))
-        if self._mirror is not None:
-            self._mirror_apply(("clear", slot, entity_slot))
+        if self._mirror is None:
+            return
+        op = ("clear", slot, entity_slot)
+        if self._inflight is not None or self._due is not None:
+            # the clear postdates the record in flight: it must land after
+            # that record's XOR, or the XOR would re-plant the bit
+            self._mirror_ops.append(op + (self._slot_epoch.get(slot, 0),))
+        else:
+            self._mirror_apply(op)
 
     def _mirror_apply(self, op: tuple) -> None:
         if op[0] == "reset":
@@ -595,85 +723,162 @@ class _CUDABucket(_Bucket):
             self._mirror[_slot, :, w] &= np.uint32(
                 ~(np.uint32(1) << np.uint32(b)) & 0xFFFFFFFF)
 
+    def _apply_mirror_ops(self) -> None:
+        """Clears queued behind a record apply once its stream has; the
+        epoch tag drops those whose slot was released since."""
+        ops, self._mirror_ops = self._mirror_ops, []
+        if self._mirror is None:
+            return
+        for op in ops:
+            if self._slot_epoch.get(op[1], 0) == op[-1]:
+                self._mirror_apply(op[:-1])
+
     # -- the tick -------------------------------------------------------
 
-    def flush(self) -> None:
-        """Dispatch immediately followed by harvest."""
-        self.dispatch()
-        self.harvest()
-
-    def dispatch(self) -> None:
-        """Phase 1: maintenance, staging, kernel, compaction and the async
-        count copy, all enqueued without waiting on the device."""
-        if self._inflight is not None:
-            # re-entrant flush (get_prev mid-scheduler): finish the
-            # previous dispatch first
-            self.harvest()
+    def _dispatch_tick(self) -> dict | None:
+        """Maintenance, staging, kernel, compaction and the async count
+        copy of one tick; its record, or None when nothing was staged."""
         if not (self._staged or self._pending_reset or self._pending_clear):
-            return
+            return None
         self._apply_maintenance()
         if not self._staged:
-            return
+            return None
         t_stage0 = time.perf_counter()
         slots = sorted(self._staged)
-        s_n = len(slots)
         sl = np.array(slots, np.intp)
-        # keep the previously staged values so _stage_inputs can diff the
+        # keep the previously staged values so the staging can diff the
         # new tick against them
-        old_x, old_z = self._hx[sl], self._hz[sl]
-        old_r, old_act = self._hr[sl], self._hact[sl]
+        old = (self._hx[sl], self._hz[sl], self._hr[sl], self._hact[sl])
         self._restage_shadows()
         sub = self._hsub[sl]
         if self._mirror is not None and not sub.all():
             self._mirror_stale.update(s for s in slots if s in self._unsub)
+        rec = self._dispatch_fused(slots, sl, sub, *old) if self.fused \
+            else None
+        if rec is None:
+            rec = self._dispatch_unfused(slots, sl, sub, *old)
+        self.perf["stage_s"] += time.perf_counter() - t_stage0
+        return rec
+
+    def _record(self, slots, sub, new, chg, tri=None, count=None) -> dict:
+        """A dispatched tick's record; its count (and, deferred, the
+        optimistic triple slice) starts for the host."""
+        rec = {"slots": slots, "s_n": len(slots), "mt": self._max_triples,
+               "epochs": [self._slot_epoch.get(s, 0) for s in slots],
+               "grids": (new, chg), "tri": tri, "count": None,
+               "ready": None, "all_unsub": not sub.any(), "prefetch": None}
+        if rec["all_unsub"]:
+            return rec
+        ndp = min(rec["mt"], self._pred_tri) if self._defer else 0
+        if self.device.type == "cuda":
+            rec["count"] = torch.empty(1, dtype=torch.int64, pin_memory=True)
+            rec["count"].copy_(count, non_blocking=True)
+            if ndp:
+                pf = torch.empty((ndp, 3), dtype=torch.int32,
+                                 pin_memory=True)
+                pf.copy_(tri[:ndp], non_blocking=True)
+                rec["prefetch"] = pf
+            rec["ready"] = torch.cuda.Event()
+            rec["ready"].record(torch.cuda.current_stream(self.device))
+        else:
+            rec["count"] = count.clone()
+            if ndp:
+                rec["prefetch"] = tri[:ndp].clone()
+        return rec
+
+    def _dispatch_unfused(self, slots, sl, sub, old_x, old_z, old_r,
+                          old_act) -> dict:
         self._stage_inputs(sl, old_x, old_z, old_r, old_act)
         dev = self._dev
-        every = s_n == self.s_max  # slots are sorted and unique
+        every = len(slots) == self.s_max  # slots are sorted and unique
         if every:
             x, z, r, act, prev_rows = (dev["x"], dev["z"], dev["r"],
                                        dev["act"], self.prev)
         else:
-            idx = torch.from_numpy(sl.astype(np.int64)).to(self.device)
+            idx = AS.h2d(sl.astype(np.int64), self.device)
             x, z, r, act, prev_rows = (
                 t.index_select(0, idx) for t in
                 (dev["x"], dev["z"], dev["r"], dev["act"], self.prev))
+        DC.record()
         new, chg = AK.aoi_step_chg(x, z, r, act, prev_rows)
         if every:
             self.prev = new
         else:
+            self._detach_parked_new()
             self.prev.index_copy_(0, idx, new)
-        all_unsub = not sub.any()
-        mt = self._max_triples
-        tri = count_h = ready = None
-        if not all_unsub:
-            if not sub.all():
-                # slots with no event consumers contribute nothing to the
-                # change stream (``new`` above stays unmasked: prev must
-                # stay authoritative)
-                off = np.nonzero(~sub)[0].astype(np.int64)
-                chg[torch.from_numpy(off).to(self.device)] = 0
-            tri, count = EV.extract_triples(chg, new, self.capacity, mt)
-            if self.device.type == "cuda":
-                count_h = torch.empty(1, dtype=torch.int64, pin_memory=True)
-                count_h.copy_(count.reshape(1), non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self.device))
-            else:
-                count_h = count.reshape(1)
-        self._inflight = {
-            "slots": slots, "s_n": s_n, "mt": mt,
-            "epochs": [self._slot_epoch.get(s, 0) for s in slots],
-            "grids": (new, chg), "tri": tri, "count": count_h,
-            "ready": ready, "all_unsub": all_unsub,
-        }
-        self.perf["stage_s"] += time.perf_counter() - t_stage0
+        if not sub.any():
+            return self._record(slots, sub, new, chg)
+        if not sub.all():
+            # slots with no event consumers contribute nothing to the
+            # change stream (``new`` above stays unmasked: prev must stay
+            # authoritative)
+            off = np.nonzero(~sub)[0].astype(np.int64)
+            chg[AS.h2d(off, self.device)] = 0
+        tri, count = EV.extract_triples(chg, new, self.capacity,
+                                        self._max_triples)
+        return self._record(slots, sub, new, chg, tri, count.reshape(1))
+
+    def _dispatch_fused(self, slots, sl, sub, old_x, old_z, old_r,
+                        old_act) -> dict | None:
+        """The tick as one graph replay, or None when it is not eligible
+        (then the unfused flow runs it: not a demotion)."""
+        if (not self.delta_staging or self._dev_stale or "x" not in self._dev
+                or len(slots) != self.n_slots):
+            # the graph steps all s_max rows: every acquired slot must be
+            # staged (rows never acquired hold zero words and inactive
+            # inputs, so they stay zero and emit nothing)
+            return None
+        if not (np.array_equal(self._hr[sl], old_r)
+                and np.array_equal(self._hact[sl], old_act)):
+            return None  # r/act moved: a full-restage tick
+        new_x, new_z = self._hx[sl], self._hz[sl]
+        diff = (new_x.view(np.uint32) != old_x.view(np.uint32)) \
+            | (new_z.view(np.uint32) != old_z.view(np.uint32))
+        n_changed = np.count_nonzero(diff)
+        if n_changed > self._delta_max_frac * diff.size:
+            return None  # mass movement: a full restage
+        fz = self._fz
+        if fz is None:
+            fz = self._fz = FZ.FusedTri(
+                self.s_max, self.capacity,
+                FZ.packet_len(self.s_max, self.capacity,
+                              self._delta_max_frac), self.device)
+        if n_changed:
+            rows, cols = np.nonzero(diff)
+        else:
+            # no mover: one entry rewriting a value the device holds
+            rows, cols = np.zeros(1, np.intp), np.zeros(1, np.intp)
+        pkt = AS.pad_packet(sl[rows], cols, new_x[rows, cols],
+                            new_z[rows, cols], length=fz.plen)
+        self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
+        self.stats["delta_flushes"] += 1
+        parity = fz.parity_of(self.prev)
+        fz.load_packet(parity, *pkt)
+        fz.set_sub(self._hsub)
+        dev = self._dev
+        new, chg, tri, count = fz.run(parity, self._max_triples, dev["x"],
+                                      dev["z"], dev["r"], dev["act"])
+        self.prev = new
+        self.stats["fused_dispatches"] += 1
+        return self._record(slots, sub, new, chg, tri, count)
+
+    def _detach_parked_new(self) -> None:
+        """Before ``self.prev`` is written in place: a parked record whose
+        new words ARE ``self.prev`` keeps a copy (its overflow recovery
+        reads them)."""
+        for rec in (self._inflight, self._due):
+            if rec is not None and rec["grids"][0] is self.prev:
+                rec["grids"] = (self.prev.clone(), rec["grids"][1])
 
     def _apply_maintenance(self) -> None:
         """Land queued slot resets and entity clears on the packed state."""
         c = self.capacity
         dev = self.device
+        if self._pending_reset or self._pending_clear:
+            self._detach_parked_new()
         if self._pending_reset:
-            idx = torch.tensor(sorted(self._pending_reset), device=dev)
+            idx = AS.h2d(np.array(sorted(self._pending_reset), np.int64), dev)
+            DC.record()
             self.prev[idx] = 0
             self._pending_reset.clear()
         if not self._pending_clear:
@@ -693,21 +898,18 @@ class _CUDABucket(_Bucket):
         masks = np.array([m for _, _, m in cols], np.uint32).view(np.int32)
 
         def t(vals):
-            return torch.tensor(vals, dtype=torch.int64, device=dev)
+            return AS.h2d(np.array(vals, np.int64), dev)
 
+        DC.record()
         _batched_clear(self.prev, t([s for s, _ in rows]),
                        t([e for _, e in rows]), t([s for s, _, _ in cols]),
-                       t([w for _, w, _ in cols]),
-                       torch.from_numpy(masks).to(dev))
+                       t([w for _, w, _ in cols]), AS.h2d(masks, dev))
 
-    def harvest(self) -> None:
-        """Phase 2: wait for the dispatched tick's count, fetch its triples
-        (or, past the cap, its full grids), update the mirror and publish
-        per-slot events."""
-        rec, self._inflight = self._inflight, None
-        if rec is None:
-            return
-        slots, s_n, mt = rec["slots"], rec["s_n"], rec["mt"]
+    def _harvest(self, rec: dict) -> None:
+        """Wait for one record's count, fetch its triples (from the
+        prefetched slice when it holds them all; past the cap, the full
+        grids), update the mirror and publish per-slot events."""
+        slots, mt = rec["slots"], rec["mt"]
         c = self.capacity
         new, chg = rec["grids"]
         t_f0 = time.perf_counter()
@@ -734,6 +936,7 @@ class _CUDABucket(_Bucket):
             self.perf["fetch_s"] += time.perf_counter() - t_f0
             t_f0 = time.perf_counter()
             self._mirror_xor_stream(slots, rec["epochs"], gidx, chg_vals)
+            self._apply_mirror_ops()
             self.perf["decode_s"] += time.perf_counter() - t_f0
             t_f0 = time.perf_counter()
             self._publish(slots, rec["epochs"], chg_vals, ent_vals, gidx)
@@ -742,15 +945,25 @@ class _CUDABucket(_Bucket):
         shrink = self._tri.observe(count, self._max_triples)
         if shrink is not None:
             self._max_triples = shrink
+        pf = rec["prefetch"]
         if count == 0:
             tri_h = np.empty((0, 3), np.int32)
+        elif pf is not None and pf.shape[0] >= count:
+            self.stats["prefetch_hits"] += 1
+            tri_h = pf.numpy()[:count]
         else:
+            if pf is not None:
+                self.stats["prefetch_misses"] += 1
             ndp = min(mt, -(-count // 256) * 256)
             tri_h = rec["tri"][:ndp].cpu().numpy()[:count]
         self.perf["fetch_s"] += time.perf_counter() - t_f0
+        # refit the next dispatch's optimistic prefetch to this tick
+        self._pred_tri = max(
+            2048, min(self._max_triples, -(-count * 5 // 4 // 256) * 256))
         t_f0 = time.perf_counter()
         if self._mirror is not None and len(tri_h):
             self._mirror_xor_triples(slots, rec["epochs"], tri_h)
+        self._apply_mirror_ops()
         self.perf["decode_s"] += time.perf_counter() - t_f0
         t_f0 = time.perf_counter()
         pe, pl = AE.fanout_triples(tri_h, c, native=(self._emit == "native"))
@@ -796,25 +1009,27 @@ class _CUDABucket(_Bucket):
                 rows, cols = np.nonzero(diff)
                 pkt = AS.pad_packet(sl[rows], cols, new_x[rows, cols],
                                     new_z[rows, cols])
+                DC.record()
                 AS.apply_packet(self._dev["x"], self._dev["z"], *pkt)
                 self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
             self.stats["delta_flushes"] += 1
             return
         if (not self.delta_staging or "xz" in stale or n_changed
                 or "x" not in self._dev):
-            self._dev["x"] = self._h2d(self._hx)
-            self._dev["z"] = self._h2d(self._hz)
+            self._h2d("x", self._hx)
+            self._h2d("z", self._hz)
         if "ra" in stale or "r" not in self._dev:
-            self._dev["r"] = self._h2d(self._hr)
-            self._dev["act"] = self._h2d(self._hact)
+            self._h2d("r", self._hr)
+            self._h2d("act", self._hact)
         stale.clear()
         self.stats["full_flushes"] += 1
 
-    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """Full upload of one shadow role array (always a copy: on the CPU
-        device the tensor must not alias the shadow)."""
+    def _h2d(self, role: str, arr: np.ndarray) -> None:
+        """Full upload of one shadow role array, into its device tensor in
+        place (a captured graph keeps reading it); never aliasing the
+        shadow on the CPU device."""
         self.stats["h2d_bytes"] += arr.nbytes
-        return torch.from_numpy(arr).to(self.device, copy=True)
+        self._dev[role] = AS.h2d(arr, self.device, out=self._dev.get(role))
 
     # -- publish ----------------------------------------------------------
 
@@ -887,11 +1102,12 @@ class _CUDABucket(_Bucket):
 
     def peek_words(self, slot: int) -> np.ndarray:
         """Host mirror of the slot's interest words [C, W] uint32.  The
-        first call seeds the mirror with one device fetch; afterwards each
-        harvest keeps it current.  A slot that was unsubscribed refreshes
-        its rows from the device on demand."""
+        first call delivers any tick in flight and seeds the mirror with
+        one device fetch, so mirror and delivered events agree; afterwards
+        each harvest keeps it current.  A slot that was unsubscribed
+        refreshes its rows from the device on demand."""
         if self._mirror is None:
-            self.harvest()
+            self.drain()
             self._mirror = P.words_to_numpy(self.prev)
             # maintenance queued for the next dispatch already holds for
             # the host view
@@ -902,19 +1118,23 @@ class _CUDABucket(_Bucket):
             self._mirror_stale.clear()
         elif slot in self._mirror_stale:
             self.flush()
+            self.drain()
             self._mirror[slot] = P.words_to_numpy(self.prev[slot])
             self._mirror_stale.discard(slot)
         return self._mirror[slot]
 
     def get_prev(self, slot: int) -> np.ndarray:
         """Previous-tick interest words [C, W] uint32 (after applying
-        pending steps), for state carry-over."""
+        pending steps and delivering every tick in flight), for state
+        carry-over."""
         self.flush()
+        self.drain()
         return P.words_to_numpy(self.prev[slot])
 
     def set_prev(self, slot: int, words: np.ndarray) -> None:
         """Seed a slot's previous-tick interest words [C, W] uint32."""
         self.flush()
+        self.drain()
         self._pending_reset.discard(slot)
         w = np.asarray(words, np.uint32)
         self.prev[slot] = P.words_to_torch(w, self.device)
@@ -927,6 +1147,7 @@ class _CUDABucket(_Bucket):
         package's bucket included): its previous-tick words [C, W] uint32
         and the [C] inputs they were computed from.  The next tick then
         diffs against exactly that state, as the source would have."""
+        self.drain()
         self._hx[slot] = x
         self._hz[slot] = z
         self._hr[slot] = r

@@ -1,8 +1,9 @@
 """Mesh-sharded AOI bucket: the engine's multi-device path.
 
 Port of the JAX package's ``engine/aoi_mesh.py`` (``_MeshTPUBucket``),
-without its pipelined, fused, paged and fault-recovery modes (ROADMAP.md
-queue 1 names the item that brings each).  The bucket's slots (spaces)
+with its pipelined mode and without its fused, paged and fault-recovery
+modes (ROADMAP.md queue 1 names the item that brings each; ``fused`` is
+accepted and runs unfused).  The bucket's slots (spaces)
 are placed across a :class:`..parallel.SpaceMesh`: shard d holds slots
 ``[d * S/n, (d + 1) * S/n)`` on its device, so every space's [C] rows
 live wholly on one shard and the tick needs no cross-device collective.
@@ -35,10 +36,19 @@ Differences from the single-device bucket (as in the JAX package):
     staged before the next flush -- stepping cached zero inputs against
     carried state would emit a mass leave; ``flush`` raises instead.
 
+``pipeline`` / ``cross_tick`` defer delivery by one tick exactly as the
+single-device bucket does (:class:`.aoi._CUDABucket`): a flush dispatches
+tick T and harvests T-1, whose scalars and optimistically sized stream
+slices (``_pred``, refit to every harvest's per-shard peaks) were copied
+to pinned host memory at its dispatch; ``drain`` delivers the tick in
+flight.
+
 Where JAX donates its scratch buffers to the jitted step, each shard here
-keeps one reusable pair of word arrays (the step's ``new`` and ``chg``
-outputs): after a step the old ``prev`` becomes the next step's ``new``
-buffer, so a steady tick allocates no word array.  Maintenance never
+keeps reusable word arrays: after a step the old ``prev`` becomes the next
+step's ``new`` buffer, and the ``chg`` outputs rotate through a ring (two
+deep when deferred: the parked record still holds the previous tick's),
+so a steady tick allocates no word array.  A record keeps each shard's
+``new`` words for its overflow recovery.  Maintenance never
 round-trips the full state: resets and clears are in-place tensor ops on
 the slot's shard, ``set_prev``/``get_prev`` move one slot's [C, W] words,
 and growth regroups the shards device to device.  ``full_roundtrips``
@@ -57,9 +67,10 @@ from ..ops import aoi_cuda as AK
 from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
+from ..ops import dispatch_count as DC
 from ..ops import events as EV
-from .aoi import (_LANES, _Bucket, _CapDecay, _emit_expand, _split_rows,
-                  refuse_later)
+from .aoi import (_LANES, _Bucket, _CapDecay, _Deferred, _emit_expand,
+                  _split_rows, refuse_later)
 
 
 def _np_words(t: torch.Tensor) -> np.ndarray:
@@ -73,7 +84,8 @@ class _ShardCodec:
     buckets' overflow contract (``_harvest`` of ``aoi_mesh.py`` and
     ``aoi_rowshard.py``).  The owner sets the caps and ``stats``."""
 
-    def _init_codec(self, max_chunks: int, max_exc: int) -> None:
+    def _init_codec(self, max_chunks: int, max_exc: int,
+                    ring: int = 1) -> None:
         # per-shard extraction caps: grow on overflow, decay through the
         # shared window so a mass-enter storm stops sizing later ticks
         self._max_chunks = max_chunks
@@ -81,53 +93,92 @@ class _ShardCodec:
         self._max_gaps = 2048
         self._max_exc = max_exc
         self._caps = _CapDecay(nd_floor=max_chunks)
-        # per shard: (buffer for the next step's new words, chg buffer)
+        # per shard: the spare words buffer and a ring of `ring` chg buffers
+        self._ring = ring
         self._scratch: list | None = None
+        # optimistic per-shard prefetch of a deferred record's stream:
+        # (rows, escapes, exceptions), refit to every harvest
+        self._pred = (256, 64, 256)
 
     def _caps_now(self) -> tuple:
         return (self._max_chunks, self._kcap, self._max_gaps, self._max_exc)
 
     def _step_out(self, d: int, prev: torch.Tensor):
-        """Shard d's reusable output pair for a step from ``prev``."""
+        """Shard d's output pair for a step from ``prev``: the spare words
+        buffer (the words before the last step) and the ring's next chg
+        buffer.  ``prev`` becomes the spare for the step after."""
         if self._scratch is None:
             self._scratch = [None] * self.n_dev
         sc = self._scratch[d]
-        if sc is None or sc[0].shape != prev.shape:
-            sc = (torch.empty_like(prev), torch.empty_like(prev))
-            self._scratch[d] = sc
-        return sc
+        if sc is None or sc["chg"][0].shape != prev.shape:
+            sc = self._scratch[d] = {
+                "spare": None, "k": 0,
+                "chg": [torch.empty_like(prev) for _ in range(self._ring)]}
+        new = sc["spare"]
+        if new is None or new.shape != prev.shape:
+            new = torch.empty_like(prev)
+        chg = sc["chg"][sc["k"]]
+        sc["k"] = (sc["k"] + 1) % self._ring
+        sc["spare"] = prev
+        return new, chg
 
-    def _encode_shard(self, new, chg, caps) -> dict:
+    def _encode_shard(self, new, chg, caps, pred=None) -> dict:
         """Enqueue the extraction, the encode and the async copy of the
-        five control scalars of one shard's (masked) diff."""
+        five control scalars of one shard's (masked) diff, and with
+        ``pred`` = (rows, escapes, exceptions) the copy of the stream's
+        first slices of those sizes (the deferred prefetch)."""
         mc, kcap, mg, mx = caps
         vals, nv, lane, csel, ccnt, nd, mcc = EV.extract_chunks(
             chg, mc, kcap, aux=new, lanes=_LANES)
         (rowb, bitpos, woff, base_row, n_esc, esc_rows, exc_gidx, exc_chg,
          exc_new, exc_n) = EV.encode_row_stream(
             vals, nv, lane, csel, ccnt, w=_LANES, max_gaps=mg, max_exc=mx)
+        streams = (rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg, exc_new)
         scalars = torch.stack([nd, mcc, base_row, n_esc, exc_n]).to(
             torch.int64)
-        ready = None
+        ready = pf = None
+        if pred is not None:
+            ndp, escp, excp = min(mc, pred[0]), min(mg, pred[1]), \
+                min(mx, pred[2])
+            pf = (ndp, escp, excp,
+                  [a[:n] for a, n in zip(streams, (ndp,) * 3 + (escp,)
+                                         + (excp,) * 3)])
         if scalars.device.type == "cuda":
             scal_h = torch.empty(5, dtype=torch.int64, pin_memory=True)
             scal_h.copy_(scalars, non_blocking=True)
+            if pf is not None:
+                host = []
+                for a in pf[3]:
+                    h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                    h.copy_(a, non_blocking=True)
+                    host.append(h)
+                pf = pf[:3] + (host,)
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(scalars.device))
         else:
             scal_h = scalars
-        return {"chg": chg, "chunks": (vals, nv, lane, csel),
-                "streams": (rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg,
-                            exc_new),
-                "scal": scal_h, "ready": ready}
+            if pf is not None:
+                pf = pf[:3] + ([a.clone() for a in pf[3]],)
+        return {"new": new, "chg": chg, "chunks": (vals, nv, lane, csel),
+                "streams": streams, "scal": scal_h, "ready": ready,
+                "prefetch": pf}
 
-    def _decode_shards(self, rec, shard_words: int, new_of):
-        """Wait for every shard's scalars, then fetch and decode its
-        stream (or recover it past a cap).  ``new_of(d)`` is shard d's
-        words of this tick (``self.prev`` is not written again before the
-        harvest).  Returns the classified stream ``(chg_vals, ent_vals,
-        gidx)`` with global flat word indices (shard d's offset by ``d *
-        shard_words``), or None when every shard is empty."""
+    def _detach_parked_new(self) -> None:
+        """Before a shard's ``prev`` is written in place: a parked record
+        whose new words ARE that tensor keeps a copy (its overflow
+        recovery reads them)."""
+        for rec in (self._inflight, self._due):
+            for d, sh in enumerate(rec["shards"] if rec else ()):
+                if sh is not None and sh["new"] is self.prev[d]:
+                    sh["new"] = sh["new"].clone()
+
+    def _decode_shards(self, rec, shard_words: int):
+        """Wait for every shard's scalars, then fetch (from the prefetched
+        slices when they hold the stream) and decode its stream, or
+        recover it past a cap from the record's grids.  Returns the
+        classified stream ``(chg_vals, ent_vals, gidx)`` with global flat
+        word indices (shard d's offset by ``d * shard_words``), or None
+        when every shard is empty."""
         mc, kcap, mg, mx = rec["caps"]
         t0 = time.perf_counter()
         scal = np.zeros((self.n_dev, 5), np.int64)
@@ -139,7 +190,7 @@ class _ShardCodec:
         self.perf["fetch_s"] += time.perf_counter() - t0
         all_c, all_e, all_g = [], [], []
         grew = False
-        peak_nd = peak_mcc = 0
+        peak_nd = peak_mcc = peak_esc = peak_exc = 0
         for d, sh in enumerate(rec["shards"]):
             nd, mcc, base_row, n_esc, exc_n = (int(v) for v in scal[d])
             if nd == 0 and exc_n == 0:
@@ -156,7 +207,7 @@ class _ShardCodec:
                 flat = sh["chg"].reshape(-1)
                 gi = torch.nonzero(flat).reshape(-1)
                 cv = flat[gi]
-                ev = cv & new_of(d).reshape(-1)[gi]
+                ev = cv & sh["new"].reshape(-1)[gi]
                 gidx = gi.cpu().numpy()
                 chg_vals, ent_vals = _np_words(cv), _np_words(ev)
                 self.perf["fetch_s"] += time.perf_counter() - t0
@@ -175,12 +226,17 @@ class _ShardCodec:
                 gidx = (ch[:, None].astype(np.int64) * _LANES + lh)[valid]
                 self.perf["fetch_s"] += time.perf_counter() - t0
             else:
-                rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg, exc_new = \
-                    sh["streams"]
+                pf = sh["prefetch"]
                 nds, ne, nx = max(nd, 1), max(n_esc, 1), max(exc_n, 1)
-                hb = [a.cpu().numpy() for a in (
-                    rowb[:nds], bitpos[:nds], woff[:nds], esc_rows[:ne],
-                    exc_gidx[:nx], exc_chg[:nx], exc_new[:nx])]
+                if pf is not None and pf[0] >= nds and pf[1] >= ne \
+                        and pf[2] >= nx:
+                    self.stats["prefetch_hits"] += 1
+                    hb = [a.numpy() for a in pf[3]]
+                else:
+                    if pf is not None:
+                        self.stats["prefetch_misses"] += 1
+                    hb = [a[:n].cpu().numpy() for a, n in zip(
+                        sh["streams"], (nds,) * 3 + (ne,) + (nx,) * 3)]
                 self.perf["fetch_s"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 chg_vals, ent_vals, gidx = EV.decode_row_stream(
@@ -189,6 +245,8 @@ class _ShardCodec:
                 self.perf["decode_s"] += time.perf_counter() - t0
             peak_nd = max(peak_nd, nd)
             peak_mcc = max(peak_mcc, mcc)
+            peak_esc = max(peak_esc, n_esc)
+            peak_exc = max(peak_exc, exc_n)
             all_c.append(chg_vals)
             all_e.append(ent_vals)
             all_g.append(np.asarray(gidx, np.int64) + d * shard_words)
@@ -199,6 +257,12 @@ class _ShardCodec:
                                         self._kcap)
             if shrink is not None:
                 self._max_chunks, self._kcap = shrink
+        # refit the next deferred prefetch to this tick's per-shard peaks
+        # (fresh, not a running max: sizes must decay after a storm)
+        self._pred = (
+            max(256, min(mc, -(-(peak_nd * 5 // 4) // 128) * 128)),
+            max(64, -(-(peak_esc + 1) * 3 // 2 // 64) * 64),
+            max(256, -(-(peak_exc + 1) * 5 // 4 // 256) * 256))
         if not all_c:
             return None
         return (np.concatenate(all_c), np.concatenate(all_e),
@@ -216,18 +280,22 @@ class _ShardCodec:
         refuse_later("evacuate")
 
 
-class _MeshCUDABucket(_ShardCodec, _Bucket):
+class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
     """Interest state [S, C, W] int32 split over the mesh's shards (S a
     multiple of the shard count, grown from ``n_dev`` by doubling); one
     step per shard per flush, every slot stepped."""
 
     def __init__(self, capacity: int, mesh, delta_staging: bool = True,
-                 emit: str = "vector"):
+                 emit: str = "vector", pipeline: bool = False,
+                 cross_tick: bool = False, fused: bool = False):
         super().__init__(capacity)
         self._emit = emit
         self.mesh = mesh
         self.n_dev = mesh.n_devices
         self.delta_staging = delta_staging
+        self.pipeline = bool(pipeline)
+        self.cross_tick = bool(cross_tick)
+        self.fused = bool(fused)  # accepted; the mesh runs every tick unfused
         self.s_max = 0
         self.prev: list[torch.Tensor] | None = None  # per shard [b, C, W]
         # host shadows of the staged inputs, persistent: unstaged slots
@@ -243,7 +311,8 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         self._pending_clear: list[tuple[int, int]] = []
         # slots seeded via set_prev and not staged since (module docstring)
         self._seeded_unstaged: set[int] = set()
-        self._init_codec(max_chunks=1024, max_exc=8192)
+        self._init_codec(max_chunks=1024, max_exc=8192,
+                         ring=2 if self._defer else 1)
         # device copies of r/act/sub, re-uploaded only when values change
         self._h2d_cache: dict[str, tuple] = {}
         # per-shard device x/z, bitwise equal to the shadows; steady
@@ -252,7 +321,10 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         self._dz: list | None = None
         self._xz_stale = True
         self._delta_max_frac = 0.25
-        self._inflight: dict | None = None  # dispatched, awaiting harvest
+        # the record parked across flushes (deferral), and the record the
+        # next harvest() delivers
+        self._inflight: dict | None = None
+        self._due: dict | None = None
         # per-slot release epoch: a harvest must not publish events (or XOR
         # mirror words) for a slot released after its dispatch
         self._slot_epoch: dict[int, int] = {}
@@ -262,7 +334,8 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         self._mirror_ops: list[tuple] = []
         self.full_roundtrips = 0
         self.stats = {"h2d_bytes": 0, "delta_flushes": 0, "full_flushes": 0,
-                      "decode_overflow": 0, "emit_path": AE.EMIT_LEVEL[emit]}
+                      "decode_overflow": 0, "emit_path": AE.EMIT_LEVEL[emit],
+                      "prefetch_hits": 0, "prefetch_misses": 0}
         self.perf = {"stage_s": 0.0, "fetch_s": 0.0, "decode_s": 0.0,
                      "emit_s": 0.0}
 
@@ -276,7 +349,7 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
     def _grow_to(self, n_slots: int) -> None:
         if n_slots <= self.s_max:
             return
-        self.harvest()
+        self.drain()
         new_s = max(self.n_dev, self.s_max)
         while new_s < n_slots:
             new_s *= 2
@@ -352,7 +425,7 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         if slot < self._hact.shape[0]:
             self._hact[slot, entity_slot] = False
         if self._mirror is not None:
-            if self._inflight is not None:
+            if self._inflight is not None or self._due is not None:
                 self._mirror_ops.append(
                     (slot, entity_slot, self._slot_epoch.get(slot, 0)))
             else:
@@ -372,6 +445,7 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         slot that was unsubscribed refreshes its rows on demand)."""
         if self._mirror is None:
             self.flush()
+            self.drain()
             self._mirror = np.concatenate(
                 [P.words_to_numpy(p) for p in self.prev])
             self.full_roundtrips += 1  # the one-time mirror seed
@@ -382,6 +456,7 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
             self._mirror_stale.clear()
         elif slot in self._mirror_stale:
             self.flush()
+            self.drain()
             d, i = self._loc(slot)
             self._mirror[slot] = P.words_to_numpy(self.prev[d][i])
             self._mirror_stale.discard(slot)
@@ -389,8 +464,9 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
 
     def get_prev(self, slot: int) -> np.ndarray:
         """The slot's previous-tick words [C, W] uint32 (one slot's
-        fetch, after the staged work)."""
+        fetch, after the staged work and every tick in flight)."""
         self.flush()
+        self.drain()
         d, i = self._loc(slot)
         return P.words_to_numpy(self.prev[d][i])
 
@@ -398,6 +474,7 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         """Seed the slot's words [C, W] uint32; the slot must be staged
         before the next flush."""
         self.flush()
+        self.drain()
         self._pending_reset.discard(slot)
         words = np.ascontiguousarray(words, np.uint32)
         d, i = self._loc(slot)
@@ -409,15 +486,13 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
 
     # -- the tick ----------------------------------------------------------
 
-    def flush(self) -> None:
-        """Dispatch immediately followed by harvest."""
-        self.dispatch()
-        self.harvest()
-
     def _apply_maintenance(self) -> None:
         """Land queued slot resets and entity clears on each slot's shard,
         in place."""
         c = self.capacity
+        if self._pending_reset or self._pending_clear:
+            self._detach_parked_new()
+            DC.record()
         if self._pending_reset:
             for s in sorted(self._pending_reset):
                 d, i = self._loc(s)
@@ -477,6 +552,7 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
                     pkt = AS.pad_packet(grows[m] - d * b, cols[m],
                                         new_x[rows[m], cols[m]],
                                         new_z[rows[m], cols[m]])
+                    DC.record()
                     AS.apply_packet(self._dx[d], self._dz[d], *pkt)
                     self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
             self.stats["delta_flushes"] += 1
@@ -496,16 +572,15 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         self.stats["h2d_bytes"] += arr.nbytes
         return dev
 
-    def dispatch(self) -> None:
-        """Phase 1: maintenance, staging and every shard's step, mask,
-        extraction, encode and scalar copy, enqueued without waiting."""
-        if self._inflight is not None:
-            self.harvest()  # re-entrant flush: finish the previous first
+    def _dispatch_tick(self) -> dict | None:
+        """Maintenance, staging and every shard's step, mask, extraction,
+        encode and scalar copy of one tick, enqueued without waiting; its
+        record, or None when nothing was staged."""
         if not (self._staged or self._pending_reset or self._pending_clear):
-            return
+            return None
         self._apply_maintenance()
         if not self._staged:
-            return
+            return None
         t0 = time.perf_counter()
         slots = sorted(self._staged)
         sl = np.array(slots, np.intp)
@@ -528,13 +603,13 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
         all_unsub = bool(self._unsub) and all(s in self._unsub for s in slots)
         masked = not self._hsub.all()
         caps = self._caps_now()
+        pred = self._pred if self._defer else None
         shards = []
         for d in range(self.n_dev):
+            DC.record()
             new, chg = AK.aoi_step_chg(self._dx[d], self._dz[d], r[d], act[d],
                                        self.prev[d],
                                        out=self._step_out(d, self.prev[d]))
-            # the old words' buffer takes the next step's new words
-            self._scratch[d] = (self.prev[d], chg)
             self.prev[d] = new
             if all_unsub:
                 shards.append(None)
@@ -543,24 +618,20 @@ class _MeshCUDABucket(_ShardCodec, _Bucket):
             # stream (``new`` stays unmasked: prev stays authoritative)
             if masked:
                 chg.masked_fill_(~sub[d][:, None, None], 0)
-            shards.append(self._encode_shard(new, chg, caps))
-        self._inflight = {
+            shards.append(self._encode_shard(new, chg, caps, pred))
+        self.perf["stage_s"] += time.perf_counter() - t0
+        return {
             "slots": slots, "caps": caps, "shards": shards,
             "b": self.s_max // self.n_dev,
             "epochs": np.fromiter((self._slot_epoch.get(s, 0)
                                    for s in range(self.s_max)), np.int64,
                                   self.s_max)}
-        self.perf["stage_s"] += time.perf_counter() - t0
 
-    def harvest(self) -> None:
-        """Phase 2: wait for each shard's scalars, fetch and decode its
-        stream, update the mirror and publish per-slot events."""
-        rec, self._inflight = self._inflight, None
-        if rec is None:
-            return
+    def _harvest(self, rec: dict) -> None:
+        """Wait for each shard's scalars, fetch and decode its stream,
+        update the mirror and publish per-slot events."""
         c, W = self.capacity, self.W
-        got = self._decode_shards(rec, rec["b"] * c * W,
-                                  lambda d: self.prev[d])
+        got = self._decode_shards(rec, rec["b"] * c * W)
         t0 = time.perf_counter()
         cur = np.fromiter((self._slot_epoch.get(s, 0)
                            for s in range(self.s_max)), np.int64, self.s_max)

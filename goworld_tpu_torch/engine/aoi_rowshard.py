@@ -2,11 +2,12 @@
 
 Port of the JAX package's ``engine/aoi_rowshard.py``
 (``_RowShardTPUBucket``), without its fused, paged and fault-recovery
-modes (ROADMAP.md queue 1).  The mesh bucket keeps each space on one
-shard; a space too large for one device's tick budget (BASELINE's
-``zipf100k``: 100k entities in one space) shards WITHIN the space: shard
-d owns the interest rows ``[d*C/n, (d+1)*C/n)`` -- its block of observers
--- evaluated against ALL C candidates.  Work and interest-state memory
+modes (ROADMAP.md queue 1; ``fused`` is accepted and runs unfused).  The
+mesh bucket keeps each space on one shard; a space too large for one
+device's tick budget (BASELINE's ``zipf100k``: 100k entities in one
+space) shards WITHIN the space: shard d owns the interest rows
+``[d*C/n, (d+1)*C/n)`` -- its block of observers -- evaluated against
+ALL C candidates.  Work and interest-state memory
 split n ways, every shard extracts and encodes its own diff, and the tick
 needs no cross-device collective.
 
@@ -23,6 +24,8 @@ needs no cross-device collective.
     (``aoi_mesh._ShardCodec``); shard d's flat word indices are offset by
     ``d * (C/n) * W`` and expand with one space.
   * The flush is synchronous: events arrive the tick they are computed.
+    ``pipeline`` and ``cross_tick`` are accepted and change nothing, as in
+    the JAX package: one giant space keeps zero added latency.
   * No host mirror (at this size it would be the whole state):
     ``derive_row``/``derive_col`` fetch one observer's row [W] or one
     column's word over all rows [C] on demand; the port's Space prefers
@@ -42,6 +45,7 @@ from ..ops import aoi_cuda as AK
 from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
+from ..ops import dispatch_count as DC
 from .aoi import _Bucket, _emit_expand
 from .aoi_mesh import _ShardCodec
 
@@ -52,8 +56,12 @@ class _RowShardCUDABucket(_ShardCodec, _Bucket):
     exclusive = True  # engine: one bucket per space, dropped at release
 
     def __init__(self, capacity: int, mesh, delta_staging: bool = True,
-                 emit: str = "vector"):
+                 emit: str = "vector", pipeline: bool = False,
+                 cross_tick: bool = False, fused: bool = False):
         super().__init__(capacity)
+        # accepted and ignored: the flush stays synchronous and unfused
+        self.pipeline, self.cross_tick = bool(pipeline), bool(cross_tick)
+        self.fused = bool(fused)
         self._emit = emit
         self.mesh = mesh
         self.n_dev = mesh.n_devices
@@ -154,6 +162,7 @@ class _RowShardCUDABucket(_ShardCodec, _Bucket):
                                     self._hx[cols], self._hz[cols])
                 for dev in self._devs:
                     t = self._dev_in[dev]
+                    DC.record()
                     AS.apply_packet(t["x"].view(1, -1), t["z"].view(1, -1),
                                     *pkt)
                 self.stats["h2d_bytes"] += len(self._devs) * (
@@ -172,6 +181,7 @@ class _RowShardCUDABucket(_ShardCodec, _Bucket):
         self._ensure_prev()
         ents = sorted(set(self._pending_clear))
         self._pending_clear.clear()
+        DC.record()
         col_mask: dict[int, int] = {}
         for e in ents:
             d, i = divmod(e, self.c_local)
@@ -222,13 +232,12 @@ class _RowShardCUDABucket(_ShardCodec, _Bucket):
             rows = [t[k][lo:lo + cl][None] for k in ("x", "z", "r", "act")]
             prev = self.prev[d][None]
             out = tuple(o[None] for o in self._step_out(d, self.prev[d]))
+            DC.record()
             new, chg = AK.aoi_step_chg(
                 *rows, prev, cols=(t["x"][None], t["z"][None],
                                    t["act"][None]),
                 row_ids=self._row_ids[d], out=out)
             new, chg = new[0], chg[0]
-            # the old words' buffer takes the next step's new words
-            self._scratch[d] = (self.prev[d], chg)
             self.prev[d] = new
             shards.append(self._encode_shard(new, chg, caps)
                           if self._subscribed else None)
@@ -241,8 +250,7 @@ class _RowShardCUDABucket(_ShardCodec, _Bucket):
         rec, self._inflight = self._inflight, None
         if rec is None:
             return
-        got = self._decode_shards(rec, self.c_local * self.W,
-                                  lambda d: self.prev[d])
+        got = self._decode_shards(rec, self.c_local * self.W)
         t0 = time.perf_counter()
         empty = np.empty((0, 2), np.int32)
         e = lv = empty

@@ -10,9 +10,12 @@ in this order (part of the engine contract):
                attr deltas;
   4. post   -- callbacks queued during the tick.
 
-Placement, cohorts, checkpoints, fault plans, pipelining, telemetry and
-the crontab of the JAX runtime are not in the port yet (ROADMAP.md lists
-them; the options that select them raise).
+``aoi_pipeline`` / ``aoi_cross_tick`` defer the AOI events by one tick
+(the tick keeps flushing while a tick is in flight) and ``aoi_fused``
+runs the steady single-device tick as one graph replay (see
+:class:`.aoi.AOIEngine`).  Placement, cohorts, checkpoints, fault plans,
+paged storage, telemetry and the crontab of the JAX runtime are not in
+the port yet (ROADMAP.md lists them; the options that select them raise).
 """
 
 from __future__ import annotations
@@ -85,6 +88,8 @@ class Runtime:
         staged = False
         for sp in spaces:
             staged = sp.submit_aoi() or staged
+        # a deferred bucket may hold a tick in flight with nothing new
+        # staged: the flush still delivers it
         if staged or self.aoi.has_pending():
             self.aoi.flush()
             for sp in spaces:

@@ -14,8 +14,9 @@
 ``device="cuda"`` (the default) runs on the card: ``dryrun_multichip``
 then needs ``n`` distinct CUDA devices (``parallel.multichip_devices``
 raises without them).  ``device="cpu"`` runs the plain versions on ``n``
-virtual shards of the CPU, as the tests do.  The engine-on-mesh check is
-non-pipelined (pipelining is ROADMAP.md queue 1, item 1).
+virtual shards of the CPU, as the tests do.  The engine-on-mesh check
+runs the mesh bucket pipelined (``aoi_pipeline=True``) against the
+single-device runtime, one tick apart, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -135,10 +136,14 @@ def _dryrun_rowshard_on_mesh(sm, n_devices: int, device) -> None:
 
 
 def _dryrun_engine_on_mesh(sm, n_devices: int, device) -> None:
-    """``Runtime.tick`` with the mesh bucket against the single-device
-    runtime on the same walk, compared at every tick: multi-step churn, a
-    clear storm and capacity growth (one space pushed past its 128
-    slots, carrying its interest state)."""
+    """``Runtime.tick`` with the mesh bucket in its pipelined mode against
+    the sequential single-device runtime on the same walk: the mesh's
+    calculator events arrive one tick late, so it is compared shifted at
+    every movement tick and at a drain tick, and over the union of (storm
+    tick, drain tick) where a clear storm's synchronous leaves and the
+    late events interleave.  Multi-step churn, a clear storm and capacity
+    growth (one space pushed past its 128 slots, carrying its interest
+    state)."""
     from .engine.entity import Entity
     from .engine.runtime import Runtime
     from .engine.space import Space
@@ -162,7 +167,8 @@ def _dryrun_engine_on_mesh(sm, n_devices: int, device) -> None:
             def on_leave_aoi(self, other):
                 log.append(("leave", self.id, other.id))
 
-        rt = Runtime(device=device.type, aoi_mesh=mesh)
+        rt = Runtime(device=device.type, aoi_mesh=mesh,
+                     aoi_pipeline=mesh is not None)
         rt.entities.register(Scene)
         rt.entities.register(Mob)
         return rt
@@ -185,6 +191,7 @@ def _dryrun_engine_on_mesh(sm, n_devices: int, device) -> None:
         ents[kind] = es
         rt.tick()
     (bucket,) = runtimes["mesh"].aoi._buckets.values()
+    assert bucket.pipeline, "the dryrun drives the pipelined mesh bucket"
     assert len(bucket.prev) == n_devices
 
     def canon(kind):
@@ -193,12 +200,9 @@ def _dryrun_engine_on_mesh(sm, n_devices: int, device) -> None:
         events[kind].clear()
         return out
 
-    def compare(what):
-        m, c = canon("mesh"), canon("single")
-        assert m == c, f"{what}: {len(m)} mesh events vs {len(c)} single"
-        return m
-
-    assert compare("mass enter"), "the mass-enter tick delivered nothing"
+    assert canon("mesh") == [], "the pipelined flush delivered same-tick"
+    expect = canon("single")  # the mass enter, due at the next mesh tick
+    assert expect, "the mass-enter tick delivered nothing"
     pos = pos0.copy()
     for t in range(3):
         pos = np.clip(pos + steps[t], 0, 250)
@@ -209,7 +213,12 @@ def _dryrun_engine_on_mesh(sm, n_devices: int, device) -> None:
                     es[si * per + ei].set_position(
                         Vector3(pos[si, ei, 0], 0.0, pos[si, ei, 1]))
             rt.tick()
-        compare(f"tick {t}")
+        m = canon("mesh")
+        assert m == expect, (f"tick {t}: {len(m)} mesh events vs "
+                             f"{len(expect)} one tick before")
+        expect = canon("single")
+    runtimes["mesh"].tick()  # drain tick: nothing staged, one in flight
+    assert canon("mesh") == expect, "the drain tick diverged"
     # clear storm (one space's entities all destroyed) + growth
     newcomers = rng.uniform(0, 250, (130, 2)).astype(np.float32)
     for kind, rt in runtimes.items():
@@ -221,7 +230,13 @@ def _dryrun_engine_on_mesh(sm, n_devices: int, device) -> None:
                 "Mob", space=grow_space,
                 pos=Vector3(float(p[0]), 0.0, float(p[1]))))
         rt.tick()
-    assert compare("storm and growth tick"), "storm tick delivered nothing"
+    m_storm = canon("mesh")
+    runtimes["mesh"].tick()  # drain
+    m = sorted(m_storm + canon("mesh"))
+    c = canon("single")
+    assert m == c and len(m) > 0, (
+        f"storm and growth: {len(m)} mesh events vs {len(c)} single")
     assert ents["mesh"][per].space._cap >= 256, "growth did not happen"
+    assert not runtimes["mesh"].aoi.has_pending()
     assert bucket.full_roundtrips == 0, (
         "steady maintenance must not round-trip the full interest state")

@@ -11,9 +11,9 @@ drops a pair.
 On CUDA tensors :func:`aoi_words_culled` and :func:`aoi_step_culled`
 launch the hand-written kernels of ``csrc/aoi_grid.cu`` (and raise if a
 launch is refused -- there is no fallback); on CPU tensors they run the
-plain versions, which are the dense words of :mod:`aoi_dense` plus
-:func:`cull_table`'s fraction.  ``launches`` counts kernel launches per
-kernel, and nothing else.
+plain versions, which are the dense words of :mod:`aoi_dense` plus the
+kernels' culled fraction from :func:`vote_fraction`.  ``launches`` counts
+kernel launches per kernel, and nothing else.
 
 The kernels are persistent: :func:`culled_plan` (the step) and
 :func:`words_plan` (the words pass, whose units hold at most
@@ -23,10 +23,10 @@ Both kernels decide the cull per (64-row tile, 32-word group, plane) by
 the same rule, so their culled fractions are equal; :func:`tile_votes`
 is that decision's plain version.
 
-The culled fraction is what each side's own tiles skip: the plain version
-uses the JAX package's table at the same ``(block_rows, col_words)``,
-the kernel its own 64-row x 32-word tiles, so the two fractions differ
-while the words agree.
+The culled fraction has one meaning on both devices: the share of
+(64-row tile, 32-word group, plane) steps the kernels' vote skips.  It is
+not the JAX package's fraction, which counts its own ``(block_rows,
+col_words)`` blocks; :func:`cull_table` keeps that table and fraction.
 
 One repair against the JAX package: its cull table widens every bound by
 a margin built from ``max(radius)`` over all slots, so one NaN radius
@@ -188,27 +188,37 @@ def tile_votes(x, radius, active):
 # -- plain versions (what the CPU runs; the kernels' references) -------------
 
 
-def aoi_words_culled_plain(x, z, radius, active, *, block_rows=128,
-                           col_words=0):
+def vote_fraction(x, radius, active):
+    """The kernels' culled fraction (f32 scalar) for [S, C] inputs: the
+    share of (tile, group, plane) steps :func:`tile_votes` skips, rounded
+    as the wrappers round theirs (the count's ratio in float64, then
+    float32)."""
+    need = tile_votes(x, radius, active)
+    n = need.numel() * WORD_BITS
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    bits = torch.arange(WORD_BITS, dtype=torch.int64, device=x.device)
+    kept = ((need[..., None] >> bits) & 1).sum()
+    return ((n - kept).to(torch.float64) / n).to(torch.float32)
+
+
+def aoi_words_culled_plain(x, z, radius, active):
     """``(words [S, C, W] int32, culled_frac)``: the dense words and the
-    JAX package's culled fraction at ``(block_rows, col_words)``."""
+    kernels' culled fraction (:func:`vote_fraction`)."""
     check_inputs(x, z, radius, active, None)
     s, c = x.shape
     zero = torch.zeros((s, c, words_per_row(c)), dtype=torch.int32,
                        device=x.device)
     words, _ = aoi_step_chg_dense(x, z, radius, active, zero)
-    _, frac = cull_table(x, radius, active, block_rows, col_words)
-    return words, frac
+    return words, vote_fraction(x, radius, active)
 
 
-def aoi_step_culled_plain(x, z, radius, active, prev_words, *, block_rows=512,
-                          col_words=0):
+def aoi_step_culled_plain(x, z, radius, active, prev_words):
     """``(new, new ^ prev, culled_frac)`` as :func:`aoi_words_culled_plain`
     computes them."""
     check_inputs(x, z, radius, active, prev_words)
     new, chg = aoi_step_chg_dense(x, z, radius, active, prev_words)
-    _, frac = cull_table(x, radius, active, block_rows, col_words)
-    return new, chg, frac
+    return new, chg, vote_fraction(x, radius, active)
 
 
 # -- the kernels ---------------------------------------------------------------
@@ -304,16 +314,14 @@ def aoi_step_culled_cuda(x, z, radius, active, prev_words):
 def aoi_words_culled(x, z, radius, active, *, block_rows=128, col_words=0):
     """Packed interest words for the current positions, with block
     culling: [S, C] inputs in the caller's (x-sorted) slot order ->
-    ``(words [S, C, W] int32, culled_frac f32 scalar)``.  The kernel on
-    CUDA tensors, the plain version on CPU tensors.  ``block_rows`` and
-    ``col_words`` are the JAX package's tiles: they shape only the plain
-    version's table and its fraction; the CUDA kernel ignores them (it
-    culls by its own 64-row x 32-word tiles)."""
+    ``(words [S, C, W] int32, culled_frac f32 scalar)``, the fraction the
+    kernels' vote skips on either device.  The kernel on CUDA tensors,
+    the plain version on CPU tensors.  ``block_rows`` and ``col_words``
+    are the JAX package's tiles, checked as it checks them and otherwise
+    unused (its fraction at those tiles is :func:`cull_table`'s)."""
     legal_blocks(x.shape[1], block_rows, col_words)
     if x.device.type == "cpu":
-        return aoi_words_culled_plain(x, z, radius, active,
-                                      block_rows=block_rows,
-                                      col_words=col_words)
+        return aoi_words_culled_plain(x, z, radius, active)
     return aoi_words_culled_cuda(x, z, radius, active)
 
 
@@ -322,13 +330,11 @@ def aoi_step_culled(x, z, radius, active, prev_words, *, block_rows=512,
     """One culled tick with the diff fused: ``(new, chg, culled_frac)``.
     ``prev_words`` must be in the same slot order as the inputs (the
     caller holds one x-sorted order fixed across ticks).  Kernel on CUDA
-    tensors, plain version on CPU tensors; the CUDA kernel ignores
-    ``block_rows`` and ``col_words``, as :func:`aoi_words_culled`'s."""
+    tensors, plain version on CPU tensors; ``block_rows``, ``col_words``
+    and the fraction as :func:`aoi_words_culled`'s."""
     legal_blocks(x.shape[1], block_rows, col_words)
     if x.device.type == "cpu":
-        return aoi_step_culled_plain(x, z, radius, active, prev_words,
-                                     block_rows=block_rows,
-                                     col_words=col_words)
+        return aoi_step_culled_plain(x, z, radius, active, prev_words)
     return aoi_step_culled_cuda(x, z, radius, active, prev_words)
 
 

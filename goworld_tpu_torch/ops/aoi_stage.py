@@ -23,17 +23,23 @@ _MIN_PACKET = 64
 
 
 def pad_packet(rows: np.ndarray, cols: np.ndarray, xv: np.ndarray,
-               zv: np.ndarray):
+               zv: np.ndarray, length: int | None = None):
     """Pad a (rows, cols, xv, zv) update packet to a power-of-two length
-    (>= ``_MIN_PACKET``) by repeating the last entry.  Requires a non-empty
+    (>= ``_MIN_PACKET``), or to exactly ``length`` (the fused tick's one
+    packet length), by repeating the last entry.  Requires a non-empty
     packet (an empty delta skips the scatter entirely).  (The JAX
     package's page-granular padding comes with paged storage.)"""
     k = len(rows)
     if k == 0:
         raise ValueError("empty delta packet: skip the scatter instead")
-    n = _MIN_PACKET
-    while n < k:
-        n *= 2
+    if length is not None:
+        if length < k:
+            raise ValueError(f"packet of {k} entries over length {length}")
+        n = length
+    else:
+        n = _MIN_PACKET
+        while n < k:
+            n *= 2
     rows = np.ascontiguousarray(rows, np.int32)
     cols = np.ascontiguousarray(cols, np.int32)
     xv = np.ascontiguousarray(xv, np.float32)
@@ -47,9 +53,40 @@ def pad_packet(rows: np.ndarray, cols: np.ndarray, xv: np.ndarray,
     return rows, cols, xv, zv
 
 
+def h2d(arr: np.ndarray, device: torch.device,
+        out: torch.Tensor | None = None) -> torch.Tensor:
+    """A device copy of a host array (into ``out`` when given, in place)
+    that never makes the host wait: on a CUDA device the array is copied
+    into pinned memory and uploaded asynchronously on the current stream
+    (a pageable upload would wait for the stream, and with it for a tick
+    still in flight); on the CPU a plain copy (never aliasing ``arr``)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    if out is None:
+        return t.to(device, non_blocking=True, copy=True)
+    return out.copy_(t, non_blocking=True)
+
+
 def packet_nbytes(rows, cols, xv, zv) -> int:
     """Wire bytes of one padded packet (the h2d_bytes attribution)."""
     return rows.nbytes + cols.nbytes + xv.nbytes + zv.nbytes
+
+
+def packet_arrays(rows, cols, xv, zv):
+    """One padded numpy packet as the two host arrays the scatter reads:
+    indices int64 [2, n] (rows, cols) and values float32 [2, n] (x, z)."""
+    return (np.stack([rows, cols]).astype(np.int64),
+            np.stack([xv, zv]).astype(np.float32, copy=False))
+
+
+def scatter_packet(dx: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
+                   val: torch.Tensor) -> None:
+    """The scatter alone, on device tensors: ``idx`` int64 [2, n], ``val``
+    float32 [2, n] (what :func:`packet_arrays` gives).  No host work, so
+    a CUDA graph can hold it."""
+    dx.index_put_((idx[0], idx[1]), val[0])
+    dz.index_put_((idx[0], idx[1]), val[1])
 
 
 def apply_packet(dx: torch.Tensor, dz: torch.Tensor, rows, cols, xv,
@@ -57,8 +94,5 @@ def apply_packet(dx: torch.Tensor, dz: torch.Tensor, rows, cols, xv,
     """Scatter one padded numpy packet into the persistent [S, C] float32
     tensors ``dx``/``dz`` in place.  The packet rides one H2D copy for the
     indices and one for the values."""
-    dev = dx.device
-    idx = torch.from_numpy(np.stack([rows, cols]).astype(np.int64)).to(dev)
-    val = torch.from_numpy(np.stack([xv, zv])).to(dev)
-    dx.index_put_((idx[0], idx[1]), val[0])
-    dz.index_put_((idx[0], idx[1]), val[1])
+    idx, val = packet_arrays(rows, cols, xv, zv)
+    scatter_packet(dx, dz, h2d(idx, dx.device), h2d(val, dx.device))

@@ -25,6 +25,7 @@ import torch
 
 from ..ops import aoi_cuda as AK
 from ..ops import events as EV
+from ..ops.aoi_stage import h2d
 
 _LANES = 128
 
@@ -91,8 +92,8 @@ class SpaceMesh:
         if arr.dtype == np.uint32:
             arr = arr.view(np.int32)
         b = self.block(arr.shape[0])
-        return [torch.from_numpy(np.ascontiguousarray(arr[d * b:(d + 1) * b]))
-                .to(dev, copy=True) for d, dev in enumerate(self.devices)]
+        return [h2d(arr[d * b:(d + 1) * b], dev)
+                for d, dev in enumerate(self.devices)]
 
     def gather(self, parts) -> np.ndarray:
         """The whole array of per-shard tensors as one numpy array (int32

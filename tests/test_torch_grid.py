@@ -89,8 +89,10 @@ def test_plain_culled_words_match_jax(name, s, c):
         *map(jnp.asarray, (x, z, r, act)), col_words=CW, interpret=True)
     got, frac = TG.aoi_words_culled(*_t(x, z, r, act), col_words=CW)
     np.testing.assert_array_equal(TP.words_to_numpy(got), np.asarray(want))
-    assert float(frac) == float(want_frac)
-    assert float(frac) > 0.2  # the layouts are sorted enough to cull
+    assert float(frac) == float(TG.vote_fraction(*_t(x, r, act)))
+    _, table_frac = TG.cull_table(*_t(x, r, act), 128, CW)
+    assert float(table_frac) == float(want_frac)
+    assert float(table_frac) > 0.2  # the layouts are sorted enough to cull
 
 
 @pytest.mark.parametrize("name", LAYOUTS)
@@ -109,7 +111,9 @@ def test_plain_culled_step_matches_jax(name, br):
         col_words=CW)
     np.testing.assert_array_equal(TP.words_to_numpy(new_t), np.asarray(new_j))
     np.testing.assert_array_equal(TP.words_to_numpy(chg_t), np.asarray(chg_j))
-    assert float(frac_t) == float(frac_j)
+    assert float(frac_t) == float(TG.vote_fraction(*_t(x, r, act)))
+    _, table_frac = TG.cull_table(*_t(x, r, act), br, CW)
+    assert float(table_frac) == float(frac_j)
 
 
 @pytest.mark.parametrize("br,cw", [(128, 32), (256, 8), (512, 0), (100, 16)])
@@ -441,3 +445,26 @@ def test_tile_votes_only_admit(name, c):
         assert ((need[sp, i // 64, word // 32] >> k) & 1).all()
         for t in np.unique(np.nonzero(act[sp] & (r[sp] == np.inf))[0] // 64):
             assert (need[sp, t] == 0xFFFFFFFF).all()
+
+
+@pytest.mark.parametrize("name,c", VOTE_CASES + [("tiny", 32)])
+def test_entry_fraction_is_the_votes_on_the_cpu(name, c):
+    """The entries' culled_frac on CPU tensors is the kernels' fraction:
+    the share of (tile, group, plane) steps the numpy vote loop skips,
+    rounded once to float32 -- the same number the CUDA wrappers report,
+    not the JAX package's table fraction."""
+    if name == "tiny":  # one partial tile and group, half the slots off
+        x, z, r, act = (a[:, :c].copy() for a in sorted_layout(2, 1024, 3))
+        act[:, ::2] = False
+    else:
+        x, z, r, act = vote_layout(name, c)
+    votes = numpy_votes(x, r, act)
+    n = votes.size * 32
+    kept = int(np.unpackbits(votes.astype(np.uint32).view(np.uint8)).sum())
+    want = np.float32((n - kept) / n)
+    prev = TP.words_to_torch(np.zeros((x.shape[0], c, c // 32), np.uint32),
+                             "cpu")
+    _, wf = TG.aoi_words_culled(*_t(x, z, r, act))
+    _, _, sf = TG.aoi_step_culled(*_t(x, z, r, act), prev)
+    assert wf.dtype == sf.dtype == torch.float32
+    assert float(wf) == float(sf) == float(want)
