@@ -42,6 +42,33 @@ Phases (any failure raises, so the exit code is non-zero):
                 dispatches equal the eligible ticks; no new capture key
                 after warm-up; every aoi_step launch a replay, an unfused
                 tick's or a capture's warm-up; graphs, their pool bytes;
+ 14b. sub change -- phase 4's world under the 10% walk with space 0
+                opting out of the event stream and back in: a steady tick
+                ships a delta packet, a subscription change restages
+                x/z/sub in full (as the JAX bucket does); the ms, stage ms
+                and H2D bytes of each;
+ 15. faults  -- phase 4's widths at 2 of its spaces (each host-recovered
+                tick is numpy, about 4 s a space) through FAULT_PLAN (the
+                plan of scripts/faults_smoke.py), then a second kernel
+                failure (to the host oracle), an emit failure (to the
+                host emit mode), reset_calc_chain() and 3 ticks:
+                sequential and cross_tick on the card, sequential on the
+                CPU path; per-tick CRCs equal to the fault-free card
+                run's (shifted by one under cross_tick), the fault
+                counters, levels and fired faults as planned, the kernel
+                launched at the level-0 ticks only; the ms of the
+                recovered, level-1, level-2 and back-at-0 ticks;
+ 15b. sharded faults -- the same plan on the mesh bucket (2 spaces on 4
+                virtual shards; sequential and cross_tick) and on the
+                row-sharded bucket (one space of 16384 over 4 virtual
+                shards), each against its own fault-free run, with the
+                same checks;
+ 16. routing -- Runtime(aoi_backend="auto") with bench.py's unity1k
+                (1 x 1024, 1000 active, world 2000) beside phase 4's
+                eight spaces: unity1k routes to cpp, the eight to cuda,
+                per-tick CRCs equal to aoi_backend="cpu"; then phase 4's
+                world and unity1k alone under cpp and cuda in turns: each
+                bucket's tick ms.
   6. giant kernels -- the rectangular step and the two block-culled
                 kernels against their plain versions on the card,
                 bit-exact, over edge-case inputs (NaN and +inf radii,
@@ -101,9 +128,12 @@ Phases (any failure raises, so the exit code is non-zero):
                 ticks, equal per-tick CRCs, the shards' words equal to the
                 square kernel's, derive_row/derive_col equal to them.
 
-Phases 13 and 14 run after phase 5.  Virtual shards are shards of one
-card taking turns on it: their times are one card's, not a multi-card
-layout's.  The last lines are {"deferred": ...} (phases 13-14),
+Phases 13-16 run after phase 5.  Every fault-free phase checks that it
+ended at calc level 0 with no recovery and the resolved emit mode.
+Virtual shards are shards of one card taking turns on it: their times
+are one card's, not a multi-card layout's.  The last lines are
+{"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
+{"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
 {"mesh": ...}, {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
@@ -111,9 +141,10 @@ and the least time to issue its pair tests at the SM clock read in phase
 Kernel launches are counted on the path each kernel serves, with the
 counts reset just before it: the square step in phase 4 and in each
 deferred and fused run of phases 13 and 14 (a graph replay counts one
-launch; its entry's "launches" is their sum, "path_launches" each),
-the culled kernels in phase 7, the rectangular step in phase 8, the
-entlv mode in phase 10.
+launch), in phases 15 and 16 and on the mesh in phase 15b (its entry's
+"launches" is their sum, "path_launches" each), the culled kernels in
+phase 7, the rectangular step in phase 8 and on the row-sharded bucket
+in phase 15b, the entlv mode in phase 10.
 """
 
 from __future__ import annotations
@@ -162,6 +193,20 @@ def log(*a):
 
 
 # -- phase 3: kernel vs plain ------------------------------------------------
+
+
+def healthy(stats, label):
+    """A fault-free run ends with no calculator demotion, no recovery and
+    the emit mode the engine resolved: a demotion must never stand in for
+    the kernel unseen."""
+    from goworld_tpu_torch.ops import aoi_emit as AE
+
+    bad = {k: stats[k] for k in ("calc_level", "fallbacks", "rebuilds",
+                                 "host_ticks") if stats[k]}
+    check(not bad, f"{label}: fault counters {bad} in a fault-free run")
+    want = AE.EMIT_LEVEL[AE.resolve_mode("auto")]
+    check(stats["emit_path"] == want,
+          f"{label}: emit_path {stats['emit_path']}, want {want}")
 
 
 def edge_inputs(s, c, seed, with_prev=True):
@@ -367,13 +412,17 @@ def phase_kernels(AK, AD):
 # -- phase 4/5: the main path -------------------------------------------------
 
 
-def build_world(Runtime, device, spaces, per_space, capacity, seed, **rt_kw):
+def build_world(Runtime, device, spaces, per_space, capacity, seed,
+                extra=None, **rt_kw):
+    """``spaces`` spaces of ``per_space`` entities (world WORLD) on
+    ``Runtime(device=device, **rt_kw)``, and with ``extra`` = (capacity,
+    entities, world) one more space after them."""
     from goworld_tpu_torch.engine.entity import Entity
     from goworld_tpu_torch.engine.space import Space
     from goworld_tpu_torch.engine.vector import Vector3
 
     class SmokeScene(Space):
-        pass
+        world = WORLD  # the walk's bound
 
     class SmokeMob(Entity):
         use_aoi = True
@@ -407,14 +456,18 @@ def build_world(Runtime, device, spaces, per_space, capacity, seed, **rt_kw):
     rt.aoi.take_events = folding_take
     rng = np.random.default_rng(seed)
     spaces_l, slots, pos = [], [], []
-    for _ in range(spaces):
+    layout = [(capacity, per_space, WORLD)] * spaces
+    if extra is not None:
+        layout.append(extra)
+    for cap, n, world in layout:
         sp = rt.entities.create_space("SmokeScene", kind=1)
-        sp.enable_aoi(RADIUS, capacity=capacity)
-        p = rng.uniform(0, WORLD, (2, per_space)).astype(np.float32)
+        sp.world = world
+        sp.enable_aoi(RADIUS, capacity=cap)
+        p = rng.uniform(0, world, (2, n)).astype(np.float32)
         ents = [rt.entities.create(
             "SmokeWatcher" if i == 0 else "SmokeMob", space=sp,
             pos=Vector3(float(p[0, i]), 0.0, float(p[1, i])))
-            for i in range(per_space)]
+            for i in range(n)]
         spaces_l.append(sp)
         slots.append(np.array([e.aoi_slot for e in ents], np.int64))
         pos.append(p)
@@ -431,7 +484,7 @@ def walk(spaces_l, slots, pos, rng, frac=1.0):
                                      replace=False))
         q = p[:, sel] + rng.uniform(-STEP, STEP, (2, len(sel))).astype(
             np.float32)
-        p[:, sel] = np.clip(q, 0, WORLD)
+        p[:, sel] = np.clip(q, 0, sp.world)
         sp.move_entities(sl[sel], p[0, sel], p[1, sel])
 
 
@@ -573,6 +626,7 @@ def phase_main(Runtime, AK, AD, EV):
         got = bucket.get_prev(h.slot)
         check(np.array_equal(got, want[h.slot].cpu().numpy().view(np.uint32)),
               f"slot {h.slot}: interest words != plain version")
+    healthy(bucket.stats, "main")
     out = {"spaces": SPACES, "entities_per_space": PER_SPACE,
            "capacity": CAPACITY, "ticks": ticks, "measured": MEASURED,
            "prime_s": prime_s, "prime_events": prime_events,
@@ -602,6 +656,7 @@ def phase_parity(Runtime):
         stats = bucket_of(rt).stats
         check(stats["delta_flushes"] > 0 and stats["full_flushes"] > 0,
               f"parity walk staged {stats}")
+        healthy(stats, f"parity on {device}")
         crcs[device] = (crc["v"], crc["events"])
     check(crcs["cuda"] == crcs["cpu"],
           f"card vs CPU event CRC differ: {crcs}")
@@ -701,11 +756,7 @@ def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
                               mem1["reserved_bytes.all.current"]],
            "allocated_bytes": [mem0["allocated_bytes.all.current"],
                                mem1["allocated_bytes.all.current"]]}
-    # a space's slot -> entity object array is not traversed by the cycle
-    # collector, so a world never frees by itself (ROADMAP.md queue 3);
-    # cut it, so each run starts from the memory the last one found
-    for sp in spaces_l:
-        sp._slot_np[:] = None
+    healthy(st, mode)
     del rt, bucket, fz, spaces_l
     gc.collect()
     torch.cuda.empty_cache()
@@ -824,6 +875,397 @@ def phase_fused(Runtime, AK, DC):
             "replays": sum(r["stats"]["fused_dispatches"] for r in runs),
             "launches": sum(r["launches"] for r in runs
                             if r["mode"] != "unfused")}
+
+
+# phase 14b: a subscription change amid a sparse walk (space 0 opts out,
+# later back in): the tick restages x/z/sub in full, as the JAX bucket
+# does, where a steady tick ships a delta packet
+SUB_SCHEDULE = [None] + [0.1] * 6 + ["sub"] + [0.1] * 3 + ["sub"] + [0.1] * 3
+
+
+def phase_sub_change(Runtime):
+    """Phase 14b: phase 4's world, sequential and unfused, through
+    SUB_SCHEDULE; per tick the ms (a sync before and after), the bucket's
+    stage ms and H2D bytes and how its inputs were staged.  The steady
+    ticks ship a delta packet, the subscription changes restage in full;
+    the steady ticks' means and each change's numbers."""
+    import gc
+
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, DEV, SPACES, PER_SPACE, CAPACITY, seed=7)
+    bucket = bucket_of(rt)
+    h = spaces_l[0]._aoi_handle
+    sub, rows = True, []
+    for what in SUB_SCHEDULE:
+        if what == "sub":
+            sub = not sub
+            rt.aoi.set_subscribed(h, sub)
+        if what is not None:
+            walk(spaces_l, slots, pos, rng, frac=0.1)
+        st0, stage0 = dict(bucket.stats), bucket.perf["stage_s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.tick()
+        torch.cuda.synchronize()
+        rows.append({"what": what,
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "stage_ms": (bucket.perf["stage_s"] - stage0) * 1e3,
+                     "h2d_bytes": bucket.stats["h2d_bytes"]
+                     - st0["h2d_bytes"],
+                     "full": bucket.stats["full_flushes"]
+                     - st0["full_flushes"]})
+    healthy(bucket.stats, "phase 14b")
+    steady = [r for r in rows[3:] if r["what"] == 0.1]
+    subs = [r for r in rows if r["what"] == "sub"]
+    check(all(r["full"] == 0 for r in steady)
+          and all(r["full"] == 1 for r in subs),
+          f"phase 14b: staging per tick {[r['full'] for r in rows]}")
+
+    out = {"rows": rows,
+           **{f"steady_{k}": sum(r[k] for r in steady) / len(steady)
+              for k in ("ms", "stage_ms", "h2d_bytes")},
+           # each change apart: the first opt-out is the process's first
+           # masked tick
+           **{f"sub_{k}": [r[k] for r in subs]
+              for k in ("ms", "stage_ms", "h2d_bytes")}}
+    log("sub change", json.dumps(out))
+    del rt, bucket, spaces_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 15/16: the fault chains and the host calculators -------------
+
+# phase 15: phase 4's widths with 2 of its 8 spaces (each host-recovered
+# tick is the numpy predicate, about 4 s a space); the plan of
+# scripts/faults_smoke.py, then (added while the run goes, at the seam's
+# next crossing) a second kernel failure and an emit failure
+FAULT_SPACES = 2
+FAULT_PLAN = ("seed=7;aoi.h2d:oom@3;aoi.kernel:fail@5;aoi.scalars:poison@7;"
+              "aoi.fetch:stall@2:0.001")
+FAULT_TICKS = 9       # a prime tick and 8 walk ticks under FAULT_PLAN
+FAULT_AFTER = 3       # ticks after reset_calc_chain()
+# phase 15b: the same schedule on the mesh and row-sharded buckets
+# (their levels, launches and fired faults differ from the single-device
+# bucket's: the seams are crossed as often as in the JAX package's
+# buckets of the same kind, held to them by tests/test_torch_faults.py).
+# The h2d OOM strikes while their step is enqueued and demotes them at
+# the prime tick, so the kernel failure at tick 5 sends them to the host
+# oracle: 6 ticks before the added faults keep the host ticks few
+SHARDED_FAULT_TICKS = 6
+SHARDED_STATS = {"rebuilds": 3, "fallbacks": 3, "host_ticks": 6,
+                 "poisoned": 1, "calc_level": 0, "fused_demotions": 0,
+                 "emit_path": 2}
+# per tick: the level it dispatched at, and whether the kernel launched
+# (the faults at the prime tick and after the first reset strike before
+# the launch)
+SHARDED_LEVELS = [0, 1, 1, 1, 1, 2, 2, 2, 0, 1, 1, 0, 0, 0]
+SHARDED_LAUNCHED = [False] * 11 + [True] * 3
+SHARDED_FIRED = [("aoi.fetch", "stall", 2), ("aoi.h2d", "oom", 3),
+                 ("aoi.kernel", "fail", 5), ("aoi.kernel", "fail", 6),
+                 ("aoi.scalars", "poison", 7)]
+# kind -> its spaces, and per mode the aoi.emit crossing the added emit
+# fault lands on (the row-sharded bucket stays synchronous)
+SHARDED_FAULTS = {
+    "mesh": {"spaces": FAULT_SPACES,
+             "emit_at": {"sequential": 8, "cross_tick": 7}},
+    "rowshard": {"spaces": 1, "emit_at": {"sequential": 8}},
+}
+# phase 16: bench.py's unity1k (1 space x 1024, 1000 active, world 2000,
+# r 100: `bench.py:203`) beside phase 4's eight spaces; the numpy oracle
+# reference costs about 6 s a space a tick, so a prime tick and one walk
+UNITY = (1024, 1000, 2000.0)
+ROUTE_TICKS = 2
+ROUTE_TURNS = ["cpp", "cuda", "cuda", "cpp"]
+ROUTE_WARMUP, ROUTE_MEASURED = 2, 5
+
+
+def fault_run(Runtime, AK, device, mode, plan, spaces=FAULT_SPACES,
+              ticks=FAULT_TICKS, resets=1, **rt_kw):
+    """Phase 15's schedule on ``Runtime(device=device, fault_plan=plan,
+    **RT_MODES[mode], **rt_kw)`` at ``spaces`` spaces of phase 4's world
+    (one bucket): ``ticks`` ticks
+    (the h2d OOM recovered at the prime tick, the kernel failure at tick
+    5 demoting to the plain step, the poisoned count, the stalled fetch),
+    a second kernel failure (to the host oracle), an emit failure (to the
+    host emit mode), then ``resets`` times ``reset_calc_chain()`` and
+    FAULT_AFTER ticks.  Per tick: CRC, events, the calc level it dispatched at,
+    kernel launches, ms (a sync before and after).  Returns (rows, the
+    drained trailing tick, stats, fired)."""
+    import gc
+
+    from goworld_tpu_torch import faults
+
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, device, spaces, PER_SPACE, CAPACITY, seed=7,
+        fault_plan=plan, **RT_MODES[mode], **rt_kw)
+    bucket = bucket_of(rt)
+    fp = faults.plan()
+    rows = []
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def tick(label):
+        if rows:
+            walk(spaces_l, slots, pos, rng)
+        crc["t"] = crc["te"] = 0
+        level, n0 = bucket._calc_level, AK.launches["aoi_step"]
+        sync()
+        t0 = time.perf_counter()
+        rt.tick()
+        sync()
+        rows.append({"label": label, "crc": f"{crc['t']:08x}",
+                     "events": crc["te"], "level": level,
+                     "launches": AK.launches["aoi_step"] - n0,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+
+    def next_crossing(seam, kind):
+        if fp is not None:
+            fp.add(seam, kind, fp.counts.get(seam, 0) + 1)
+
+    try:
+        check(bucket._emit == "native", f"phase 15 needs the native fan-out "
+              f"(resolved {bucket._emit!r}) for its aoi.emit fault")
+        for t in range(ticks):
+            tick("prime" if t == 0 else f"walk {t}")
+        next_crossing("aoi.kernel", "fail")
+        tick("kernel fail 2")
+        next_crossing("aoi.emit", "fail")
+        tick("level 2 + emit fail")
+        for i in range(resets):
+            bucket.reset_calc_chain()
+            for t in range(FAULT_AFTER):
+                tick(f"after reset {i} {t}")
+        crc["t"] = crc["te"] = 0
+        rt.aoi.drain()
+        for sp in spaces_l:
+            sp.dispatch_aoi_events()
+        trailing = (f"{crc['t']:08x}", crc["te"])
+        stats = dict(bucket.stats)
+        fired = [] if fp is None else [dict(f) for f in fp.fired]
+    finally:
+        faults.clear()
+    del rt, bucket, spaces_l
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows, trailing, stats, fired
+
+
+def fired_set(fired):
+    return sorted((f["seam"], f["kind"], f["occurrence"]) for f in fired)
+
+
+def phase_sharded_faults(Runtime, AK, SpaceMesh):
+    """Phase 15b: phase 15's schedule, cut to SHARDED_FAULT_TICKS ticks
+    before the added faults and with a second reset_calc_chain() and
+    FAULT_AFTER ticks, on the sharded buckets of the card, each against
+    its own fault-free run: the mesh bucket (FAULT_SPACES
+    spaces on phase 11's 4 virtual shards; sequential and cross_tick) and
+    the row-sharded bucket (one space of CAPACITY over 4 virtual shards;
+    synchronous).  Per-tick CRCs equal to the fault-free run's (shifted by
+    one tick under cross_tick), the fault counters, the levels and the
+    fired faults as planned, the kernel launched at the level-0 ticks
+    only."""
+    dev = torch.device(DEV)
+    out = {}
+    for kind, want in SHARDED_FAULTS.items():
+        kw = {"aoi_mesh": SpaceMesh([dev] * 4)}
+        if kind == "rowshard":
+            kw["aoi_rowshard_min_capacity"] = CAPACITY
+        free, _tr, free_st, _ = fault_run(
+            Runtime, AK, DEV, "sequential", None, want["spaces"],
+            SHARDED_FAULT_TICKS, 2, **kw)
+        healthy(free_st, f"phase 15b {kind} fault-free")
+        ref = [(r["crc"], r["events"]) for r in free]
+        res = {}
+        for mode, emit_at in want["emit_at"].items():
+            rows, trailing, st, fired = fault_run(
+                Runtime, AK, DEV, mode, FAULT_PLAN, want["spaces"],
+                SHARDED_FAULT_TICKS, 2, **kw)
+            label = f"phase 15b {kind} {mode}"
+            got_st = {k: st[k] for k in SHARDED_STATS}
+            check(got_st == SHARDED_STATS, f"{label}: stats {got_st}")
+            levels = [r["level"] for r in rows]
+            check(levels == SHARDED_LEVELS, f"{label}: levels {levels}")
+            got_l = [r["launches"] for r in rows]
+            check([n > 0 for n in got_l] == SHARDED_LAUNCHED,
+                  f"{label}: kernel launches per tick {got_l}")
+            check(fired_set(fired) == sorted(
+                SHARDED_FIRED + [("aoi.emit", "fail", emit_at)]),
+                f"{label}: fired {fired_set(fired)}")
+            got = [(r["crc"], r["events"]) for r in rows]
+            if mode == "cross_tick":
+                shifted(label, got, trailing, ref)
+            else:
+                check(got == ref and trailing[1] == 0,
+                      f"{label}: CRCs differ from the fault-free run")
+            res[mode] = {"stats": st, "launches": sum(got_l),
+                         "ticks": [[r["label"], r["level"], r["launches"],
+                                    r["ms"]] for r in rows],
+                         "fault_free_ms": [r["ms"] for r in free]}
+        out[kind] = res
+    log("sharded faults", json.dumps(out))
+    return out
+
+
+def phase_faults(Runtime, AK):
+    """Phase 15: phase 4's widths at 2 spaces through FAULT_PLAN and the
+    added faults, sequential and under cross_tick, on the card; the same
+    plan sequential on the port's CPU path; the fault-free card run of the
+    same world.  Per-tick CRCs: the sequential runs (card, CPU) equal the
+    fault-free run's, the cross_tick run's them shifted by one tick.  The
+    stats and the fired faults as planned (card = CPU); the kernel
+    launched at every tick dispatched at level 0, at none at level 1 or 2
+    or where the fault struck before the launch."""
+    free, free_tr, free_st, _ = fault_run(Runtime, AK, DEV, "sequential",
+                                          None)
+    healthy(free_st, "phase 15 fault-free")
+    ref = [(r["crc"], r["events"]) for r in free]
+    AK.reset_launches()
+    seq = fault_run(Runtime, AK, DEV, "sequential", FAULT_PLAN)
+    cross = fault_run(Runtime, AK, DEV, "cross_tick", FAULT_PLAN)
+    launches = AK.launches["aoi_step"]
+    cpu = fault_run(Runtime, AK, "cpu", "sequential", FAULT_PLAN)
+    want_stats = {"rebuilds": 3, "fallbacks": 2, "host_ticks": 4,
+                  "poisoned": 1, "calc_level": 0, "fused_demotions": 0,
+                  "emit_path": 2}
+    # the fault ticks: h2d OOM at the prime tick, kernel failures at
+    # ticks 5 and 9 (all before the launch); tick 10 on the host oracle
+    want_levels = [0] * 6 + [1] * 3 + [1, 2] + [0] * FAULT_AFTER
+    want_launches = [0, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0] + [1] * FAULT_AFTER
+    want_fired = {("aoi.h2d", "oom", 3), ("aoi.fetch", "stall", 2),
+                  ("aoi.kernel", "fail", 5), ("aoi.scalars", "poison", 7),
+                  ("aoi.kernel", "fail", 9)}
+    for label, (rows, trailing, st, fired) in (("sequential", seq),
+                                              ("cross_tick", cross),
+                                              ("cpu sequential", cpu)):
+        got_st = {k: st[k] for k in want_stats}
+        check(got_st == want_stats, f"phase 15 {label}: stats {got_st}")
+        check([r["level"] for r in rows] == want_levels,
+              f"phase 15 {label}: levels {[r['level'] for r in rows]}")
+        got_fired = {(f["seam"], f["kind"], f["occurrence"]) for f in fired}
+        emit = [f for f in fired if f["seam"] == "aoi.emit"]
+        check(got_fired - {(f["seam"], f["kind"], f["occurrence"])
+                           for f in emit} == want_fired and len(emit) == 1,
+              f"phase 15 {label}: fired {fired}")
+        if label == "cross_tick":
+            shifted(f"phase 15 {label}", [(r["crc"], r["events"])
+                                          for r in rows], trailing, ref)
+        else:
+            check([(r["crc"], r["events"]) for r in rows] == ref
+                  and trailing[1] == 0,
+                  f"phase 15 {label}: CRCs differ from the fault-free run")
+        if label != "cpu sequential":
+            got_l = [r["launches"] for r in rows]
+            check(got_l == want_launches,
+                  f"phase 15 {label}: kernel launches per tick {got_l}")
+    check(seq[3] == cpu[3], f"phase 15: card fired {seq[3]} != CPU fired "
+          f"{cpu[3]}")
+    check(launches == 2 * sum(want_launches),
+          f"phase 15: {launches} kernel launches")
+
+    def ms_of(rows):
+        return {"recovered (kernel fail, tick 5)": rows[5]["ms"],
+                "level 1 (tick 6)": rows[6]["ms"],
+                "level 2 (tick 10)": rows[10]["ms"],
+                "back at level 0 (first after reset)": rows[11]["ms"],
+                "level 0 (tick 4)": rows[4]["ms"]}
+
+    out = {"spaces": FAULT_SPACES, "plan": FAULT_PLAN,
+           "stats": seq[2], "fired": seq[3],
+           "ms": {"sequential": ms_of(seq[0]), "cross_tick": ms_of(cross[0]),
+                  "cpu sequential": ms_of(cpu[0]),
+                  "fault-free (tick 4, tick 11)": [free[4]["ms"],
+                                                   free[11]["ms"]]},
+           "launches": launches}
+    log("faults", json.dumps(out))
+    return out
+
+
+def route_run(Runtime, backend, extra, spaces, ticks, measured=0):
+    """``Runtime(aoi_backend=backend)`` on ``spaces`` of phase 4's spaces
+    and the ``extra`` space, ``ticks`` ticks of phase 4's walk (a sync
+    before and after each): per-tick CRCs, the buckets' kinds and spaces,
+    and over the last ``measured`` ticks the mean tick ms and each
+    bucket's perf split."""
+    import gc
+
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, DEV, spaces, PER_SPACE, CAPACITY, seed=7, extra=extra,
+        aoi_backend=backend)
+    buckets = {f"{k[0]} {k[1]}": b for k, b in sorted(rt.aoi._buckets.items())}
+    homes = [(sp._aoi_handle.backend, sp._aoi_handle.capacity)
+             for sp in spaces_l]
+    rows, tick_s, perf0 = [], 0.0, None
+    for t in range(ticks):
+        if t == ticks - measured:
+            perf0 = {k: dict(b.perf) for k, b in buckets.items()}
+        if t:
+            walk(spaces_l, slots, pos, rng)
+        crc["t"] = crc["te"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.tick()
+        torch.cuda.synchronize()
+        if t >= ticks - measured:
+            tick_s += time.perf_counter() - t0
+        rows.append((f"{crc['t']:08x}", crc["te"]))
+    out = {"backend": backend, "homes": homes, "crcs": rows,
+           "buckets": list(buckets)}
+    if measured:
+        out["tick_ms"] = tick_s * 1e3 / measured
+        out["bucket_ms"] = {
+            k: {p[:-2] + "_ms": (b.perf[p] - perf0[k][p]) * 1e3 / measured
+                for p in b.perf} for k, b in buckets.items()}
+    for k, b in buckets.items():
+        if hasattr(b, "stats"):
+            healthy(b.stats, f"phase 16 {backend} {k}")
+    del rt, buckets, spaces_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_routing(Runtime, AK):
+    """Phase 16: Runtime(aoi_backend="auto") with unity1k beside phase
+    4's eight spaces: unity1k routes to cpp, the eight to cuda, per-tick
+    CRCs equal to Runtime(aoi_backend="cpu") on the same world; then
+    phase 4's world alone, and unity1k alone, under "cpp" and "cuda" in
+    turns, twice each: the tick ms and each bucket's split."""
+    AK.reset_launches()
+    auto = route_run(Runtime, "auto", UNITY, SPACES, ROUTE_TICKS,
+                     ROUTE_TICKS - 1)
+    auto_launches = AK.launches["aoi_step"]
+    check(auto["homes"] == [("cuda", CAPACITY)] * SPACES + [("cpp", UNITY[0])],
+          f"phase 16: auto homes {auto['homes']}")
+    check(auto_launches == ROUTE_TICKS,
+          f"phase 16: auto run launched the kernel {auto_launches} times")
+    ref = route_run(Runtime, "cpu", UNITY, SPACES, ROUTE_TICKS)
+    check(ref["homes"] == [("cpu", CAPACITY)] * SPACES + [("cpu", UNITY[0])],
+          f"phase 16: cpu homes {ref['homes']}")
+    check(auto["crcs"] == ref["crcs"],
+          f"phase 16: auto CRCs {auto['crcs']} != cpu {ref['crcs']}")
+    turns = {}
+    AK.reset_launches()
+    ticks = 1 + ROUTE_WARMUP + ROUTE_MEASURED
+    for world, spaces, extra in (("phase 4", SPACES, None),
+                                 ("unity1k", 0, UNITY)):
+        runs = [route_run(Runtime, b, extra, spaces, ticks, ROUTE_MEASURED)
+                for b in ROUTE_TURNS]
+        check(all(r["crcs"] == runs[0]["crcs"] for r in runs),
+              f"phase 16 {world}: cpp and cuda CRCs differ")
+        turns[world] = [{k: r[k] for k in ("backend", "tick_ms",
+                                           "bucket_ms")} for r in runs]
+    turn_launches = AK.launches["aoi_step"]
+    check(turn_launches == 2 * 2 * ticks,
+          f"phase 16: the cuda turns launched {turn_launches} times")
+    out = {"auto": {k: auto[k] for k in ("homes", "crcs", "buckets",
+                                         "tick_ms", "bucket_ms")},
+           "cpu_reference_crcs": ref["crcs"], "turns": turns,
+           "launches": auto_launches + turn_launches}
+    log("routing", json.dumps(out))
+    return out
 
 
 # -- phase 6: the giant path's kernels vs plain --------------------------------
@@ -1553,6 +1995,7 @@ def walk_crcs(Runtime, mesh, ticks):
         torch.cuda.synchronize()
         crcs.append((f"{crc['v']:08x}", crc["events"]))
     stats = dict(bucket_of(rt).stats)
+    healthy(stats, "engine on mesh (Runtime)" if mesh else "single device")
     del rt
     torch.cuda.empty_cache()
     return crcs, stats
@@ -1610,6 +2053,7 @@ def engine_run(AOIEngine, mesh, cfg, xs, zs, r, act, ticks, measured,
            "caps": [bucket._max_chunks, bucket._kcap, bucket._max_gaps,
                     bucket._max_exc],
            "stats": dict(bucket.stats)}
+    healthy(out["stats"], f"{type(bucket).__name__} engine run")
     return eng, hs, out
 
 
@@ -1792,6 +2236,10 @@ def main():
     phase_parity(Runtime)
     pipelined = phase_pipeline(Runtime, AK, DC, main_crcs, main_out)
     fused = phase_fused(Runtime, AK, DC)
+    sub_change = phase_sub_change(Runtime)
+    faults_out = phase_faults(Runtime, AK)
+    sharded_faults = phase_sharded_faults(Runtime, AK, SpaceMesh)
+    routing = phase_routing(Runtime, AK)
     rect_rows = phase_rect(AK, AD)
     culled_rows = phase_culled(AG, AK)
     phase_plans(AK, AG, AD)
@@ -1812,7 +2260,12 @@ def main():
                                                rect_launches),
                     ("aoi_step_entlv", entlv_launches),
                     ("aoi_step deferred", pipelined["launches"]),
-                    ("aoi_step fused replays", fused["replays"])):
+                    ("aoi_step fused replays", fused["replays"]),
+                    ("aoi_step faults", faults_out["launches"]),
+                    *((f"aoi_step faults {k} {m}", r["launches"])
+                      for k, v in sharded_faults.items()
+                      for m, r in v.items()),
+                    ("aoi_step routing", routing["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -1832,18 +2285,27 @@ def main():
                       if tuple(r["shape"]) == (64, 16384))
     entlv_path_ms = {m["mesh"]: m["ticks"][1]["kernel_ms"]
                      for m in sharded["meshes"]}
+    mesh_fault_l = sum(r["launches"] for r in sharded_faults["mesh"].values())
+    row_fault_l = sum(r["launches"]
+                      for r in sharded_faults["rowshard"].values())
     kernels = {"kernels": [
         entry("aoi_step", "goworld_tpu/ops/aoi_pallas.py:176",
               main_out["kernel_launches"] + pipelined["launches"]
-              + fused["launches"], rows, MAIN_SHAPE,
+              + fused["launches"] + faults_out["launches"] + mesh_fault_l
+              + routing["launches"], rows, MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               path_launches={"main": main_out["kernel_launches"],
                              "deferred": pipelined["launches"],
                              "fused": fused["launches"],
-                             "fused_replays": fused["replays"]}),
+                             "fused_replays": fused["replays"],
+                             "faults": faults_out["launches"],
+                             "faults_mesh": mesh_fault_l,
+                             "routing": routing["launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
-              rect_launches, rect_rows, RECT_PATH_SHAPE,
-              main_path_ms=share_out["kernel_ms"]),
+              rect_launches + row_fault_l, rect_rows, RECT_PATH_SHAPE,
+              main_path_ms=share_out["kernel_ms"],
+              path_launches={"share": rect_launches,
+                             "faults_rowshard": row_fault_l}),
         entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
               culled_launches["aoi_words_culled"],
               culled_rows["aoi_words_culled"], (64, 16384),
@@ -1871,12 +2333,17 @@ def main():
     print(json.dumps({"giant": grid_out + [share_out]}))
     print(json.dumps({"deferred": {"pipelined": pipelined["summary"],
                                    "fused": fused["summary"],
+                                   "sub_change": {k: v for k, v in
+                                                  sub_change.items()
+                                                  if k != "rows"},
                                    "fused_runs": [
                                        {k: r[k] for k in (
                                            "mode", "captures", "graphs",
                                            "graph_pool_bytes",
                                            "reserved_bytes", "caps")}
                                        for r in fused["runs"]]}}))
+    print(json.dumps({"faults": faults_out, "sharded_faults": sharded_faults,
+                      "routing": routing}))
     print(json.dumps({"mesh": {
         "note": "virtual shards are shards of one card taking turns; "
                 "their times are one card's",

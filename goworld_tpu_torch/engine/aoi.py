@@ -1,13 +1,31 @@
 """The AOI seam of the port: where Spaces meet the GPU.
 
-Port of the JAX package's ``engine/aoi.py`` single-device path.  Each
-Space stages its per-tick arrays (x, z, radius, active); the game loop
-calls :meth:`AOIEngine.flush` once per tick; every bucket (one per
-capacity) runs ONE kernel launch for all its spaces and publishes
+Port of the JAX package's ``engine/aoi.py``.  Each Space stages its
+per-tick arrays (x, z, radius, active); the game loop calls
+:meth:`AOIEngine.flush` once per tick; every bucket (one per backend and
+capacity) runs one batched step for all its spaces and publishes
 per-space enter/leave pairs in deterministic (observer, observed) order.
 
-One bucket tick (:class:`_CUDABucket`), all of it enqueued before the
-first wait:
+Backends (``default_backend=`` / ``create_space(backend=)``):
+
+  * ``cuda`` (the default) -- device-resident interest state, the
+    hand-written Hopper kernel (:class:`_CUDABucket`, or the mesh and
+    row-sharded buckets on a ``mesh``);
+  * ``cpu``  -- the numpy oracle (:mod:`..ops.aoi_oracle`), the parity
+    reference;
+  * ``cpp``  -- the native C++ sweep (:mod:`..ops.aoi_native`), the
+    production host calculator (a warning and the numpy oracle when
+    libgwaoi cannot load);
+  * ``auto`` -- ``cpp`` below ``cuda_min_capacity``, ``cuda`` from there
+    on: a small space finishes on the host in microseconds.
+
+``backend`` says which calculator a space gets; ``device`` says where
+the ``cuda`` backend's tensors live (``"cuda"``, or ``"cpu"`` for the
+plain PyTorch versions the tests run).  Every backend gives the same
+events, bit for bit.
+
+One device bucket tick (:class:`_CUDABucket`), all of it enqueued before
+the first wait:
 
   1. maintenance: slot resets and departed-entity clears on the packed
      state;
@@ -26,26 +44,44 @@ out (:mod:`..ops.aoi_emit`).  A tick with more changes than the triple
 cap is recovered from the full ``chg``/``new`` grids (counted in
 ``stats["decode_overflow"]``) and the cap grows.
 
-The only backend is ``"cuda"`` (the device is the engine's ``device``:
-``"cuda"`` by default, ``"cpu"`` for the tests).  There is no fallback
-chain: a kernel fault raises.
+Faults (:mod:`..faults`): the device buckets cross the JAX package's
+seams (``aoi.grow``, ``aoi.h2d``, ``aoi.delta``, ``aoi.kernel``,
+``aoi.device``, ``aoi.scalars``, ``aoi.fetch``, ``aoi.emit``) at the
+same points, as often.  An injected fault (:func:`_device_fault`) is
+recovered on the host from the durable copies -- the input shadows and
+the host mirror of the words, kept eagerly while a plan is active -- and
+the tick's events stay bit-exact.  An injected fault of the calculator
+demotes the bucket one level down its chain: 0 the hand kernel, 1 the
+plain PyTorch step on the same device, 2 the host oracle (the device
+untouched).  An ``aoi.emit`` fault demotes the fan-out to the ``host``
+mode.  Every demotion logs a warning, is counted in ``stats`` and
+sticks until ``reset_calc_chain()`` / ``reset_emit_path()``.  Only the
+plan's faults take that path: a real CUDA error (a refused launch, a
+runtime error, out of memory), a build or input error and every other
+exception propagate, so a failing kernel is never replaced unseen.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..ops import aoi_cuda as AK
+from ..ops import aoi_dense as AD
 from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
 from ..ops import events as EV
 from ..ops import fused as FZ
+from ..ops.aoi_oracle import CPUAOIOracle
+
+_log = logging.getLogger("goworld_tpu_torch.aoi")
 
 # triples-path extraction cap ceiling: the [max_triples, 32] bit matrix in
 # extract_triples grows with it, so growth stops here and larger ticks
@@ -55,21 +91,16 @@ _TRI_MAX = 1 << 18
 # words per extraction chunk of the sharded buckets' row-stream codec
 _LANES = 128
 
-# backend names of the JAX package that the port does not have yet, and
-# the ROADMAP.md entry that brings each
+# backend names of the JAX package that the port does not have, and why
 _LATER_BACKENDS = {
-    "cpu": "the host calculators (ROADMAP.md queue 1, item 11)",
-    "cpp": "the host calculators (ROADMAP.md queue 1, item 11)",
-    "auto": "capacity routing to the host calculators (ROADMAP.md "
-            "queue 1, item 11)",
     "tpu": "nothing: the port's device backend is named 'cuda'",
 }
+BACKENDS = ("cuda", "cpu", "cpp", "auto")
 
 
 # options of the JAX package's AOIEngine/Runtime and bucket methods that
 # the port does not have yet, and the ROADMAP.md entry that brings each
 _LATER_OPTIONS = {
-    "fault_plan": "the fault seams (ROADMAP.md queue 1, item 4)",
     "paged": "paged storage (ROADMAP.md queue 1, item 5)",
     "export_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
     "import_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
@@ -101,13 +132,68 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_backend(backend) -> None:
-    if backend is None or backend == "cuda":
+    if backend in BACKENDS:
         return
     later = _LATER_BACKENDS.get(backend)
     if later is None:
-        raise ValueError(f"unknown AOI backend {backend!r}")
-    raise ValueError(f"AOI backend {backend!r} is not in the port yet; it "
+        raise ValueError(f"unknown AOI backend {backend!r} (one of "
+                         f"{BACKENDS})")
+    raise ValueError(f"AOI backend {backend!r} is not in the port; it "
                      f"comes with {later}")
+
+
+# -- fault classification --------------------------------------------------
+
+
+def _device_fault(e: BaseException) -> bool:
+    """A fault the bucket recovers from on the host: an injected fault
+    (:class:`..faults.InjectedFault`), and nothing else.  A real CUDA
+    error (a refused launch, a runtime error, out of memory), a kernel
+    library that does not build and an input the kernel's checks refuse
+    all propagate: the port never falls back from a failing kernel on the
+    card to its plain version or to the host."""
+    return isinstance(e, faults.InjectedFault)
+
+
+def _demotes(phase: str, e: BaseException) -> bool:
+    """Whether a recovered fault demotes the calculator, as in the JAX
+    package: any fault while the step was enqueued (``kernel``), a
+    KernelFailure once it surfaced at the blocking fetch (``harvest``),
+    nothing while inputs were staged."""
+    return phase == "kernel" or (
+        phase == "harvest" and isinstance(e, faults.KernelFailure))
+
+
+def _device_lost(e: BaseException) -> bool:
+    """The device is gone for good: the injected DeviceLost."""
+    return isinstance(e, faults.DeviceLost)
+
+
+def _calc_step(level: int, *args, out=None, **kw):
+    """The step of a calculator chain level: 0 the hand kernel
+    (:func:`..ops.aoi_cuda.aoi_step_chg`), 1 the plain PyTorch step on the
+    same device (:func:`..ops.aoi_dense.aoi_step_chg_dense`)."""
+    if level == 0:
+        return AK.aoi_step_chg(*args, out=out, **kw)
+    new, chg = AD.aoi_step_chg_dense(*args, **kw)
+    if out is None:
+        return new, chg
+    out[0].copy_(new)
+    out[1].copy_(chg)
+    return out
+
+
+def _packed_predicate(x, z, r, act, block: int = 2048) -> np.ndarray:
+    """Host recomputation of one slot's packed interest words [C, W] --
+    bit-exact with every device backend (all evaluate the same f32
+    predicate).  Blocked over observer rows so the boolean matrix never
+    materializes at O(C^2) bytes."""
+    c = len(x)
+    out = np.empty((c, P.words_per_row(c)), np.uint32)
+    for lo in range(0, c, block):
+        hi = min(lo + block, c)
+        out[lo:hi] = P.pack_rows(P.interest_matrix(x, z, r, act, lo, hi))
+    return out
 
 
 def _batched_clear(prev_all, row_slots, row_ents, col_slots, col_words,
@@ -119,6 +205,16 @@ def _batched_clear(prev_all, row_slots, row_ents, col_slots, col_words,
     prev_all[row_slots, row_ents, :] = 0
     cols = prev_all[col_slots, :, col_words] & col_masks[:, None]
     prev_all[col_slots, :, col_words] = cols
+
+
+def _clear_words(words: np.ndarray, ents, capacity: int) -> None:
+    """Departed entities' rows and columns out of host words [C, W]
+    uint32, in place."""
+    for ent in ents:
+        words[ent] = 0
+        w, b = P.word_bit_for_column(ent, capacity)
+        words[:, w] &= np.uint32(~(np.uint32(1) << np.uint32(b))
+                                 & 0xFFFFFFFF)
 
 
 def _split_rows(tri: np.ndarray) -> dict[int, np.ndarray]:
@@ -173,14 +269,32 @@ class _CapDecay:
         return None
 
 
+def _demote_emit(bucket, e: BaseException) -> None:
+    """``aoi.emit`` fault: the bucket sticks to the host emit mode (its
+    tick republishes through it, bit-exact) until ``reset_emit_path``."""
+    bucket._emit = "host"
+    bucket.stats["emit_path"] = AE.EMIT_LEVEL["host"]
+    _log.warning("AOI bucket (cap %d) emit fan-out fault: %s -- demoting "
+                 "to the host emit mode", bucket.capacity, e)
+
+
 def _emit_expand(bucket, chg_vals, ent_vals, gidx):
     """Classified word stream -> sorted (enter, leave) (space, observer,
     observed) rows through the bucket's emit path: the C++ expansion when
-    the bucket runs ``emit="native"``, the numpy one otherwise (equal
-    either way).  Harvest-phase numpy on already-fetched arrays."""
+    the bucket runs ``emit="native"`` (behind the ``aoi.emit`` seam: a
+    fault demotes the bucket and this stream expands on the host), the
+    numpy one otherwise (equal either way).  Harvest-phase numpy on
+    already-fetched arrays."""
     if bucket._emit == "native" and len(chg_vals):
-        return AE.expand_words_native(chg_vals, ent_vals, gidx,
-                                      bucket.capacity)
+        try:
+            faults.check("aoi.emit")
+            return AE.expand_words_native(chg_vals, ent_vals, gidx,
+                                          bucket.capacity)
+        except Exception as e:
+            # an injected fault, or the native library's own error
+            if not isinstance(e, RuntimeError):
+                raise
+            _demote_emit(bucket, e)
     return EV.expand_classified_host(chg_vals, ent_vals, gidx,
                                      bucket.capacity)
 
@@ -225,28 +339,36 @@ class _TriCapDecay:
 
 @dataclass(eq=False)
 class SpaceAOIHandle:
-    backend: str
+    backend: str        # resolved: cuda | cpu | cpp
     capacity: int
     bucket: "_Bucket"
     slot: int
     released: bool = False
+    # the backend as requested (may be "auto"); growth re-resolves it, so
+    # a space that grows past the routing threshold moves to the device
+    requested: str = ""
 
 
 class AOIEngine:
-    """Per-process registry of AOI state, one device bucket per capacity.
+    """Per-process registry of AOI state, one bucket per (backend,
+    capacity).
 
-    ``device``: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``
-    (the plain PyTorch step -- what the tests run).  ``delta_staging``
-    ships sparse x/z packets instead of whole input arrays;
-    ``flush_sched`` dispatches every bucket before the first harvest
-    (False: each bucket dispatches and harvests in turn); ``emit`` picks
-    the fan-out (``auto`` | ``native`` | ``vector``).
+    ``device``: where the ``cuda`` backend's tensors live -- ``"cuda"``
+    (default; raises without a GPU) or ``"cpu"`` (the plain PyTorch step,
+    what the tests run).  ``default_backend`` (``cuda`` | ``cpu`` | ``cpp``
+    | ``auto``): which calculator a space gets (module docstring);
+    ``oracle_algorithm`` the numpy oracle's enumeration (``sweep`` |
+    ``pairwise``); ``cuda_min_capacity`` the ``auto`` routing threshold.
+    ``delta_staging`` ships sparse x/z packets instead of whole input
+    arrays; ``flush_sched`` dispatches every bucket before the first
+    harvest (False: each bucket dispatches and harvests in turn); ``emit``
+    picks the fan-out (``auto`` | ``native`` | ``vector`` | ``host``).
 
     ``mesh`` (a :class:`..parallel.SpaceMesh`, or a device count for that
-    many distinct CUDA devices) puts the engine on several shards, as the
-    JAX package routes (``engine/aoi.py`` ``create_space``): a space of
-    capacity at least ``rowshard_min_capacity`` and a multiple of
-    ``n_shards * 128`` gets its own row-sharded bucket
+    many distinct CUDA devices) puts the ``cuda`` backend on several
+    shards, as the JAX package routes (``engine/aoi.py`` ``create_space``):
+    a space of capacity at least ``rowshard_min_capacity`` and a multiple
+    of ``n_shards * 128`` gets its own row-sharded bucket
     (:mod:`.aoi_rowshard`), every other space the mesh bucket of its
     capacity (:mod:`.aoi_mesh`).  The mesh's devices must be of
     ``device``'s type.
@@ -262,13 +384,19 @@ class AOIEngine:
     accept it and run unfused.  ``paged`` is not in the port yet and
     raises."""
 
-    def __init__(self, device="cuda", delta_staging: bool = True,
+    def __init__(self, device="cuda", default_backend: str = "cuda",
+                 oracle_algorithm: str = "sweep",
+                 cuda_min_capacity: int = 4096, delta_staging: bool = True,
                  flush_sched: bool = True, emit: str = "auto", mesh=None,
                  rowshard_min_capacity: int = 65536, pipeline: bool = False,
                  cross_tick: bool = False, fused: bool = False,
                  paged: bool = False):
         if paged:
             refuse_later("paged")
+        _check_backend(default_backend)
+        self.default_backend = default_backend
+        self.oracle_algorithm = oracle_algorithm
+        self.cuda_min_capacity = cuda_min_capacity
         self.pipeline = bool(pipeline)
         self.cross_tick = bool(cross_tick)
         self.fused = bool(fused)
@@ -291,8 +419,8 @@ class AOIEngine:
         self._emit_resolved: str | None = None
         self.delta_staging = delta_staging
         self.flush_sched = flush_sched
-        # (kind, capacity or serial) -> bucket; kinds "cuda", "mesh",
-        # "rowshard" (one exclusive bucket per space)
+        # (kind, capacity or serial) -> bucket; kinds "cpp", "cpu",
+        # "cuda", "mesh", "rowshard" (one exclusive bucket per space)
         self._buckets: dict[tuple, _Bucket] = {}
 
     def _resolve_emit(self) -> str:
@@ -308,10 +436,23 @@ class AOIEngine:
 
     def create_space(self, capacity: int,
                      backend: str | None = None) -> SpaceAOIHandle:
-        _check_backend(backend)
+        requested = backend or self.default_backend
+        _check_backend(requested)
         capacity = P.round_capacity(capacity)
+        backend = requested
+        if backend == "auto":
+            # capacity routing: a tiny space is dispatch-bound on the
+            # card, the native sweep finishes it in microseconds
+            backend = ("cuda" if capacity >= self.cuda_min_capacity
+                       else "cpp")
         mesh = self.mesh
-        if (mesh is not None and capacity >= self.rowshard_min_capacity
+        if backend in ("cpu", "cpp"):
+            key = (backend, capacity)
+            bucket = self._buckets.get(key)
+            if bucket is None:
+                bucket = self._buckets[key] = self._host_bucket(backend,
+                                                                capacity)
+        elif (mesh is not None and capacity >= self.rowshard_min_capacity
                 and capacity % (mesh.n_devices * 128) == 0):
             # oversized single space: its interest rows shard over the
             # mesh, in a bucket of its own, freed with the space
@@ -340,7 +481,21 @@ class AOIEngine:
                         emit=self._resolve_emit(), **self._modes())
                 self._buckets[key] = bucket
         slot = bucket.acquire_slot()
-        return SpaceAOIHandle("cuda", capacity, bucket, slot)
+        return SpaceAOIHandle(backend, capacity, bucket, slot,
+                              requested=requested)
+
+    def _host_bucket(self, backend: str, capacity: int) -> "_CPUBucket":
+        if backend == "cpp":
+            from ..ops import aoi_native
+
+            if aoi_native.available():
+                # "auto": grid candidate binning where the layout allows
+                # it, the sweep otherwise (bit-exact either way)
+                return _CPUBucket(capacity, "auto",
+                                  oracle_cls=aoi_native.NativeAOIOracle)
+            _log.warning("libgwaoi.so unavailable (no C++ toolchain?); "
+                         "aoi_backend=cpp falls back to the numpy oracle")
+        return _CPUBucket(capacity, self.oracle_algorithm)
 
     def release_space(self, h: SpaceAOIHandle) -> None:
         if not h.released:
@@ -365,25 +520,40 @@ class AOIEngine:
         tick late under ``pipeline``/``cross_tick``).
 
         Split-phase: every bucket dispatches (maintenance, staging, kernel,
-        compaction and the async count copy -- no waits) before the first
-        harvest blocks, so bucket N+1's device work overlaps bucket N's
-        host decode.  Buckets go in key order (kind, capacity).  ``flush_sched=False``
-        runs each bucket's dispatch and harvest before the next starts."""
+        compaction and the async count copy -- no waits; a host bucket
+        computes here) before the first harvest blocks, so bucket N+1's
+        device work overlaps bucket N's host decode.  Buckets go in key
+        order (kind, capacity), so the order in which fault seams are
+        crossed does not depend on the order spaces were created.
+        ``flush_sched=False`` runs each bucket's dispatch and harvest
+        before the next starts."""
         buckets = [self._buckets[k] for k in sorted(self._buckets)]
         if not self.flush_sched:
             for bucket in buckets:
                 bucket.dispatch()
                 bucket.harvest()
-            return
+        else:
+            for bucket in buckets:
+                bucket.dispatch()
+            for bucket in buckets:
+                bucket.harvest()
         for bucket in buckets:
-            bucket.dispatch()
-        for bucket in buckets:
-            bucket.harvest()
+            if getattr(bucket, "_evacuating", False) \
+                    and not bucket._evacuation_noted:
+                # the JAX engine rebuilds a lost device's spaces onto a
+                # fresh bucket here (_evacuate_bucket); the port keeps
+                # serving them from the host at calc level 2
+                bucket._evacuation_noted = True
+                _log.warning(
+                    "AOI bucket (cap %d) lost its device; its spaces stay "
+                    "on the host oracle (calc level 2): evacuation to a "
+                    "fresh bucket comes with snapshots (ROADMAP.md queue "
+                    "1, item 9)", bucket.capacity)
 
     def has_pending(self) -> bool:
         """True when a bucket holds a dispatched-but-undelivered tick (the
         runtime keeps flushing until it is delivered)."""
-        return any(self._buckets[k]._inflight is not None
+        return any(getattr(self._buckets[k], "_inflight", None) is not None
                    for k in sorted(self._buckets))
 
     def drain(self) -> None:
@@ -417,7 +587,7 @@ class AOIEngine:
         new_capacity = P.round_capacity(new_capacity)
         if new_capacity <= h.capacity:
             raise ValueError("grow_space requires a larger capacity")
-        nh = self.create_space(new_capacity)
+        nh = self.create_space(new_capacity, h.requested or h.backend)
         target = nh.capacity
         # get_prev delivers the old bucket's tick in flight first, so its
         # events land in _events and move with the space below
@@ -452,7 +622,7 @@ class AOIEngine:
 
 
 class _Bucket:
-    """Slot-managed batch of spaces sharing a capacity."""
+    """Slot-managed batch of spaces sharing a backend and capacity."""
 
     def __init__(self, capacity: int):
         self.capacity = capacity
@@ -483,12 +653,52 @@ class _Bucket:
     def take_events(self, slot: int):
         return self._events.pop(slot, (np.empty((0, 2), np.int32),) * 2)
 
+    def set_subscribed(self, slot: int, flag: bool) -> None:
+        """Event-stream subscription (default: subscribed).  Host buckets
+        ignore it: their events are a free by-product of the sweep."""
+
+    def reset_emit_path(self) -> None:
+        """Re-arm the configured emit mode after an ``aoi.emit`` demotion
+        (an operator action: demotion sticks, so a flapping native layer
+        cannot oscillate).  No-op for host buckets, which have no emit
+        seam."""
+        req = getattr(self, "_emit_requested", None)
+        if req is not None:
+            self._emit = req
+            self.stats["emit_path"] = AE.EMIT_LEVEL[req]
+
+    def dispatch(self) -> None:
+        """Phase 1 of the split flush.  A host bucket computes its whole
+        tick here, so its harvest is a no-op."""
+        self.flush()
+
+    def harvest(self) -> None:
+        """Phase 2 of the split flush (no-op for a host bucket)."""
+
     def drain(self) -> None:
         """Deliver a tick still in flight (no-op for a synchronous
         bucket)."""
         self.harvest()
 
+    def peek_words(self, slot: int) -> np.ndarray | None:
+        """The slot's interest words [C, W] without a device round trip,
+        or None when no cheap host copy exists (the caller then asks
+        :meth:`get_prev`)."""
+        return None
+
     # subclass API
+    def flush(self) -> None:
+        raise NotImplementedError
+
+    def get_prev(self, slot: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def set_prev(self, slot: int, words: np.ndarray) -> None:
+        raise NotImplementedError
+
+    def clear_entity(self, slot: int, entity_slot: int) -> None:
+        raise NotImplementedError
+
     def _grow_to(self, n_slots: int) -> None:
         raise NotImplementedError
 
@@ -496,13 +706,130 @@ class _Bucket:
         raise NotImplementedError
 
 
-class _Deferred:
-    """The flush schedule of a bucket that can defer delivery by one tick.
-    The bucket sets ``pipeline``, ``cross_tick``, ``_inflight`` (the
-    record parked across flushes) and ``_due`` (the record the next
+class _CPUBucket(_Bucket):
+    """Host bucket: one oracle per slot -- ``oracle_cls`` the numpy oracle
+    (the parity reference) or the native C++ sweep
+    (:class:`..ops.aoi_native.NativeAOIOracle`, the production host
+    calculator).  Its tick runs whole in :meth:`flush`."""
+
+    def __init__(self, capacity: int, algorithm: str,
+                 oracle_cls=CPUAOIOracle):
+        super().__init__(capacity)
+        self.algorithm = algorithm
+        self._oracle_cls = oracle_cls
+        self._oracles: list = []
+        # cumulative seconds of the calculators' steps
+        self.perf = {"calc_s": 0.0}
+
+    def _grow_to(self, n_slots: int) -> None:
+        while len(self._oracles) < n_slots:
+            self._oracles.append(self._oracle_cls(self.capacity,
+                                                  self.algorithm))
+
+    def _reset_slot(self, slot: int) -> None:
+        self._oracles[slot].reset()
+
+    def flush(self) -> None:
+        t0 = time.perf_counter()
+        for slot, (x, z, r, act) in self._staged.items():
+            self._events[slot] = self._oracles[slot].step(x, z, r, act)
+        self._staged.clear()
+        self.perf["calc_s"] += time.perf_counter() - t0
+
+    def peek_words(self, slot: int) -> np.ndarray:
+        return self._oracles[slot].prev_words
+
+    def get_prev(self, slot: int) -> np.ndarray:
+        return self._oracles[slot].prev_words.copy()
+
+    def set_prev(self, slot: int, words: np.ndarray) -> None:
+        self._oracles[slot].prev_words = np.asarray(words, np.uint32).copy()
+
+    def clear_entity(self, slot: int, entity_slot: int) -> None:
+        _clear_words(self._oracles[slot].prev_words, (entity_slot,),
+                     self.capacity)
+
+
+class _CalcChain:
+    """The calculator chain's bookkeeping, shared by the device buckets:
+    the level (0 the hand kernel, 1 the plain PyTorch step on the same
+    device, 2 the host oracle), the phase a fault surfaced in, the fault
+    counters and the lost-device state.  Only an injected fault reaches
+    it (:func:`_device_fault`)."""
+
+    _kind = "AOI bucket"  # the warnings' name for the bucket
+
+    def _init_chain(self) -> None:
+        self._ft = faults.active()  # keep the durable copies eagerly
+        self._calc_level = 0
+        self._fault_phase = "stage"
+        # a level-2 tick, computed on the host at harvest
+        self._oracle = None
+        # the device is lost (injected DeviceLost): level 2 for good,
+        # noted once by the engine
+        self._evacuating = False
+        self._evacuation_noted = False
+
+    def _count_fault(self, e: BaseException) -> None:
+        """Count a recovered fault and demote the calculator one level
+        when the fault is the calculator's (:func:`_demotes`), loudly."""
+        self.stats["rebuilds"] += 1
+        if _demotes(self._fault_phase, e) and self._calc_level < 2:
+            self._calc_level += 1
+            self.stats["fallbacks"] += 1
+            self.stats["calc_level"] = self._calc_level
+        _log.warning("%s (cap %d) device fault during %s: %s -- recovering "
+                     "the tick on the host (calc level %d)", self._kind,
+                     self.capacity, self._fault_phase, e, self._calc_level)
+
+    def _mark_evacuating(self) -> None:
+        """The device is lost: never touch it again.  The host oracle (calc
+        level 2) keeps serving bit-exact ticks from the durable copies."""
+        self._evacuating = True
+        self._calc_level = 2
+        self.stats["calc_level"] = 2
+
+    def reset_calc_chain(self) -> None:
+        """Re-arm the hand kernel after a demotion (an operator action:
+        demotion sticks, so a flapping device cannot oscillate)."""
+        self._calc_level = 0
+        self.stats["calc_level"] = 0
+        self._rearm()
+
+    def _rearm(self) -> None:
+        """What the bucket readies for the kernel's return."""
+
+
+class _Deferred(_CalcChain):
+    """The flush schedule and the fault recovery of a device bucket with a
+    host mirror (the single-device and the mesh buckets).
+
+    Schedule.  The bucket sets ``pipeline``, ``cross_tick``, ``_inflight``
+    (the record parked across flushes) and ``_due`` (the record the next
     harvest() delivers), and provides ``_dispatch_tick()`` (enqueue one
     tick: its record, or None when nothing was staged) and
-    ``_harvest(rec)``."""
+    ``_harvest(rec)``.
+
+    Recovery (the JAX package's ``_recover`` / ``_recover_harvest`` /
+    ``_host_tick``).  The durable copies are the input shadows
+    (``_hx``/``_hz``/``_hr``/``_hact``/``_hsub``, bitwise equal to the
+    device inputs) and the mirror (the host copy of the words, kept
+    eagerly while a fault plan is active).  On a device fault at dispatch
+    the record in flight delivers, the faulted tick is computed on the
+    host from (mirror, shadows) -- bit-exact: the host predicate is the
+    device's and ``np.nonzero``'s ascending order is the extraction's --
+    and the device state drops; the next dispatch re-uploads the words
+    from the mirror.  A fault at harvest regenerates the lost record's
+    events the same way (deferred, coalesced with the record dispatched
+    after it).  Deferred, a host tick parks as a synthetic ``host``
+    record, so the one-tick cadence holds.  The bucket provides
+    ``_drop_device()``, ``_prev_to_numpy()``, ``_upload_prev(words)``,
+    ``_restage_shadows()`` and ``_check_restaged()``."""
+
+    def _init_faults(self) -> None:
+        self._init_chain()
+        self._need_rebuild = False  # words dropped: re-upload next dispatch
+        self._cur_slots: list[int] = []
 
     @property
     def _defer(self) -> bool:
@@ -518,43 +845,272 @@ class _Deferred:
     def dispatch(self) -> None:
         """Phase 1: enqueue the staged tick without waiting on the device.
         Deferred, tick T parks and T-1's record becomes due (a flush with
-        nothing new delivers the parked record)."""
-        if self._due is not None:
-            # re-entrant flush (get_prev mid-scheduler): deliver the
-            # record already due first
+        nothing new delivers the parked record).  At calc level 2 the
+        tick is computed on the host, at harvest."""
+        if self._due is not None or self._oracle is not None:
+            # re-entrant flush (get_prev mid-scheduler): deliver what is
+            # already due first
             self.harvest()
-        rec = self._dispatch_tick()
+        if self._calc_level >= 2:
+            # maintenance already reached the mirror when it was issued
+            self._pending_reset.clear()
+            self._pending_clear.clear()
+            if self._staged:
+                self._oracle = self._restage_shadows()
+                self._check_restaged()
+            self._due, self._inflight = self._inflight, None
+            return
+        try:
+            rec = self._dispatch_tick()
+        except Exception as e:
+            if not _device_fault(e):
+                raise
+            self._recover(e)
+            if _device_lost(e):
+                self._mark_evacuating()
+            return
         if self._defer:
             self._due, self._inflight = self._inflight, rec
         else:
             self._due = rec
 
     def harvest(self) -> None:
-        """Phase 2: deliver the record dispatch() made due."""
+        """Phase 2: deliver the record dispatch() made due (and compute a
+        level-2 tick on the host)."""
         rec, self._due = self._due, None
         if rec is not None:
-            self._harvest(rec)
+            self._deliver(rec)
+        slots, self._oracle = self._oracle, None
+        if slots is not None:
+            self._host_tick(slots)
 
     def drain(self) -> None:
         """Deliver the record in flight without dispatching a new one."""
         self.harvest()
         rec, self._inflight = self._inflight, None
         if rec is not None:
+            self._deliver(rec)
+
+    def _deliver(self, rec: dict) -> None:
+        """Harvest one record; a device fault surfacing there (a kernel
+        error materializes at the blocking fetch) recovers on the host."""
+        self._fault_phase = "harvest"
+        try:
             self._harvest(rec)
+        except Exception as e:
+            if not _device_fault(e):
+                raise
+            self._recover_harvest(e, rec)
+            if _device_lost(e):
+                self._mark_evacuating()
+
+    def _check_restaged(self) -> None:
+        """Refuse a tick the bucket cannot step (the mesh's seeded-but-
+        unstaged slots); nothing for the single-device bucket."""
+
+    # -- the calculator chain ------------------------------------------------
+
+    def _mark_evacuating(self) -> None:
+        super()._mark_evacuating()
+        self._need_rebuild = False  # there is no device to rebuild onto
+
+    def _rearm(self) -> None:
+        if self.prev is None and self.s_max:
+            self._ensure_mirror()
+            self._need_rebuild = True
+
+    def _rebuild_device(self) -> None:
+        """Re-upload the words from the mirror after a recovery (at the
+        next dispatch, so a dead device is retried at tick cadence)."""
+        if not self._need_rebuild:
+            return
+        self._need_rebuild = False
+        self._upload_prev(self._mirror)
+        self.stats["h2d_bytes"] += self._mirror.nbytes
+
+    def _ensure_mirror(self) -> None:
+        """Make the mirror exist: zeros with no device words, else a fetch
+        of the words; if the device cannot be read, the predicate of the
+        input shadows (exact for every slot whose words are the predicate
+        of its last staged inputs; seeded-then-unstepped slots lose their
+        seed, loudly)."""
+        if self._mirror is not None:
+            return
+        try:
+            self._mirror = (
+                np.zeros((self.s_max, self.capacity, self.W), np.uint32)
+                if self.prev is None else self._prev_to_numpy())
+        except Exception as e:  # the device is unreadable: any error
+            _log.warning("device words unreadable during recovery (%s); "
+                         "rebuilding the mirror from the input shadows", e)
+            m = np.empty((self.s_max, self.capacity, self.W), np.uint32)
+            for s in range(self.s_max):
+                m[s] = _packed_predicate(self._hx[s], self._hz[s],
+                                         self._hr[s], self._hact[s])
+            self._mirror = m
+
+    def _refresh_stale_rows(self) -> None:
+        """Recompute mirror rows that went stale while unsubscribed: a
+        slot's words are the predicate of its last staged inputs."""
+        for s in sorted(self._mirror_stale):
+            self._mirror[s] = _packed_predicate(
+                self._hx[s], self._hz[s], self._hr[s], self._hact[s])
+        self._mirror_stale.clear()
+
+    def _land_maintenance(self) -> None:
+        """Land queued resets and clears on the mirror (idempotent) and
+        drop them from the device queues."""
+        for s in sorted(self._pending_reset):
+            self._mirror[s] = 0
+        for s, ent in self._pending_clear:
+            self._mirror_clear(s, ent)
+        self._pending_reset.clear()
+        self._pending_clear.clear()
+
+    def _recover(self, e: BaseException) -> None:
+        """Device fault at dispatch: deliver the record in flight, compute
+        the faulted tick on the host, drop the device state.  A fault
+        while inputs were staged (an upload's out-of-memory) rebuilds
+        without demoting the calculator (:func:`_demotes`)."""
+        self._count_fault(e)
+        rec, self._inflight = self._inflight, None
+        if rec is not None:
+            try:
+                self._harvest(rec)
+            except Exception as he:  # the device died mid-harvest too
+                _log.warning("record in flight unharvestable during "
+                             "recovery (%s); its events are lost", he)
+        self._ensure_mirror()
+        self._land_maintenance()
+        slots = self._restage_shadows() if self._staged else self._cur_slots
+        self._cur_slots = []
+        self._drop_device()
+        self._need_rebuild = self._calc_level < 2
+        if slots:
+            self._host_tick(slots)
+
+    def _recover_harvest(self, e: BaseException, rec: dict) -> None:
+        """Device fault at harvest.  The mirror still holds the words
+        before the record's tick and the shadows the newest inputs, so
+        one host pass regenerates the lost events, published at once (in
+        place of the record's delivery); deferred, the record dispatched
+        after it is folded in."""
+        self._count_fault(e)
+        if rec.get("host"):
+            self._publish(rec["slots"], rec["epochs"], *rec["payload"])
+            rec_slots: list[int] = []
+        else:
+            rec_slots = rec["slots"]
+        newest, self._inflight = self._inflight, None
+        host_rec = None
+        if newest is not None:
+            if newest.get("host"):
+                host_rec = newest  # its mirror effects already landed
+            else:
+                rec_slots = sorted(set(rec_slots) | set(newest["slots"]))
+        self._ensure_mirror()
+        self._apply_mirror_ops()
+        self._land_maintenance()
+        if self._staged:  # inputs staged between the phases
+            rec_slots = sorted(set(rec_slots) | set(self._restage_shadows()))
+        self._cur_slots = []
+        self._drop_device()
+        self._need_rebuild = self._calc_level < 2
+        if rec_slots:
+            self._host_tick(rec_slots, publish_now=True)
+        self._inflight = host_rec
+
+    def _host_tick(self, slots: list[int], publish_now: bool = False) -> None:
+        """One bucket tick on the host from the durable copies, bit-exact
+        with the device step.  Deferred (unless ``publish_now``), it parks
+        as a synthetic record and delivers at the next flush."""
+        c, W = self.capacity, self.W
+        self.stats["host_ticks"] += 1
+        self._refresh_stale_rows()
+        sl = np.array(slots, np.intp)
+        new = np.empty((len(slots), c, W), np.uint32)
+        for i, s in enumerate(slots):
+            new[i] = _packed_predicate(self._hx[s], self._hz[s],
+                                       self._hr[s], self._hact[s])
+        chg = new ^ self._mirror[sl]
+        chg[~self._hsub[sl]] = 0
+        flat = chg.reshape(-1)
+        gidx = np.nonzero(flat)[0]
+        chg_vals = flat[gidx]
+        ent_vals = chg_vals & new.reshape(-1)[gidx]
+        self._mirror[sl] = new
+        epochs = [self._slot_epoch.get(s, 0) for s in slots]
+        if self._defer and not publish_now:
+            self._inflight = {"host": True, "slots": slots, "epochs": epochs,
+                              "payload": (chg_vals, ent_vals, gidx)}
+        else:
+            self._publish(slots, epochs, chg_vals, ent_vals, gidx)
+
+    # -- mirror upkeep and publish -------------------------------------------
+
+    def _mirror_clear(self, slot: int, entity_slot: int) -> None:
+        _clear_words(self._mirror[slot], (entity_slot,), self.capacity)
+
+    def _queue_mirror_clear(self, slot: int, entity_slot: int) -> None:
+        """A clear issued while a record is in flight postdates it: it
+        lands after that record's XOR, or the XOR would re-plant the
+        bits."""
+        if self._mirror is None:
+            return
+        if self._inflight is not None or self._due is not None:
+            self._mirror_ops.append(
+                (slot, entity_slot, self._slot_epoch.get(slot, 0)))
+        else:
+            self._mirror_clear(slot, entity_slot)
+
+    def _apply_mirror_ops(self) -> None:
+        """Clears queued behind a record apply once its stream has; the
+        epoch tag drops those whose slot was released since."""
+        ops, self._mirror_ops = self._mirror_ops, []
+        if self._mirror is None:
+            return
+        for slot, ent, epoch in ops:
+            if self._slot_epoch.get(slot, 0) == epoch:
+                self._mirror_clear(slot, ent)
+
+    def _publish(self, slots, epochs, chg_vals, ent_vals, gidx) -> None:
+        """Expand a classified change stream over the [len(slots), C, W]
+        grid into per-slot (enter, leave) pair arrays and publish them."""
+        pe, pl = _emit_expand(self, chg_vals, ent_vals, gidx)
+        self._publish_pairs(slots, epochs, _split_rows(pe), _split_rows(pl))
+
+    def _publish_pairs(self, slots, epochs, ent_rows, lv_rows) -> None:
+        """Merge per-space-row (enter, leave) pair dicts into the
+        deliverable events, under the slot-epoch liveness guard."""
+        empty = np.empty((0, 2), np.int32)
+        for row, (slot, epoch) in enumerate(zip(slots, epochs)):
+            if self._slot_epoch.get(slot, 0) != epoch:
+                continue  # slot released since dispatch: a dead space
+            e = ent_rows.get(row, empty)
+            lv = lv_rows.get(row, empty)
+            pend = self._events.get(slot)
+            if pend is not None:
+                # a mid-dispatch harvest (grow_space inside an AOI hook
+                # calls get_prev -> flush) can land while prior events are
+                # undelivered: APPEND, oldest first
+                e = np.concatenate([pend[0], e])
+                lv = np.concatenate([pend[1], lv])
+            self._events[slot] = (e, lv)
 
 
 class _CUDABucket(_Deferred, _Bucket):
     """Device-resident interest state [S, C, W] int32 on the engine's
-    device; one kernel launch per flush for every staged slot.
+    device; one step per flush for every staged slot.
 
     S (slot count) grows by doubling; state survives growth.  Unstaged
     slots are not stepped: their previous words carry forward untouched.
     The host keeps SHADOWS of the staged inputs ([S, C] numpy, bitwise
     identical to the device copies) so each tick ships only the x/z
-    entries whose bit patterns changed, and a lazy MIRROR of the packed
-    words (seeded on the first :meth:`peek_words`, then kept current by
-    XORing each harvested tick) so plain entities' interest sets derive on
-    the host without a device round trip.
+    entries whose bit patterns changed, and a MIRROR of the packed words
+    (seeded on the first :meth:`peek_words`, or kept from the start while
+    a fault plan is active, then kept current by XORing each harvested
+    tick) so plain entities' interest sets derive on the host without a
+    device round trip, and a faulted tick recovers from it.
 
     ``pipeline`` / ``cross_tick`` (either, or both: ``_defer``) park each
     dispatched record one flush: ``dispatch()`` of tick T parks T and
@@ -569,10 +1125,14 @@ class _CUDABucket(_Deferred, _Bucket):
 
     ``fused`` runs each eligible steady tick (delta staging on, no stale
     device role, r and act unchanged, at most ``_delta_max_frac`` of the
-    entries changed, every acquired slot staged) as one replay of a CUDA
-    graph over the whole [S] grid
+    entries changed, every acquired slot staged, calc level 0, emit mode
+    not ``host``) as one replay of a CUDA graph over the whole [S] grid
     (:mod:`..ops.fused`); any other tick runs the unfused flow, and both
-    records take the same harvest."""
+    records take the same harvest.  An ``aoi.delta``/``aoi.kernel`` fault
+    in the fused attempt moves the tick to the unfused flow before any
+    device work (``fused_demotions``), as the JAX bucket does.
+
+    The calculator chain and the recovery are :class:`_Deferred`'s."""
 
     def __init__(self, capacity: int, device: torch.device,
                  delta_staging: bool = True, emit: str = "vector",
@@ -585,6 +1145,8 @@ class _CUDABucket(_Deferred, _Bucket):
         self.cross_tick = bool(cross_tick)
         self.fused = bool(fused)
         self._emit = emit
+        self._emit_requested = emit  # what reset_emit_path re-arms
+        self._init_faults()
         # the record parked across flushes (deferral), and the record the
         # next harvest() delivers
         self._inflight: dict | None = None
@@ -603,8 +1165,8 @@ class _CUDABucket(_Deferred, _Bucket):
         # rows of the optimistic triple prefetch of a deferred record
         self._pred_tri = 2048
         self._mirror: np.ndarray | None = None
-        # mirror clears issued while a record is in flight, tagged with
-        # the slot's epoch: they apply after that record's XOR
+        # (slot, entity, epoch) clears issued while a record is in
+        # flight: they apply after that record's XOR
         self._mirror_ops: list[tuple] = []
         # slots opted out of the event stream: their mirror rows go stale
         # (_mirror_stale) and refresh from the device on the next peek
@@ -617,20 +1179,26 @@ class _CUDABucket(_Deferred, _Bucket):
         self._hsub = np.ones(0, bool)
         # device copies of the shadows (updated in place, so a captured
         # graph keeps reading them); _dev_stale names the roles that must
-        # fully re-upload (grow/reset, r/act change)
+        # fully re-upload (grow/reset, r/act/sub change, recovery)
         self._dev: dict[str, torch.Tensor] = {}
-        self._dev_stale: set[str] = {"xz", "ra"}
+        self._dev_stale: set[str] = {"xz", "ra", "sub"}
         # delta path bails to a full restage past this changed fraction
         self._delta_max_frac = 0.25
         self._fz: FZ.FusedTri | None = None  # the fused tick's buffers
         # h2d_bytes: wire bytes shipped; delta/full_flushes: how each
         # tick's inputs were staged; decode_overflow: ticks recovered from
-        # the full grids; emit_path: 0 native, 1 vector; fused_dispatches:
-        # ticks run as one graph replay; fused_demotions: fused attempts
-        # a fault moved to the unfused flow (0: the port has no fault
-        # seams yet); prefetch_hits/misses: deferred harvests whose
-        # triples the optimistic slice held / did not hold
+        # the full grids; emit_path: 0 native, 1 vector, 2 host;
+        # fused_dispatches: ticks run as one graph replay;
+        # fused_demotions: fused attempts a seam fault moved to the
+        # unfused flow; prefetch_hits/misses: deferred harvests whose
+        # triples the optimistic slice held / did not hold.  The fault
+        # counters: rebuilds (device state dropped and recovered from the
+        # host copies), fallbacks (calculator demotions), host_ticks
+        # (ticks the host computed), poisoned (control scalars that failed
+        # validation), calc_level (0 kernel, 1 plain step, 2 host oracle)
         self.stats = {"h2d_bytes": 0, "delta_flushes": 0, "full_flushes": 0,
+                      "rebuilds": 0, "fallbacks": 0, "host_ticks": 0,
+                      "poisoned": 0, "calc_level": 0,
                       "decode_overflow": 0,
                       "emit_path": AE.EMIT_LEVEL[emit],
                       "fused_dispatches": 0, "fused_demotions": 0,
@@ -649,15 +1217,40 @@ class _CUDABucket(_Deferred, _Bucket):
         new_s = max(1, self.s_max)
         while new_s < n_slots:
             new_s *= 2
-        new_prev = torch.zeros((new_s, self.capacity, self.W),
-                               dtype=torch.int32, device=self.device)
-        if self.prev is not None and self.s_max > 0:
-            new_prev[: self.s_max] = self.prev
-        self.prev = new_prev
+        if self._need_rebuild or self._calc_level >= 2:
+            # the device words are down: the mirror grows on the host and
+            # the next rebuild uploads it grown
+            self.prev = None
+        else:
+            try:
+                faults.check("aoi.grow")
+                new_prev = torch.zeros((new_s, self.capacity, self.W),
+                                       dtype=torch.int32, device=self.device)
+                if self.prev is not None and self.s_max > 0:
+                    new_prev[: self.s_max] = self.prev
+                self.prev = new_prev
+            except Exception as e:
+                if not _device_fault(e):
+                    raise
+                # the grown state did not allocate; the old words are
+                # intact, so the mirror seeds exactly and grows below
+                self._ensure_mirror()
+                self.stats["rebuilds"] += 1
+                self.prev = None
+                self._need_rebuild = True
+                _log.warning("AOI bucket grow to %d slots hit a device "
+                             "fault (%s); the words stay in the host "
+                             "mirror until the next dispatch rebuilds",
+                             new_s, e)
         if self._mirror is not None:
             grown = np.zeros((new_s, self.capacity, self.W), np.uint32)
             grown[: self._mirror.shape[0]] = self._mirror
             self._mirror = grown
+        elif self._ft:
+            # a fault plan keeps the durable copy from the start (a fresh
+            # bucket's words are zero: no fetch)
+            self._mirror = np.zeros((new_s, self.capacity, self.W),
+                                    np.uint32)
         for name in ("_hx", "_hz", "_hr"):
             arr = getattr(self, name)
             grown = np.zeros((new_s, self.capacity), np.float32)
@@ -670,7 +1263,7 @@ class _CUDABucket(_Deferred, _Bucket):
         hsub[: self._hsub.shape[0]] = self._hsub
         self._hsub = hsub
         self._dev.clear()
-        self._dev_stale = {"xz", "ra"}
+        self._dev_stale = {"xz", "ra", "sub"}
         self._fz = None  # its buffers and graphs have the old shapes
         self.s_max = new_s
 
@@ -682,12 +1275,12 @@ class _CUDABucket(_Deferred, _Bucket):
         self._hr[slot] = 0.0
         self._hact[slot] = False
         self._hsub[slot] = True
-        self._dev_stale.update(("xz", "ra"))
+        self._dev_stale.update(("xz", "ra", "sub"))
         self._mirror_stale.discard(slot)
         if self._mirror is not None:
             # at once even with a tick in flight: its stream is epoch-
             # guarded, so a dead occupant's rows cannot XOR back over it
-            self._mirror_apply(("reset", slot))
+            self._mirror[slot] = 0
 
     def release_slot(self, slot: int) -> None:
         self._slot_epoch[slot] = self._slot_epoch.get(slot, 0) + 1
@@ -698,40 +1291,27 @@ class _CUDABucket(_Deferred, _Bucket):
             self._unsub.discard(slot)
         else:
             self._unsub.add(slot)
-        if slot < self._hsub.shape[0]:
+        if slot < self._hsub.shape[0] and self._hsub[slot] != flag:
             self._hsub[slot] = flag
+            self._dev_stale.add("sub")
 
     def clear_entity(self, slot: int, entity_slot: int) -> None:
         self._pending_clear.append((slot, entity_slot))
-        if self._mirror is None:
-            return
-        op = ("clear", slot, entity_slot)
-        if self._inflight is not None or self._due is not None:
-            # the clear postdates the record in flight: it must land after
-            # that record's XOR, or the XOR would re-plant the bit
-            self._mirror_ops.append(op + (self._slot_epoch.get(slot, 0),))
-        else:
-            self._mirror_apply(op)
+        self._queue_mirror_clear(slot, entity_slot)
 
-    def _mirror_apply(self, op: tuple) -> None:
-        if op[0] == "reset":
-            self._mirror[op[1]] = 0
-        else:
-            _slot, e = op[1], op[2]
-            self._mirror[_slot, e, :] = 0
-            w, b = P.word_bit_for_column(e, self.capacity)
-            self._mirror[_slot, :, w] &= np.uint32(
-                ~(np.uint32(1) << np.uint32(b)) & 0xFFFFFFFF)
+    # -- the device hooks of the recovery ----------------------------------
 
-    def _apply_mirror_ops(self) -> None:
-        """Clears queued behind a record apply once its stream has; the
-        epoch tag drops those whose slot was released since."""
-        ops, self._mirror_ops = self._mirror_ops, []
-        if self._mirror is None:
-            return
-        for op in ops:
-            if self._slot_epoch.get(op[1], 0) == op[-1]:
-                self._mirror_apply(op[:-1])
+    def _drop_device(self) -> None:
+        self.prev = None
+        self._dev.clear()
+        self._dev_stale = {"xz", "ra", "sub"}
+        self._fz = None  # its graphs read the dropped tensors
+
+    def _prev_to_numpy(self) -> np.ndarray:
+        return P.words_to_numpy(self.prev)
+
+    def _upload_prev(self, words: np.ndarray) -> None:
+        self.prev = P.words_to_torch(words, self.device)
 
     # -- the tick -------------------------------------------------------
 
@@ -740,6 +1320,10 @@ class _CUDABucket(_Deferred, _Bucket):
         copy of one tick; its record, or None when nothing was staged."""
         if not (self._staged or self._pending_reset or self._pending_clear):
             return None
+        self._fault_phase = "stage"
+        # the device's health probe (kind "reset": the device is lost)
+        faults.check("aoi.device")
+        self._rebuild_device()
         self._apply_maintenance()
         if not self._staged:
             return None
@@ -750,6 +1334,7 @@ class _CUDABucket(_Deferred, _Bucket):
         # new tick against them
         old = (self._hx[sl], self._hz[sl], self._hr[sl], self._hact[sl])
         self._restage_shadows()
+        self._cur_slots = slots  # a recovery needs them once _staged is gone
         sub = self._hsub[sl]
         if self._mirror is not None and not sub.all():
             self._mirror_stale.update(s for s in slots if s in self._unsub)
@@ -789,18 +1374,22 @@ class _CUDABucket(_Deferred, _Bucket):
     def _dispatch_unfused(self, slots, sl, sub, old_x, old_z, old_r,
                           old_act) -> dict:
         self._stage_inputs(sl, old_x, old_z, old_r, old_act)
+        self._fault_phase = "kernel"
+        faults.check("aoi.kernel")
         dev = self._dev
         every = len(slots) == self.s_max  # slots are sorted and unique
         if every:
-            x, z, r, act, prev_rows = (dev["x"], dev["z"], dev["r"],
-                                       dev["act"], self.prev)
+            x, z, r, act, dsub, prev_rows = (dev["x"], dev["z"], dev["r"],
+                                             dev["act"], dev["sub"],
+                                             self.prev)
         else:
             idx = AS.h2d(sl.astype(np.int64), self.device)
-            x, z, r, act, prev_rows = (
+            x, z, r, act, dsub, prev_rows = (
                 t.index_select(0, idx) for t in
-                (dev["x"], dev["z"], dev["r"], dev["act"], self.prev))
+                (dev["x"], dev["z"], dev["r"], dev["act"], dev["sub"],
+                 self.prev))
         DC.record()
-        new, chg = AK.aoi_step_chg(x, z, r, act, prev_rows)
+        new, chg = _calc_step(self._calc_level, x, z, r, act, prev_rows)
         if every:
             self.prev = new
         else:
@@ -812,18 +1401,24 @@ class _CUDABucket(_Deferred, _Bucket):
             # slots with no event consumers contribute nothing to the
             # change stream (``new`` above stays unmasked: prev must stay
             # authoritative)
-            off = np.nonzero(~sub)[0].astype(np.int64)
-            chg[AS.h2d(off, self.device)] = 0
+            chg.masked_fill_(~dsub[:, None, None], 0)
         tri, count = EV.extract_triples(chg, new, self.capacity,
                                         self._max_triples)
         return self._record(slots, sub, new, chg, tri, count.reshape(1))
 
     def _dispatch_fused(self, slots, sl, sub, old_x, old_z, old_r,
                         old_act) -> dict | None:
-        """The tick as one graph replay, or None when it is not eligible
-        (then the unfused flow runs it: not a demotion)."""
-        if (not self.delta_staging or self._dev_stale or "x" not in self._dev
-                or len(slots) != self.n_slots):
+        """The tick as one graph replay, or None when the unfused flow
+        runs it: silently when it is not eligible, counted in
+        ``fused_demotions`` when an ``aoi.delta``/``aoi.kernel`` seam
+        fault fired in the attempt (before any device work, so the
+        unfused flow -- whose crossings then pass -- runs it in the same
+        call, bit-exact)."""
+        if (not self.delta_staging or self._dev_stale
+                or any(role not in self._dev
+                       for role in ("x", "z", "r", "act", "sub"))
+                or self._calc_level >= 1 or self._need_rebuild
+                or self._emit == "host" or len(slots) != self.n_slots):
             # the graph steps all s_max rows: every acquired slot must be
             # staged (rows never acquired hold zero words and inactive
             # inputs, so they stay zero and emit nothing)
@@ -837,6 +1432,17 @@ class _CUDABucket(_Deferred, _Bucket):
         n_changed = np.count_nonzero(diff)
         if n_changed > self._delta_max_frac * diff.size:
             return None  # mass movement: a full restage
+        try:
+            if n_changed:
+                faults.check("aoi.delta")
+            self._fault_phase = "kernel"
+            faults.check("aoi.kernel")
+        except Exception as e:
+            if not _device_fault(e):
+                raise
+            self.stats["fused_demotions"] += 1
+            self._fault_phase = "stage"
+            return None
         fz = self._fz
         if fz is None:
             fz = self._fz = FZ.FusedTri(
@@ -867,7 +1473,8 @@ class _CUDABucket(_Deferred, _Bucket):
         new words ARE ``self.prev`` keeps a copy (its overflow recovery
         reads them)."""
         for rec in (self._inflight, self._due):
-            if rec is not None and rec["grids"][0] is self.prev:
+            if rec is not None and not rec.get("host") \
+                    and rec["grids"][0] is self.prev:
                 rec["grids"] = (self.prev.clone(), rec["grids"][1])
 
     def _apply_maintenance(self) -> None:
@@ -907,27 +1514,45 @@ class _CUDABucket(_Deferred, _Bucket):
 
     def _harvest(self, rec: dict) -> None:
         """Wait for one record's count, fetch its triples (from the
-        prefetched slice when it holds them all; past the cap, the full
-        grids), update the mirror and publish per-slot events."""
+        prefetched slice when it holds them all; past the cap, or when
+        the count fails validation, the full grids), update the mirror
+        and publish per-slot events.  A host record publishes what the
+        host computed at its tick."""
+        if rec.get("host"):
+            self._publish(rec["slots"], rec["epochs"], *rec["payload"])
+            self._apply_mirror_ops()
+            return
         slots, mt = rec["slots"], rec["mt"]
         c = self.capacity
         new, chg = rec["grids"]
+        faults.check("aoi.fetch")  # stallable: a delayed host sync
         t_f0 = time.perf_counter()
+        poisoned = False
         if rec["all_unsub"]:
             count = 0
         else:
             if rec["ready"] is not None:
                 rec["ready"].synchronize()
-            count = int(rec["count"][0])
-        if count > mt:
-            # triple-cap overflow: the compact buffer is truncated, so
-            # recover this tick from the full grids, then grow the cap so
-            # the next tick compacts on device again (counted)
-            self.stats["decode_overflow"] += 1
-            if self._max_triples < _TRI_MAX:
-                self._max_triples = min(
-                    _TRI_MAX, 1 << (2 * count - 1).bit_length())
-            self._tri.reset_after_growth()
+            count = int(faults.filter("aoi.scalars",
+                                      rec["count"].numpy())[0])
+            if not 0 <= count <= len(slots) * c * c:
+                # a garbage count: distrust the compact buffer and
+                # recover the tick from the full grids (no cap growth)
+                self.stats["poisoned"] += 1
+                _log.warning("AOI triple count failed validation (%d); "
+                             "recovering the tick from the full grids",
+                             count)
+                poisoned = True
+        if poisoned or count > mt:
+            if not poisoned:
+                # triple-cap overflow: the compact buffer is truncated, so
+                # recover this tick from the full grids, then grow the cap
+                # so the next tick compacts on device again (counted)
+                self.stats["decode_overflow"] += 1
+                if self._max_triples < _TRI_MAX:
+                    self._max_triples = min(
+                        _TRI_MAX, 1 << (2 * count - 1).bit_length())
+                self._tri.reset_after_growth()
             chg_h = P.words_to_numpy(chg).reshape(-1)
             new_h = P.words_to_numpy(new).reshape(-1)
             gidx = np.nonzero(chg_h)[0]
@@ -966,10 +1591,31 @@ class _CUDABucket(_Deferred, _Bucket):
         self._apply_mirror_ops()
         self.perf["decode_s"] += time.perf_counter() - t_f0
         t_f0 = time.perf_counter()
-        pe, pl = AE.fanout_triples(tri_h, c, native=(self._emit == "native"))
-        self._publish_pairs(slots, rec["epochs"], _split_rows(pe),
-                            _split_rows(pl))
+        self._fan_out(slots, rec["epochs"], tri_h)
         self.perf["emit_s"] += time.perf_counter() - t_f0
+
+    def _fan_out(self, slots, epochs, tri_h) -> None:
+        """Publish a tick's fetched triples through the emit mode: the
+        ``host`` mode folds them back into words and decodes those on the
+        host; ``native``/``vector`` fan them out behind the ``aoi.emit``
+        seam, whose fault demotes the bucket to ``host`` and republishes
+        the same triples through it."""
+        c = self.capacity
+        if self._emit != "host":
+            try:
+                faults.check("aoi.emit")
+                pe, pl = AE.fanout_triples(tri_h, c,
+                                           native=self._emit == "native")
+            except Exception as e:
+                # an injected fault, or the native library's own error
+                if not isinstance(e, RuntimeError):
+                    raise
+                _demote_emit(self, e)
+            else:
+                self._publish_pairs(slots, epochs, _split_rows(pe),
+                                    _split_rows(pl))
+                return
+        self._publish(slots, epochs, *EV.triples_to_words(tri_h, c))
 
     def _restage_shadows(self) -> list[int]:
         """Copy staged tick inputs into the persistent host shadows."""
@@ -991,10 +1637,10 @@ class _CUDABucket(_Deferred, _Bucket):
     def _stage_inputs(self, sl, old_x, old_z, old_r, old_act) -> None:
         """Bring the device-resident inputs up to date with the shadows:
         a sparse (row, col, x, z) packet on the steady path; whole role
-        arrays after grow/reset, when r/act changed, when the changed
-        fraction exceeds _delta_max_frac, or without delta staging.  The
-        diff compares float BIT PATTERNS (NaN payloads, -0.0 vs 0.0), so
-        the device copy stays byte-identical to the shadow."""
+        arrays after grow/reset/recovery, when r/act/sub changed, when the
+        changed fraction exceeds _delta_max_frac, or without delta
+        staging.  The diff compares float BIT PATTERNS (NaN payloads, -0.0
+        vs 0.0), so the device copy stays byte-identical to the shadow."""
         new_x, new_z = self._hx[sl], self._hz[sl]
         diff = (new_x.view(np.uint32) != old_x.view(np.uint32)) \
             | (new_z.view(np.uint32) != old_z.view(np.uint32))
@@ -1003,9 +1649,10 @@ class _CUDABucket(_Deferred, _Bucket):
                 and np.array_equal(self._hact[sl], old_act)):
             self._dev_stale.update(("ra", "xz"))
         stale = self._dev_stale
-        if (self.delta_staging and not stale and "x" in self._dev
+        if (self.delta_staging and not stale
                 and n_changed <= self._delta_max_frac * diff.size):
             if n_changed:
+                faults.check("aoi.delta")
                 rows, cols = np.nonzero(diff)
                 pkt = AS.pad_packet(sl[rows], cols, new_x[rows, cols],
                                     new_z[rows, cols])
@@ -1021,42 +1668,19 @@ class _CUDABucket(_Deferred, _Bucket):
         if "ra" in stale or "r" not in self._dev:
             self._h2d("r", self._hr)
             self._h2d("act", self._hact)
+        if "sub" in stale or "sub" not in self._dev:
+            self._h2d("sub", self._hsub)
         stale.clear()
         self.stats["full_flushes"] += 1
 
     def _h2d(self, role: str, arr: np.ndarray) -> None:
-        """Full upload of one shadow role array, into its device tensor in
-        place (a captured graph keeps reading it); never aliasing the
-        shadow on the CPU device."""
+        """Full upload of one shadow role array -- the seam every full
+        staged-input upload crosses -- into its device tensor in place (a
+        captured graph keeps reading it); never aliasing the shadow on the
+        CPU device."""
+        faults.check("aoi.h2d")
         self.stats["h2d_bytes"] += arr.nbytes
         self._dev[role] = AS.h2d(arr, self.device, out=self._dev.get(role))
-
-    # -- publish ----------------------------------------------------------
-
-    def _publish(self, slots, epochs, chg_vals, ent_vals, gidx) -> None:
-        """Expand a classified change stream into per-slot (enter, leave)
-        pair arrays and publish them."""
-        pe, pl = EV.expand_classified_host(chg_vals, ent_vals, gidx,
-                                           self.capacity)
-        self._publish_pairs(slots, epochs, _split_rows(pe), _split_rows(pl))
-
-    def _publish_pairs(self, slots, epochs, ent_rows, lv_rows) -> None:
-        """Merge per-space-row (enter, leave) pair dicts into the
-        deliverable events, under the slot-epoch liveness guard."""
-        empty = np.empty((0, 2), np.int32)
-        for row, (slot, epoch) in enumerate(zip(slots, epochs)):
-            if self._slot_epoch.get(slot, 0) != epoch:
-                continue  # slot released since dispatch: a dead space
-            e = ent_rows.get(row, empty)
-            lv = lv_rows.get(row, empty)
-            pend = self._events.get(slot)
-            if pend is not None:
-                # a mid-dispatch harvest (grow_space inside an AOI hook
-                # calls get_prev -> flush) can land while prior events are
-                # undelivered: APPEND, oldest first
-                e = np.concatenate([pend[0], e])
-                lv = np.concatenate([pend[1], lv])
-            self._events[slot] = (e, lv)
 
     # -- the host mirror ---------------------------------------------------
 
@@ -1105,39 +1729,50 @@ class _CUDABucket(_Deferred, _Bucket):
         first call delivers any tick in flight and seeds the mirror with
         one device fetch, so mirror and delivered events agree; afterwards
         each harvest keeps it current.  A slot that was unsubscribed
-        refreshes its rows from the device on demand."""
+        refreshes its rows from the device on demand (from the predicate
+        of its shadows while the device is down)."""
         if self._mirror is None:
             self.drain()
-            self._mirror = P.words_to_numpy(self.prev)
+            self._ensure_mirror()
             # maintenance queued for the next dispatch already holds for
             # the host view
             for s in sorted(self._pending_reset):
-                self._mirror_apply(("reset", s))
+                self._mirror[s] = 0
             for s, e in self._pending_clear:
-                self._mirror_apply(("clear", s, e))
+                self._mirror_clear(s, e)
             self._mirror_stale.clear()
         elif slot in self._mirror_stale:
             self.flush()
             self.drain()
-            self._mirror[slot] = P.words_to_numpy(self.prev[slot])
+            self._mirror[slot] = (
+                P.words_to_numpy(self.prev[slot]) if self.prev is not None
+                else _packed_predicate(self._hx[slot], self._hz[slot],
+                                       self._hr[slot], self._hact[slot]))
             self._mirror_stale.discard(slot)
         return self._mirror[slot]
 
     def get_prev(self, slot: int) -> np.ndarray:
         """Previous-tick interest words [C, W] uint32 (after applying
         pending steps and delivering every tick in flight), for state
-        carry-over."""
+        carry-over; the mirror's while the device is down."""
         self.flush()
         self.drain()
+        if self.prev is None:
+            self._ensure_mirror()
+            return self._mirror[slot].copy()
         return P.words_to_numpy(self.prev[slot])
 
     def set_prev(self, slot: int, words: np.ndarray) -> None:
-        """Seed a slot's previous-tick interest words [C, W] uint32."""
+        """Seed a slot's previous-tick interest words [C, W] uint32 (into
+        the mirror while the device is down; the rebuild uploads it)."""
         self.flush()
         self.drain()
         self._pending_reset.discard(slot)
         w = np.asarray(words, np.uint32)
-        self.prev[slot] = P.words_to_torch(w, self.device)
+        if self.prev is not None:
+            self.prev[slot] = P.words_to_torch(w, self.device)
+        else:
+            self._ensure_mirror()
         self._mirror_stale.discard(slot)
         if self._mirror is not None:
             self._mirror[slot] = w

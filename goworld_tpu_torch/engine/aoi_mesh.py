@@ -1,9 +1,9 @@
 """Mesh-sharded AOI bucket: the engine's multi-device path.
 
 Port of the JAX package's ``engine/aoi_mesh.py`` (``_MeshTPUBucket``),
-with its pipelined mode and without its fused, paged and fault-recovery
-modes (ROADMAP.md queue 1 names the item that brings each; ``fused`` is
-accepted and runs unfused).  The bucket's slots (spaces)
+with its pipelined mode and its fault recovery, without its fused and
+paged modes (ROADMAP.md queue 1 names the item that brings each;
+``fused`` is accepted and runs unfused).  The bucket's slots (spaces)
 are placed across a :class:`..parallel.SpaceMesh`: shard d holds slots
 ``[d * S/n, (d + 1) * S/n)`` on its device, so every space's [C] rows
 live wholly on one shard and the tick needs no cross-device collective.
@@ -43,6 +43,15 @@ slices (``_pred``, refit to every harvest's per-shard peaks) were copied
 to pinned host memory at its dispatch; ``drain`` delivers the tick in
 flight.
 
+Faults: the bucket crosses the JAX mesh bucket's seams at the same points
+(``aoi.grow`` at growth; per dispatch ``aoi.device``, then ``aoi.delta``
+or one ``aoi.h2d`` for the x/z restage, ``aoi.kernel``, and one
+``aoi.h2d`` for each of r, act and sub whose values changed; at harvest
+``aoi.fetch``, ``aoi.scalars`` on the [shards, 5] scalars, validated, and
+``aoi.emit`` in ``native`` mode), and on an injected fault recovers,
+demotes and rebuilds as the single-device bucket does (:class:`.aoi._Deferred`): level 1 is the
+plain PyTorch step on each shard, level 2 the host oracle.
+
 Where JAX donates its scratch buffers to the jitted step, each shard here
 keeps reusable word arrays: after a step the old ``prev`` becomes the next
 step's ``new`` buffer, and the ``chg`` outputs rotate through a ring (two
@@ -63,13 +72,14 @@ import time
 import numpy as np
 import torch
 
-from ..ops import aoi_cuda as AK
+from .. import faults
 from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
 from ..ops import events as EV
-from .aoi import (_LANES, _Bucket, _CapDecay, _Deferred, _emit_expand,
+from .aoi import (_LANES, _Bucket, _calc_step, _CapDecay, _Deferred,
+                  _device_fault, _emit_expand, _log, _packed_predicate,
                   _split_rows, refuse_later)
 
 
@@ -168,17 +178,25 @@ class _ShardCodec:
         whose new words ARE that tensor keeps a copy (its overflow
         recovery reads them)."""
         for rec in (self._inflight, self._due):
-            for d, sh in enumerate(rec["shards"] if rec else ()):
+            for d, sh in enumerate(rec.get("shards", ()) if rec else ()):
                 if sh is not None and sh["new"] is self.prev[d]:
                     sh["new"] = sh["new"].clone()
 
-    def _decode_shards(self, rec, shard_words: int):
+    def _decode_shards(self, rec, shard_words: int,
+                       filter_empty: bool = False):
         """Wait for every shard's scalars, then fetch (from the prefetched
         slices when they hold the stream) and decode its stream, or
         recover it past a cap from the record's grids.  Returns the
         classified stream ``(chg_vals, ent_vals, gidx)`` with global flat
         word indices (shard d's offset by ``d * shard_words``), or None
-        when every shard is empty."""
+        when every shard is empty.
+
+        The fault seams of the JAX buckets' harvest: ``aoi.fetch`` before
+        the wait, ``aoi.scalars`` on the [shards, 5] scalars (only when a
+        shard was extracted, or ``filter_empty``).  Scalars that fail
+        validation are counted in ``poisoned`` and every shard recovers
+        from its raw grids, without cap growth."""
+        faults.check("aoi.fetch")  # stallable: a delayed host sync
         mc, kcap, mg, mx = rec["caps"]
         t0 = time.perf_counter()
         scal = np.zeros((self.n_dev, 5), np.int64)
@@ -187,11 +205,35 @@ class _ShardCodec:
                 if sh["ready"] is not None:
                     sh["ready"].synchronize()
                 scal[d] = sh["scal"].numpy()
+        poisoned = False
+        if filter_empty or any(sh is not None for sh in rec["shards"]):
+            scal = faults.filter("aoi.scalars", scal)
+            chunks = shard_words // _LANES
+            if not ((scal >= 0).all() and (scal[:, 0] <= chunks).all()
+                    and (scal[:, 1] <= _LANES).all()
+                    and (scal[:, 2] <= chunks).all()
+                    and (scal[:, 3] <= shard_words).all()
+                    and (scal[:, 4] <= shard_words).all()):
+                self.stats["poisoned"] += 1
+                _log.warning("AOI control scalars failed validation (%r); "
+                             "recovering the tick from the raw grids",
+                             scal.tolist())
+                poisoned = True
         self.perf["fetch_s"] += time.perf_counter() - t0
         all_c, all_e, all_g = [], [], []
         grew = False
         peak_nd = peak_mcc = peak_esc = peak_exc = 0
         for d, sh in enumerate(rec["shards"]):
+            if poisoned:
+                if sh is None:
+                    continue
+                t0 = time.perf_counter()
+                gidx, chg_vals, ent_vals = self._raw_stream(sh)
+                self.perf["fetch_s"] += time.perf_counter() - t0
+                all_c.append(chg_vals)
+                all_e.append(ent_vals)
+                all_g.append(gidx + d * shard_words)
+                continue
             nd, mcc, base_row, n_esc, exc_n = (int(v) for v in scal[d])
             if nd == 0 and exc_n == 0:
                 continue
@@ -204,12 +246,7 @@ class _ShardCodec:
                 self._kcap = min(max(self._kcap, 2 * mcc), _LANES)
                 self.stats["decode_overflow"] += 1
                 grew = True
-                flat = sh["chg"].reshape(-1)
-                gi = torch.nonzero(flat).reshape(-1)
-                cv = flat[gi]
-                ev = cv & sh["new"].reshape(-1)[gi]
-                gidx = gi.cpu().numpy()
-                chg_vals, ent_vals = _np_words(cv), _np_words(ev)
+                gidx, chg_vals, ent_vals = self._raw_stream(sh)
                 self.perf["fetch_s"] += time.perf_counter() - t0
             elif n_esc > mg or exc_n > mx:
                 # encode overflow: rebuild from the kept chunk grids
@@ -252,7 +289,7 @@ class _ShardCodec:
             all_g.append(np.asarray(gidx, np.int64) + d * shard_words)
         if grew:
             self._caps.reset_after_growth()
-        else:
+        elif not poisoned:  # poisoned peaks are zeros, not observations
             shrink = self._caps.observe(peak_nd, peak_mcc, self._max_chunks,
                                         self._kcap)
             if shrink is not None:
@@ -267,6 +304,16 @@ class _ShardCodec:
             return None
         return (np.concatenate(all_c), np.concatenate(all_e),
                 np.concatenate(all_g))
+
+    @staticmethod
+    def _raw_stream(sh):
+        """One shard's classified stream from its raw grids: (gidx,
+        chg_vals, ent_vals), ascending flat order."""
+        flat = sh["chg"].reshape(-1)
+        gi = torch.nonzero(flat).reshape(-1)
+        cv = flat[gi]
+        ev = cv & sh["new"].reshape(-1)[gi]
+        return gi.cpu().numpy(), _np_words(cv), _np_words(ev)
 
     # -- not in the port yet ------------------------------------------------
 
@@ -290,12 +337,14 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                  cross_tick: bool = False, fused: bool = False):
         super().__init__(capacity)
         self._emit = emit
+        self._emit_requested = emit  # what reset_emit_path re-arms
         self.mesh = mesh
         self.n_dev = mesh.n_devices
         self.delta_staging = delta_staging
         self.pipeline = bool(pipeline)
         self.cross_tick = bool(cross_tick)
         self.fused = bool(fused)  # accepted; the mesh runs every tick unfused
+        self._init_faults()
         self.s_max = 0
         self.prev: list[torch.Tensor] | None = None  # per shard [b, C, W]
         # host shadows of the staged inputs, persistent: unstaged slots
@@ -316,7 +365,9 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         # device copies of r/act/sub, re-uploaded only when values change
         self._h2d_cache: dict[str, tuple] = {}
         # per-shard device x/z, bitwise equal to the shadows; steady
-        # flushes scatter a sparse packet into each shard's own rows
+        # flushes scatter a sparse packet into each shard's own rows.
+        # _xz_stale: the copies must re-upload whole (growth, a reset, a
+        # clear, an r/act/sub change, a recovery), as in the JAX bucket
         self._dx: list | None = None
         self._dz: list | None = None
         self._xz_stale = True
@@ -328,13 +379,16 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         # per-slot release epoch: a harvest must not publish events (or XOR
         # mirror words) for a slot released after its dispatch
         self._slot_epoch: dict[int, int] = {}
-        # lazy host mirror of the words (see _CUDABucket.peek_words); clears
-        # issued between a dispatch and its harvest apply after its stream
+        # host mirror of the words (see _CUDABucket); clears issued between
+        # a dispatch and its harvest apply after its stream
         self._mirror: np.ndarray | None = None
         self._mirror_ops: list[tuple] = []
         self.full_roundtrips = 0
         self.stats = {"h2d_bytes": 0, "delta_flushes": 0, "full_flushes": 0,
+                      "rebuilds": 0, "fallbacks": 0, "host_ticks": 0,
+                      "poisoned": 0, "calc_level": 0,
                       "decode_overflow": 0, "emit_path": AE.EMIT_LEVEL[emit],
+                      "fused_dispatches": 0, "fused_demotions": 0,
                       "prefetch_hits": 0, "prefetch_misses": 0}
         self.perf = {"stage_s": 0.0, "fetch_s": 0.0, "decode_s": 0.0,
                      "emit_s": 0.0}
@@ -364,7 +418,43 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         hsub = np.ones(new_s, bool)
         hsub[: self._hsub.shape[0]] = self._hsub
         self._hsub = hsub
-        # regroup the words into the new blocks, device to device
+        if self._need_rebuild or self._calc_level >= 2:
+            # the device words are down: the mirror grows on the host and
+            # the next rebuild uploads it grown
+            self.prev = None
+        else:
+            try:
+                faults.check("aoi.grow")
+                self.prev = self._regroup(new_s)
+            except Exception as e:
+                if not _device_fault(e):
+                    raise
+                # the old words are intact: the mirror seeds from them
+                self._ensure_mirror()
+                self.stats["rebuilds"] += 1
+                self.prev = None
+                self._need_rebuild = True
+                _log.warning("mesh AOI bucket grow to %d slots hit a device "
+                             "fault (%s); the words stay in the host mirror "
+                             "until the next dispatch rebuilds", new_s, e)
+        if self._mirror is not None:
+            grown = np.zeros((new_s, self.capacity, self.W), np.uint32)
+            grown[: self._mirror.shape[0]] = self._mirror
+            self._mirror = grown
+        elif self._ft:
+            # a fault plan keeps the durable copy from the start (the
+            # first growth: the words are zero)
+            self._mirror = np.zeros((new_s, self.capacity, self.W),
+                                    np.uint32)
+        self.s_max = new_s
+        self._h2d_cache.clear()
+        self._dx = self._dz = None
+        self._xz_stale = True
+        self._scratch = None
+
+    def _regroup(self, new_s: int) -> list[torch.Tensor]:
+        """The words regrouped into the blocks of ``new_s`` slots, device
+        to device."""
         b_old, b_new = self.s_max // self.n_dev, new_s // self.n_dev
         prev = []
         for d, dev in enumerate(self.mesh.devices):
@@ -377,16 +467,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                     blk[a - lo:b - lo] = self.prev[e][a - e * b_old:
                                                       b - e * b_old].to(dev)
             prev.append(blk)
-        self.prev = prev
-        if self._mirror is not None:
-            grown = np.zeros((new_s, self.capacity, self.W), np.uint32)
-            grown[: self._mirror.shape[0]] = self._mirror
-            self._mirror = grown
-        self.s_max = new_s
-        self._h2d_cache.clear()
-        self._dx = self._dz = None
-        self._xz_stale = True
-        self._scratch = None
+        return prev
 
     def _reset_slot(self, slot: int) -> None:
         self._pending_reset.add(slot)
@@ -415,8 +496,9 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
             self._unsub.discard(slot)
         else:
             self._unsub.add(slot)
-        if slot < self._hsub.shape[0]:
+        if slot < self._hsub.shape[0] and self._hsub[slot] != flag:
             self._hsub[slot] = flag
+            self._xz_stale = True
 
     def clear_entity(self, slot: int, entity_slot: int) -> None:
         self._pending_clear.append((slot, entity_slot))
@@ -424,18 +506,35 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         # unstaged re-step cannot re-derive the cleared pairs
         if slot < self._hact.shape[0]:
             self._hact[slot, entity_slot] = False
-        if self._mirror is not None:
-            if self._inflight is not None or self._due is not None:
-                self._mirror_ops.append(
-                    (slot, entity_slot, self._slot_epoch.get(slot, 0)))
-            else:
-                self._mirror_clear(slot, entity_slot)
+            self._xz_stale = True
+        self._queue_mirror_clear(slot, entity_slot)
 
-    def _mirror_clear(self, slot: int, entity_slot: int) -> None:
-        self._mirror[slot, entity_slot, :] = 0
-        w, b = P.word_bit_for_column(entity_slot, self.capacity)
-        self._mirror[slot, :, w] &= np.uint32(
-            ~(np.uint32(1) << np.uint32(b)) & 0xFFFFFFFF)
+    # -- the device hooks of the recovery ----------------------------------
+
+    def _drop_device(self) -> None:
+        self.prev = None
+        self._dx = self._dz = None
+        self._xz_stale = True
+        self._h2d_cache.clear()
+        self._scratch = None
+
+    def _prev_to_numpy(self) -> np.ndarray:
+        self.full_roundtrips += 1
+        return np.concatenate([P.words_to_numpy(p) for p in self.prev])
+
+    def _upload_prev(self, words: np.ndarray) -> None:
+        b = self.s_max // self.n_dev
+        self.prev = [P.words_to_torch(words[d * b:(d + 1) * b], dev)
+                     for d, dev in enumerate(self.mesh.devices)]
+        self.full_roundtrips += 1
+
+    def _check_restaged(self) -> None:
+        if self._seeded_unstaged:
+            raise RuntimeError(
+                "mesh AOI bucket: slots %r carry seeded interest state but "
+                "were not staged before flush -- stepping them would emit a "
+                "spurious mass-leave (stage the space first)"
+                % sorted(self._seeded_unstaged))
 
     # -- state carry and host views ----------------------------------------
 
@@ -446,9 +545,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         if self._mirror is None:
             self.flush()
             self.drain()
-            self._mirror = np.concatenate(
-                [P.words_to_numpy(p) for p in self.prev])
-            self.full_roundtrips += 1  # the one-time mirror seed
+            self._ensure_mirror()
             for s in sorted(self._pending_reset):
                 self._mirror[s] = 0
             for s, e in self._pending_clear:
@@ -457,16 +554,25 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         elif slot in self._mirror_stale:
             self.flush()
             self.drain()
-            d, i = self._loc(slot)
-            self._mirror[slot] = P.words_to_numpy(self.prev[d][i])
+            if self.prev is not None:
+                d, i = self._loc(slot)
+                self._mirror[slot] = P.words_to_numpy(self.prev[d][i])
+            else:
+                self._mirror[slot] = _packed_predicate(
+                    self._hx[slot], self._hz[slot], self._hr[slot],
+                    self._hact[slot])
             self._mirror_stale.discard(slot)
         return self._mirror[slot]
 
     def get_prev(self, slot: int) -> np.ndarray:
         """The slot's previous-tick words [C, W] uint32 (one slot's
-        fetch, after the staged work and every tick in flight)."""
+        fetch, after the staged work and every tick in flight; the
+        mirror's while the device is down)."""
         self.flush()
         self.drain()
+        if self.prev is None:
+            self._ensure_mirror()
+            return self._mirror[slot].copy()
         d, i = self._loc(slot)
         return P.words_to_numpy(self.prev[d][i])
 
@@ -477,8 +583,11 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self.drain()
         self._pending_reset.discard(slot)
         words = np.ascontiguousarray(words, np.uint32)
-        d, i = self._loc(slot)
-        self.prev[d][i] = P.words_to_torch(words, self.prev[d].device)
+        if self.prev is not None:
+            d, i = self._loc(slot)
+            self.prev[d][i] = P.words_to_torch(words, self.prev[d].device)
+        else:
+            self._ensure_mirror()
         self._seeded_unstaged.add(slot)
         self._mirror_stale.discard(slot)
         if self._mirror is not None:
@@ -530,19 +639,25 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self._staged.clear()
         return slots
 
-    def _stage_xz(self, sl, old_x, old_z) -> None:
+    def _stage_xz(self, sl, old_x, old_z, old_r, old_act) -> None:
         """Bring each shard's device x/z up to date with the shadows: a
-        sparse packet of its own changed rows on the steady path, a full
-        upload after growth or a reset, when the changed fraction exceeds
-        _delta_max_frac, or without delta staging.  The diff compares
-        float BIT PATTERNS, so the device copy stays byte-identical."""
+        sparse packet of its own changed rows on the steady path (the
+        ``aoi.delta`` seam), a full upload (one ``aoi.h2d`` crossing)
+        after growth, a reset, a clear, an r/act/sub change or a
+        recovery, when the changed fraction exceeds _delta_max_frac, or
+        without delta staging.  The diff compares float BIT PATTERNS, so
+        the device copy stays byte-identical."""
         new_x, new_z = self._hx[sl], self._hz[sl]
         diff = (new_x.view(np.uint32) != old_x.view(np.uint32)) \
             | (new_z.view(np.uint32) != old_z.view(np.uint32))
         n_changed = np.count_nonzero(diff)
+        if not (np.array_equal(self._hr[sl], old_r)
+                and np.array_equal(self._hact[sl], old_act)):
+            self._xz_stale = True
         if (self.delta_staging and not self._xz_stale and self._dx is not None
                 and n_changed <= self._delta_max_frac * max(diff.size, 1)):
             if n_changed:
+                faults.check("aoi.delta")
                 rows, cols = np.nonzero(diff)
                 grows = sl[rows]
                 b = self.s_max // self.n_dev
@@ -557,6 +672,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                     self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
             self.stats["delta_flushes"] += 1
             return
+        faults.check("aoi.h2d")
         self._dx = self.mesh.device_put(self._hx)
         self._dz = self.mesh.device_put(self._hz)
         self.stats["h2d_bytes"] += self._hx.nbytes + self._hz.nbytes
@@ -564,9 +680,12 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self.stats["full_flushes"] += 1
 
     def _h2d(self, role: str, arr: np.ndarray) -> list[torch.Tensor]:
+        """The role's per-shard device copy, re-uploaded (an ``aoi.h2d``
+        crossing) only when its values changed."""
         cached = self._h2d_cache.get(role)
         if cached is not None and np.array_equal(cached[0], arr):
             return cached[1]
+        faults.check("aoi.h2d")
         dev = self.mesh.device_put(arr)
         self._h2d_cache[role] = (arr.copy(), dev)
         self.stats["h2d_bytes"] += arr.nbytes
@@ -578,23 +697,24 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         record, or None when nothing was staged."""
         if not (self._staged or self._pending_reset or self._pending_clear):
             return None
+        self._fault_phase = "stage"
+        faults.check("aoi.device")  # the mesh's health probe
+        self._rebuild_device()
         self._apply_maintenance()
         if not self._staged:
             return None
         t0 = time.perf_counter()
         slots = sorted(self._staged)
         sl = np.array(slots, np.intp)
-        old_x, old_z = self._hx[sl], self._hz[sl]
+        old = (self._hx[sl], self._hz[sl], self._hr[sl], self._hact[sl])
         self._restage_shadows()
-        if self._seeded_unstaged:
-            raise RuntimeError(
-                "mesh AOI bucket: slots %r carry seeded interest state but "
-                "were not staged before flush -- stepping them would emit a "
-                "spurious mass-leave (stage the space first)"
-                % sorted(self._seeded_unstaged))
+        self._cur_slots = slots  # a recovery needs them once _staged is gone
+        self._check_restaged()
         if self._mirror is not None and self._unsub:
             self._mirror_stale.update(s for s in slots if s in self._unsub)
-        self._stage_xz(sl, old_x, old_z)
+        self._stage_xz(sl, *old)
+        self._fault_phase = "kernel"
+        faults.check("aoi.kernel")
         r = self._h2d("r", self._hr)
         act = self._h2d("act", self._hact)
         sub = self._h2d("sub", self._hsub)
@@ -607,9 +727,9 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         shards = []
         for d in range(self.n_dev):
             DC.record()
-            new, chg = AK.aoi_step_chg(self._dx[d], self._dz[d], r[d], act[d],
-                                       self.prev[d],
-                                       out=self._step_out(d, self.prev[d]))
+            new, chg = _calc_step(self._calc_level, self._dx[d], self._dz[d],
+                                  r[d], act[d], self.prev[d],
+                                  out=self._step_out(d, self.prev[d]))
             self.prev[d] = new
             if all_unsub:
                 shards.append(None)
@@ -629,7 +749,12 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
 
     def _harvest(self, rec: dict) -> None:
         """Wait for each shard's scalars, fetch and decode its stream,
-        update the mirror and publish per-slot events."""
+        update the mirror and publish per-slot events (a host record:
+        publish what the host computed at its tick)."""
+        if rec.get("host"):
+            self._publish(rec["slots"], rec["epochs"], *rec["payload"])
+            self._apply_mirror_ops()
+            return
         c, W = self.capacity, self.W
         got = self._decode_shards(rec, rec["b"] * c * W)
         t0 = time.perf_counter()
@@ -647,12 +772,8 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                 stale[list(self._mirror_stale)] = True
                 keep &= ~stale[gx // (c * W)]
             self._mirror.reshape(-1)[gx[keep]] ^= cv[keep]
-        if self._mirror_ops:
-            # clears issued after this tick's dispatch land after its stream
-            ops, self._mirror_ops = self._mirror_ops, []
-            for slot, e, ep in ops:
-                if self._slot_epoch.get(slot, 0) == ep:
-                    self._mirror_clear(slot, e)
+        # clears issued after this tick's dispatch land after its stream
+        self._apply_mirror_ops()
         self.perf["decode_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         empty = np.empty((0, 2), np.int32)

@@ -10,12 +10,19 @@ in this order (part of the engine contract):
                attr deltas;
   4. post   -- callbacks queued during the tick.
 
-``aoi_pipeline`` / ``aoi_cross_tick`` defer the AOI events by one tick
-(the tick keeps flushing while a tick is in flight) and ``aoi_fused``
-runs the steady single-device tick as one graph replay (see
-:class:`.aoi.AOIEngine`).  Placement, cohorts, checkpoints, fault plans,
-paged storage, telemetry and the crontab of the JAX runtime are not in
-the port yet (ROADMAP.md lists them; the options that select them raise).
+``device`` says where the ``cuda`` backend's tensors live (``"cuda"`` by
+default, ``"cpu"`` for the plain PyTorch path); ``aoi_backend`` which
+calculator a space gets (``cuda`` by default -- the JAX runtime's default
+is ``cpu`` -- or ``cpu``, ``cpp``, ``auto``: ``cpp`` below
+``aoi_cuda_min_capacity``, ``cuda`` from there on).  ``aoi_pipeline`` /
+``aoi_cross_tick`` defer the AOI events by one tick (the tick keeps
+flushing while a tick is in flight) and ``aoi_fused`` runs the steady
+single-device tick as one graph replay (see :class:`.aoi.AOIEngine`).
+``fault_plan`` (a :class:`..faults.FaultPlan` or its string) installs into
+the port's :mod:`..faults` before the engine is built, as the JAX runtime
+does.  Placement, cohorts, checkpoints, paged storage, telemetry and the
+crontab of the JAX runtime are not in the port yet (ROADMAP.md lists
+them; the options that select them raise).
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from __future__ import annotations
 import time
 from typing import Callable
 
-from .aoi import AOIEngine, refuse_later
+from .. import faults
+from .aoi import AOIEngine
 from .entity import SYNC_NEIGHBORS, SYNC_OWN, Entity
 from .manager import EntityManager
 from .post import PostQueue
@@ -34,6 +42,8 @@ class Runtime:
     def __init__(
         self,
         device="cuda",
+        aoi_backend: str = "cuda",
+        aoi_cuda_min_capacity: int = 4096,
         aoi_delta_staging: bool = True,
         aoi_flush_sched: bool = True,
         aoi_emit: str = "auto",
@@ -47,13 +57,17 @@ class Runtime:
         now: Callable[[], float] = time.monotonic,
         on_error: Callable[[BaseException], None] | None = None,
     ):
+        # before the engine: buckets decide at construction whether to keep
+        # their host mirrors eagerly (faults.active())
         if fault_plan is not None:
-            refuse_later("fault_plan")
+            faults.install(fault_plan)
         self.now = now
         self.on_error = on_error or self._default_on_error
         # aoi_mesh: a SpaceMesh (or a CUDA device count) puts the AOI pass
         # on several shards (see AOIEngine)
-        self.aoi = AOIEngine(device=device, delta_staging=aoi_delta_staging,
+        self.aoi = AOIEngine(device=device, default_backend=aoi_backend,
+                             cuda_min_capacity=aoi_cuda_min_capacity,
+                             delta_staging=aoi_delta_staging,
                              flush_sched=aoi_flush_sched, emit=aoi_emit,
                              mesh=aoi_mesh,
                              rowshard_min_capacity=aoi_rowshard_min_capacity,

@@ -48,11 +48,11 @@ class Space(Entity):
         # delta diff reads them directly -- no per-entity walk anywhere
         self._cap = 0
         self._cols = ColumnStore()
+        # slot -> entity.  A list, never a numpy object array: the cycle
+        # collector does not traverse an object array, so entity -> space
+        # -> array -> entity cycles (and with them the Runtime and its
+        # device memory) would never be freed
         self._slot_entity: list[Entity | None] = []
-        # numpy object-array mirror of _slot_entity: event replay fancy-
-        # indexes whole pair columns at C speed instead of per-pair list
-        # lookups (dispatch_aoi_events)
-        self._slot_np = np.empty(0, object)
         self._free_slots: list[int] = []
         # two-stage cooling for freed slots: a pipelined calculator's events
         # for a slot freed during tick T are dispatched at T and only
@@ -175,9 +175,6 @@ class Space(Entity):
             new_cap *= 2
         self._cols.ensure_capacity(new_cap)
         self._slot_entity.extend([None] * (new_cap - len(self._slot_entity)))
-        slot_np = np.empty(new_cap, object)
-        slot_np[: len(self._slot_np)] = self._slot_np
-        self._slot_np = slot_np
         old_cap = self._cap
         self._cap = new_cap
         if self._aoi_handle is not None and old_cap:
@@ -209,7 +206,6 @@ class Space(Entity):
                 slot = self._next_slot()
             e.aoi_slot = slot
             self._slot_entity[slot] = e
-            self._slot_np[slot] = e
             cols = self._cols
             cols.nonplain[slot] = not e._plain_aoi
             cols.x[slot] = pos.x
@@ -258,7 +254,6 @@ class Space(Entity):
             e._yaw = float(cols.yaw[slot])
             cols.clear_slot(slot)
             self._slot_entity[slot] = None
-            self._slot_np[slot] = None
             self._free_cooling.append(slot)
             e.aoi_slot = -1
             self._aoi_dirty = True
@@ -299,7 +294,7 @@ class Space(Entity):
             cols.y[slots] = ys
             cols.yaw[slots] = yaws
         self._aoi_dirty = True
-        se = self._slot_np
+        se = self._slot_entity
         # sync bookkeeping (client-driven entities get no owner echo --
         # same rule as set_position: correcting the owner fights
         # client-side prediction; server-driven ones do).  Inlined, not a
@@ -392,7 +387,7 @@ class Space(Entity):
         flags = sf[idx].copy()
         sf[idx] = 0
         w = cols.watched[idx]
-        se = self._slot_np
+        se = self._slot_entity
         for s, f in zip(idx[w].tolist(), flags[w].tolist()):
             e = se[s]
             if e is None or e.destroyed:
@@ -410,12 +405,11 @@ class Space(Entity):
         ops, no method dispatch.  Observers with a client or overridden
         hooks take the full ``_interest``/``_uninterest`` path (client
         create/destroy ops, watcher counts, user callbacks).  Slot->entity
-        resolution fancy-indexes the object-array mirror: one C pass per
-        event batch instead of two list lookups per pair."""
+        resolution indexes the slot list per pair."""
         if self._aoi_handle is None:
             return
         enter, leave = self._runtime().aoi.take_events(self._aoi_handle)
-        se = self._slot_np
+        se = self._slot_entity
         nonplain = self._nonplain
         # leaves first: a slot reused within one tick (leave+enter) must
         # destroy before re-creating on clients.  Pairs with a PLAIN
@@ -423,13 +417,15 @@ class Space(Entity):
         # interest state is the calculator's packed words, derived on
         # demand -- no per-pair host work at all.
         if len(leave):
-            need = leave[nonplain[leave[:, 0]]]
-            for a, b in zip(se[need[:, 0]], se[need[:, 1]]):
+            need = leave[nonplain[leave[:, 0]]].tolist()
+            for i, j in need:
+                a, b = se[i], se[j]
                 if a is not None and b is not None:
                     a._uninterest(b)
         if len(enter):
-            need = enter[nonplain[enter[:, 0]]]
-            for a, b in zip(se[need[:, 0]], se[need[:, 1]]):
+            need = enter[nonplain[enter[:, 0]]].tolist()
+            for i, j in need:
+                a, b = se[i], se[j]
                 if a is not None and b is not None:
                     a._interest(b)
 
@@ -461,7 +457,7 @@ class Space(Entity):
                     words = h.bucket.get_prev(h.slot)
                 row = words[slot]
         w_per = row.shape[0]
-        sn = self._slot_np
+        sn = self._slot_entity
         out = []
         for w in np.nonzero(row)[0]:
             bits = int(row[w])
@@ -493,7 +489,7 @@ class Space(Entity):
 
             w, b = AP.word_bit_for_column(slot, self._cap)
             rows = np.nonzero(words[:, w] & (np.uint32(1) << np.uint32(b)))[0]
-        sn = self._slot_np
+        sn = self._slot_entity
         return [sn[i] for i in rows if sn[i] is not None]
 
     # -- destroy -----------------------------------------------------------

@@ -1,19 +1,22 @@
 """Event emit fan-out: fetched triples -> replay-ready sorted pairs.
 
-Port of the JAX package's ``ops/aoi_emit.py`` (``native`` and ``vector``
-modes).  ``native`` runs the shared C++ library ``native/libgwemit.so``
-(at the repository root, built by ``native/Makefile``), loaded here through
-the port's own ctypes loader; ``vector`` is the NumPy argsort path.  Both
-give the same (space, observer, observed) order: one integer sort key,
-unique within a tick.  Everything here is harvest-phase numpy on
-already-fetched arrays.
+Port of the JAX package's ``ops/aoi_emit.py``, in its three modes:
 
-The ``host`` mode of the JAX package (its per-word decode oracle) is not
-in this slice; the single-device bucket's overflow recovery expands its
-word stream with the numpy :func:`..ops.events.expand_classified_host` in
-both modes.  The sharded buckets decode word streams every tick and
-expand them with :func:`expand_words_native` in ``native`` mode (the JAX
-package's ``expand_words_native``, over the same library).
+  * ``native`` -- the shared C++ library ``native/libgwemit.so`` (at the
+    repository root, built by ``native/Makefile``), loaded here through
+    the port's own ctypes loader;
+  * ``vector`` -- the NumPy argsort path;
+  * ``host``   -- the per-word host decode: the triples are folded back
+    into their classified word stream (:func:`..ops.events.
+    triples_to_words`) and expanded with :func:`..ops.events.
+    expand_classified_host`.  It is the bit-exact oracle of the other
+    two and the target of the ``aoi.emit`` fault seam's demotion.
+
+All three give the same (space, observer, observed) order: one integer
+sort key, unique within a tick.  The sharded buckets decode word streams
+every tick and expand them with :func:`expand_words_native` in ``native``
+mode, with the numpy expansion otherwise.  Everything here is
+harvest-phase numpy on already-fetched arrays.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ import numpy as np
 
 from .aoi_predicate import words_per_row
 
-EMIT_MODES = ("native", "vector")
-# stats["emit_path"] levels, as in the JAX package (native 0, vector 1)
-EMIT_LEVEL = {"native": 0, "vector": 1}
+EMIT_MODES = ("native", "vector", "host")
+# stats["emit_path"] levels, as in the JAX package: higher is more demoted
+EMIT_LEVEL = {"native": 0, "vector": 1, "host": 2}
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),

@@ -58,6 +58,29 @@ def check_capacity(capacity: int) -> int:
     return words_per_row(capacity)
 
 
+def interest_matrix(x: np.ndarray, z: np.ndarray, radius: np.ndarray,
+                    active: np.ndarray, lo: int = 0,
+                    hi: int | None = None) -> np.ndarray:
+    """The predicate over one space in numpy, O(C^2): 1-D float32/bool
+    arrays of length C (padded slots inactive) -> bool M[lo:hi, C],
+    M[i, j] when entity i is interested in entity j (all C rows by
+    default).  The host calculators (:mod:`.aoi_oracle`) and fault
+    recovery evaluate it."""
+    x = np.asarray(x, np.float32)
+    z = np.asarray(z, np.float32)
+    radius = np.asarray(radius, np.float32)
+    active = np.asarray(active, bool)
+    hi = len(x) if hi is None else hi
+    dx = np.abs(x[None, :] - x[lo:hi, None])  # f32, exactly rounded
+    dz = np.abs(z[None, :] - z[lo:hi, None])
+    r = radius[lo:hi, None]
+    m = (dx <= r) & (dz <= r)
+    m &= active[lo:hi, None] & active[None, :]
+    rows = np.arange(lo, hi)
+    m[rows - lo, rows] = False  # self-interest excluded, like the kernel
+    return m
+
+
 def pack_rows(m: np.ndarray) -> np.ndarray:
     """Pack bool matrix [N, C] -> uint32 words [N, W] (planar layout)."""
     n, c = m.shape

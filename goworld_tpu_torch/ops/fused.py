@@ -37,8 +37,11 @@ side stream (``torch.cuda.graph``'s warm-up; it builds the kernel library
 and reads its occupancy before any capture).  It computes the same tick,
 so the replay that follows rewrites the same values.
 
-``fused_paged_step`` comes with paged storage (ROADMAP.md queue 1,
-item 5).
+The bucket's fused attempt (``engine/aoi._CUDABucket._dispatch_fused``)
+crosses the ``aoi.delta`` and ``aoi.kernel`` fault seams before it loads
+a packet: a fault there runs the tick unfused instead, as the JAX
+bucket's does.  ``fused_paged_step`` comes with paged storage
+(ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations

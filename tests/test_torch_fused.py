@@ -211,7 +211,8 @@ def test_fused_partial_grid_clears_and_subscription(kw, shift):
     np.testing.assert_array_equal(hs[0].bucket.peek_words(hs[0].slot),
                                   ohs[0].bucket.get_prev(ohs[0].slot))
     st = hs[0].bucket.stats
-    # eligible: every tick but the first and the two whose departure
-    # changes act (both restage in full)
-    assert st["fused_dispatches"] == st["delta_flushes"] == 7, st
-    assert st["full_flushes"] == 3
+    # eligible: every tick but the first, the two whose departure changes
+    # act and the two that change a subscription (all four restage in
+    # full, as the JAX bucket does)
+    assert st["fused_dispatches"] == st["delta_flushes"] == 5, st
+    assert st["full_flushes"] == 5

@@ -35,11 +35,12 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240,
                          check=True).stdout.split()
-    assert int(out[0]) >= 26  # every module of the three slices
+    assert int(out[0]) >= 33  # every module of the seven slices
     loaded = out[1:]
     for mod in ("engine.runtime", "ops.aoi_grid", "ops.cadence",
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
-                "engine.aoi_rowshard", "entry"):
+                "engine.aoi_rowshard", "entry", "faults", "ops.aoi_oracle",
+                "ops.aoi_native"):
         assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -263,7 +263,9 @@ def test_runtime_on_mesh_matches_jax():
 def test_later_options_raise():
     """Options the port does not have yet raise, naming their ROADMAP.md
     item; pipeline, cross_tick and fused (items 1 and 2) are in and reach
-    the mesh bucket."""
+    the mesh bucket, and a fault plan (item 4) installs into the port's
+    faults module."""
+    from goworld_tpu_torch import faults
     from goworld_tpu_torch.engine.runtime import Runtime
 
     mesh = SpaceMesh(["cpu"] * 2)
@@ -273,8 +275,11 @@ def test_later_options_raise():
     for kw in ({"pipeline": True}, {"cross_tick": True}, {"fused": True}):
         b = AOIEngine(device="cpu", mesh=mesh, **kw).create_space(128).bucket
         assert [getattr(b, k) for k in kw] == [True]
-    with pytest.raises(ValueError, match="item 4"):
-        Runtime(device="cpu", fault_plan="aoi.kernel:fail@1")
+    try:
+        Runtime(device="cpu", fault_plan="aoi.kernel:fail@99")
+        assert [sp.seam for sp in faults.plan().specs] == ["aoi.kernel"]
+    finally:
+        faults.clear()
     h = AOIEngine(device="cpu", mesh=mesh).create_space(128)
     for call, item in ((lambda: h.bucket.export_snapshot(h.slot), "item 9"),
                        (lambda: h.bucket.import_snapshot(h.slot, {}),
