@@ -69,6 +69,30 @@ Phases (any failure raises, so the exit code is non-zero):
                 per-tick CRCs equal to aoi_backend="cpu"; then phase 4's
                 world and unity1k alone under cpp and cuda in turns: each
                 bucket's tick ms.
+ 17. paged   -- phase 4's world and walk on Runtime(aoi_paged=True):
+                sequential (its per-tick CRCs phase 4's; CUDA events
+                around ops/aoi_pages.allocate_pages beside phase 4's
+                extract_triples), pipeline and cross_tick (shifted by one
+                tick), then phase 14's 10% walk unfused (equal to phase
+                14's unfused run), fused (equal to unfused, 1 dispatch a
+                steady tick) and fused + cross-tick (shifted); no
+                decode_overflow, no page spill; tick and split ms, used
+                pages, bytes fetched a tick, graphs and their pool bytes;
+ 17b. clustered crowd -- bench.py's bench_engine_clustered (1 x 2048,
+                1,800 entities into one r=100 cluster at tick 2 of 8) on
+                the cuda backend capped, paged and paged from a 4-page
+                pool, against the cpu backend: equal CRCs; capped
+                decode_overflow > 0, paged 0; the small pool spills and
+                grows;
+ 17c. paged absorbers -- phase 11b's `million` on 4 virtual shards and
+                phase 12's `zipf100k` row-sharded on 8, paged, 3 ticks,
+                steady and with _max_chunks forced to 1 (every shard
+                absorbed): CRCs equal those phases' non-paged ones,
+                decode_overflow 0, no cap growth; the ms of each absorb;
+ 17d. pages seam -- phase 15's 2 spaces, paged, under aoi.pages oom at
+                3, partial at 5 and poison at 7, on the card and on the
+                CPU path: CRCs equal the fault-free card run's; 2 spills,
+                1 poisoned table recovered on the host, calc level 0.
   6. giant kernels -- the rectangular step and the two block-culled
                 kernels against their plain versions on the card,
                 bit-exact, over edge-case inputs (NaN and +inf radii,
@@ -128,13 +152,14 @@ Phases (any failure raises, so the exit code is non-zero):
                 ticks, equal per-tick CRCs, the shards' words equal to the
                 square kernel's, derive_row/derive_col equal to them.
 
-Phases 13-16 run after phase 5.  Every fault-free phase checks that it
+Phases 13-17b and 17d run after phase 5, 17c after phase 12.  Every
+fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
 are one card's, not a multi-card layout's.  The last lines are
 {"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
-{"mesh": ...}, {"issue_floor": [...]} (each kernel's SASS instructions
+{"paged": ...} (phases 17-17d), {"mesh": ...}, {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
 3), {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -144,7 +169,9 @@ deferred and fused run of phases 13 and 14 (a graph replay counts one
 launch), in phases 15 and 16 and on the mesh in phase 15b (its entry's
 "launches" is their sum, "path_launches" each), the culled kernels in
 phase 7, the rectangular step in phase 8 and on the row-sharded bucket
-in phase 15b, the entlv mode in phase 10.
+in phase 15b, the entlv mode in phase 10; phase 17's runs (17, 17b,
+17d on the card) and the mesh of 17c add to the square step, the
+row-sharded bucket of 17c to the rectangular one.
 """
 
 from __future__ import annotations
@@ -672,6 +699,9 @@ RT_MODES = {"sequential": {}, "pipeline": {"aoi_pipeline": True},
             "both": {"aoi_pipeline": True, "aoi_cross_tick": True},
             "unfused": {}, "fused": {"aoi_fused": True},
             "fused+cross_tick": {"aoi_fused": True, "aoi_cross_tick": True}}
+# phase 17: each of them with paged storage
+RT_MODES.update({f"paged {k}": dict(v, aoi_paged=True)
+                 for k, v in list(RT_MODES.items())})
 # phase 13: phase 4's schedule (a prime tick, 3 warm-up, 20 measured, the
 # full walk); the modes in turns, each twice
 PIPE_TURNS = ["sequential", "pipeline", "cross_tick", "both", "both",
@@ -688,7 +718,8 @@ FUSED_FALLBACK = [0, 4, 5]  # the ticks that restage in full
 FUSED_MEASURE_FROM = 30
 
 
-def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
+def run_schedule(Runtime, AK, DC, mode, schedule, measure_from,
+                 timers=()):
     """Phase 4's world (same seed, same walk) on ``Runtime(**RT_MODES[
     mode])`` through ``schedule`` (per tick: None for the prime tick, a
     walk fraction, or "radius": one entity's r changes and 10% move).
@@ -697,7 +728,9 @@ def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
     Times over the ticks from ``measure_from`` on: ``tick_ms`` (the host
     in ``Runtime.tick``, no sync), ``loop_ms`` (walk + tick, one sync at
     the end: a deferred tick's device work overlaps the next walk), the
-    bucket's perf split."""
+    bucket's perf split.  ``timers`` (DeviceTimer) are switched on for
+    the measured ticks.  A row's fifth entry is the bucket's page
+    occupancy after the tick."""
     import gc
 
     torch.cuda.synchronize()
@@ -714,6 +747,8 @@ def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
             perf0, stats0 = dict(bucket.perf), dict(bucket.stats)
             mem1 = torch.cuda.memory_stats()
             DC.reset_keys()
+            for tm in timers:
+                tm.on = True
             t_loop = time.perf_counter()
         if what == "radius":
             spaces_l[0]._cols.r[slots[0][1]] += 7.0
@@ -727,9 +762,11 @@ def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
         if t >= measure_from:
             tick_s += time.perf_counter() - t0
         rows.append((f"{crc['t']:08x}", crc["te"], DC.read(),
-                     bucket._max_triples))
+                     bucket._max_triples, bucket.stats["page_occupancy"]))
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t_loop
+    for tm in timers:
+        tm.on = False
     n = len(schedule) - measure_from
     crc["t"] = crc["te"] = 0
     rt.aoi.drain()
@@ -739,6 +776,7 @@ def run_schedule(Runtime, AK, DC, mode, schedule, measure_from):
     st = dict(bucket.stats)
     fz = bucket._fz
     out = {"mode": mode, "ticks": len(schedule), "measured": n,
+           "n_pages": bucket._n_pages,
            "tick_ms": tick_s * 1e3 / n, "loop_ms": loop_s * 1e3 / n,
            "perf_ms": {k[:-2] + "_ms": (bucket.perf[k] - perf0[k]) * 1e3 / n
                        for k in bucket.perf},
@@ -874,7 +912,8 @@ def phase_fused(Runtime, AK, DC):
     return {"runs": runs, "summary": summary, "eligible": eligible,
             "replays": sum(r["stats"]["fused_dispatches"] for r in runs),
             "launches": sum(r["launches"] for r in runs
-                            if r["mode"] != "unfused")}
+                            if r["mode"] != "unfused"),
+            "ref_rows": [r[:2] for r in ref]}
 
 
 # phase 14b: a subscription change amid a sparse walk (space 0 opts out,
@@ -1269,6 +1308,417 @@ def phase_routing(Runtime, AK):
 
 
 # -- phase 6: the giant path's kernels vs plain --------------------------------
+
+# -- phase 17: paged storage ---------------------------------------------------
+
+# phase 17: phase 4's world and walk under Runtime(aoi_paged=True):
+# sequential (timed like phase 4), pipeline and cross_tick (phase 13's
+# schedule), then phase 14's 10% walk unfused, fused and fused+cross_tick
+PAGED_PIPE_TURNS = ["paged sequential", "paged pipeline",
+                    "paged cross_tick"]
+PAGED_FUSED_TURNS = ["paged unfused", "paged fused",
+                     "paged fused+cross_tick"]
+# phase 17b: bench.py's clustered crowd (`bench_engine_clustered`,
+# bench.py:1663-1740): one space of 2048 slots, 1,800 entities spread
+# over world 4000 teleport into one r=100 cluster at tick 2 of 8 and
+# disperse at tick 7; seed 23
+CLUSTER = dict(cap=2048, n=1800, ticks=8, world=4000.0, seed=23)
+CLUSTER_FLOOR = 4  # the tiny pool of the re-arm run
+# phase 17c: the sharded absorbers, a prime tick and 2 walk ticks
+PAGED_SHARDED_TICKS = 3
+# phase 17d: the aoi.pages seam at phase 15's 2 spaces, a prime tick and
+# 8 walk ticks (the seam is crossed once a tick)
+PAGES_PLAN = "aoi.pages:oom@3;aoi.pages:partial@5;aoi.pages:poison@7"
+PAGES_TICKS = 9
+PAGES_STATS = {"page_spills": 2, "poisoned": 1, "rebuilds": 1,
+               "host_ticks": 1, "calc_level": 0, "fallbacks": 0,
+               "decode_overflow": 0}
+PAGES_FIRED = [("aoi.pages", "oom", 3), ("aoi.pages", "partial", 5),
+               ("aoi.pages", "poison", 7)]
+
+
+def paged_fetch_bytes(n_used, n_pages, spill_width, fused):
+    """Bytes one paged harvest copies to the host: the used prefix of the
+    three pools (rounded up to 16 pages, as the harvest fetches it), the
+    page table, the spilled bins and the four scalars (fused: one
+    bundle of the last three)."""
+    pages = min(n_pages, -(-n_used // 16) * 16)
+    return 3 * pages * 64 * 4 + (4 + n_pages + spill_width) * 4
+
+
+def phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused):
+    """Phase 17: paged storage on phase 4's main path.  The sequential
+    paged Runtime through phase 4's schedule (its per-tick CRCs equal
+    phase 4's), with CUDA events around the allocator beside phase 4's
+    ``extract_triples``; pipeline and cross_tick (phase 4's CRCs shifted
+    by one tick); phase 14's 10% walk unfused, fused (equal to unfused,
+    1 dispatch a steady tick) and fused + cross-tick (shifted).  Every
+    run: no decode_overflow, no page spill, calc level 0."""
+    pipe_runs, fused_runs = [], []
+    launches = 0
+    for mode in PAGED_PIPE_TURNS:
+        timers = ([DeviceTimer(PG, "allocate_pages")]
+                  if mode == "paged sequential" else [])
+        try:
+            out, rows, trailing = run_schedule(
+                Runtime, AK, DC, mode, PIPE_SCHEDULE, 1 + WARMUP, timers)
+        finally:
+            for tm in timers:
+                tm.restore()
+        launches += out["launches"]
+        check(out["launches"] == len(PIPE_SCHEDULE),
+              f"{mode}: aoi_step launches {out['launches']}")
+        if timers:
+            n = out["measured"]
+            alloc = timers[0].each()
+            check(len(alloc) == n, f"{mode}: {len(alloc)} allocator calls "
+                  f"in {n} measured ticks")
+            out["allocator_ms"] = sum(alloc) / n
+            out["extract_triples_ms_phase4"] = main_out["extract_ms"]
+            out["tick_ms_phase4"] = main_out["tick_ms"]
+            check([r[:2] for r in rows] == [tuple(c) for c in main_crcs],
+                  "paged sequential: CRCs differ from phase 4's")
+            check(trailing[1] == 0, "paged sequential left a tick in flight")
+        else:
+            shifted(mode, rows, trailing, main_crcs)
+            h, m = (out["stats"][k] for k in ("prefetch_hits",
+                                              "prefetch_misses"))
+            out["prefetch_hit_rate"] = h / max(h + m, 1)
+        used = [r[4] * out["n_pages"] for r in rows[1 + WARMUP:]]
+        out["n_used_pages"] = sum(used) / len(used)
+        out["fetch_bytes_per_tick"] = sum(paged_fetch_bytes(
+            int(round(u)), out["n_pages"], PG.MAX_SPILL, False)
+            for u in used) / len(used)
+        out["page_occupancy"] = out["stats"]["page_occupancy"]
+        st = out["stats"]
+        check(st["decode_overflow"] == 0 and st["page_spills"] == 0,
+              f"{mode}: decode_overflow {st['decode_overflow']}, "
+              f"page_spills {st['page_spills']}")
+        pipe_runs.append(out)
+        log("paged", json.dumps(out))
+    eligible = len(FUSED_SCHEDULE) - len(FUSED_FALLBACK)
+    ref = None
+    for mode in PAGED_FUSED_TURNS:
+        out, rows, trailing = run_schedule(Runtime, AK, DC, mode,
+                                           FUSED_SCHEDULE, FUSED_MEASURE_FROM)
+        launches += out["launches"]
+        st = out["stats"]
+        measured = [r[2] for r in rows[FUSED_MEASURE_FROM:]]
+        check(st["decode_overflow"] == 0 and st["page_spills"] == 0,
+              f"{mode}: decode_overflow {st['decode_overflow']}, "
+              f"page_spills {st['page_spills']}")
+        if mode == "paged unfused":
+            ref = rows
+            check([r[:2] for r in rows] == fused["ref_rows"],
+                  "paged unfused: CRCs differ from phase 14's unfused run")
+            check(measured == [2] * len(measured),
+                  f"paged unfused: dispatches per tick {measured}")
+        else:
+            check(st["fused_dispatches"] == eligible
+                  and st["fused_demotions"] == 0,
+                  f"{mode}: fused_dispatches {st['fused_dispatches']}, "
+                  f"want {eligible}")
+            check(measured == [1] * len(measured),
+                  f"{mode}: dispatches per tick {measured}")
+            check(out["new_keys_measured"] == 0,
+                  f"{mode}: {out['new_keys_measured']} new capture keys")
+            check(out["launches"] == len(FUSED_FALLBACK) + eligible
+                  + out["captures"], f"{mode}: aoi_step launches "
+                  f"{out['launches']}")
+            if mode == "paged fused":
+                check([r[:2] for r in rows] == [r[:2] for r in ref],
+                      "paged fused: CRCs differ from paged unfused")
+            else:
+                shifted(mode, rows, trailing, [r[:2] for r in ref])
+        used = [r[4] * out["n_pages"] for r in rows[FUSED_MEASURE_FROM:]]
+        out["n_used_pages"] = sum(used) / len(used)
+        out["fetch_bytes_per_tick"] = sum(paged_fetch_bytes(
+            int(round(u)), out["n_pages"], PG.MAX_SPILL,
+            mode != "paged unfused") for u in used) / len(used)
+        fused_runs.append(out)
+        log("paged fused", json.dumps(out))
+    seq = pipe_runs[0]
+    summary = {
+        "tick_ms": seq["tick_ms"], "perf_ms": seq["perf_ms"],
+        "allocator_ms": seq["allocator_ms"],
+        "extract_triples_ms_phase4": seq["extract_triples_ms_phase4"],
+        "tick_ms_phase4": seq["tick_ms_phase4"],
+        "n_used_pages": seq["n_used_pages"], "n_pages": seq["n_pages"],
+        "fetch_bytes_per_tick": seq["fetch_bytes_per_tick"],
+        "page_occupancy": seq["page_occupancy"],
+        "modes": {r["mode"]: {k: r.get(k) for k in (
+            "tick_ms", "loop_ms", "perf_ms", "n_used_pages",
+            "fetch_bytes_per_tick", "prefetch_hit_rate", "captures",
+            "graphs", "graph_pool_bytes")} for r in pipe_runs + fused_runs}}
+    return {"summary": summary, "runs": pipe_runs + fused_runs,
+            "launches": launches}
+
+
+def cluster_frames():
+    """bench.py ``_clustered_walk``: per tick (x, z) of CLUSTER["n"]
+    entities, spread -> one cluster -> dispersal."""
+    c = CLUSTER
+    rng = np.random.default_rng(c["seed"])
+    n, world = c["n"], c["world"]
+    x0 = rng.uniform(0.0, world, n).astype(np.float32)
+    z0 = rng.uniform(0.0, world, n).astype(np.float32)
+    tx = world / 2 + rng.uniform(-40.0, 40.0, n)
+    tz = world / 2 + rng.uniform(-40.0, 40.0, n)
+    frames = []
+    for t in range(c["ticks"]):
+        f = 1.0 if 2 <= t < c["ticks"] - 1 else 0.0
+        jx = rng.uniform(-2.0, 2.0, n)
+        jz = rng.uniform(-2.0, 2.0, n)
+        frames.append((
+            np.clip(x0 * (1 - f) + tx * f + jx, 0, world).astype(np.float32),
+            np.clip(z0 * (1 - f) + tz * f + jz, 0, world).astype(np.float32)))
+    return frames
+
+
+def cluster_run(AOIEngine, frames, backend, device, paged, floor=None):
+    """One clustered-crowd walk through AOIEngine (bench.py
+    ``_clustered_run``): the CRC of the delivered streams, events, per-tick
+    ms (a sync after each), the bucket's stats and pool size."""
+    from goworld_tpu_torch.engine.aoi import _PageDecay
+
+    c = CLUSTER
+    eng = AOIEngine(device=device, default_backend=backend, paged=paged)
+    h = eng.create_space(c["cap"])
+    if floor is not None:
+        h.bucket._pages = _PageDecay(floor=floor)
+    r = np.full(c["n"], 100.0, np.float32)
+    act = np.ones(c["n"], bool)
+    crc, n_ev, ms = 0, 0, []
+    for x, z in frames:
+        t0 = time.perf_counter()
+        eng.submit(h, x, z, r, act)
+        eng.flush()
+        e, lv = eng.take_events(h)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        e = np.ascontiguousarray(e, np.int32)
+        lv = np.ascontiguousarray(lv, np.int32)
+        crc = zlib.crc32(lv.tobytes(), zlib.crc32(e.tobytes(), crc))
+        n_ev += len(e) + len(lv)
+    st = dict(getattr(h.bucket, "stats", {}))
+    return {"crc": f"{crc:08x}", "events": n_ev, "ms": ms, "stats": st,
+            "n_pages": getattr(h.bucket, "_n_pages", None)}
+
+
+def phase_clustered(AOIEngine, AK):
+    """Phase 17b: the clustered crowd on the ``cuda`` backend capped,
+    paged, and paged from a pool preset to CLUSTER_FLOOR pages, against
+    the CPU oracle: all CRCs equal; capped shows decode_overflow > 0,
+    paged 0 (its spills and pool growth printed); the tiny pool spills
+    and re-arms."""
+    frames = cluster_frames()
+    n0 = AK.launches["aoi_step"]
+    cpu = cluster_run(AOIEngine, frames, "cpu", "cpu", False)
+    capped = cluster_run(AOIEngine, frames, "cuda", DEV, False)
+    paged = cluster_run(AOIEngine, frames, "cuda", DEV, True)
+    tiny = cluster_run(AOIEngine, frames, "cuda", DEV, True,
+                       floor=CLUSTER_FLOOR)
+    launches = AK.launches["aoi_step"] - n0
+    for label, run in (("capped", capped), ("paged", paged),
+                       ("tiny pool", tiny)):
+        check((run["crc"], run["events"]) == (cpu["crc"], cpu["events"]),
+              f"phase 17b {label}: CRC {run['crc']} != CPU oracle "
+              f"{cpu['crc']}")
+        healthy(run["stats"], f"phase 17b {label}")
+    check(capped["stats"]["decode_overflow"] > 0,
+          "phase 17b: the capped storm did not overflow")
+    for label, run in (("paged", paged), ("tiny pool", tiny)):
+        check(run["stats"]["decode_overflow"] == 0,
+              f"phase 17b {label}: decode_overflow "
+              f"{run['stats']['decode_overflow']}")
+    check(tiny["stats"]["page_spills"] > 0
+          and tiny["n_pages"] > CLUSTER_FLOOR,
+          f"phase 17b tiny pool: spills {tiny['stats']['page_spills']}, "
+          f"pool {tiny['n_pages']}")
+    check(launches == 3 * CLUSTER["ticks"],
+          f"phase 17b: aoi_step launches {launches}")
+    out = {"config": CLUSTER, "crc": cpu["crc"], "events": cpu["events"],
+           "launches": launches}
+    for label, run in (("capped", capped), ("paged", paged),
+                       ("tiny_pool", tiny), ("cpu", cpu)):
+        out[label] = {"ms": run["ms"], "n_pages": run["n_pages"],
+                      **{k: run["stats"].get(k) for k in (
+                          "decode_overflow", "page_spills",
+                          "page_occupancy")}}
+    log("clustered", json.dumps(out))
+    return out
+
+
+def phase_paged_sharded(AOIEngine, AK, SpaceMesh, engine_mesh, rowshard):
+    """Phase 17c: the paged absorbers of the sharded buckets: `million`
+    on 4 virtual shards (phase 11b's world) and `zipf100k` row-sharded
+    on 8 (phase 12's), PAGED_SHARDED_TICKS ticks each, steady (the prime
+    tick's overflow absorbed) and with ``_max_chunks`` forced to 1 (every
+    shard absorbed every tick).  Per-tick CRCs equal the non-paged runs'
+    of phases 11b and 12, decode_overflow 0, the caps never grow; the
+    host ms of each absorbed shard (the allocator, its fetches and the
+    decode)."""
+    from goworld_tpu_torch.engine import aoi_mesh, aoi_rowshard
+
+    dev = torch.device(DEV)
+    absorbs = []
+    inner = aoi_mesh._paged_absorb_shard
+
+    def timed_absorb(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = inner(*a, **kw)
+        torch.cuda.synchronize()
+        absorbs.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    ref = {
+        "million": next(r for r in engine_mesh["million"]
+                        if r["shards"] == 4 and not r.get("pipeline")),
+        "zipf100k": next(r for r in rowshard if r["shards"] == 8)}
+    cases = {"million": (SpaceMesh([dev] * 4),
+                         1 + MESH_WARMUP + MESH_MEASURED, {}),
+             "zipf100k": (SpaceMesh([dev] * 8), 1 + ROWSHARD_TICKS,
+                          {"rowshard_min_capacity": ROWSHARD_MIN})}
+    out, launches = {}, {"aoi_step": 0, "aoi_step rect": 0}
+    for mod in (aoi_mesh, aoi_rowshard):
+        mod._paged_absorb_shard = timed_absorb
+    try:
+        for name, (mesh, walk_ticks, kw) in cases.items():
+            cfg = GIANT[name]
+            _qx, _qz, xs, zs = make_walk(cfg, np.random.default_rng(0),
+                                         walk_ticks - 1)
+            s, c = cfg["s"], cfg["cap"]
+            if cfg["zipf"]:
+                r_t, act_t = make_state(cfg)
+                r, act = r_t.cpu().numpy(), act_t.cpu().numpy()
+                del r_t, act_t
+            else:
+                r = np.full((s, c), cfg["radius"], np.float32)
+                act = np.ones((s, c), bool)
+            want = [t_["crc"] for t_ in ref[name]["ticks"]][
+                :PAGED_SHARDED_TICKS]
+            res = {}
+            for how in ("steady", "forced"):
+                absorbs.clear()
+                n0 = AK.launches["aoi_step"]
+
+                def force(bucket, how=how):
+                    if how == "forced":
+                        bucket._max_chunks = 1
+
+                eng, hs, run = engine_run(
+                    AOIEngine, mesh, cfg, xs, zs, r, act,
+                    PAGED_SHARDED_TICKS, PAGED_SHARDED_TICKS - 1,
+                    paged=True, setup=force, **kw)
+                b = hs[0].bucket
+                label = f"phase 17c {name} {how}"
+                got = [t_["crc"] for t_ in run["ticks"]]
+                check(got == want, f"{label}: CRCs {got} != the non-paged "
+                      f"run's {want}")
+                check(b.stats["decode_overflow"] == 0,
+                      f"{label}: decode_overflow {b.stats['decode_overflow']}")
+                n_abs = len(absorbs)
+                if how == "forced":
+                    check(b._max_chunks == 1 and n_abs >= mesh.n_devices
+                          * (PAGED_SHARDED_TICKS - 1),
+                          f"{label}: caps {b._max_chunks}, {n_abs} absorbs")
+                elif name == "million":
+                    # phase 11b's prime tick overflows the chunk caps
+                    check(n_abs > 0, f"{label}: the prime tick's overflow "
+                          f"was not absorbed")
+                launches["aoi_step rect" if cfg["zipf"] else "aoi_step"] += (
+                    AK.launches["aoi_step"] - n0)
+                res[how] = {"absorbs": n_abs,
+                            "absorb_ms": list(absorbs),
+                            "absorb_ms_mean": sum(absorbs) / max(n_abs, 1),
+                            "tick_ms": [t_["tick_ms"] for t_ in run["ticks"]],
+                            "n_pages": b._n_pages,
+                            **{k: b.stats[k] for k in (
+                                "page_spills", "page_occupancy",
+                                "decode_overflow")}}
+                if getattr(b, "exclusive", False):
+                    eng.release_space(hs[0])
+                del eng, hs, b
+                torch.cuda.empty_cache()
+            out[name] = res
+            log("paged sharded", name, json.dumps(res))
+    finally:
+        for mod in (aoi_mesh, aoi_rowshard):
+            mod._paged_absorb_shard = inner
+    out["launches"] = launches
+    return out
+
+
+def pages_run(Runtime, AK, device, plan):
+    """PAGES_TICKS ticks of phase 15's world (FAULT_SPACES spaces) on the
+    paged Runtime under ``plan`` (a sync around each tick): per-tick CRC
+    and ms, the kernel launches, the stats and the fired faults."""
+    import gc
+
+    from goworld_tpu_torch import faults
+
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, device, FAULT_SPACES, PER_SPACE, CAPACITY, seed=7,
+        fault_plan=plan, aoi_paged=True)
+    bucket = bucket_of(rt)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rows = []
+    n0 = AK.launches["aoi_step"]
+    try:
+        for t in range(PAGES_TICKS):
+            if t:
+                walk(spaces_l, slots, pos, rng)
+            crc["t"] = crc["te"] = 0
+            sync()
+            t0 = time.perf_counter()
+            rt.tick()
+            sync()
+            rows.append((f"{crc['t']:08x}", crc["te"],
+                         (time.perf_counter() - t0) * 1e3))
+        fp = faults.plan()
+        fired = [] if fp is None else [dict(f) for f in fp.fired]
+        stats = dict(bucket.stats)
+    finally:
+        faults.clear()
+    launches = AK.launches["aoi_step"] - n0
+    del rt, bucket, spaces_l
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows, stats, fired, launches
+
+
+def phase_pages_seam(Runtime, AK):
+    """Phase 17d: PAGES_PLAN (aoi.pages oom at 3, partial at 5, poison at
+    7) at phase 15's 2 spaces, sequential, on the card and on the CPU
+    path, against the fault-free paged card run: per-tick CRCs equal, the
+    counters and fired faults as planned (oom and partial spill the whole
+    tick; the poisoned table is caught and the tick recomputed on the
+    host, without demotion)."""
+    free, free_st, _, free_l = pages_run(Runtime, AK, DEV, None)
+    healthy(free_st, "phase 17d fault-free")
+    check(free_st["page_spills"] == 0, f"phase 17d fault-free: "
+          f"{free_st['page_spills']} page spills")
+    out = {"plan": PAGES_PLAN, "fault_free_ms": [r[2] for r in free],
+           "launches": free_l}
+    for device in (DEV, "cpu"):
+        rows, st, fired, n_l = pages_run(Runtime, AK, device, PAGES_PLAN)
+        label = f"phase 17d {device}"
+        got = {k: st[k] for k in PAGES_STATS}
+        check(got == PAGES_STATS, f"{label}: stats {got}")
+        check(fired_set(fired) == sorted(PAGES_FIRED),
+              f"{label}: fired {fired_set(fired)}")
+        check([r[:2] for r in rows] == [r[:2] for r in free],
+              f"{label}: CRCs differ from the fault-free run")
+        out[device] = {"ms": [r[2] for r in rows], "stats": got,
+                       "fired": fired}
+        if device == DEV:
+            out["launches"] += n_l
+    log("pages seam", json.dumps(out))
+    return out
+
 
 RECT_PATH_SHAPE = (1, 16384, 131072)  # phase 8 (`zipfshare`'s block)
 RECT_SHAPES = [(1, 128, 384), (3, 256, 4096), RECT_PATH_SHAPE,
@@ -2002,14 +2452,17 @@ def walk_crcs(Runtime, mesh, ticks):
 
 
 def engine_run(AOIEngine, mesh, cfg, xs, zs, r, act, ticks, measured,
-               **eng_kw):
+               setup=None, **eng_kw):
     """``ticks`` flushes of one engine on ``mesh`` through submit/flush:
     per-tick event CRC and decode_overflow, the bucket's perf split over
-    the last ``measured`` ticks, device peak memory."""
+    the last ``measured`` ticks, device peak memory.  ``setup(bucket)``
+    runs before the first tick."""
     torch.cuda.reset_peak_memory_stats()
     eng = AOIEngine(device=DEV, mesh=mesh, **eng_kw)
     hs = [eng.create_space(cfg["cap"]) for _ in range(cfg["s"])]
     bucket = hs[0].bucket
+    if setup is not None:
+        setup(bucket)
     rows, t_ms, perf0 = [], 0.0, None
 
     def fold():
@@ -2210,6 +2663,7 @@ def main():
     from goworld_tpu_torch.engine.runtime import Runtime
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import aoi_cuda as AK
+    from goworld_tpu_torch.ops import aoi_pages as PG
     from goworld_tpu_torch.ops import aoi_dense as AD
     from goworld_tpu_torch.ops import aoi_grid as AG
     from goworld_tpu_torch.ops import cadence as CD
@@ -2240,6 +2694,9 @@ def main():
     faults_out = phase_faults(Runtime, AK)
     sharded_faults = phase_sharded_faults(Runtime, AK, SpaceMesh)
     routing = phase_routing(Runtime, AK)
+    paged = phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused)
+    clustered = phase_clustered(AOIEngine, AK)
+    pages_seam = phase_pages_seam(Runtime, AK)
     rect_rows = phase_rect(AK, AD)
     culled_rows = phase_culled(AG, AK)
     phase_plans(AK, AG, AD)
@@ -2256,6 +2713,12 @@ def main():
     entlv_launches = AK.launches["aoi_step_entlv"]
     engine_mesh = phase_engine_mesh(Runtime, AOIEngine, AK, AD, SpaceMesh)
     rowshard = phase_rowshard(AOIEngine, AK, SpaceMesh)
+    paged_sharded = phase_paged_sharded(AOIEngine, AK, SpaceMesh,
+                                        engine_mesh, rowshard)
+    paged_l = (paged["launches"] + clustered["launches"]
+               + pages_seam["launches"])
+    paged_mesh_l = paged_sharded["launches"]["aoi_step"]
+    paged_row_l = paged_sharded["launches"]["aoi_step rect"]
     for name, n in (*culled_launches.items(), ("aoi_step rect",
                                                rect_launches),
                     ("aoi_step_entlv", entlv_launches),
@@ -2265,7 +2728,10 @@ def main():
                     *((f"aoi_step faults {k} {m}", r["launches"])
                       for k, v in sharded_faults.items()
                       for m, r in v.items()),
-                    ("aoi_step routing", routing["launches"])):
+                    ("aoi_step routing", routing["launches"]),
+                    ("aoi_step paged", paged_l),
+                    ("aoi_step paged mesh", paged_mesh_l),
+                    ("aoi_step rect paged rowshard", paged_row_l)):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -2292,7 +2758,8 @@ def main():
         entry("aoi_step", "goworld_tpu/ops/aoi_pallas.py:176",
               main_out["kernel_launches"] + pipelined["launches"]
               + fused["launches"] + faults_out["launches"] + mesh_fault_l
-              + routing["launches"], rows, MAIN_SHAPE,
+              + routing["launches"] + paged_l + paged_mesh_l, rows,
+              MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               path_launches={"main": main_out["kernel_launches"],
                              "deferred": pipelined["launches"],
@@ -2300,12 +2767,15 @@ def main():
                              "fused_replays": fused["replays"],
                              "faults": faults_out["launches"],
                              "faults_mesh": mesh_fault_l,
-                             "routing": routing["launches"]}),
+                             "routing": routing["launches"],
+                             "paged": paged_l,
+                             "paged_mesh": paged_mesh_l}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
-              rect_launches + row_fault_l, rect_rows, RECT_PATH_SHAPE,
-              main_path_ms=share_out["kernel_ms"],
+              rect_launches + row_fault_l + paged_row_l, rect_rows,
+              RECT_PATH_SHAPE, main_path_ms=share_out["kernel_ms"],
               path_launches={"share": rect_launches,
-                             "faults_rowshard": row_fault_l}),
+                             "faults_rowshard": row_fault_l,
+                             "paged_rowshard": paged_row_l}),
         entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
               culled_launches["aoi_words_culled"],
               culled_rows["aoi_words_culled"], (64, 16384),
@@ -2344,6 +2814,9 @@ def main():
                                        for r in fused["runs"]]}}))
     print(json.dumps({"faults": faults_out, "sharded_faults": sharded_faults,
                       "routing": routing}))
+    print(json.dumps({"paged": {
+        "main_path": paged["summary"], "clustered": clustered,
+        "sharded": paged_sharded, "pages_seam": pages_seam}}))
     print(json.dumps({"mesh": {
         "note": "virtual shards are shards of one card taking turns; "
                 "their times are one card's",

@@ -44,16 +44,24 @@ out (:mod:`..ops.aoi_emit`).  A tick with more changes than the triple
 cap is recovered from the full ``chg``/``new`` grids (counted in
 ``stats["decode_overflow"]``) and the cap grows.
 
+``paged`` (:mod:`..ops.aoi_pages`) replaces steps 5-6 with the page
+allocator: the changed words of each bin of 8 rows land on pages drawn
+from a device-resident free list, and the harvest fetches the used page
+prefix, the page table and four scalars; there is no global cap, and
+the bins the pool cannot serve are re-read from the kept grids (counted
+in ``stats["page_spills"]``).  The sharded buckets use the same pool to
+absorb a shard whose stream overflows its caps.
+
 Faults (:mod:`..faults`): the device buckets cross the JAX package's
 seams (``aoi.grow``, ``aoi.h2d``, ``aoi.delta``, ``aoi.kernel``,
-``aoi.device``, ``aoi.scalars``, ``aoi.fetch``, ``aoi.emit``) at the
-same points, as often.  An injected fault (:func:`_device_fault`) is
-recovered on the host from the durable copies -- the input shadows and
-the host mirror of the words, kept eagerly while a plan is active -- and
-the tick's events stay bit-exact.  An injected fault of the calculator
-demotes the bucket one level down its chain: 0 the hand kernel, 1 the
-plain PyTorch step on the same device, 2 the host oracle (the device
-untouched).  An ``aoi.emit`` fault demotes the fan-out to the ``host``
+``aoi.device``, ``aoi.scalars``, ``aoi.fetch``, ``aoi.emit``, and
+``aoi.pages`` when paged) at the same points, as often.  An injected
+fault (:func:`_device_fault`) is recovered on the host from the durable
+copies -- the input shadows and the host mirror of the words, kept
+eagerly while a plan is active -- and the tick's events stay
+bit-exact.  An injected fault of the calculator demotes the bucket one
+level down its chain: 0 the hand kernel, 1 the plain PyTorch step on
+the same device, 2 the host oracle (the device untouched).  An ``aoi.emit`` fault demotes the fan-out to the ``host``
 mode.  Every demotion logs a warning, is counted in ``stats`` and
 sticks until ``reset_calc_chain()`` / ``reset_emit_path()``.  Only the
 plan's faults take that path: a real CUDA error (a refused launch, a
@@ -74,6 +82,7 @@ from .. import faults
 from ..ops import aoi_cuda as AK
 from ..ops import aoi_dense as AD
 from ..ops import aoi_emit as AE
+from ..ops import aoi_pages as PG
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
@@ -101,7 +110,6 @@ BACKENDS = ("cuda", "cpu", "cpp", "auto")
 # options of the JAX package's AOIEngine/Runtime and bucket methods that
 # the port does not have yet, and the ROADMAP.md entry that brings each
 _LATER_OPTIONS = {
-    "paged": "paged storage (ROADMAP.md queue 1, item 5)",
     "export_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
     "import_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
     "evacuate": "failover (ROADMAP.md queue 1, item 9)",
@@ -337,6 +345,162 @@ class _TriCapDecay:
         return None
 
 
+class _PageDecay(_TriCapDecay):
+    """Windowed decay of the paged pool size (``n_pages``), the
+    triple cap's story: growth on a spill is the owner's job, bounded by
+    :func:`..ops.aoi_pages.pool_ceiling` (a pool there never spills);
+    this proposes post-storm shrinks and reports ``steady`` once the pool
+    size is final."""
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of a device tensor that never makes the host wait: on
+    a CUDA device an asynchronous copy into pinned memory (read it after
+    an event recorded behind it), on the CPU a clone."""
+    if t.device.type != "cuda":
+        return t.clone()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def _grid_stream(chg: torch.Tensor, new: torch.Tensor):
+    """The classified stream of a kept (chg, new) word grid on its
+    device: (gidx, chg_vals, ent_vals), ascending flat order; only the
+    nonzero words cross to the host."""
+    flat = chg.reshape(-1)
+    gi = torch.nonzero(flat).reshape(-1)
+    cv = flat[gi]
+    ev = cv & new.reshape(-1)[gi]
+    return (gi.cpu().numpy(), cv.cpu().numpy().view(np.uint32),
+            ev.cpu().numpy().view(np.uint32))
+
+
+class PageTableCorrupt(faults.InjectedFault):
+    """The page table an ``aoi.pages`` poison corrupted failed validation:
+    the free list is distrusted and the tick recovers on the host."""
+
+
+def _page_table_bad(n_used: int, n_pages: int, injected: bool):
+    """A fetched page table failed validation.  Corrupted by the plan's
+    ``poison``: the recoverable :class:`PageTableCorrupt`.  Otherwise the
+    allocator is wrong, and that propagates (the port never hides a
+    fault of its device path)."""
+    msg = (f"aoi.pages page table failed validation (n_used={n_used}, "
+           f"n_pages={n_pages})")
+    if injected:
+        return PageTableCorrupt("RESOURCE_EXHAUSTED: " + msg)
+    return RuntimeError(msg + ": the allocator's output is corrupt")
+
+
+def _ensure_pool(bk, nw: int, device) -> int:
+    """Size a bucket's page pool (``_n_pages``, the device free list
+    ``_page_free``, the decay ``_pages``) for a grid of ``nw`` words: the
+    first call seeds the decay's floor; the pool is the larger of its
+    current size and the floor (so a preset floor sizes it), and a size
+    change resets the free list to ``arange``.  The list follows the grid
+    to its device (the shards of a mesh share one pool).  Returns
+    ``n_pages``."""
+    if bk._pages is None:
+        bk._pages = _PageDecay(floor=PG.pool_floor(nw))
+    want = max(bk._n_pages, bk._pages.floor)
+    if bk._page_free is None or bk._page_free.shape[0] != want:
+        bk._n_pages = want
+        bk._page_free = torch.arange(want, dtype=torch.int32, device=device)
+    elif bk._page_free.device != device:
+        bk._page_free = bk._page_free.to(device)
+    return bk._n_pages
+
+
+def _grow_pool(bk, nw: int, bw: int, full: bool = False) -> None:
+    """Re-arm a bucket's pool after a spill: double it, bounded by
+    :func:`..ops.aoi_pages.pool_ceiling` (a pool there never spills), or
+    with ``full`` (a whole-tick spill past ``MAX_SPILL`` bins: the pool is
+    far too small) go to the ceiling at once; the free list resets at the
+    next allocation and :class:`_PageDecay` shrinks the pool back after
+    the storm."""
+    ceil_p = PG.pool_ceiling(nw, bw)
+    grown = ceil_p if full else min(ceil_p, max(bk._n_pages * 2, 64))
+    if grown > bk._n_pages:
+        bk._n_pages = grown
+        bk._page_free = None
+    bk._pages.reset_after_growth()
+
+
+def _paged_absorb_shard(bk, chg: torch.Tensor, new: torch.Tensor, W: int):
+    """Absorb one shard's stream overflow through the paged pool (the
+    sharded buckets with ``paged``; the JAX package's
+    ``_paged_absorb_chip``): instead of growing the stream caps and
+    fetching the shard's full grids, compact its kept (chg, new) grids
+    into pages on the device and fetch the used prefix, plus any spilled
+    bins (counted in ``page_spills``).  The bucket's pool state
+    (``_n_pages``, ``_page_free``, ``_pages``) persists across shards and
+    ticks; ``aoi.pages`` is crossed once per absorbed shard: ``oom`` /
+    ``fail`` / ``partial`` spill the whole shard and re-arm the pool,
+    ``poison`` corrupts the fetched table, which validation catches (a
+    whole-shard spill, the free list reset: counted in ``poisoned``).
+
+    Returns the shard's classified stream ``(gidx, chg_vals, ent_vals)``
+    with shard-local flat word indices, equal (up to order) to the raw
+    grids' stream it replaces."""
+    nw = chg.numel()
+    bw = PG.bin_words_for(W)
+    n_pages = _ensure_pool(bk, nw, chg.device)
+
+    def whole_shard(why):
+        bk.stats["page_spills"] += 1
+        bk._page_free = None
+        bk._pages.reset_after_growth()
+        _log.warning("AOI page pool unusable for this shard (%s); "
+                     "spilling its whole grid to the host and re-arming "
+                     "the pool", why)
+        return _grid_stream(chg, new)
+
+    try:
+        spec = faults.check("aoi.pages")
+    except Exception as e:
+        if not _device_fault(e):
+            raise
+        return whole_shard(e)
+    if spec is not None and spec.kind == "partial":
+        return whole_shard("partial allocation")
+    pg, pc, pn, tab, free_next, sb, scal = PG.allocate_pages(
+        chg, new, bk._page_free, PG.PAGE_WORDS, bw, PG.MAX_SPILL)
+    bk._page_free = free_next
+    n_used, n_spill = (int(v) for v in scal[:2].cpu().numpy())
+    tab_h = tab.cpu().numpy()
+    poisoned = spec is not None and spec.kind == "poison"
+    if poisoned:
+        tab_h = np.full_like(tab_h, np.iinfo(np.int32).min)
+    if not (0 <= n_used <= n_pages and 0 <= n_spill <= -(-nw // bw)
+            and PG.validate_page_table(tab_h, n_used, n_pages)):
+        e = _page_table_bad(n_used, n_pages, poisoned)
+        if not poisoned:
+            raise e
+        bk.stats["poisoned"] += 1
+        return whole_shard(e)
+    gidx, chg_vals, new_vals = PG.decode_pages(
+        *(a[:n_used].cpu().numpy() for a in (pg, pc, pn)))
+    gidx = gidx.astype(np.int64)
+    if n_spill:
+        # hotter than the pool: the spilled bins from the kept grids, and
+        # the pool grows so the next storm tick absorbs on the device
+        bk.stats["page_spills"] += n_spill
+        sg, sc, sn = PG.spill_stream(chg.reshape(-1), new.reshape(-1),
+                                     sb.cpu().numpy(), bw, nw)
+        gidx = np.concatenate([gidx, sg])
+        chg_vals = np.concatenate([chg_vals, sc])
+        new_vals = np.concatenate([new_vals, sn])
+        _grow_pool(bk, nw, bw)
+    else:
+        shrink = bk._pages.observe(n_used, n_pages)
+        if shrink is not None:
+            bk._n_pages = shrink
+            bk._page_free = None
+    bk.stats["page_occupancy"] = n_used / max(n_pages, 1)
+    return gidx, chg_vals, chg_vals & new_vals
+
+
 @dataclass(eq=False)
 class SpaceAOIHandle:
     backend: str        # resolved: cuda | cpu | cpp
@@ -381,8 +545,12 @@ class AOIEngine:
     flight.  The row-sharded bucket accepts them and stays synchronous.
     ``fused`` runs each eligible steady tick of the single-device bucket
     as one CUDA graph replay (:mod:`..ops.fused`); the sharded buckets
-    accept it and run unfused.  ``paged`` is not in the port yet and
-    raises."""
+    accept it and run unfused.  ``paged`` compacts the change stream
+    into pages from an on-device free list (:mod:`..ops.aoi_pages`): the
+    single-device bucket's tick in place of the capped triples, and the
+    sharded buckets' absorber of a shard whose stream overflows its caps
+    (no cap growth, no ``decode_overflow``); what the pool cannot serve
+    spills to the host, counted in ``stats["page_spills"]``."""
 
     def __init__(self, device="cuda", default_backend: str = "cuda",
                  oracle_algorithm: str = "sweep",
@@ -391,8 +559,6 @@ class AOIEngine:
                  rowshard_min_capacity: int = 65536, pipeline: bool = False,
                  cross_tick: bool = False, fused: bool = False,
                  paged: bool = False):
-        if paged:
-            refuse_later("paged")
         _check_backend(default_backend)
         self.default_backend = default_backend
         self.oracle_algorithm = oracle_algorithm
@@ -400,6 +566,7 @@ class AOIEngine:
         self.pipeline = bool(pipeline)
         self.cross_tick = bool(cross_tick)
         self.fused = bool(fused)
+        self.paged = bool(paged)
         self.device = resolve_device(device)
         if isinstance(mesh, int):
             from ..parallel import SpaceMesh, multichip_devices
@@ -432,7 +599,7 @@ class AOIEngine:
 
     def _modes(self) -> dict:
         return {"pipeline": self.pipeline, "cross_tick": self.cross_tick,
-                "fused": self.fused}
+                "fused": self.fused, "paged": self.paged}
 
     def create_space(self, capacity: int,
                      backend: str | None = None) -> SpaceAOIHandle:
@@ -1126,24 +1293,45 @@ class _CUDABucket(_Deferred, _Bucket):
     ``fused`` runs each eligible steady tick (delta staging on, no stale
     device role, r and act unchanged, at most ``_delta_max_frac`` of the
     entries changed, every acquired slot staged, calc level 0, emit mode
-    not ``host``) as one replay of a CUDA graph over the whole [S] grid
-    (:mod:`..ops.fused`); any other tick runs the unfused flow, and both
-    records take the same harvest.  An ``aoi.delta``/``aoi.kernel`` fault
-    in the fused attempt moves the tick to the unfused flow before any
-    device work (``fused_demotions``), as the JAX bucket does.
+    not ``host`` unless paged) as one replay of a CUDA graph over the
+    whole [S] grid (:mod:`..ops.fused`); any other tick runs the unfused
+    flow, and both records take the same harvest.  An
+    ``aoi.delta``/``aoi.kernel`` fault in the fused attempt moves the tick
+    to the unfused flow before any device work (``fused_demotions``), as
+    the JAX bucket does.
+
+    ``paged`` replaces the triple extraction with the page allocator
+    (:func:`..ops.aoi_pages.allocate_pages`) over a free list that stays
+    on the device from tick to tick (``_page_free``, reset to ``arange``
+    when the pool is resized or the device state drops).  The record
+    keeps the pools, the page table, the spilled bins and four scalars
+    (fused: one bundle), the small ones copied to pinned host memory at
+    dispatch; :meth:`_harvest_paged` fetches the used page prefix, checks
+    the table and re-reads the spilled bins from the kept grids.  The
+    pool starts at :func:`..ops.aoi_pages.pool_floor`, doubles after a
+    spill (to the ceiling after a whole-tick spill) and shrinks back
+    through :class:`_PageDecay`.
 
     The calculator chain and the recovery are :class:`_Deferred`'s."""
 
     def __init__(self, capacity: int, device: torch.device,
                  delta_staging: bool = True, emit: str = "vector",
                  pipeline: bool = False, cross_tick: bool = False,
-                 fused: bool = False):
+                 fused: bool = False, paged: bool = False):
         super().__init__(capacity)
         self.device = device
         self.delta_staging = delta_staging
         self.pipeline = bool(pipeline)
         self.cross_tick = bool(cross_tick)
         self.fused = bool(fused)
+        self.paged = bool(paged)
+        # the page pool: its size, the device free list [n_pages] int32,
+        # its decay (sized at the first dispatch) and the pages of the
+        # optimistic prefetch of a deferred record
+        self._n_pages = 0
+        self._page_free: torch.Tensor | None = None
+        self._pages: _PageDecay | None = None
+        self._pred_pages = 64
         self._emit = emit
         self._emit_requested = emit  # what reset_emit_path re-arms
         self._init_faults()
@@ -1185,16 +1373,20 @@ class _CUDABucket(_Deferred, _Bucket):
         # delta path bails to a full restage past this changed fraction
         self._delta_max_frac = 0.25
         self._fz: FZ.FusedTri | None = None  # the fused tick's buffers
+        # (FusedPaged when paged)
         # h2d_bytes: wire bytes shipped; delta/full_flushes: how each
         # tick's inputs were staged; decode_overflow: ticks recovered from
         # the full grids; emit_path: 0 native, 1 vector, 2 host;
         # fused_dispatches: ticks run as one graph replay;
         # fused_demotions: fused attempts a seam fault moved to the
         # unfused flow; prefetch_hits/misses: deferred harvests whose
-        # triples the optimistic slice held / did not hold.  The fault
-        # counters: rebuilds (device state dropped and recovered from the
-        # host copies), fallbacks (calculator demotions), host_ticks
-        # (ticks the host computed), poisoned (control scalars that failed
+        # triples (or pages) the optimistic slice held / did not hold;
+        # page_spills: bins (or whole ticks) the page pool could not serve,
+        # re-read from the kept grids; page_occupancy: used / total pages
+        # at the last paged harvest.  The fault counters: rebuilds (device
+        # state dropped and recovered from the host copies), fallbacks
+        # (calculator demotions), host_ticks (ticks the host computed),
+        # poisoned (control scalars or a page table that failed
         # validation), calc_level (0 kernel, 1 plain step, 2 host oracle)
         self.stats = {"h2d_bytes": 0, "delta_flushes": 0, "full_flushes": 0,
                       "rebuilds": 0, "fallbacks": 0, "host_ticks": 0,
@@ -1202,13 +1394,21 @@ class _CUDABucket(_Deferred, _Bucket):
                       "decode_overflow": 0,
                       "emit_path": AE.EMIT_LEVEL[emit],
                       "fused_dispatches": 0, "fused_demotions": 0,
-                      "prefetch_hits": 0, "prefetch_misses": 0}
+                      "prefetch_hits": 0, "prefetch_misses": 0,
+                      "page_spills": 0, "page_occupancy": 0.0}
         # cumulative seconds: stage = host pack + H2D + enqueue (dispatch),
         # fetch = waits for the count and the triples or grids, decode =
         # mirror upkeep (and the overflow expansion), emit = fan-out +
         # publish
         self.perf = {"stage_s": 0.0, "fetch_s": 0.0, "decode_s": 0.0,
                      "emit_s": 0.0}
+
+    @property
+    def _steady(self) -> bool:
+        """No resize of the triple cap or the page pool pending."""
+        if self.paged:
+            return self._pages is not None and self._pages.steady
+        return self._tri.steady
 
     def _grow_to(self, n_slots: int) -> None:
         if n_slots <= self.s_max:
@@ -1306,6 +1506,7 @@ class _CUDABucket(_Deferred, _Bucket):
         self._dev.clear()
         self._dev_stale = {"xz", "ra", "sub"}
         self._fz = None  # its graphs read the dropped tensors
+        self._page_free = None  # reset at the next dispatch
 
     def _prev_to_numpy(self) -> np.ndarray:
         return P.words_to_numpy(self.prev)
@@ -1338,6 +1539,9 @@ class _CUDABucket(_Deferred, _Bucket):
         sub = self._hsub[sl]
         if self._mirror is not None and not sub.all():
             self._mirror_stale.update(s for s in slots if s in self._unsub)
+        if self.paged:
+            _ensure_pool(self, len(slots) * self.capacity * self.W,
+                         self.device)
         rec = self._dispatch_fused(slots, sl, sub, *old) if self.fused \
             else None
         if rec is None:
@@ -1355,20 +1559,42 @@ class _CUDABucket(_Deferred, _Bucket):
         if rec["all_unsub"]:
             return rec
         ndp = min(rec["mt"], self._pred_tri) if self._defer else 0
-        if self.device.type == "cuda":
-            rec["count"] = torch.empty(1, dtype=torch.int64, pin_memory=True)
-            rec["count"].copy_(count, non_blocking=True)
-            if ndp:
-                pf = torch.empty((ndp, 3), dtype=torch.int32,
-                                 pin_memory=True)
-                pf.copy_(tri[:ndp], non_blocking=True)
-                rec["prefetch"] = pf
-            rec["ready"] = torch.cuda.Event()
-            rec["ready"].record(torch.cuda.current_stream(self.device))
+        rec["count"] = _host_copy(count)
+        if ndp:
+            rec["prefetch"] = _host_copy(tri[:ndp])
+        rec["ready"] = self._ready_event()
+        return rec
+
+    def _ready_event(self):
+        """An event after the copies just enqueued (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _paged_record(self, slots, sub, new, chg, pools=None, tab=None,
+                      spill=None, scalars=None, bundle=None) -> dict:
+        """A dispatched paged tick's record: its grids and pools; its page
+        table, spilled bins and scalars (or the fused tick's bundle) and,
+        deferred, the optimistic slice of its pools start for the host."""
+        rec = {"mode": "paged", "slots": slots,
+               "epochs": [self._slot_epoch.get(s, 0) for s in slots],
+               "grids": (new, chg), "n_pages": self._n_pages,
+               "pools": pools, "tab": None, "spill": None, "scalars": None,
+               "bundle": None, "ready": None, "all_unsub": not sub.any(),
+               "prefetch": None}
+        if rec["all_unsub"]:
+            return rec
+        if bundle is not None:
+            rec["bundle"] = _host_copy(bundle)
         else:
-            rec["count"] = count.clone()
-            if ndp:
-                rec["prefetch"] = tri[:ndp].clone()
+            rec["tab"], rec["spill"], rec["scalars"] = (
+                _host_copy(t) for t in (tab, spill, scalars))
+        if self._defer:
+            ndp = min(self._n_pages, self._pred_pages)
+            rec["prefetch"] = (ndp, [_host_copy(a[:ndp]) for a in pools])
+        rec["ready"] = self._ready_event()
         return rec
 
     def _dispatch_unfused(self, slots, sl, sub, old_x, old_z, old_r,
@@ -1396,12 +1622,20 @@ class _CUDABucket(_Deferred, _Bucket):
             self._detach_parked_new()
             self.prev.index_copy_(0, idx, new)
         if not sub.any():
-            return self._record(slots, sub, new, chg)
+            # nothing to extract (paged: the allocator would use no page)
+            return (self._paged_record(slots, sub, new, chg) if self.paged
+                    else self._record(slots, sub, new, chg))
         if not sub.all():
             # slots with no event consumers contribute nothing to the
             # change stream (``new`` above stays unmasked: prev must stay
             # authoritative)
             chg.masked_fill_(~dsub[:, None, None], 0)
+        if self.paged:
+            pg, pc, pn, tab, self._page_free, spill, scal = \
+                PG.allocate_pages(chg, new, self._page_free, PG.PAGE_WORDS,
+                                  PG.bin_words_for(self.W), PG.MAX_SPILL)
+            return self._paged_record(slots, sub, new, chg, (pg, pc, pn),
+                                      tab, spill, scal)
         tri, count = EV.extract_triples(chg, new, self.capacity,
                                         self._max_triples)
         return self._record(slots, sub, new, chg, tri, count.reshape(1))
@@ -1418,7 +1652,8 @@ class _CUDABucket(_Deferred, _Bucket):
                 or any(role not in self._dev
                        for role in ("x", "z", "r", "act", "sub"))
                 or self._calc_level >= 1 or self._need_rebuild
-                or self._emit == "host" or len(slots) != self.n_slots):
+                or (self._emit == "host" and not self.paged)
+                or len(slots) != self.n_slots):
             # the graph steps all s_max rows: every acquired slot must be
             # staged (rows never acquired hold zero words and inactive
             # inputs, so they stay zero and emit nothing)
@@ -1445,7 +1680,7 @@ class _CUDABucket(_Deferred, _Bucket):
             return None
         fz = self._fz
         if fz is None:
-            fz = self._fz = FZ.FusedTri(
+            fz = self._fz = (FZ.FusedPaged if self.paged else FZ.FusedTri)(
                 self.s_max, self.capacity,
                 FZ.packet_len(self.s_max, self.capacity,
                               self._delta_max_frac), self.device)
@@ -1462,10 +1697,16 @@ class _CUDABucket(_Deferred, _Bucket):
         fz.load_packet(parity, *pkt)
         fz.set_sub(self._hsub)
         dev = self._dev
-        new, chg, tri, count = fz.run(parity, self._max_triples, dev["x"],
-                                      dev["z"], dev["r"], dev["act"])
-        self.prev = new
+        inputs = (dev["x"], dev["z"], dev["r"], dev["act"])
         self.stats["fused_dispatches"] += 1
+        if self.paged:
+            new, chg, pools, bundle, self._page_free = fz.run_paged(
+                parity, self._page_free, *inputs)
+            self.prev = new
+            return self._paged_record(slots, sub, new, chg, pools,
+                                      bundle=bundle)
+        new, chg, tri, count = fz.run(parity, self._max_triples, *inputs)
+        self.prev = new
         return self._record(slots, sub, new, chg, tri, count)
 
     def _detach_parked_new(self) -> None:
@@ -1522,9 +1763,11 @@ class _CUDABucket(_Deferred, _Bucket):
             self._publish(rec["slots"], rec["epochs"], *rec["payload"])
             self._apply_mirror_ops()
             return
+        if rec.get("mode") == "paged":
+            self._harvest_paged(rec)
+            return
         slots, mt = rec["slots"], rec["mt"]
         c = self.capacity
-        new, chg = rec["grids"]
         faults.check("aoi.fetch")  # stallable: a delayed host sync
         t_f0 = time.perf_counter()
         poisoned = False
@@ -1553,19 +1796,7 @@ class _CUDABucket(_Deferred, _Bucket):
                     self._max_triples = min(
                         _TRI_MAX, 1 << (2 * count - 1).bit_length())
                 self._tri.reset_after_growth()
-            chg_h = P.words_to_numpy(chg).reshape(-1)
-            new_h = P.words_to_numpy(new).reshape(-1)
-            gidx = np.nonzero(chg_h)[0]
-            chg_vals = chg_h[gidx]
-            ent_vals = chg_vals & new_h[gidx]
-            self.perf["fetch_s"] += time.perf_counter() - t_f0
-            t_f0 = time.perf_counter()
-            self._mirror_xor_stream(slots, rec["epochs"], gidx, chg_vals)
-            self._apply_mirror_ops()
-            self.perf["decode_s"] += time.perf_counter() - t_f0
-            t_f0 = time.perf_counter()
-            self._publish(slots, rec["epochs"], chg_vals, ent_vals, gidx)
-            self.perf["emit_s"] += time.perf_counter() - t_f0
+            self._recover_from_grids(rec, t_f0)
             return
         shrink = self._tri.observe(count, self._max_triples)
         if shrink is not None:
@@ -1593,6 +1824,152 @@ class _CUDABucket(_Deferred, _Bucket):
         t_f0 = time.perf_counter()
         self._fan_out(slots, rec["epochs"], tri_h)
         self.perf["emit_s"] += time.perf_counter() - t_f0
+
+    def _recover_from_grids(self, rec: dict, t_f0: float) -> None:
+        """Publish a record's tick from its full (chg, new) grids (a
+        poisoned count or scalars, a triple-cap overflow, a whole-tick
+        page spill): the nonzero change words in ascending flat order,
+        as the device extraction orders them."""
+        new, chg = rec["grids"]
+        chg_h = P.words_to_numpy(chg).reshape(-1)
+        new_h = P.words_to_numpy(new).reshape(-1)
+        gidx = np.nonzero(chg_h)[0]
+        chg_vals = chg_h[gidx]
+        self.perf["fetch_s"] += time.perf_counter() - t_f0
+        self._deliver_words(rec, gidx, chg_vals, chg_vals & new_h[gidx])
+
+    def _deliver_words(self, rec: dict, gidx, chg_vals, ent_vals) -> None:
+        """A record's classified word stream into the mirror (then the
+        clears queued behind it) and out to the slots."""
+        slots, epochs = rec["slots"], rec["epochs"]
+        t0 = time.perf_counter()
+        self._mirror_xor_stream(slots, epochs, gidx, chg_vals)
+        self._apply_mirror_ops()
+        self.perf["decode_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._publish(slots, epochs, chg_vals, ent_vals, gidx)
+        self.perf["emit_s"] += time.perf_counter() - t0
+
+    def _harvest_paged(self, rec: dict) -> None:
+        """Harvest one paged tick: wait for its scalars (and page table and
+        spilled bins, or the fused tick's bundle), fetch the used page
+        prefix (from the prefetched slice when it holds it), check the
+        page table, decode the pages, re-read the spilled bins from the
+        kept grids, then update the mirror and publish.
+
+        The degradations, each counted: spilled bins re-read on the host
+        (``page_spills`` += bins, the pool doubles); more than
+        ``MAX_SPILL`` spilled bins, or an ``aoi.pages`` ``oom``/``fail``/
+        ``partial``, spill the whole tick from the raw grids
+        (``page_spills`` += 1, the pool grows); scalars that fail
+        validation recover the tick from the raw grids (``poisoned``).  A
+        page table the plan's ``poison`` corrupted raises
+        :class:`PageTableCorrupt`, which the recovery takes (the tick is
+        recomputed on the host from the durable copies); a table that
+        fails validation without an injected fault propagates."""
+        slots, n_pages = rec["slots"], rec["n_pages"]
+        bw = PG.bin_words_for(self.W)
+        new, chg = rec["grids"]
+        nw = len(slots) * self.capacity * self.W
+        faults.check("aoi.fetch")  # stallable: a delayed host sync
+        t_f0 = time.perf_counter()
+        poisoned = False
+        n_used = n_spill = 0
+        page_spec = page_fault = None
+        bun = None
+        if not rec["all_unsub"]:
+            if rec["ready"] is not None:
+                rec["ready"].synchronize()
+            if rec["bundle"] is not None:
+                bun = rec["bundle"].numpy()
+                raw = faults.filter("aoi.scalars", bun[:4])
+            else:
+                raw = faults.filter("aoi.scalars", rec["scalars"].numpy())
+            n_used, n_spill, nz_fit, nz_total = (int(v) for v in raw)
+            if not (0 <= n_used <= n_pages and 0 <= n_spill <= -(-nw // bw)
+                    and 0 <= nz_fit <= nw and 0 <= nz_total <= nw):
+                self.stats["poisoned"] += 1
+                _log.warning("AOI page scalars failed validation (used=%d "
+                             "spill=%d fit=%d total=%d); recovering the "
+                             "tick from the full grids", n_used, n_spill,
+                             nz_fit, nz_total)
+                poisoned = True
+                n_used = n_spill = 0
+            # the aoi.pages seam: oom / fail / partial spill the whole
+            # tick; poison corrupts the fetched page table (checked below)
+            try:
+                page_spec = faults.check("aoi.pages")
+            except Exception as e:
+                if not _device_fault(e):
+                    raise
+                page_fault = e
+            if page_spec is not None and page_spec.kind == "partial":
+                page_fault = page_spec
+        shrink = (None if poisoned or n_spill or page_fault is not None
+                  else self._pages.observe(n_used, n_pages))
+        if shrink is not None and shrink < self._n_pages:
+            self._n_pages = shrink
+            self._page_free = None
+        if poisoned or page_fault is not None or n_spill > PG.MAX_SPILL:
+            if not poisoned:
+                self.stats["page_spills"] += 1
+                _log.warning("AOI page pool unusable this tick (%s); "
+                             "spilling the whole tick to the host and "
+                             "re-arming the pool",
+                             page_fault if page_fault is not None else
+                             f"{n_spill} bins spilled > {PG.MAX_SPILL}")
+                # an organic mass spill: the pool is far too small; a
+                # fault says nothing about its size, so it only doubles
+                _grow_pool(self, nw, bw, full=page_fault is None)
+            self._recover_from_grids(rec, t_f0)
+            return
+        pf = rec["prefetch"]
+        if n_used == 0:
+            pg_h = pc_h = pn_h = np.empty((0, PG.PAGE_WORDS), np.int32)
+        elif pf is not None and pf[0] >= n_used:
+            self.stats["prefetch_hits"] += 1
+            pg_h, pc_h, pn_h = (a.numpy()[:n_used] for a in pf[1])
+        else:
+            if pf is not None:
+                self.stats["prefetch_misses"] += 1
+            ndp = min(n_pages, -(-n_used // 16) * 16)
+            pg_h, pc_h, pn_h = (a[:ndp].cpu().numpy()[:n_used]
+                                for a in rec["pools"])
+        self.perf["fetch_s"] += time.perf_counter() - t_f0
+        # refit the next dispatch's optimistic page prefetch to this tick
+        self._pred_pages = max(
+            64, min(self._n_pages, -(-n_used * 5 // 4 // 16) * 16))
+        t0 = time.perf_counter()
+        if n_used:
+            tab_h = (bun[4:4 + n_pages] if bun is not None
+                     else rec["tab"].numpy())
+            injected = page_spec is not None and page_spec.kind == "poison"
+            if injected:
+                tab_h = np.full_like(tab_h, np.iinfo(np.int32).min)
+            if not PG.validate_page_table(tab_h, n_used, n_pages):
+                if injected:
+                    self.stats["poisoned"] += 1
+                    self._page_free = None
+                raise _page_table_bad(n_used, n_pages, injected)
+        gidx, chg_vals, new_vals = PG.decode_pages(pg_h, pc_h, pn_h)
+        gidx = gidx.astype(np.int64)
+        if n_spill:
+            # the pool served every bin it could: the spilled bins' words
+            # from the kept grids (merged unsorted: the mirror XOR is
+            # order-free over unique words and the expansion sorts), and
+            # the pool grows for the next tick
+            self.stats["page_spills"] += n_spill
+            sb = (bun[4 + n_pages:] if bun is not None
+                  else rec["spill"].numpy())
+            sg, sc, sn = PG.spill_stream(chg.reshape(-1), new.reshape(-1),
+                                         sb, bw, nw)
+            gidx = np.concatenate([gidx, sg])
+            chg_vals = np.concatenate([chg_vals, sc])
+            new_vals = np.concatenate([new_vals, sn])
+            _grow_pool(self, nw, bw)
+        self.stats["page_occupancy"] = n_used / n_pages if n_pages else 0.0
+        self.perf["decode_s"] += time.perf_counter() - t0
+        self._deliver_words(rec, gidx, chg_vals, chg_vals & new_vals)
 
     def _fan_out(self, slots, epochs, tri_h) -> None:
         """Publish a tick's fetched triples through the emit mode: the
@@ -1655,7 +2032,8 @@ class _CUDABucket(_Deferred, _Bucket):
                 faults.check("aoi.delta")
                 rows, cols = np.nonzero(diff)
                 pkt = AS.pad_packet(sl[rows], cols, new_x[rows, cols],
-                                    new_z[rows, cols])
+                                    new_z[rows, cols],
+                                    page_granular=self.paged)
                 DC.record()
                 AS.apply_packet(self._dev["x"], self._dev["z"], *pkt)
                 self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)

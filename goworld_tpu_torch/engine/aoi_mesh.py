@@ -1,8 +1,8 @@
 """Mesh-sharded AOI bucket: the engine's multi-device path.
 
 Port of the JAX package's ``engine/aoi_mesh.py`` (``_MeshTPUBucket``),
-with its pipelined mode and its fault recovery, without its fused and
-paged modes (ROADMAP.md queue 1 names the item that brings each;
+with its pipelined mode, its paged overflow absorber and its fault
+recovery, without its fused dispatch (ROADMAP.md queue 1, item 2:
 ``fused`` is accepted and runs unfused).  The bucket's slots (spaces)
 are placed across a :class:`..parallel.SpaceMesh`: shard d holds slots
 ``[d * S/n, (d + 1) * S/n)`` on its device, so every space's [C] rows
@@ -23,7 +23,12 @@ bucket -- a shard past its chunk caps is recovered from its raw grids, a
 shard past its encode caps from its chunk grids, both counted in
 ``stats["decode_overflow"]``, and the caps grow -- offsets the shard-local
 word indices to global ones and publishes per-slot enter/leave pairs,
-equal to every other backend's.
+equal to every other backend's.  With ``paged``, a shard past its chunk
+caps is absorbed through the page pool instead
+(:func:`.aoi._paged_absorb_shard`: its kept grids compacted into pages
+on its device, the used prefix fetched) and one past its encode caps
+recovers from its chunk grids as a counted ``page_spills``; neither
+grows a cap or counts ``decode_overflow``.
 
 Differences from the single-device bucket (as in the JAX package):
 
@@ -79,8 +84,9 @@ from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
 from ..ops import events as EV
 from .aoi import (_LANES, _Bucket, _calc_step, _CapDecay, _Deferred,
-                  _device_fault, _emit_expand, _log, _packed_predicate,
-                  _split_rows, refuse_later)
+                  _device_fault, _emit_expand, _grid_stream, _log,
+                  _packed_predicate, _paged_absorb_shard, _split_rows,
+                  refuse_later)
 
 
 def _np_words(t: torch.Tensor) -> np.ndarray:
@@ -92,7 +98,8 @@ class _ShardCodec:
     """The per-shard event path both sharded buckets share: the encoded
     stream of one shard's diff, and its decode at harvest with the JAX
     buckets' overflow contract (``_harvest`` of ``aoi_mesh.py`` and
-    ``aoi_rowshard.py``).  The owner sets the caps and ``stats``."""
+    ``aoi_rowshard.py``), with the paged absorber when the owner's
+    ``paged`` is set.  The owner sets ``paged`` and ``stats``."""
 
     def _init_codec(self, max_chunks: int, max_exc: int,
                     ring: int = 1) -> None:
@@ -109,6 +116,11 @@ class _ShardCodec:
         # optimistic per-shard prefetch of a deferred record's stream:
         # (rows, escapes, exceptions), refit to every harvest
         self._pred = (256, 64, 256)
+        # the paged absorber's pool, shared by the shards and kept across
+        # ticks (sized at the first absorb; see aoi._ensure_pool)
+        self._n_pages = 0
+        self._page_free: torch.Tensor | None = None
+        self._pages = None
 
     def _caps_now(self) -> tuple:
         return (self._max_chunks, self._kcap, self._max_gaps, self._max_exc)
@@ -195,7 +207,9 @@ class _ShardCodec:
         the wait, ``aoi.scalars`` on the [shards, 5] scalars (only when a
         shard was extracted, or ``filter_empty``).  Scalars that fail
         validation are counted in ``poisoned`` and every shard recovers
-        from its raw grids, without cap growth."""
+        from its raw grids, without cap growth.  With ``paged``, a shard
+        past its chunk caps is absorbed through the page pool and one past
+        its encode caps counts a ``page_spills``: no cap grows."""
         faults.check("aoi.fetch")  # stallable: a delayed host sync
         mc, kcap, mg, mx = rec["caps"]
         t0 = time.perf_counter()
@@ -239,21 +253,31 @@ class _ShardCodec:
                 continue
             t0 = time.perf_counter()
             if nd > mc or mcc > kcap:
-                # the shard's stream is incomplete: recover from its raw
-                # grids (the nonzero words found on the device) and grow
-                # the chunk caps for the next flush
-                self._max_chunks = max(self._max_chunks, 2 * nd)
-                self._kcap = min(max(self._kcap, 2 * mcc), _LANES)
-                self.stats["decode_overflow"] += 1
-                grew = True
-                gidx, chg_vals, ent_vals = self._raw_stream(sh)
+                # the shard's stream is incomplete
+                if self.paged:
+                    # compact its kept grids into pages on its device and
+                    # fetch the used prefix: no cap grows
+                    gidx, chg_vals, ent_vals = _paged_absorb_shard(
+                        self, sh["chg"], sh["new"], self.W)
+                else:
+                    # recover from its raw grids (the nonzero words found
+                    # on the device) and grow the chunk caps
+                    self._max_chunks = max(self._max_chunks, 2 * nd)
+                    self._kcap = min(max(self._kcap, 2 * mcc), _LANES)
+                    self.stats["decode_overflow"] += 1
+                    grew = True
+                    gidx, chg_vals, ent_vals = self._raw_stream(sh)
                 self.perf["fetch_s"] += time.perf_counter() - t0
             elif n_esc > mg or exc_n > mx:
                 # encode overflow: rebuild from the kept chunk grids
-                self._max_gaps = max(mg, 2 * n_esc)
-                self._max_exc = max(mx, 2 * exc_n)
-                self.stats["decode_overflow"] += 1
-                grew = True
+                # (paged: a counted spill, and no cap grows)
+                if self.paged:
+                    self.stats["page_spills"] += 1
+                else:
+                    self._max_gaps = max(mg, 2 * n_esc)
+                    self._max_exc = max(mx, 2 * exc_n)
+                    self.stats["decode_overflow"] += 1
+                    grew = True
                 vals, nv, lane, csel = sh["chunks"]
                 vh, nh = _np_words(vals), _np_words(nv)
                 lh, ch = lane.cpu().numpy(), csel.cpu().numpy()
@@ -309,11 +333,7 @@ class _ShardCodec:
     def _raw_stream(sh):
         """One shard's classified stream from its raw grids: (gidx,
         chg_vals, ent_vals), ascending flat order."""
-        flat = sh["chg"].reshape(-1)
-        gi = torch.nonzero(flat).reshape(-1)
-        cv = flat[gi]
-        ev = cv & sh["new"].reshape(-1)[gi]
-        return gi.cpu().numpy(), _np_words(cv), _np_words(ev)
+        return _grid_stream(sh["chg"], sh["new"])
 
     # -- not in the port yet ------------------------------------------------
 
@@ -334,8 +354,10 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
 
     def __init__(self, capacity: int, mesh, delta_staging: bool = True,
                  emit: str = "vector", pipeline: bool = False,
-                 cross_tick: bool = False, fused: bool = False):
+                 cross_tick: bool = False, fused: bool = False,
+                 paged: bool = False):
         super().__init__(capacity)
+        self.paged = bool(paged)  # the overflow absorber (module docstring)
         self._emit = emit
         self._emit_requested = emit  # what reset_emit_path re-arms
         self.mesh = mesh
@@ -389,7 +411,8 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                       "poisoned": 0, "calc_level": 0,
                       "decode_overflow": 0, "emit_path": AE.EMIT_LEVEL[emit],
                       "fused_dispatches": 0, "fused_demotions": 0,
-                      "prefetch_hits": 0, "prefetch_misses": 0}
+                      "prefetch_hits": 0, "prefetch_misses": 0,
+                      "page_spills": 0, "page_occupancy": 0.0}
         self.perf = {"stage_s": 0.0, "fetch_s": 0.0, "decode_s": 0.0,
                      "emit_s": 0.0}
 
@@ -517,6 +540,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self._xz_stale = True
         self._h2d_cache.clear()
         self._scratch = None
+        self._page_free = None  # the free list lived on the devices
 
     def _prev_to_numpy(self) -> np.ndarray:
         self.full_roundtrips += 1
@@ -666,7 +690,8 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                     m = shard == d
                     pkt = AS.pad_packet(grows[m] - d * b, cols[m],
                                         new_x[rows[m], cols[m]],
-                                        new_z[rows[m], cols[m]])
+                                        new_z[rows[m], cols[m]],
+                                        page_granular=self.paged)
                     DC.record()
                     AS.apply_packet(self._dx[d], self._dz[d], *pkt)
                     self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)

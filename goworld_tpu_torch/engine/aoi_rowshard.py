@@ -1,8 +1,9 @@
 """Observer-row-sharded AOI for ONE oversized space.
 
 Port of the JAX package's ``engine/aoi_rowshard.py``
-(``_RowShardTPUBucket``), with its fault recovery, without its fused and
-paged modes (ROADMAP.md queue 1; ``fused`` is accepted and runs unfused).
+(``_RowShardTPUBucket``), with its fault recovery and its paged overflow
+absorber, without its fused dispatch (ROADMAP.md queue 1, item 2;
+``fused`` is accepted and runs unfused).
 The mesh bucket keeps each space on one shard; a space too large for one
 device's tick budget (BASELINE's ``zipf100k``: 100k entities in one
 space) shards WITHIN the space: shard d owns the interest rows
@@ -22,7 +23,9 @@ needs no cross-device collective.
     tick scatters one sparse packet into each distinct device's copy.
   * Events: the mesh bucket's per-shard chunk extraction and encode
     (``aoi_mesh._ShardCodec``); shard d's flat word indices are offset by
-    ``d * (C/n) * W`` and expand with one space.
+    ``d * (C/n) * W`` and expand with one space.  With ``paged``, a shard
+    past its chunk caps is absorbed through the page pool
+    (:func:`.aoi._paged_absorb_shard`), as on the mesh bucket.
   * The flush is synchronous: events arrive the tick they are computed.
     ``pipeline`` and ``cross_tick`` are accepted and change nothing, as in
     the JAX package: one giant space keeps zero added latency.
@@ -73,8 +76,10 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
 
     def __init__(self, capacity: int, mesh, delta_staging: bool = True,
                  emit: str = "vector", pipeline: bool = False,
-                 cross_tick: bool = False, fused: bool = False):
+                 cross_tick: bool = False, fused: bool = False,
+                 paged: bool = False):
         super().__init__(capacity)
+        self.paged = bool(paged)  # the overflow absorber (module docstring)
         # accepted and ignored: the flush stays synchronous and unfused
         self.pipeline, self.cross_tick = bool(pipeline), bool(cross_tick)
         self.fused = bool(fused)
@@ -125,7 +130,8 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
                       "rebuilds": 0, "fallbacks": 0, "host_ticks": 0,
                       "poisoned": 0, "calc_level": 0,
                       "decode_overflow": 0, "emit_path": AE.EMIT_LEVEL[emit],
-                      "fused_dispatches": 0, "fused_demotions": 0}
+                      "fused_dispatches": 0, "fused_demotions": 0,
+                      "page_spills": 0, "page_occupancy": 0.0}
         self.perf = {"stage_s": 0.0, "fetch_s": 0.0, "decode_s": 0.0,
                      "emit_s": 0.0}
 
@@ -216,7 +222,8 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
                 faults.check("aoi.delta")
                 cols = np.nonzero(diff)[0]
                 pkt = AS.pad_packet(np.zeros(len(cols), np.int32), cols,
-                                    self._hx[cols], self._hz[cols])
+                                    self._hx[cols], self._hz[cols],
+                                    page_granular=self.paged)
                 for dev in self._devs:
                     t = self._dev_in[dev]
                     DC.record()
@@ -424,6 +431,7 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
         self._xz_stale = True
         self._h2d_cache.clear()
         self._scratch = None
+        self._page_free = None  # the free list lived on the devices
         if staged:
             self._host_tick(old_prev)
         else:

@@ -16,13 +16,14 @@ calculator a space gets (``cuda`` by default -- the JAX runtime's default
 is ``cpu`` -- or ``cpu``, ``cpp``, ``auto``: ``cpp`` below
 ``aoi_cuda_min_capacity``, ``cuda`` from there on).  ``aoi_pipeline`` /
 ``aoi_cross_tick`` defer the AOI events by one tick (the tick keeps
-flushing while a tick is in flight) and ``aoi_fused`` runs the steady
-single-device tick as one graph replay (see :class:`.aoi.AOIEngine`).
+flushing while a tick is in flight), ``aoi_fused`` runs the steady
+single-device tick as one graph replay and ``aoi_paged`` compacts the
+change stream into pages (see :class:`.aoi.AOIEngine`).
 ``fault_plan`` (a :class:`..faults.FaultPlan` or its string) installs into
 the port's :mod:`..faults` before the engine is built, as the JAX runtime
-does.  Placement, cohorts, checkpoints, paged storage, telemetry and the
-crontab of the JAX runtime are not in the port yet (ROADMAP.md lists
-them; the options that select them raise).
+does.  Placement, cohorts, checkpoints, telemetry and the crontab of
+the JAX runtime are not in the port yet (ROADMAP.md lists them; the
+options that select them raise).
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ tensors in place with ``index_put_``.
 Packets are padded by repeating their last entry: the scatter is an
 idempotent set, so the padding never changes what lands (and it keeps the
 packet lengths, which a later fused or graph-captured tick keys on, to a
-small set).
+small set).  Paged buckets pad page-granular, as the JAX package's do:
+a mid-size packet rounds up to a whole number of ``_PAGE``-entry pages
+(at most one page of waste where the power of two wastes up to half),
+up to ``_PAGE_KEYS`` pages; larger packets take the power of two.
 """
 
 from __future__ import annotations
@@ -20,15 +23,23 @@ import numpy as np
 import torch
 
 _MIN_PACKET = 64
+# page-granular padding (paged buckets): one page of packet entries; the
+# first _PAGE_KEYS page multiples are admissible lengths
+_PAGE = 64
+_PAGE_KEYS = 8
 
 
 def pad_packet(rows: np.ndarray, cols: np.ndarray, xv: np.ndarray,
-               zv: np.ndarray, length: int | None = None):
+               zv: np.ndarray, length: int | None = None,
+               page_granular: bool = False):
     """Pad a (rows, cols, xv, zv) update packet to a power-of-two length
     (>= ``_MIN_PACKET``), or to exactly ``length`` (the fused tick's one
     packet length), by repeating the last entry.  Requires a non-empty
-    packet (an empty delta skips the scatter entirely).  (The JAX
-    package's page-granular padding comes with paged storage.)"""
+    packet (an empty delta skips the scatter entirely).
+
+    ``page_granular=True`` (paged buckets) rounds a packet of at most
+    ``_PAGE * _PAGE_KEYS`` entries up to a whole number of ``_PAGE``-entry
+    pages instead; larger packets take the power of two either way."""
     k = len(rows)
     if k == 0:
         raise ValueError("empty delta packet: skip the scatter instead")
@@ -36,6 +47,8 @@ def pad_packet(rows: np.ndarray, cols: np.ndarray, xv: np.ndarray,
         if length < k:
             raise ValueError(f"packet of {k} entries over length {length}")
         n = length
+    elif page_granular and k <= _PAGE * _PAGE_KEYS:
+        n = -(-k // _PAGE) * _PAGE
     else:
         n = _MIN_PACKET
         while n < k:

@@ -1,6 +1,7 @@
 """The fused bucket tick: one CUDA graph replay per steady tick.
 
-Port of the JAX package's ``ops/aoi_fused.py`` ``fused_tri_step``.  There
+Port of the JAX package's ``ops/aoi_fused.py`` (``fused_tri_step``,
+``fused_paged_step``).  There
 the steady tick of a bucket compiles into one jitted, donated program;
 here it is one ``torch.cuda.CUDAGraph``, captured over static buffers and
 replayed each steady tick.  The body is the port's own functions, in the
@@ -12,7 +13,13 @@ reference's order:
       -> the subscription mask (a multiply by the device-resident sub
          vector)
       -> the triple extraction (events.extract_triples), copied into a
-         static triple buffer, and the count into a static count buffer.
+         static triple buffer, and the count into a static count buffer
+         (:class:`FusedTri`); or, on a paged bucket (:class:`FusedPaged`),
+         the page allocator (aoi_pages.allocate_pages) from a static free
+         list, its pools copied into static pool buffers and its page
+         table, spilled bins and four scalars into one int32 bundle, which
+         the harvest fetches with one copy where the unfused tick pays
+         three.
 
 On CPU tensors the same body runs eagerly: that is the plain version,
 and the tests hold it to the unfused path.  There is no kernel of this
@@ -27,10 +34,12 @@ copies are transfers, not dispatches.
 The words ping-pong by parity: the graph of parity p reads
 ``words[p]`` and writes the new words into ``words[1 - p]`` and the
 change words into ``chg[p]``, so the record a deferred tick keeps (its
-new and chg words, its triples and count) survives the next tick's
-replay.  A bucket's graphs are keyed by :func:`capture_key` -- its
-shapes, the packet length, the parity and the triple cap -- and share
-one memory pool; graphs of a triple cap the bucket has left are dropped.
+new and chg words, its triples and count, or its pools and bundle)
+survives the next tick's replay.  A bucket's graphs are keyed by
+:func:`capture_key` -- its shapes, the packet length, the parity and the
+size of its outputs (the triple cap, or the page pool's ``n_pages``: a
+pool resize is a new capture) -- and share one memory pool; graphs of a
+size the bucket has left are dropped.
 
 The first replay of a key is preceded by one eager run of the body on a
 side stream (``torch.cuda.graph``'s warm-up; it builds the kernel library
@@ -40,8 +49,7 @@ so the replay that follows rewrites the same values.
 The bucket's fused attempt (``engine/aoi._CUDABucket._dispatch_fused``)
 crosses the ``aoi.delta`` and ``aoi.kernel`` fault seams before it loads
 a packet: a fault there runs the tick unfused instead, as the JAX
-bucket's does.  ``fused_paged_step`` comes with paged storage
-(ROADMAP.md queue 1, item 5).
+bucket's does.
 """
 
 from __future__ import annotations
@@ -52,12 +60,14 @@ import numpy as np
 import torch
 
 from . import aoi_cuda as AK
+from . import aoi_pages as PG
 from . import aoi_stage as AS
 from . import dispatch_count as DC
 from . import events as EV
 from .aoi_predicate import words_per_row
 
 SITE = "aoi.fused_tri"
+PAGED_SITE = "aoi.fused_paged"
 
 
 def packet_len(s: int, c: int, max_frac: float) -> int:
@@ -72,10 +82,11 @@ def packet_len(s: int, c: int, max_frac: float) -> int:
 
 
 def capture_key(s: int, c: int, plen: int, parity: int,
-                max_triples: int) -> tuple:
+                size: int) -> tuple:
     """The graph key of one fused tick: a pure function of the bucket's
-    shapes, its packet length, the words' parity and the triple cap."""
-    return (s, c, plen, parity, max_triples)
+    shapes, its packet length, the words' parity and the size of its
+    outputs (the triple cap, or the page pool's ``n_pages``)."""
+    return (s, c, plen, parity, size)
 
 
 def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, idx, val,
@@ -93,12 +104,39 @@ def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, idx, val,
     count.copy_(n.reshape(1))
 
 
+def paged_body(prev, new, chg, pg, pc, pn, bundle, free, x, z, r, act, sub,
+               idx, val, bin_words: int) -> None:
+    """One fused paged tick, in place: :func:`tri_body`'s scatter, step and
+    mask, then the page allocator over ``free`` (int32 [n_pages], updated
+    to the rotated list), its pools into ``pg``/``pc``/``pn`` [n_pages,
+    PAGE_WORDS] and ``bundle`` (int32) = [scalars (4), page table
+    (n_pages), spilled bins].  No host work, so a CUDA graph can hold
+    it."""
+    AS.scatter_packet(x, z, idx, val)
+    AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg))
+    chg.mul_(sub[:, None, None])
+    g, c, n, tab, free_next, spill, scal = PG.allocate_pages(
+        chg, new, free, PG.PAGE_WORDS, bin_words, PG.MAX_SPILL)
+    pg.copy_(g)
+    pc.copy_(c)
+    pn.copy_(n)
+    free.copy_(free_next)
+    k = free.shape[0]
+    bundle[:4].copy_(scal)
+    bundle[4:4 + k].copy_(tab)
+    bundle[4 + k:].copy_(spill)
+
+
 class FusedTri:
     """The static buffers and the graphs of one bucket's fused tick, for
     ``s`` slots of capacity ``capacity`` on ``device``.  The inputs
     (``x``, ``z``, ``r``, ``act`` [S, C]) are the bucket's device-resident
     tensors; they must keep their storage from one replay to the next
-    (the bucket updates them in place)."""
+    (the bucket updates them in place).  The outputs of this class are
+    the triples and their count (:func:`tri_body`), sized by the triple
+    cap; :class:`FusedPaged` swaps them for the page allocator's."""
+
+    site = SITE
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):
@@ -111,8 +149,8 @@ class FusedTri:
 
         self.words = [buf(*shape), buf(*shape)]
         self.chg = [buf(*shape), buf(*shape)]
-        self.count = [buf(1, dtype=torch.int64), buf(1, dtype=torch.int64)]
-        self.tri: dict[int, list[torch.Tensor]] = {}  # cap -> per parity
+        # output size (triple cap or n_pages) -> per parity, the outputs
+        self.outs: dict[int, list[tuple]] = {}
         self.idx = buf(2, plen, dtype=torch.int64)
         self.val = buf(2, plen, dtype=torch.float32)
         self.sub = torch.ones(s, dtype=torch.int32, device=device)
@@ -141,20 +179,28 @@ class FusedTri:
         self.words[0].copy_(prev)
         return 0
 
-    def tri_buffer(self, parity: int, max_triples: int) -> torch.Tensor:
-        bufs = self.tri.get(max_triples)
+    def outputs(self, parity: int, size: int) -> tuple:
+        """The output buffers of parity ``parity`` at output size ``size``
+        (made on first use).  A size the bucket has left never comes back
+        as steady: its graphs and buffers are dropped first."""
+        bufs = self.outs.get(size)
         if bufs is None:
-            # a cap the bucket has left never comes back as steady: drop
-            # its graphs and buffers before capturing at the new one
-            for cap in [k for k in self.tri if k != max_triples]:
-                del self.tri[cap]
-                for key in [k for k in self.graphs if k[-1] == cap]:
+            for old in [k for k in self.outs if k != size]:
+                del self.outs[old]
+                for key in [k for k in self.graphs if k[-1] == old]:
                     del self.graphs[key]
                     del self.inputs[key]
-            bufs = self.tri[max_triples] = [
-                torch.full((max_triples, 3), -1, dtype=torch.int32,
-                           device=self.device) for _ in range(2)]
+            bufs = self.outs[size] = self._make_outputs(size)
         return bufs[parity]
+
+    def _make_outputs(self, max_triples: int) -> list[tuple]:
+        return [(torch.full((max_triples, 3), -1, dtype=torch.int32,
+                            device=self.device),
+                 torch.zeros(1, dtype=torch.int64, device=self.device))
+                for _ in range(2)]
+
+    def _body(self, args: tuple, max_triples: int) -> None:
+        tri_body(*args, self.capacity, max_triples)
 
     def set_sub(self, hsub: np.ndarray) -> None:
         """Bring the device sub vector up to the host's subscription."""
@@ -178,33 +224,32 @@ class FusedTri:
         self.val.copy_(val_h, non_blocking=True)
         done.record(torch.cuda.current_stream(self.device))
 
-    def run(self, parity: int, max_triples: int, x, z, r, act):
-        """One fused tick of parity ``parity`` over the loaded packet:
-        ``(new, chg, tri, count)``, the static buffers it writes.  Counts
-        one dispatch (the replay, or the eager body on the CPU) and, on
-        the card, one launch of ``aoi_step.cu``."""
+    def run(self, parity: int, size: int, x, z, r, act):
+        """One fused tick of parity ``parity`` at output size ``size`` over
+        the loaded packet: ``(new, chg, *outputs)``, the static buffers it
+        writes.  Counts one dispatch (the replay, or the eager body on
+        the CPU) and, on the card, one launch of ``aoi_step.cu``."""
         p = parity
-        tri = self.tri_buffer(p, max_triples)
-        args = (self.words[p], self.words[1 - p], self.chg[p], tri,
-                self.count[p], x, z, r, act, self.sub, self.idx, self.val,
-                self.capacity, max_triples)
-        key = capture_key(self.s, self.capacity, self.plen, p, max_triples)
-        DC.record_key(SITE, key)
+        outs = self.outputs(p, size)
+        args = (self.words[p], self.words[1 - p], self.chg[p], *outs,
+                x, z, r, act, self.sub, self.idx, self.val)
+        key = capture_key(self.s, self.capacity, self.plen, p, size)
+        DC.record_key(self.site, key)
         DC.record()
         if not self.cuda:
-            tri_body(*args)
+            self._body(args, size)
         else:
             ptrs = tuple(t.data_ptr() for t in (x, z, r, act))
             g = self.graphs.get(key)
             if g is None:
-                g = self._capture(key, args)
+                g = self._capture(key, args, size)
                 self.inputs[key] = ptrs
             elif self.inputs[key] != ptrs:
                 raise RuntimeError("fused tick: the bucket's device inputs "
                                    "moved since the graph was captured")
             g.replay()
             AK.launches["aoi_step"] += 1  # the replay launches aoi_step.cu
-        return self.words[1 - p], self.chg[p], tri, self.count[p]
+        return (self.words[1 - p], self.chg[p], *outs)
 
     def pool_bytes(self) -> int:
         """Bytes the graphs' private memory pool holds on the card (0 on
@@ -215,18 +260,75 @@ class FusedTri:
                    if tuple(seg.get("segment_pool_id", ())) ==
                    tuple(self.pool))
 
-    def _capture(self, key, args) -> torch.cuda.CUDAGraph:
+    def _capture(self, key, args, size) -> torch.cuda.CUDAGraph:
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            tri_body(*args)  # warm-up: a real launch of the kernel
+            self._body(args, size)  # warm-up: a real launch of the kernel
         cur.wait_stream(side)
         g = torch.cuda.CUDAGraph()
         n0 = AK.launches["aoi_step"]
         with torch.cuda.graph(g, pool=self.pool):
-            tri_body(*args)
+            self._body(args, size)
         AK.launches["aoi_step"] = n0  # a capture launches nothing
         self.graphs[key] = g
         self.captures += 1
         return g
+
+
+class FusedPaged(FusedTri):
+    """The fused tick of a paged bucket (:func:`paged_body`): its outputs,
+    per parity, are the three pools [n_pages, PAGE_WORDS] and the bundle
+    [4 + n_pages + spill width]; the free list [n_pages] is one static
+    buffer both parities read and rotate, and it persists from tick to
+    tick.  The spill width is the allocator's, ``min(n_bins,
+    MAX_SPILL)`` of the [S, C, W] grid the graph steps."""
+
+    site = PAGED_SITE
+
+    def __init__(self, s: int, capacity: int, plen: int,
+                 device: torch.device):
+        super().__init__(s, capacity, plen, device)
+        w = words_per_row(capacity)
+        self.bin_words = PG.bin_words_for(w)
+        n_bins = -(-(s * capacity * w) // self.bin_words)
+        self.spill_width = min(n_bins, PG.MAX_SPILL)
+
+    def _make_outputs(self, n_pages: int) -> list[tuple]:
+        dev = self.device
+        free = torch.arange(n_pages, dtype=torch.int32, device=dev)
+
+        def pool(fill):
+            return torch.full((n_pages, PG.PAGE_WORDS), fill,
+                              dtype=torch.int32, device=dev)
+
+        return [(pool(-1), pool(0), pool(0),
+                 torch.zeros(4 + n_pages + self.spill_width,
+                             dtype=torch.int32, device=dev), free)
+                for _ in range(2)]
+
+    def _body(self, args: tuple, n_pages: int) -> None:
+        paged_body(*args, self.bin_words)
+
+    def _capture(self, key, args, size) -> torch.cuda.CUDAGraph:
+        # the warm-up run rotates the free list: put it back, so the
+        # replay that follows allocates from the list the tick was given
+        free = args[7]
+        saved = free.clone()
+        g = super()._capture(key, args, size)
+        free.copy_(saved)
+        return g
+
+    def run_paged(self, parity: int, free: torch.Tensor, x, z, r, act):
+        """One fused paged tick from the free list ``free`` (copied into
+        the static one when it is another tensor: a pool reset, or a
+        tick run unfused since): ``(new, chg, (pool_g, pool_c, pool_n),
+        bundle, free_next)``, the static buffers it writes."""
+        n_pages = free.shape[0]
+        static = self.outputs(parity, n_pages)[-1]
+        if free is not static:
+            static.copy_(free)
+        new, chg, pg, pc, pn, bundle, free = self.run(parity, n_pages,
+                                                      x, z, r, act)
+        return new, chg, (pg, pc, pn), bundle, free

@@ -262,17 +262,15 @@ def test_runtime_on_mesh_matches_jax():
 
 def test_later_options_raise():
     """Options the port does not have yet raise, naming their ROADMAP.md
-    item; pipeline, cross_tick and fused (items 1 and 2) are in and reach
-    the mesh bucket, and a fault plan (item 4) installs into the port's
-    faults module."""
+    item; pipeline, cross_tick, fused and paged (items 1, 2 and 5) are in
+    and reach the mesh bucket, and a fault plan (item 4) installs into
+    the port's faults module."""
     from goworld_tpu_torch import faults
     from goworld_tpu_torch.engine.runtime import Runtime
 
     mesh = SpaceMesh(["cpu"] * 2)
-    for kw, item in (({"paged": True}, "item 5"),):
-        with pytest.raises(ValueError, match=item):
-            AOIEngine(device="cpu", mesh=mesh, **kw)
-    for kw in ({"pipeline": True}, {"cross_tick": True}, {"fused": True}):
+    for kw in ({"pipeline": True}, {"cross_tick": True}, {"fused": True},
+               {"paged": True}):
         b = AOIEngine(device="cpu", mesh=mesh, **kw).create_space(128).bucket
         assert [getattr(b, k) for k in kw] == [True]
     try:
