@@ -152,14 +152,47 @@ Phases (any failure raises, so the exit code is non-zero):
                 ticks, equal per-tick CRCs, the shards' words equal to the
                 square kernel's, derive_row/derive_col equal to them.
 
-Phases 13-17b and 17d run after phase 5, 17c after phase 12.  Every
+ 18. interest kernel -- csrc/interest_step.cu (the interest-policy
+                stack step) against its plain version
+                (ops/interest_kernels.step_words) on the card, bit for
+                bit: the six policy mixes of tests/test_interest.py, full
+                and off-cadence steps, LOS depths 1-4, at C = 128, 256
+                and 384 on edge inputs (0.0 / -0.0, subnormals, NaN,
+                +-inf, infinite and NaN radii, ties at r * near_frac and
+                at rn * hysteresis, samples outside the world, team bit
+                31, inactive slots, a NaN midpoint) and at C = 16384 on
+                phase 18b's world; CUDA-event times, bounds (the LOS
+                samples this run's inputs need) and SASS per pair;
+ 18b. interest slice -- phase 4's world with team + tier(period 4) +
+                LOS(depth 2, five boxes baked at 100-unit cells) on every
+                space, team/vis seeded as tests/test_interest.py's _walk;
+                a prime tick, 3 warm-up and 12 measured: per-tick stack
+                event CRCs and final words equal a twin whose step runs
+                the plain version on the card and the pipelined Runtime
+                (the stack steps in the flush that submitted it: no
+                shift; trailing flushes deliver nothing); a cut run (2 x
+                2048, 6 ticks) equal to aoi_interest="host"; tick_ms and
+                its split (base stage / fetch / decode / emit, the stack
+                step's upload, kernel, fetch and host diff, bytes a step);
+ 18c. load harness -- LoadHarness at scripts/loadgen_smoke.py's
+                configuration (100,000 clients, 256 spaces, 8 gates,
+                period 4) and bench.py bench_engine_load's (8192 clients,
+                8 spaces, 4 gates), a 4-tick warm-up then 9 ticks, over
+                the cpu and the cuda base calculators: moves/s, ms a
+                tick, near/far p50/p99, the stack step's share; no
+                per-entity write, no unclosed update, no demotion; every
+                space's final words equal a host-mode run's.
+
+Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
+last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
 are one card's, not a multi-card layout's.  The last lines are
 {"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
-{"paged": ...} (phases 17-17d), {"mesh": ...}, {"issue_floor": [...]} (each kernel's SASS instructions
+{"paged": ...} (phases 17-17d), {"mesh": ...}, {"interest": ...} (phases
+18-18c), {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
 3), {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -171,7 +204,8 @@ launch), in phases 15 and 16 and on the mesh in phase 15b (its entry's
 phase 7, the rectangular step in phase 8 and on the row-sharded bucket
 in phase 15b, the entlv mode in phase 10; phase 17's runs (17, 17b,
 17d on the card) and the mesh of 17c add to the square step, the
-row-sharded bucket of 17c to the rectangular one.
+row-sharded bucket of 17c to the rectangular one; the stack step's in
+phase 18b (sequential, pipelined, the cut run) and in phase 18c.
 """
 
 from __future__ import annotations
@@ -440,10 +474,11 @@ def phase_kernels(AK, AD):
 
 
 def build_world(Runtime, device, spaces, per_space, capacity, seed,
-                extra=None, **rt_kw):
+                extra=None, setup=None, **rt_kw):
     """``spaces`` spaces of ``per_space`` entities (world WORLD) on
     ``Runtime(device=device, **rt_kw)``, and with ``extra`` = (capacity,
-    entities, world) one more space after them."""
+    entities, world) one more space after them; ``setup(space)`` runs on
+    each space after ``enable_aoi``, before its entities enter."""
     from goworld_tpu_torch.engine.entity import Entity
     from goworld_tpu_torch.engine.space import Space
     from goworld_tpu_torch.engine.vector import Vector3
@@ -490,6 +525,8 @@ def build_world(Runtime, device, spaces, per_space, capacity, seed,
         sp = rt.entities.create_space("SmokeScene", kind=1)
         sp.world = world
         sp.enable_aoi(RADIUS, capacity=cap)
+        if setup is not None:
+            setup(sp)
         p = rng.uniform(0, world, (2, n)).astype(np.float32)
         ents = [rt.entities.create(
             "SmokeWatcher" if i == 0 else "SmokeMob", space=sp,
@@ -558,6 +595,30 @@ class DeviceTimer:
 
     def ms(self):
         return sum(self.each())
+
+
+class HostTimer:
+    """Wraps ``owner.name`` (a module's function or a class's method) so
+    that, while ``on``, each call adds its host seconds to ``s``."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.inner = inner = getattr(owner, name)
+        self.on, self.s = False, 0.0
+
+        def timed(*a, **kw):
+            if not self.on:
+                return inner(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.inner)
 
 
 class LaunchTimer(DeviceTimer):
@@ -2655,12 +2716,503 @@ def phase_rowshard(AOIEngine, AK, SpaceMesh):
     return runs
 
 
+# -- phases 18-18c: interest-policy stacks ------------------------------------
+
+INTEREST_COMBOS = ["team", "tier", "los", "team+tier", "tier+los",
+                   "team+tier+los"]
+INTEREST_SMALL = [128, 256, 384]  # 384: a multiple of 128, not a power of 2
+INTEREST_FULL = CAPACITY
+# phase 18b's field: five buildings in phase 4's 4000-wide world, baked
+# at 100-unit cells (40 x 40 cells, 6.4 KB)
+INTEREST_BOXES = [(500.0, 500.0, 900.0, 700.0),
+                  (1800.0, 1200.0, 2000.0, 2600.0),
+                  (2600.0, 3000.0, 3400.0, 3200.0),
+                  (300.0, 2800.0, 700.0, 3600.0),
+                  (3000.0, 600.0, 3600.0, 1000.0)]
+INTEREST_CELL = 100.0
+INTEREST_PERIOD, INTEREST_DEPTH = 4, 2
+INTEREST_WARMUP, INTEREST_MEASURED = 3, 12  # after a prime tick
+INTEREST_CUT = (2, 2000, 2048, 6)  # check 2: spaces, entities, capacity, ticks
+# f32 operations: a pair test (2 sub, 2 abs, 2 compares), the tier's 4
+# compares, one line-of-sight sample (midpoint 2 add + 2 mul; cell 2 sub
+# + 2 mul + 2 floor + 4 min/max; 1 compare)
+INTEREST_OPS_PAIR, INTEREST_OPS_TIER, INTEREST_OPS_SAMPLE = 6, 4, 15
+# the kernel instantiations whose SASS per pair phase 18 counts
+INTEREST_SASS = {"off": "interest_step_kernelILb1ELb1ELb0ELb0EE",
+                 "full": "interest_step_kernelILb1ELb1ELb1ELb1EE"}
+# phase 18c: scripts/loadgen_smoke.py's and bench.py bench_engine_load's
+# harnesses (clients, spaces, gates, period, seed), a 4-tick warm-up then
+# 9 ticks (2 periods + 1: the last tick a full step)
+LOAD_CONFIGS = {"loadgen_smoke": (100_000, 256, 8, 4, 11),
+                "engine_load": (8192, 8, 4, 4, 29)}
+LOAD_WARMUP, LOAD_TICKS = 4, 9
+
+
+def interest_policies(TI, combo, field, depth=INTEREST_DEPTH,
+                      period=INTEREST_PERIOD):
+    ps = []
+    if "team" in combo:
+        ps.append(TI.TeamVisibilityPolicy())
+    if "tier" in combo:
+        ps.append(TI.TieredRatePolicy(period=period))
+    if "los" in combo:
+        ps.append(TI.LineOfSightPolicy(field, depth=depth))
+    return ps
+
+
+def interest_field(TI, small):
+    """The tests' 200-wide field with its first grid column blocked (a NaN
+    sample's cell 0 then decides a pair), or phase 18b's."""
+    if small:
+        return TI.DistanceField.from_boxes(
+            [(20.0, 20.0, 45.0, 60.0), (-60.0, -10.0, -30.0, 10.0),
+             (-100.0, -100.0, -97.0, 100.0)], (-100.0, -100.0),
+            (200.0, 200.0), cell=5.0)
+    return TI.DistanceField.from_boxes(INTEREST_BOXES, (0.0, 0.0),
+                                       (WORLD, WORLD), cell=INTEREST_CELL)
+
+
+def interest_inputs(c, seed, small):
+    """The stack step's inputs on the card: x, z, r, act, team, vis and
+    two random previous planes (bit 31 set in word 0).  ``small``: the
+    tests' 200-wide world; else phase 18b's (4000 wide, radius 100,
+    PER_SPACE active).  Both carry the edge cases in their first 64
+    slots: 0.0 / -0.0, subnormals, NaN, +-inf, infinite and NaN radii,
+    ties at r * near_frac and at rn * hysteresis, samples outside the
+    world, team bit 31, and the +inf -> -inf pair under an infinite
+    radius (its midpoints are NaN)."""
+    rng = np.random.default_rng(seed)
+    if small:
+        x = (np.round(rng.uniform(-110, 110, c) * 4) / 4).astype(np.float32)
+        z = (np.round(rng.uniform(-110, 110, c) * 4) / 4).astype(np.float32)
+        r = rng.choice([0.0, 10.0, 20.0, 40.0], c).astype(np.float32)
+        act = rng.random(c) < 0.85
+    else:
+        x = rng.uniform(0, WORLD, c).astype(np.float32)
+        z = rng.uniform(0, WORLD, c).astype(np.float32)
+        r = np.full(c, RADIUS, np.float32)
+        act = np.arange(c) < PER_SPACE
+    team = (np.uint32(1) << rng.integers(0, 4, c).astype(np.uint32))
+    vis = np.where(rng.random(c) < 0.75, 0xFFFFFFFF, 1).astype(np.uint32)
+    n, sub = 64, np.float32(1e-40)
+    act[:24] = True
+    x[:n:8], x[1:n:8], x[2:n:8], x[3:n:8] = 0.0, -0.0, sub, -sub
+    z[:n:4] = 0.0
+    x[4:n:16], z[5:n:16], x[6:n:16] = np.nan, np.inf, -np.inf
+    z[7:n:16], x[12:n:16] = -np.inf, np.inf
+    r[7:n:16], r[15:n:16], r[8:n:16] = np.inf, np.nan, 0.0
+    x[16], z[16], r[16], vis[16] = 0.0, 0.0, 40.0, 0x80000000
+    x[17], x[18] = 20.0, 25.0  # r * 0.5 and (r * 0.5) * 1.25
+    x[19] = np.nextafter(np.float32(25.0), np.float32(30.0))
+    z[17] = z[18] = z[19] = 0.0
+    x[20], z[20], team[21] = -1000.0, 5000.0, 0x80000000
+    x[22], z[22], r[22], vis[22] = np.inf, 0.0, np.inf, 0xFFFFFFFF
+    x[23], z[23], team[23] = -np.inf, 0.0, 1
+    prev = rng.integers(-2**31, 2**31, (2, c, c // 32), dtype=np.int64) \
+        .astype(np.int32)
+    prev[:, :, 0] |= np.int32(-2**31)
+    dev = torch.device(DEV)
+    cols = [torch.from_numpy(a).to(dev) for a in (x, z, r, act)]
+    tv = [torch.from_numpy(a.view(np.int32)).to(dev) for a in (team, vis)]
+    return cols + tv + [torch.from_numpy(prev[0]).to(dev),
+                        torch.from_numpy(prev[1]).to(dev)]
+
+
+def far_base_pairs(K, args, cfg):
+    """Pairs whose base bit is set and whose near bit is not (those are
+    the pairs a full LOS step samples), counted in row blocks."""
+    x, z, r, act, team, vis, _, prev_near = args
+    c = x.shape[0]
+    n = 0
+    for lo in range(0, c, 1024):
+        rows = (lo, min(c, lo + 1024))
+        gate = K.pair_gate(act, torch, rows)
+        if cfg.has_team:
+            gate = gate & K.team_mask(team, vis, torch, rows)
+        base = K.base_mask(x, z, r, gate, torch, rows)
+        if cfg.has_tier:
+            pn = K.unpack_words(prev_near[rows[0]:rows[1]], c, torch)
+            near = K.near_mask(K.chebyshev(x, z, torch, rows), r, pn, gate,
+                               cfg.near_frac, cfg.hysteresis, torch, rows)
+            base = base & ~near
+        n += int(base.sum())
+    return n
+
+
+def interest_bound(K, args, cfg, full, grid):
+    """(bound_ms, bound_by, samples) for one step: the bytes it must move
+    (columns, the planes it reads -- prev_near with a tier, prev_final on
+    an off step -- both planes out, the field on a LOS step) over the
+    memory rate; its f32 operations (pair tests, tier compares, the LOS
+    samples this run's inputs need) over the f32 rate."""
+    c = args[0].shape[0]
+    plane = c * (c // 32) * 4
+    planes_in = int(cfg.has_tier) + int(not full)
+    los = cfg.has_los and full
+    nbytes = c * (3 * 4 + 1 + 2 * 4) + (planes_in + 2) * plane
+    samples = 0
+    if los:
+        nbytes += grid.numel() * 4
+        samples = far_base_pairs(K, args, cfg) * ((1 << cfg.los_depth) - 1)
+    ops = c * c * (INTEREST_OPS_PAIR + INTEREST_OPS_TIER * cfg.has_tier) \
+        + samples * INTEREST_OPS_SAMPLE
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", samples)
+
+
+def interest_sass_per_pair(_build):
+    """SASS instructions per pair of the stack-step kernel's unrolled bit
+    loop (first to last FSETP over its 32 pairs; a LOS sample is a call
+    out of the loop), for the off step and the full team+tier+LOS step;
+    None where cuobjdump is missing or the count fails."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    got = {}
+    try:
+        dump = subprocess.run(
+            [tool, "-sass", os.path.join(_build.BUILD_DIR,
+                                         "libinterest_step.so")],
+            capture_output=True, text=True, check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"interest sass: not measured ({e!r})")
+        return {k: None for k in INTEREST_SASS}
+    for k, mark in INTEREST_SASS.items():
+        ins, inside = [], False
+        for line in dump.splitlines():
+            if "Function : " in line:
+                inside = mark in line
+            elif inside and (m := SASS_LINE.match(line)):
+                if m.group(2) != "NOP":
+                    ins.append(m.group(2))
+        fsetp = [i for i, op in enumerate(ins) if op.startswith("FSETP")]
+        got[k] = ((fsetp[-1] - fsetp[0] + 1) / 32) if fsetp else None
+    return got
+
+
+def phase_interest_kernel(IC, K, TI):
+    """Phase 18: csrc/interest_step.cu against its plain version on the
+    card, bit for bit: the six policy mixes, full and off steps, LOS
+    depths 1-4, on edge inputs at C = 128, 256, 384, and at C = 16384 on
+    phase 18b's world; CUDA-event times and bounds at 16384."""
+    from goworld_tpu_torch.interest.policy import _build_config
+
+    def cfg_of(combo, field, depth):
+        cfg, f = _build_config(interest_policies(TI, combo, field, depth))
+        g = None if f is None else torch.from_numpy(f.grid).to(DEV)
+        return cfg, g
+
+    def same(args, cfg, full, g, label):
+        kf, kn = IC.interest_step_cuda(*args, cfg, full, grid=g)
+        pf, pn = IC.interest_step_plain(*args, cfg, full, grid=g)
+        torch.cuda.synchronize()
+        err = 0
+        if not (torch.equal(kf, pf) and torch.equal(kn, pn)):
+            err = int((kf != pf).sum()) + int((kn != pn).sum())
+        check(err == 0, f"interest_step kernel != plain: {label} "
+              f"({err} words differ)")
+
+    small = interest_field(TI, True)
+    n_cases = 0
+    for i, c in enumerate(INTEREST_SMALL):
+        for combo in INTEREST_COMBOS:
+            for depth in (1, 2, 3, 4) if "los" in combo else (2,):
+                cfg, g = cfg_of(combo, small, depth)
+                args = interest_inputs(c, 300 + 10 * i + depth, small=True)
+                fulls = (True, False) if "tier" in combo and depth == 2 \
+                    else (True,)
+                for full in fulls:
+                    same(args, cfg, full, g, f"C={c} {combo} depth {depth} "
+                         f"{'full' if full else 'off'}")
+                    n_cases += 1
+    big = interest_field(TI, False)
+    args = interest_inputs(INTEREST_FULL, 400, small=False)
+    rows = []
+    for combo, full, depth in (("team+tier+los", True, INTEREST_DEPTH),
+                               ("team+tier+los", False, INTEREST_DEPTH),
+                               ("los", True, 4)):
+        cfg, g = cfg_of(combo, big, depth)
+        label = f"C={INTEREST_FULL} {combo} depth {depth} " \
+                f"{'full' if full else 'off'}"
+        same(args, cfg, full, g, label)
+        n_cases += 1
+        ms = cuda_ms(lambda: IC.interest_step_cuda(*args, cfg, full, grid=g),
+                     reps=20)
+        read_sm_clock()
+        plain_ms = cuda_ms(lambda: IC.interest_step_plain(*args, cfg, full,
+                                                          grid=g),
+                           reps=2, warm=1)
+        bound_ms, bound_by, samples = interest_bound(K, args, cfg, full, g)
+        row = {"shape": [1, INTEREST_FULL], "combo": combo,
+               "step": "full" if full else "off", "depth": depth, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "los_samples": samples,
+               "max_abs_err": 0}
+        log("kernel interest_step", json.dumps(row))
+        rows.append(row)
+    del args
+    torch.cuda.empty_cache()
+    log(f"phase 18: {n_cases} cases bit-exact")
+    return {"cases": n_cases, "rows": rows}
+
+
+def crc_of(arrays, crc=0):
+    for a in arrays:
+        crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+    return crc
+
+
+def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
+                 ticks, measured=0, plain=False, **rt_kw):
+    """Phase 4's world (``spaces`` x ``per_space``) with the phase-18b
+    stack on every space (team/vis seeded as tests/test_interest.py's
+    _walk seeds them), walked for ``ticks`` ticks (the first the prime
+    tick) through ``Runtime(device="cuda", **rt_kw)``; the last
+    ``measured`` ticks are timed.  ``plain``: the stack step calls the
+    plain PyTorch version on the card in place of the kernel.  Returns
+    per-tick event CRCs, the whole stream's CRC, final words, launches
+    and the timing split."""
+    field = interest_field(TI, False)
+
+    def setup(sp):
+        sp.enable_interest(*interest_policies(TI, "team+tier+los", field))
+
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, "cuda", spaces, per_space, capacity, seed=7, setup=setup,
+        **rt_kw)
+    trng = np.random.default_rng(3)
+    for sp, sl in zip(spaces_l, slots):
+        team = np.uint32(1) << trng.integers(0, 4, len(sl)).astype(np.uint32)
+        vis = np.where(trng.random(len(sl)) < 0.75, 0xFFFFFFFF, 1)
+        for s, t_, v in zip(sl.tolist(), team.tolist(), vis.tolist()):
+            sp.set_aoi_team(sp._slot_entity[s], t_, v)
+    stacks = [sp.interest_stack for sp in spaces_l]
+    kernel = IC.interest_step
+    if plain:
+        IC.interest_step = IC.interest_step_plain
+    # the stack step's parts: upload, kernel (or the plain twin's step),
+    # the two planes' fetch (CUDA events), the whole step and its
+    # evaluation (host clock; the rest of the step is the host diff)
+    timers = [DeviceTimer(D, "_upload"), DeviceTimer(IC, "interest_step"),
+              DeviceTimer(D, "words_to_numpy"),
+              HostTimer(TI.PolicyStack, "step"), HostTimer(D, "eval_step")]
+    IC.reset_launches()
+    tick_crcs = []
+    tick_s = 0.0
+    try:
+        for t in range(ticks):
+            if t == ticks - measured:
+                perf0 = dict(bucket_of(rt).perf)
+                torch.cuda.synchronize()
+                for tm in timers:
+                    tm.on = True
+            if t:
+                walk(spaces_l, slots, pos, rng)
+            crc["t"] = crc["te"] = 0
+            t0 = time.perf_counter()
+            rt.tick()
+            torch.cuda.synchronize()
+            if t >= ticks - measured:
+                tick_s += time.perf_counter() - t0
+            tick_crcs.append((f"{crc['t']:08x}", crc["te"]))
+        for tm in timers:
+            tm.on = False
+        trailing = 0
+        while rt.aoi.has_pending():  # a deferred bucket's last tick
+            rt.aoi.flush()
+            for sp in spaces_l:
+                trailing += sum(len(a) for a in rt.aoi.take_events(
+                    sp._aoi_handle))
+    finally:
+        for tm in reversed(timers):
+            tm.restore()
+        IC.interest_step = kernel
+    launches = IC.launches["interest_step"]
+    for s in stacks:
+        check(s.stats["demotions"] == 0 and s.stats["host_steps"] == 0,
+              f"{label}: stack stats {s.stats}")
+    healthy(bucket_of(rt).stats, label)
+    out = {"label": label, "ticks": ticks, "crcs": tick_crcs,
+           "stream_crc": f"{crc['v']:08x}", "events": crc["events"],
+           "trailing_events": trailing, "launches": launches,
+           "words": [s.words.copy() for s in stacks],
+           "full_evals": sum(s.stats["full_evals"] for s in stacks),
+           "los_pair_evals": sum(s.stats["los_pair_evals"] for s in stacks)}
+    if measured:
+        b = bucket_of(rt)
+        h2d, kern, d2h, step, ev = timers
+        plane = capacity * (capacity // 32) * 4
+        out["split"] = {
+            "tick_ms": tick_s * 1e3 / measured,
+            **{k[:-2] + "_ms": (b.perf[k] - perf0[k]) * 1e3 / measured
+               for k in b.perf},
+            "stack_step_ms": step.s * 1e3 / measured,
+            "stack_eval_ms": ev.s * 1e3 / measured,
+            "stack_diff_ms": (step.s - ev.s) * 1e3 / measured,
+            "h2d_ms": h2d.ms() / measured, "kernel_ms": kern.ms() / measured,
+            "d2h_ms": d2h.ms() / measured,
+            "h2d_bytes_per_step": capacity * (3 * 4 + 1 + 2 * 4) + 2 * plane
+            + field.grid.nbytes,
+            "d2h_bytes_per_step": 2 * plane,
+            "steps_per_tick": len(kern.events) / measured}
+    log(label, json.dumps({k: v for k, v in out.items()
+                           if k not in ("words", "crcs")}))
+    return out
+
+
+def phase_interest_slice(Runtime, IC, TI, D):
+    """Phase 18b: phase 4's world with a team + tier(4) + LOS(2) stack on
+    every space, a prime tick, 3 warm-up and 12 measured ticks (three
+    full periods): the kernel run against a twin whose stack step calls
+    the plain version on the card (per-tick event CRCs, final words),
+    a cut run against aoi_interest="host", and the pipelined Runtime
+    (stack events undeferred: equal per tick, trailing flushes empty)."""
+    ticks = 1 + INTEREST_WARMUP + INTEREST_MEASURED
+    runs = {}
+    for name, kw in (("kernel", {}), ("plain twin", {"plain": True}),
+                     ("pipelined", {"aoi_pipeline": True})):
+        runs[name] = interest_run(
+            Runtime, TI, IC, D, f"phase 18b {name}", SPACES, PER_SPACE,
+            CAPACITY, ticks, measured=INTEREST_MEASURED, **kw)
+    k = runs["kernel"]
+    check(k["launches"] == SPACES * ticks,
+          f"phase 18b: {k['launches']} kernel launches, want "
+          f"{SPACES * ticks}")
+    check(runs["plain twin"]["launches"] == 0,
+          "phase 18b: the plain twin launched the kernel")
+    check(runs["pipelined"]["launches"] == SPACES * ticks,
+          "phase 18b pipelined: kernel launches")
+    check(k["events"] > 0, "phase 18b: no stack event")
+    for name in ("plain twin", "pipelined"):
+        r = runs[name]
+        check(r["crcs"] == k["crcs"], f"phase 18b {name}: per-tick stack "
+              f"CRCs {r['crcs']} != the kernel run's {k['crcs']}")
+        check(r["stream_crc"] == k["stream_crc"],
+              f"phase 18b {name}: stream CRC")
+        check(r["trailing_events"] == 0,
+              f"phase 18b {name}: trailing flushes delivered stack events")
+        check(all(np.array_equal(a, b) for a, b in zip(r["words"],
+                                                       k["words"])),
+              f"phase 18b {name}: final words differ")
+    s, n, cap, t = INTEREST_CUT
+    cut = {m: interest_run(Runtime, TI, IC, D, f"phase 18b cut {m}", s, n,
+                           cap, t, aoi_interest=m)
+           for m in ("device", "host")}
+    check(cut["device"]["launches"] == s * t and
+          cut["host"]["launches"] == 0, "phase 18b cut: launches")
+    check(cut["device"]["crcs"] == cut["host"]["crcs"] and all(
+        np.array_equal(a, b) for a, b in zip(cut["device"]["words"],
+                                             cut["host"]["words"])),
+          "phase 18b cut: device != host mode")
+    out = {"spaces": SPACES, "entities_per_space": PER_SPACE,
+           "capacity": CAPACITY, "ticks": ticks,
+           "measured": INTEREST_MEASURED,
+           "policies": f"team + tier(period {INTEREST_PERIOD}) + "
+                       f"LOS(depth {INTEREST_DEPTH})",
+           "field_boxes": INTEREST_BOXES, "field_cell": INTEREST_CELL,
+           "events": k["events"], "stream_crc": k["stream_crc"],
+           "full_evals": k["full_evals"],
+           "los_pair_evals": k["los_pair_evals"],
+           "splits": {name: r["split"] for name, r in runs.items()},
+           "launches": {"sequential": k["launches"],
+                        "pipelined": runs["pipelined"]["launches"],
+                        "cut": cut["device"]["launches"]},
+           "cut_crc": cut["device"]["stream_crc"]}
+    log("phase 18b", json.dumps(out))
+    return out
+
+
+def phase_load(TL, TI, IC):
+    """Phase 18c: the load harness at loadgen_smoke's and engine_load's
+    configurations, stacks on the card over the cpu and the cuda base
+    calculators, each against a host-mode run of the same harness (the
+    stacks' words do not depend on the base calculator)."""
+    out, launches = {}, 0
+    for name, (n, spaces, gates, period, seed) in LOAD_CONFIGS.items():
+        runs = {}
+        for backend, mode in (("cpu", "device"), ("cuda", "device"),
+                              ("cuda", "host")):
+            label = f"phase 18c {name} {backend} {mode}"
+            t0 = time.perf_counter()
+            hz = TL.LoadHarness(n, n_spaces=spaces, n_gates=gates,
+                                period=period, seed=seed, device="cuda",
+                                aoi_backend=backend, interest_mode=mode)
+            build_s = time.perf_counter() - t0
+            hz.run(LOAD_WARMUP)
+            IC.reset_launches()
+            step = HostTimer(TI.PolicyStack, "step")
+            step.on = True
+            try:
+                rep = hz.run(LOAD_TICKS)
+                torch.cuda.synchronize()
+            finally:
+                step.restore()
+            n_launch = IC.launches["interest_step"]
+            stack_s = step.s
+            ing = rep["ingest"]
+            check(ing["per_entity_writes"] == 0 and rep["unclosed"] == 0
+                  and rep["interest"]["demotions"] == 0,
+                  f"{label}: {ing} unclosed {rep['unclosed']} "
+                  f"{rep['interest']}")
+            check(rep["records"] == n * LOAD_TICKS, f"{label}: records")
+            want = spaces * LOAD_TICKS if mode == "device" else 0
+            check(n_launch == want, f"{label}: {n_launch} launches, want "
+                  f"{want}")
+            runs[(backend, mode)] = (hz, rep)
+            row = {"build_s": build_s, "moves_per_s": rep["moves_per_s"],
+                   "ms_per_tick": rep["wall_s"] * 1e3 / LOAD_TICKS,
+                   "stack_share": stack_s / rep["wall_s"],
+                   "tiers": rep["tiers"], "launches": n_launch,
+                   "interest": rep["interest"]}
+            out[f"{name} {backend} {mode}"] = row
+            log(label, json.dumps(row))
+            launches += n_launch
+        host, _ = runs[("cuda", "host")]
+        for key in (("cpu", "device"), ("cuda", "device")):
+            hz, rep = runs[key]
+            check(rep["interest"] == runs[("cuda", "host")][1]["interest"],
+                  f"phase 18c {name} {key}: stack stats != host mode's")
+            check(all(np.array_equal(a.interest_stack.words,
+                                     b.interest_stack.words)
+                      for a, b in zip(hz.spaces, host.spaces)),
+                  f"phase 18c {name} {key}: final words != host mode's")
+        del runs, host, hz
+    return {"runs": out, "launches": launches}
+
+
+def interest_entry(interest_k, interest_slice, load_out):
+    """The ``kernels`` line's entry of csrc/interest_step.cu: its times
+    at the main path's full team + tier + LOS step (C = 16384), the off
+    step beside them, its launches on each path."""
+    rows = interest_k["rows"]
+    full = next(r for r in rows if r["step"] == "full"
+                and r["combo"] == "team+tier+los")
+    off = next(r for r in rows if r["step"] == "off")
+    paths = {**interest_slice["launches"], "load": load_out["launches"]}
+    return {"name": "interest_step", "route": "cuda",
+            "source": "goworld_tpu_torch/csrc/interest_step.cu",
+            "replaces": "goworld_tpu/interest/device.py:32",
+            "launches": sum(paths.values()), "max_abs_err": 0,
+            "ms": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": None, "shape": full["shape"],
+            "off_step": {k: off[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+            "main_path_kernel_ms": interest_slice["splits"]["kernel"][
+                "kernel_ms"],
+            "path_launches": paths, "cases": interest_k["cases"],
+            "shapes": rows}
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
         return 2
     from goworld_tpu_torch.engine.aoi import AOIEngine
+    from goworld_tpu_torch import interest as TI
+    from goworld_tpu_torch import load as TL
     from goworld_tpu_torch.engine.runtime import Runtime
+    from goworld_tpu_torch.interest import device as D
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import aoi_cuda as AK
     from goworld_tpu_torch.ops import aoi_pages as PG
@@ -2669,6 +3221,8 @@ def main():
     from goworld_tpu_torch.ops import cadence as CD
     from goworld_tpu_torch.ops import dispatch_count as DC
     from goworld_tpu_torch.ops import events as EV
+    from goworld_tpu_torch.ops import interest_cuda as IC
+    from goworld_tpu_torch.ops import interest_kernels as K
     from goworld_tpu_torch.parallel import SpaceMesh, make_sharded_aoi_step
 
     smi = subprocess.run(
@@ -2684,6 +3238,8 @@ def main():
         log(f"--- {name}.cu\n{text.strip()}")
     per_pair = sass_per_pair(_build)
     log("SASS instructions per pair test", json.dumps(per_pair))
+    interest_pp = interest_sass_per_pair(_build)
+    log("interest_step SASS per pair", json.dumps(interest_pp))
 
     rows = phase_kernels(AK, AD)
     main_out, main_crcs = phase_main(Runtime, AK, AD, EV)
@@ -2715,6 +3271,10 @@ def main():
     rowshard = phase_rowshard(AOIEngine, AK, SpaceMesh)
     paged_sharded = phase_paged_sharded(AOIEngine, AK, SpaceMesh,
                                         engine_mesh, rowshard)
+    torch.cuda.empty_cache()
+    interest_k = phase_interest_kernel(IC, K, TI)
+    interest_slice = phase_interest_slice(Runtime, IC, TI, D)
+    load_out = phase_load(TL, TI, IC)
     paged_l = (paged["launches"] + clustered["launches"]
                + pages_seam["launches"])
     paged_mesh_l = paged_sharded["launches"]["aoi_step"]
@@ -2731,7 +3291,10 @@ def main():
                     ("aoi_step routing", routing["launches"]),
                     ("aoi_step paged", paged_l),
                     ("aoi_step paged mesh", paged_mesh_l),
-                    ("aoi_step rect paged rowshard", paged_row_l)):
+                    ("aoi_step rect paged rowshard", paged_row_l),
+                    *((f"interest_step {k}", v) for k, v in
+                      interest_slice["launches"].items()),
+                    ("interest_step load", load_out["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -2790,14 +3353,19 @@ def main():
               main_path_ms=grid_ms),
         entry("aoi_step_entlv", "goworld_tpu/ops/aoi_pallas.py:176",
               entlv_launches, entlv_rows, ENTLV_PATH_SHAPE,
-              main_path_ms=entlv_path_ms)]}
+              main_path_ms=entlv_path_ms),
+        interest_entry(interest_k, interest_slice, load_out)]}
     issue = {"issue_floor": [
         issue_floors("aoi_step", rows, per_pair["aoi_step"]),
         issue_floors("aoi_step_rect", rect_rows, per_pair["aoi_step"]),
         *(issue_floors(name, culled_rows[name], per_pair[name])
           for name in ("aoi_words_culled", "aoi_step_culled")),
         issue_floors("aoi_step_entlv", entlv_rows,
-                     per_pair["aoi_step_entlv"])]}
+                     per_pair["aoi_step_entlv"]),
+        *(issue_floors(f"interest_step {k}",
+                       [r for r in interest_k["rows"]
+                        if r["step"] == k and r["combo"] == "team+tier+los"],
+                       interest_pp[k]) for k in INTEREST_SASS)]}
     print(card)
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"giant": grid_out + [share_out]}))
@@ -2822,6 +3390,9 @@ def main():
                 "their times are one card's",
         "sharded_step": sharded, "engine": engine_mesh,
         "rowshard": rowshard}}))
+    print(json.dumps({"interest": {
+        "kernel": interest_k, "slice": interest_slice,
+        "load": load_out["runs"]}}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,13 @@ sticks until ``reset_calc_chain()`` / ``reset_emit_path()``.  Only the
 plan's faults take that path: a real CUDA error (a refused launch, a
 runtime error, out of memory), a build or input error and every other
 exception propagate, so a failing kernel is never replaced unseen.
+
+Interest-policy stacks (:mod:`..interest`, :meth:`AOIEngine.attach_interest`)
+ride the handles: after every bucket's harvest, ``flush`` steps each
+staged stack once (the ``aoi.interest`` span; one launch of
+``csrc/interest_step.cu`` on the engine's device, or the numpy oracle
+under ``interest_mode="host"``), and ``take_events`` returns the stack's
+diff in place of the bucket's, whatever the bucket kind.
 """
 
 from __future__ import annotations
@@ -89,6 +96,7 @@ from ..ops import dispatch_count as DC
 from ..ops import events as EV
 from ..ops import fused as FZ
 from ..ops.aoi_oracle import CPUAOIOracle
+from ..telemetry import trace as _T
 
 _log = logging.getLogger("goworld_tpu_torch.aoi")
 
@@ -511,6 +519,8 @@ class SpaceAOIHandle:
     # the backend as requested (may be "auto"); growth re-resolves it, so
     # a space that grows past the routing threshold moves to the device
     requested: str = ""
+    # the attached interest-policy stack (AOIEngine.attach_interest)
+    _policy_stack: object = None
 
 
 class AOIEngine:
@@ -550,7 +560,11 @@ class AOIEngine:
     single-device bucket's tick in place of the capped triples, and the
     sharded buckets' absorber of a shard whose stream overflows its caps
     (no cap growth, no ``decode_overflow``); what the pool cannot serve
-    spills to the host, counted in ``stats["page_spills"]``."""
+    spills to the host, counted in ``stats["page_spills"]``.
+
+    ``interest_mode`` (``device`` | ``host``) is where an attached
+    interest-policy stack evaluates: on ``device`` (the hand kernel on a
+    CUDA device, its plain version on the CPU) or on the numpy oracle."""
 
     def __init__(self, device="cuda", default_backend: str = "cuda",
                  oracle_algorithm: str = "sweep",
@@ -558,8 +572,15 @@ class AOIEngine:
                  flush_sched: bool = True, emit: str = "auto", mesh=None,
                  rowshard_min_capacity: int = 65536, pipeline: bool = False,
                  cross_tick: bool = False, fused: bool = False,
-                 paged: bool = False):
+                 paged: bool = False, interest_mode: str = "device"):
         _check_backend(default_backend)
+        if interest_mode not in ("device", "host"):
+            raise ValueError(
+                f"interest_mode must be device|host, got {interest_mode!r}")
+        self.interest_mode = interest_mode
+        # handles with an interest stack, in attach order (flush steps
+        # their stacks in this order: the aoi.interest seam's crossings)
+        self._stacked: list[SpaceAOIHandle] = []
         self.default_backend = default_backend
         self.oracle_algorithm = oracle_algorithm
         self.cuda_min_capacity = cuda_min_capacity
@@ -668,6 +689,8 @@ class AOIEngine:
         if not h.released:
             h.bucket.release_slot(h.slot)
             h.released = True
+            if h in self._stacked:
+                self._stacked.remove(h)
             if getattr(h.bucket, "exclusive", False):
                 # a row-sharded space's bucket frees with it
                 for k, b in list(self._buckets.items()):
@@ -716,6 +739,15 @@ class AOIEngine:
                     "on the host oracle (calc level 2): evacuation to a "
                     "fresh bucket comes with snapshots (ROADMAP.md queue "
                     "1, item 9)", bucket.capacity)
+        # interest-policy stacks evaluate LAST, after every bucket's
+        # harvest: each staged stack runs one step and accumulates its
+        # enter/leave diff for take_events (in the flush that submitted
+        # it, whatever the bucket's deferral)
+        staged = [h for h in self._stacked if h._policy_stack.has_pending]
+        if staged:
+            with _T.span("aoi.interest"):
+                for h in staged:
+                    h._policy_stack.step()
 
     def has_pending(self) -> bool:
         """True when a bucket holds a dispatched-but-undelivered tick (the
@@ -731,6 +763,12 @@ class AOIEngine:
 
     def take_events(self, h: SpaceAOIHandle):
         """(enter_pairs, leave_pairs) for this space from the last flush."""
+        stack = h._policy_stack
+        if stack is not None:
+            # the stack owns the stream: drop the bucket's base-predicate
+            # diff (the bucket still computes and carries the base state)
+            h.bucket.take_events(h.slot)
+            return stack.take_events()
         return h.bucket.take_events(h.slot)
 
     def set_subscribed(self, h: SpaceAOIHandle, flag: bool) -> None:
@@ -746,6 +784,8 @@ class AOIEngine:
         entities' pairs synchronously, so the diff must not re-emit them,
         and a reused slot must start clean)."""
         h.bucket.clear_entity(h.slot, entity_slot)
+        if h._policy_stack is not None:
+            h._policy_stack.clear_entity(entity_slot)
 
     def grow_space(self, h: SpaceAOIHandle,
                    new_capacity: int) -> SpaceAOIHandle:
@@ -780,12 +820,42 @@ class AOIEngine:
         pending = h.bucket._events.pop(h.slot, None)
         if pending is not None:
             nh.bucket._events[nh.slot] = pending
+        stack = h._policy_stack
+        if stack is not None:
+            # the interest stack grows with the space: the same planar
+            # column remap as the base carry above, then it rides the
+            # new handle (in the old one's place in the step order)
+            stack.grow(target)
+            nh._policy_stack = stack
+            h._policy_stack = None
+            self._stacked[self._stacked.index(h)] = nh
         self.release_space(h)
         return nh
 
-    def attach_interest(self, h, policies, mode=None):
-        raise ValueError("interest-policy stacks are not in the port yet; "
-                         "they come with ROADMAP.md queue 1, item 6")
+    def attach_interest(self, h: SpaceAOIHandle, policies,
+                        mode: str | None = None):
+        """Attach a composable interest-policy stack to a space
+        (:mod:`..interest`): from here on the stack's step -- radius AND
+        team mask AND tier cadence AND line of sight -- owns the space's
+        event stream (:meth:`take_events` returns the stack's diff),
+        while the base bucket keeps carrying the radius state.  The stack
+        steps on the engine's device (``mode``, default
+        ``interest_mode``)."""
+        from ..interest import PolicyStack
+
+        if h._policy_stack is not None:
+            raise ValueError("space already has an interest stack")
+        stack = PolicyStack(h.capacity, policies,
+                            mode=mode or self.interest_mode,
+                            device=self.device)
+        h._policy_stack = stack
+        self._stacked.append(h)
+        return stack
+
+    @staticmethod
+    def interest_stack(h: SpaceAOIHandle):
+        """The space's PolicyStack, or None (plain radius-only space)."""
+        return h._policy_stack
 
 
 class _Bucket:

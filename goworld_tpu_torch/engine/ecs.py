@@ -13,7 +13,7 @@ Why columns:
   -- the delta-staging diff in ``flush()`` (engine/aoi._stage_inputs)
   reads columns directly; there is no per-entity walk anywhere between a
   position write and the H2D packet.
-* the gate->device ingest path (goworld_tpu/ingest/) decodes client
+* the gate->device ingest path (goworld_tpu_torch/ingest/) decodes client
   movement wire records straight into vectorized column writes in the
   ``ops/aoi_stage.pad_packet`` (row, col, x, z) layout -- zero
   per-entity Python attribute writes on the hot path.
@@ -45,8 +45,8 @@ from .vector import Vector3
 
 # columns staged to the device every tick (the delta-staging shadow set;
 # engine/aoi._TPUBucket._hx/_hz/_hr/_hact/_hsub).  team/vis feed the
-# interest-policy stack's fused step (goworld_tpu/interest/) on spaces
-# with a team_mask policy: observer A sees B iff vis[A] & team[B] != 0
+# interest-policy stack's step (goworld_tpu_torch/interest/) on spaces with
+# a team_mask policy: observer A sees B iff vis[A] & team[B] != 0
 HOT_DEVICE_COLUMNS = ("x", "z", "r", "act", "nonplain", "team", "vis")
 # host-only companions enabling fully vectorized ingest + sync flagging
 HOST_COLUMNS = ("y", "yaw", "sync", "watched")

@@ -18,7 +18,10 @@ is ``cpu`` -- or ``cpu``, ``cpp``, ``auto``: ``cpp`` below
 ``aoi_cross_tick`` defer the AOI events by one tick (the tick keeps
 flushing while a tick is in flight), ``aoi_fused`` runs the steady
 single-device tick as one graph replay and ``aoi_paged`` compacts the
-change stream into pages (see :class:`.aoi.AOIEngine`).
+change stream into pages (see :class:`.aoi.AOIEngine`); ``aoi_interest``
+is where interest-policy stacks evaluate (``device``: the engine's
+device, ``host``: the numpy oracle).  The sync phase first drains the
+spaces whose sync column the batched ingest (:mod:`..ingest`) flagged.
 ``fault_plan`` (a :class:`..faults.FaultPlan` or its string) installs into
 the port's :mod:`..faults` before the engine is built, as the JAX runtime
 does.  Placement, cohorts, checkpoints, telemetry and the crontab of
@@ -54,6 +57,7 @@ class Runtime:
         aoi_cross_tick: bool = False,
         aoi_fused: bool = False,
         aoi_paged: bool = False,
+        aoi_interest: str = "device",
         fault_plan=None,
         now: Callable[[], float] = time.monotonic,
         on_error: Callable[[BaseException], None] | None = None,
@@ -73,7 +77,8 @@ class Runtime:
                              mesh=aoi_mesh,
                              rowshard_min_capacity=aoi_rowshard_min_capacity,
                              pipeline=aoi_pipeline, cross_tick=aoi_cross_tick,
-                             fused=aoi_fused, paged=aoi_paged)
+                             fused=aoi_fused, paged=aoi_paged,
+                             interest_mode=aoi_interest)
         self.timers = TimerQueue(now)
         self.post = PostQueue()
         self.entities = EntityManager(self)
@@ -81,6 +86,10 @@ class Runtime:
         # entities with pending sync flags / attr deltas; the sync phase
         # walks only these.  The set object is stable (entities cache it).
         self._dirty_entities: set[Entity] = set()
+        # spaces whose sync COLUMN holds pending flags (the batched ingest's
+        # vectorized writes): drained at the head of the sync phase into
+        # the per-entity dirty machinery.  A dict used as an ordered set
+        self._col_sync_spaces: dict = {}
         # position sync records collected this tick:
         # (client_id, gate_id, entity_id, x, y, z, yaw)
         self.sync_out: list[tuple] = []
@@ -116,7 +125,14 @@ class Runtime:
 
     def _sync_phase(self):
         """Collect position sync + flush attr deltas for DIRTY entities
-        only; the dirty set is drained in place, never swapped."""
+        only; the dirty set is drained in place, never swapped.  Pending
+        sync-column flags (batched ingest) fold in first, so batched and
+        per-entity movement emit through one path."""
+        css = self._col_sync_spaces
+        if css:
+            for sp in css:
+                sp.drain_column_sync()
+            css.clear()
         ds = self._dirty_entities
         if not ds:
             return

@@ -133,8 +133,8 @@ class Space(Entity):
 
     def enable_interest(self, *policies, mode: str | None = None):
         """Attach a composable interest-policy stack to this space
-        (goworld_tpu/interest/): team/faction visibility, tiered update
-        rates, line-of-sight occlusion -- fused into one device pass and
+        (goworld_tpu_torch/interest/): team/faction visibility, tiered
+        update rates, line-of-sight occlusion -- one kernel launch a step,
         composed with the base radius predicate.  Requires ``enable_aoi``
         first; like it, must run before entities enter (the stack's
         previous-step state starts empty).  Returns the PolicyStack."""
@@ -281,7 +281,7 @@ class Space(Entity):
         updating); sync bookkeeping runs just for entities some client can
         actually see.  This is the device-cadence movement path: at 64k
         entities it costs ~20 ms where per-entity set_position costs
-        ~100 ms.  (The fully-batched wire path, goworld_tpu/ingest/,
+        ~100 ms.  (The fully-batched wire path, goworld_tpu_torch/ingest/,
         replaces even the bookkeeping loop with a sync-column write.)
 
         With ``ys``/``yaws`` (the client-sync ingest,
@@ -373,7 +373,7 @@ class Space(Entity):
 
     def drain_column_sync(self):
         """Fold pending column sync flags (set vectorized by the batched
-        ingest path, goworld_tpu/ingest/) into the per-entity sync
+        ingest path, goworld_tpu_torch/ingest/) into the per-entity sync
         machinery.  One vectorized scan finds flagged slots; only WATCHED
         movers (some client can see them -- the ``watched`` column) pay a
         per-entity visit, which routes through ``_sync_flags`` +

@@ -143,10 +143,28 @@ def word_bit_for_column(j: int, capacity: int) -> tuple[int, int]:
 
 def pairs_from_words(words: np.ndarray, capacity: int) -> np.ndarray:
     """(i, j) index pairs of set bits from packed words, sorted
-    lexicographically by (i, j).  Returns int32 array [n_pairs, 2]."""
-    m = unpack_rows(np.asarray(words), capacity)
-    i, j = np.nonzero(m)
-    return np.stack([i, j], axis=1).astype(np.int32)
+    lexicographically by (i, j).  Returns int32 array [n_pairs, 2].
+    Expands only the nonzero words (never the dense [N, C] matrix)."""
+    words = np.asarray(words, np.uint32)
+    if words.shape[1] != words_per_row(capacity):
+        raise ValueError(f"words width {words.shape[1]} != "
+                         f"{words_per_row(capacity)}")
+    rows, ws = np.nonzero(words)
+    return pairs_from_sparse(rows, ws, words[rows, ws], capacity)
+
+
+def pairs_from_sparse(rows: np.ndarray, ws: np.ndarray, vals: np.ndarray,
+                      capacity: int) -> np.ndarray:
+    """(i, j) pairs of the set bits of words ``vals`` (np.uint32) at (row,
+    word) positions ``rows``, ``ws``, sorted by (i, j): int32 [n, 2]."""
+    w = words_per_row(capacity)
+    shifts = np.arange(WORD_BITS, dtype=np.uint32)
+    bits = ((np.asarray(vals, np.uint32)[:, None] >> shifts) & 1) != 0
+    k, b = np.nonzero(bits)
+    i = np.asarray(rows, np.int64)[k]
+    j = b * w + np.asarray(ws, np.int64)[k]
+    order = np.argsort(i * capacity + j, kind="stable")
+    return np.stack([i[order], j[order]], axis=1).astype(np.int32)
 
 
 def words_to_torch(words: np.ndarray, device) -> torch.Tensor:

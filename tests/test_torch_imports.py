@@ -35,12 +35,17 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240,
                          check=True).stdout.split()
-    assert int(out[0]) >= 33  # every module of the seven slices
+    assert int(out[0]) >= 52  # every module of the nine slices
     loaded = out[1:]
     for mod in ("engine.runtime", "ops.aoi_grid", "ops.cadence",
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
                 "engine.aoi_rowshard", "entry", "faults", "ops.aoi_oracle",
-                "ops.aoi_native"):
+                "ops.aoi_native", "ops.interest_kernels", "ops.interest_cuda",
+                "interest", "interest.field", "interest.oracle",
+                "interest.device", "interest.policy", "ingest",
+                "ingest.movement", "load", "load.clients", "load.harness",
+                "telemetry", "telemetry.metrics", "telemetry.trace",
+                "netutil", "netutil.packet", "consts"):
         assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -126,5 +131,16 @@ def test_cpu_path_launches_no_kernel():
                         np.ones(128, bool))
     mesh_eng.flush()
     assert len(mesh_eng.take_events(hm)[0]) > 0
+    from goworld_tpu_torch.interest import TieredRatePolicy
+    from goworld_tpu_torch.ops import interest_cuda as IC
+
+    IC.reset_launches()
+    stack = eng.attach_interest(h, [TieredRatePolicy()])
+    eng.submit(h, x, x, np.full(128, 3.0, np.float32), np.ones(128, bool))
+    stack.submit(x, x, np.full(128, 3.0, np.float32), np.ones(128, bool),
+                 np.ones(128, np.uint32), np.ones(128, np.uint32))
+    eng.flush()
+    assert stack.stats["steps"] == 1 and stack.near.any()
     assert AK.launches == {"aoi_step": 0, "aoi_step_entlv": 0}
     assert AG.launches == {"aoi_words_culled": 0, "aoi_step_culled": 0}
+    assert IC.launches == {"interest_step": 0}
