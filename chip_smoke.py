@@ -153,16 +153,23 @@ Phases (any failure raises, so the exit code is non-zero):
                 square kernel's, derive_row/derive_col equal to them.
 
  18. interest kernel -- csrc/interest_step.cu (the interest-policy
-                stack step) against its plain version
-                (ops/interest_kernels.step_words) on the card, bit for
-                bit: the six policy mixes of tests/test_interest.py, full
-                and off-cadence steps, LOS depths 1-4, at C = 128, 256
-                and 384 on edge inputs (0.0 / -0.0, subnormals, NaN,
-                +-inf, infinite and NaN radii, ties at r * near_frac and
-                at rn * hysteresis, samples outside the world, team bit
-                31, inactive slots, a NaN midpoint) and at C = 16384 on
-                phase 18b's world; CUDA-event times, bounds (the LOS
-                samples this run's inputs need) and SASS per pair;
+                stack step over resident word planes) against its plain
+                version (ops/interest_cuda.interest_step_plain) on the
+                card, bit for bit: the planes after the step in place,
+                the changed-word counts, and the changed-word lists as
+                sets (each entry a distinct changed word with its new
+                value; the plain version's too); the six policy mixes
+                of tests/test_interest.py, full and off-cadence steps,
+                LOS depths 1-4, at C = 128, 256 and 384 on edge inputs
+                (0.0 / -0.0, subnormals, NaN, +-inf, infinite and NaN
+                radii, ties at r * near_frac and at rn * hysteresis,
+                samples outside the world, team bit 31, inactive slots,
+                a NaN midpoint) and at C = 16384 on phase 18b's world,
+                from random planes and from a path step's planes;
+                forced list overflows (caps 0, 5 and 4096); CUDA-event
+                times from both kinds of planes, bounds (the LOS samples
+                and changed words this run's inputs need) and SASS per
+                pair;
  18b. interest slice -- phase 4's world with team + tier(period 4) +
                 LOS(depth 2, five boxes baked at 100-unit cells) on every
                 space, team/vis seeded as tests/test_interest.py's _walk;
@@ -170,17 +177,22 @@ Phases (any failure raises, so the exit code is non-zero):
                 event CRCs and final words equal a twin whose step runs
                 the plain version on the card and the pipelined Runtime
                 (the stack steps in the flush that submitted it: no
-                shift; trailing flushes deliver nothing); a cut run (2 x
-                2048, 6 ticks) equal to aoi_interest="host"; tick_ms and
-                its split (base stage / fetch / decode / emit, the stack
-                step's upload, kernel, fetch and host diff, bytes a step);
+                shift; trailing flushes deliver nothing), the stream CRC
+                INTEREST_CRC (this world's fixed answer); a cut run (2 x
+                2048, 6 ticks) equal to aoi_interest="host"; the resident
+                planes equal the host planes after the run, no plane
+                upload and no list overflow; tick_ms and its split (base stage /
+                fetch / decode / emit; a stack step's columns up, kernel,
+                count and list fetch, host apply, expand; bytes each way
+                and changed words a step);
  18c. load harness -- LoadHarness at scripts/loadgen_smoke.py's
                 configuration (100,000 clients, 256 spaces, 8 gates,
                 period 4) and bench.py bench_engine_load's (8192 clients,
                 8 spaces, 4 gates), a 4-tick warm-up then 9 ticks, over
                 the cpu and the cuda base calculators: moves/s, ms a
-                tick, near/far p50/p99, the stack step's share; no
-                per-entity write, no unclosed update, no demotion; every
+                tick, near/far p50/p99, the stack step's share and its
+                split as in 18b; no per-entity write, no unclosed update,
+                no demotion, no plane upload, no list overflow; every
                 space's final words equal a host-mode run's.
 
 Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
@@ -2733,13 +2745,15 @@ INTEREST_CELL = 100.0
 INTEREST_PERIOD, INTEREST_DEPTH = 4, 2
 INTEREST_WARMUP, INTEREST_MEASURED = 3, 12  # after a prime tick
 INTEREST_CUT = (2, 2000, 2048, 6)  # check 2: spaces, entities, capacity, ticks
+INTEREST_CRC = "0e8cf24e"  # phase 18b's stack stream over its 16 ticks
 # f32 operations: a pair test (2 sub, 2 abs, 2 compares), the tier's 4
 # compares, one line-of-sight sample (midpoint 2 add + 2 mul; cell 2 sub
 # + 2 mul + 2 floor + 4 min/max; 1 compare)
 INTEREST_OPS_PAIR, INTEREST_OPS_TIER, INTEREST_OPS_SAMPLE = 6, 4, 15
-# the kernel instantiations whose SASS per pair phase 18 counts
-INTEREST_SASS = {"off": "interest_step_kernelILb1ELb1ELb0ELb0EE",
-                 "full": "interest_step_kernelILb1ELb1ELb1ELb1EE"}
+# the kernel instantiations whose SASS per pair phase 18 counts, and the
+# FSETP a pair of each (radius and the tier's two thresholds)
+INTEREST_SASS = {"off": ("interest_step_kernelILb1ELb1ELb0ELb0EE", 3),
+                 "full": ("interest_step_kernelILb1ELb1ELb1ELb1EE", 3)}
 # phase 18c: scripts/loadgen_smoke.py's and bench.py bench_engine_load's
 # harnesses (clients, spaces, gates, period, seed), a 4-tick warm-up then
 # 9 ticks (2 periods + 1: the last tick a full step)
@@ -2818,43 +2832,47 @@ def interest_inputs(c, seed, small):
                         torch.from_numpy(prev[1]).to(dev)]
 
 
-def far_base_pairs(K, args, cfg):
-    """Pairs whose base bit is set and whose near bit is not (those are
-    the pairs a full LOS step samples), counted in row blocks."""
+def interest_pairs(K, args, cfg):
+    """(gated, far): the pairs whose gate (both active, not self, the team
+    mask) is set -- those a step must test -- and of them those whose base
+    bit is set and whose near bit is not (those a full LOS step samples),
+    counted in row blocks."""
     x, z, r, act, team, vis, _, prev_near = args
     c = x.shape[0]
-    n = 0
+    gated = far = 0
     for lo in range(0, c, 1024):
         rows = (lo, min(c, lo + 1024))
         gate = K.pair_gate(act, torch, rows)
         if cfg.has_team:
             gate = gate & K.team_mask(team, vis, torch, rows)
+        gated += int(gate.sum())
         base = K.base_mask(x, z, r, gate, torch, rows)
         if cfg.has_tier:
             pn = K.unpack_words(prev_near[rows[0]:rows[1]], c, torch)
             near = K.near_mask(K.chebyshev(x, z, torch, rows), r, pn, gate,
                                cfg.near_frac, cfg.hysteresis, torch, rows)
             base = base & ~near
-        n += int(base.sum())
-    return n
+        far += int(base.sum())
+    return gated, far
 
 
-def interest_bound(K, args, cfg, full, grid):
+def interest_bound(K, args, cfg, full, grid, changed):
     """(bound_ms, bound_by, samples) for one step: the bytes it must move
-    (columns, the planes it reads -- prev_near with a tier, prev_final on
-    an off step -- both planes out, the field on a LOS step) over the
-    memory rate; its f32 operations (pair tests, tier compares, the LOS
-    samples this run's inputs need) over the f32 rate."""
+    (the columns; both planes read, for the change; each of the
+    ``changed`` words written in place and as a list entry; the counts;
+    the field on a LOS step) over the memory rate; its f32 operations
+    (radius and tier compares over the gated pairs, the LOS samples of
+    this run's inputs) over the f32 rate."""
     c = args[0].shape[0]
     plane = c * (c // 32) * 4
-    planes_in = int(cfg.has_tier) + int(not full)
     los = cfg.has_los and full
-    nbytes = c * (3 * 4 + 1 + 2 * 4) + (planes_in + 2) * plane
+    nbytes = c * (3 * 4 + 1 + 2 * 4) + 2 * plane + (4 + 8) * changed + 8
+    gated, far = interest_pairs(K, args, cfg)
     samples = 0
     if los:
         nbytes += grid.numel() * 4
-        samples = far_base_pairs(K, args, cfg) * ((1 << cfg.los_depth) - 1)
-    ops = c * c * (INTEREST_OPS_PAIR + INTEREST_OPS_TIER * cfg.has_tier) \
+        samples = far * ((1 << cfg.los_depth) - 1)
+    ops = gated * (INTEREST_OPS_PAIR + INTEREST_OPS_TIER * cfg.has_tier) \
         + samples * INTEREST_OPS_SAMPLE
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -2864,9 +2882,12 @@ def interest_bound(K, args, cfg, full, grid):
 
 def interest_sass_per_pair(_build):
     """SASS instructions per pair of the stack-step kernel's unrolled bit
-    loop (first to last FSETP over its 32 pairs; a LOS sample is a call
-    out of the loop), for the off step and the full team+tier+LOS step;
-    None where cuobjdump is missing or the count fails."""
+    loop: from the first FADD after the warp vote that gates the row (the
+    compiler hoists the subtracts and maxima above the first compare) to
+    the FSETP of the loop's 32nd pair, over 32 (the out-of-line LOS
+    sampler, listed after the kernel's body, has FSETP of its own), for
+    the off step and the full team+tier+LOS step; None where cuobjdump is
+    missing or the count fails."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     got = {}
     try:
@@ -2877,7 +2898,7 @@ def interest_sass_per_pair(_build):
     except (OSError, subprocess.SubprocessError) as e:
         log(f"interest sass: not measured ({e!r})")
         return {k: None for k in INTEREST_SASS}
-    for k, mark in INTEREST_SASS.items():
+    for k, (mark, per) in INTEREST_SASS.items():
         ins, inside = [], False
         for line in dump.splitlines():
             if "Function : " in line:
@@ -2886,31 +2907,155 @@ def interest_sass_per_pair(_build):
                 if m.group(2) != "NOP":
                     ins.append(m.group(2))
         fsetp = [i for i, op in enumerate(ins) if op.startswith("FSETP")]
-        got[k] = ((fsetp[-1] - fsetp[0] + 1) / 32) if fsetp else None
+        try:
+            vote = max(i for i, op in enumerate(ins[:fsetp[0]])
+                       if op.startswith("VOTE"))
+            start = next(i for i in range(vote, fsetp[0])
+                         if ins[i].startswith("FADD"))
+            got[k] = (fsetp[32 * per - 1] - start + 1) / 32
+        except (IndexError, ValueError, StopIteration) as e:
+            log(f"interest sass {k}: not measured ({e!r})")
+            got[k] = None
     return got
+
+
+def interest_lists(c, cap=None):
+    """A step's outputs beside its planes: changed-word lists of ``cap``
+    entries a plane (every word of a plane by default) and the counts,
+    both filled with -1."""
+    cap = c * (c // 32) if cap is None else cap
+    return (torch.full((2, cap, 2), -1, dtype=torch.int32, device=DEV),
+            torch.full((2,), -1, dtype=torch.int32, device=DEV))
+
+
+def interest_apply(fn, args, cfg, full, g, cap=None):
+    """One step of ``fn`` (the kernel's wrapper or the plain version) on
+    copies of ``args``' planes: (final, near, lists, counts)."""
+    fin, near = args[6].clone(), args[7].clone()
+    lists, counts = interest_lists(args[0].shape[0], cap)
+    fn(*args[:6], fin, near, cfg, full, grid=g, lists=lists, counts=counts)
+    return fin, near, lists, counts
+
+
+def check_changed(label, prev, new, lists, counts, cap):
+    """The changed-word lists as sets: each plane's count is its number of
+    changed words, and its first min(count, cap) entries are distinct
+    changed words with their new values (so all of them when count <=
+    cap); nothing is written past them."""
+    for p in range(2):
+        changed = (new[p] != prev[p]).reshape(-1)
+        n, want = int(counts[p]), int(changed.sum())
+        check(n == want, f"{label}: plane {p} count {n}, {want} changed")
+        k = min(n, cap)
+        e = lists[p, :k]
+        idx = e[:, 0].long()
+        check(bool(((idx >= 0) & (idx < changed.numel())).all()),
+              f"{label}: plane {p} list index out of range")
+        s = torch.sort(idx).values
+        check(k < 2 or bool((s[1:] != s[:-1]).all()),
+              f"{label}: plane {p} lists a word twice")
+        check(bool(changed[idx].all()) and torch.equal(
+            new[p].reshape(-1)[idx], e[:, 1]),
+              f"{label}: plane {p} list entries are not its changes")
+        check(bool((lists[p, k:] == -1).all()),
+              f"{label}: plane {p} list written past entry {k}")
+
+
+def interest_same(IC, args, cfg, full, g, label, cap=None):
+    """The kernel against its plain version on the same planes: both
+    planes after the step bit for bit, the counts equal, the lists as
+    sets (check_changed; the plain version's with every word's room)."""
+    c = args[0].shape[0]
+    kf, kn, kl, kc = interest_apply(IC.interest_step_cuda, args, cfg, full,
+                                    g, cap)
+    pf, pn, pl, pc = interest_apply(IC.interest_step_plain, args, cfg, full,
+                                    g)
+    torch.cuda.synchronize()
+    err = 0
+    if not (torch.equal(kf, pf) and torch.equal(kn, pn)):
+        err = int((kf != pf).sum()) + int((kn != pn).sum())
+    check(err == 0, f"interest_step kernel != plain: {label} "
+          f"({err} words differ)")
+    check(torch.equal(kc, pc), f"interest_step kernel != plain: {label} "
+          f"counts {kc.tolist()} != {pc.tolist()}")
+    words = c * (c // 32)
+    check_changed(label, args[6:8], (kf, kn), kl, kc,
+                  words if cap is None else cap)
+    check_changed(label + " (plain)", args[6:8], (pf, pn), pl, pc, words)
+    return [int(v) for v in kc]
+
+
+def interest_timed(fn, args, cfg, full, g, reps):
+    """Mean device ms of one step of ``fn`` (CUDA events around the call
+    alone), its planes restored to ``args``' before every launch and the
+    L2 flushed after (a path step finds its planes cold); one step first
+    to warm up."""
+    c = args[0].shape[0]
+    fin, near = args[6].clone(), args[7].clone()
+    lists, counts = interest_lists(c, list_cap_of(c))
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=DEV)
+    evs = []
+    for _ in range(reps + 1):
+        fin.copy_(args[6])
+        near.copy_(args[7])
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(*args[:6], fin, near, cfg, full, grid=g, lists=lists,
+           counts=counts)
+        e1.record()
+        evs.append((e0, e1))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in evs[1:]]
+    return sum(ms) / len(ms)
+
+
+def list_cap_of(c):
+    from goworld_tpu_torch.interest import device as D
+
+    return D.list_cap(c)
+
+
+def interest_steady(IC, args, cfg, g, seed):
+    """A path step's inputs: ``args``' columns moved by one walk step
+    (slots 64 to PER_SPACE, up to STEP each way, clipped to the world; the
+    edge slots stay), and as previous planes the plain version's after a
+    full step and an off one (a full one without a tier) at the old
+    positions, from zero planes."""
+    c = args[0].shape[0]
+    w = c // 32
+    prev = [torch.zeros((c, w), dtype=torch.int32, device=DEV)
+            for _ in range(2)]
+    for full in (True, not cfg.has_tier):
+        base = list(args[:6]) + prev
+        fin, near, _, _ = interest_apply(IC.interest_step_plain, base, cfg,
+                                         full, g, 1)
+        prev = [fin, near]
+    rng = np.random.default_rng(seed)
+    moved = []
+    for a in args[:2]:
+        h = a.cpu().numpy().copy()
+        step = rng.uniform(-STEP, STEP, PER_SPACE - 64).astype(np.float32)
+        h[64:PER_SPACE] = np.clip(h[64:PER_SPACE] + step, 0, WORLD)
+        moved.append(torch.from_numpy(h).to(DEV))
+    return moved + list(args[2:6]) + prev
 
 
 def phase_interest_kernel(IC, K, TI):
     """Phase 18: csrc/interest_step.cu against its plain version on the
-    card, bit for bit: the six policy mixes, full and off steps, LOS
-    depths 1-4, on edge inputs at C = 128, 256, 384, and at C = 16384 on
-    phase 18b's world; CUDA-event times and bounds at 16384."""
+    card (interest_same: planes in place, counts, changed-word lists as
+    sets): the six policy mixes, full and off steps, LOS depths 1-4, on
+    edge inputs at C = 128, 256, 384, and at C = 16384 on phase 18b's
+    world, from random planes (every word changes) and from a path
+    step's planes (interest_steady); forced list overflows at both sizes.
+    CUDA-event times and bounds at 16384."""
     from goworld_tpu_torch.interest.policy import _build_config
 
     def cfg_of(combo, field, depth):
         cfg, f = _build_config(interest_policies(TI, combo, field, depth))
         g = None if f is None else torch.from_numpy(f.grid).to(DEV)
         return cfg, g
-
-    def same(args, cfg, full, g, label):
-        kf, kn = IC.interest_step_cuda(*args, cfg, full, grid=g)
-        pf, pn = IC.interest_step_plain(*args, cfg, full, grid=g)
-        torch.cuda.synchronize()
-        err = 0
-        if not (torch.equal(kf, pf) and torch.equal(kn, pn)):
-            err = int((kf != pf).sum()) + int((kn != pn).sum())
-        check(err == 0, f"interest_step kernel != plain: {label} "
-              f"({err} words differ)")
 
     small = interest_field(TI, True)
     n_cases = 0
@@ -2922,37 +3067,53 @@ def phase_interest_kernel(IC, K, TI):
                 fulls = (True, False) if "tier" in combo and depth == 2 \
                     else (True,)
                 for full in fulls:
-                    same(args, cfg, full, g, f"C={c} {combo} depth {depth} "
-                         f"{'full' if full else 'off'}")
+                    interest_same(IC, args, cfg, full, g,
+                                  f"C={c} {combo} depth {depth} "
+                                  f"{'full' if full else 'off'}")
                     n_cases += 1
+        cfg, g = cfg_of("team+tier+los", small, 2)
+        for cap in (0, 5):
+            interest_same(IC, args, cfg, True, g,
+                          f"C={c} forced overflow cap {cap}", cap=cap)
+            n_cases += 1
     big = interest_field(TI, False)
-    args = interest_inputs(INTEREST_FULL, 400, small=False)
+    rand = interest_inputs(INTEREST_FULL, 400, small=False)
     rows = []
     for combo, full, depth in (("team+tier+los", True, INTEREST_DEPTH),
                                ("team+tier+los", False, INTEREST_DEPTH),
                                ("los", True, 4)):
         cfg, g = cfg_of(combo, big, depth)
+        steady = interest_steady(IC, rand, cfg, g, 500 + depth)
         label = f"C={INTEREST_FULL} {combo} depth {depth} " \
                 f"{'full' if full else 'off'}"
-        same(args, cfg, full, g, label)
-        n_cases += 1
-        ms = cuda_ms(lambda: IC.interest_step_cuda(*args, cfg, full, grid=g),
-                     reps=20)
+        interest_same(IC, rand, cfg, full, g, label + " random planes")
+        changed = interest_same(IC, steady, cfg, full, g, label + " steady")
+        n_cases += 2
+        ms = interest_timed(IC.interest_step_cuda, steady, cfg, full, g, 20)
         read_sm_clock()
-        plain_ms = cuda_ms(lambda: IC.interest_step_plain(*args, cfg, full,
-                                                          grid=g),
-                           reps=2, warm=1)
-        bound_ms, bound_by, samples = interest_bound(K, args, cfg, full, g)
+        ms_rand = interest_timed(IC.interest_step_cuda, rand, cfg, full, g,
+                                 20)
+        plain_ms = interest_timed(IC.interest_step_plain, steady, cfg, full,
+                                  g, 2)
+        bound_ms, bound_by, samples = interest_bound(K, steady, cfg, full, g,
+                                                     sum(changed))
+        act_rows = int(steady[3].sum())
         row = {"shape": [1, INTEREST_FULL], "combo": combo,
                "step": "full" if full else "off", "depth": depth, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "los_samples": samples,
+               "ms_random_planes": ms_rand, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "los_samples": samples, "changed_words": changed,
+               "culled_frac": 1.0 - act_rows / INTEREST_FULL,
                "max_abs_err": 0}
         log("kernel interest_step", json.dumps(row))
         rows.append(row)
-    del args
+    cfg, g = cfg_of("team+tier+los", big, INTEREST_DEPTH)
+    interest_same(IC, rand, cfg, True, g, f"C={INTEREST_FULL} forced "
+                  f"overflow cap 4096", cap=4096)
+    n_cases += 1
+    del rand, steady
     torch.cuda.empty_cache()
-    log(f"phase 18: {n_cases} cases bit-exact")
+    log(f"phase 18: {n_cases} cases bit-exact, lists as sets")
     return {"cases": n_cases, "rows": rows}
 
 
@@ -2960,6 +3121,44 @@ def crc_of(arrays, crc=0):
     for a in arrays:
         crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
     return crc
+
+
+def interest_timers(TI, IC, D):
+    """The stack step's parts, each timed while ``on``: this tick's
+    columns up (upload_columns: host ms and CUDA events), the kernel (or
+    the plain twin's step; CUDA events), the counts and list fetch
+    (fetch_changes: host ms, the wait for the kernel included), the host
+    apply and the pair expansion (host clock), the whole step."""
+    return {"up": DeviceTimer(D, "upload_columns"),
+            "kernel": DeviceTimer(IC, "interest_step"),
+            "fetch": DeviceTimer(D, "fetch_changes"),
+            "apply": HostTimer(TI.PolicyStack, "_apply_changes"),
+            "expand": HostTimer(TI.PolicyStack, "_expand"),
+            "step": HostTimer(TI.PolicyStack, "step")}
+
+
+def timer_split(timers, steps, dstats):
+    """ms a step of each timed part, and the device_stats deltas a step
+    (``dstats``: the summed deltas over ``steps`` steps)."""
+    up, kern, fetch = timers["up"], timers["kernel"], timers["fetch"]
+    per = max(steps, 1)
+    return {"stack_step_ms": timers["step"].s * 1e3 / per,
+            "cols_up_ms": sum(up.host_ms) / per,
+            "cols_up_device_ms": up.ms() / per,
+            "kernel_ms": kern.ms() / per,
+            "list_fetch_ms": sum(fetch.host_ms) / per,
+            "list_fetch_device_ms": fetch.ms() / per,
+            "apply_ms": timers["apply"].s * 1e3 / per,
+            "expand_ms": timers["expand"].s * 1e3 / per,
+            **{f"{k}_per_step": v / per for k, v in dstats.items()}}
+
+
+def dstats_of(stacks):
+    out = {}
+    for s in stacks:
+        for k, v in s.device_stats.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
@@ -2970,8 +3169,9 @@ def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
     tick) through ``Runtime(device="cuda", **rt_kw)``; the last
     ``measured`` ticks are timed.  ``plain``: the stack step calls the
     plain PyTorch version on the card in place of the kernel.  Returns
-    per-tick event CRCs, the whole stream's CRC, final words, launches
-    and the timing split."""
+    per-tick event CRCs, the whole stream's CRC, final words (the host
+    planes, checked equal to the resident ones), launches, the stacks'
+    device_stats and the timing split."""
     field = interest_field(TI, False)
 
     def setup(sp):
@@ -2990,12 +3190,7 @@ def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
     kernel = IC.interest_step
     if plain:
         IC.interest_step = IC.interest_step_plain
-    # the stack step's parts: upload, kernel (or the plain twin's step),
-    # the two planes' fetch (CUDA events), the whole step and its
-    # evaluation (host clock; the rest of the step is the host diff)
-    timers = [DeviceTimer(D, "_upload"), DeviceTimer(IC, "interest_step"),
-              DeviceTimer(D, "words_to_numpy"),
-              HostTimer(TI.PolicyStack, "step"), HostTimer(D, "eval_step")]
+    timers = interest_timers(TI, IC, D)
     IC.reset_launches()
     tick_crcs = []
     tick_s = 0.0
@@ -3003,8 +3198,9 @@ def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
         for t in range(ticks):
             if t == ticks - measured:
                 perf0 = dict(bucket_of(rt).perf)
+                ds0 = dstats_of(stacks)
                 torch.cuda.synchronize()
-                for tm in timers:
+                for tm in timers.values():
                     tm.on = True
             if t:
                 walk(spaces_l, slots, pos, rng)
@@ -3015,7 +3211,7 @@ def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
             if t >= ticks - measured:
                 tick_s += time.perf_counter() - t0
             tick_crcs.append((f"{crc['t']:08x}", crc["te"]))
-        for tm in timers:
+        for tm in timers.values():
             tm.on = False
         trailing = 0
         while rt.aoi.has_pending():  # a deferred bucket's last tick
@@ -3024,37 +3220,43 @@ def interest_run(Runtime, TI, IC, D, label, spaces, per_space, capacity,
                 trailing += sum(len(a) for a in rt.aoi.take_events(
                     sp._aoi_handle))
     finally:
-        for tm in reversed(timers):
+        for tm in reversed(list(timers.values())):
             tm.restore()
         IC.interest_step = kernel
     launches = IC.launches["interest_step"]
     for s in stacks:
         check(s.stats["demotions"] == 0 and s.stats["host_steps"] == 0,
               f"{label}: stack stats {s.stats}")
+        if s.mode == "device":
+            pl = s._planes
+            check(not pl.dirty and np.array_equal(
+                pl.final.cpu().numpy().view(np.uint32), s.final)
+                and np.array_equal(pl.near.cpu().numpy().view(np.uint32),
+                                   s.near),
+                  f"{label}: resident planes != host planes")
     healthy(bucket_of(rt).stats, label)
+    dstats = dstats_of(stacks)
+    if stacks[0].mode == "device":
+        # a steady step moves no whole plane either way
+        check(dstats["plane_uploads"] == 0 and dstats["list_overflows"] == 0,
+              f"{label}: whole planes moved: {dstats}")
     out = {"label": label, "ticks": ticks, "crcs": tick_crcs,
            "stream_crc": f"{crc['v']:08x}", "events": crc["events"],
            "trailing_events": trailing, "launches": launches,
            "words": [s.words.copy() for s in stacks],
+           "device_stats": dstats,
            "full_evals": sum(s.stats["full_evals"] for s in stacks),
            "los_pair_evals": sum(s.stats["los_pair_evals"] for s in stacks)}
     if measured:
         b = bucket_of(rt)
-        h2d, kern, d2h, step, ev = timers
-        plane = capacity * (capacity // 32) * 4
+        steps = len(timers["kernel"].events)
         out["split"] = {
             "tick_ms": tick_s * 1e3 / measured,
             **{k[:-2] + "_ms": (b.perf[k] - perf0[k]) * 1e3 / measured
                for k in b.perf},
-            "stack_step_ms": step.s * 1e3 / measured,
-            "stack_eval_ms": ev.s * 1e3 / measured,
-            "stack_diff_ms": (step.s - ev.s) * 1e3 / measured,
-            "h2d_ms": h2d.ms() / measured, "kernel_ms": kern.ms() / measured,
-            "d2h_ms": d2h.ms() / measured,
-            "h2d_bytes_per_step": capacity * (3 * 4 + 1 + 2 * 4) + 2 * plane
-            + field.grid.nbytes,
-            "d2h_bytes_per_step": 2 * plane,
-            "steps_per_tick": len(kern.events) / measured}
+            "steps_per_tick": steps / measured,
+            **timer_split(timers, steps,
+                          {k: v - ds0[k] for k, v in dstats.items()})}
     log(label, json.dumps({k: v for k, v in out.items()
                            if k not in ("words", "crcs")}))
     return out
@@ -3083,6 +3285,8 @@ def phase_interest_slice(Runtime, IC, TI, D):
     check(runs["pipelined"]["launches"] == SPACES * ticks,
           "phase 18b pipelined: kernel launches")
     check(k["events"] > 0, "phase 18b: no stack event")
+    check(k["stream_crc"] == INTEREST_CRC, f"phase 18b: stream CRC "
+          f"{k['stream_crc']}, want {INTEREST_CRC}")
     for name in ("plain twin", "pipelined"):
         r = runs[name]
         check(r["crcs"] == k["crcs"], f"phase 18b {name}: per-tick stack "
@@ -3114,6 +3318,8 @@ def phase_interest_slice(Runtime, IC, TI, D):
            "full_evals": k["full_evals"],
            "los_pair_evals": k["los_pair_evals"],
            "splits": {name: r["split"] for name, r in runs.items()},
+           "device_stats": {name: r["device_stats"]
+                            for name, r in runs.items()},
            "launches": {"sequential": k["launches"],
                         "pipelined": runs["pipelined"]["launches"],
                         "cut": cut["device"]["launches"]},
@@ -3122,7 +3328,7 @@ def phase_interest_slice(Runtime, IC, TI, D):
     return out
 
 
-def phase_load(TL, TI, IC):
+def phase_load(TL, TI, IC, D):
     """Phase 18c: the load harness at loadgen_smoke's and engine_load's
     configurations, stacks on the card over the cpu and the cuda base
     calculators, each against a host-mode run of the same harness (the
@@ -3140,15 +3346,20 @@ def phase_load(TL, TI, IC):
             build_s = time.perf_counter() - t0
             hz.run(LOAD_WARMUP)
             IC.reset_launches()
-            step = HostTimer(TI.PolicyStack, "step")
-            step.on = True
+            stacks = [sp.interest_stack for sp in hz.spaces]
+            ds0 = dstats_of(stacks)
+            timers = interest_timers(TI, IC, D)
+            for tm in timers.values():
+                tm.on = True
             try:
                 rep = hz.run(LOAD_TICKS)
                 torch.cuda.synchronize()
             finally:
-                step.restore()
+                for tm in reversed(list(timers.values())):
+                    tm.restore()
             n_launch = IC.launches["interest_step"]
-            stack_s = step.s
+            stack_s = timers["step"].s
+            dstats = {k: v - ds0[k] for k, v in dstats_of(stacks).items()}
             ing = rep["ingest"]
             check(ing["per_entity_writes"] == 0 and rep["unclosed"] == 0
                   and rep["interest"]["demotions"] == 0,
@@ -3163,7 +3374,13 @@ def phase_load(TL, TI, IC):
                    "ms_per_tick": rep["wall_s"] * 1e3 / LOAD_TICKS,
                    "stack_share": stack_s / rep["wall_s"],
                    "tiers": rep["tiers"], "launches": n_launch,
-                   "interest": rep["interest"]}
+                   "interest": rep["interest"],
+                   "split": timer_split(timers, spaces * LOAD_TICKS,
+                                        dstats)}
+            if mode == "device":
+                check(dstats["plane_uploads"] == 0
+                      and dstats["list_overflows"] == 0,
+                      f"{label}: whole planes moved: {dstats}")
             out[f"{name} {backend} {mode}"] = row
             log(label, json.dumps(row))
             launches += n_launch
@@ -3182,8 +3399,9 @@ def phase_load(TL, TI, IC):
 
 def interest_entry(interest_k, interest_slice, load_out):
     """The ``kernels`` line's entry of csrc/interest_step.cu: its times
-    at the main path's full team + tier + LOS step (C = 16384), the off
-    step beside them, its launches on each path."""
+    at the main path's full team + tier + LOS step (C = 16384, a path
+    step's planes; from random planes beside), the off step beside them,
+    its ms a step on phase 18b's path, its launches on each path."""
     rows = interest_k["rows"]
     full = next(r for r in rows if r["step"] == "full"
                 and r["combo"] == "team+tier+los")
@@ -3196,10 +3414,12 @@ def interest_entry(interest_k, interest_slice, load_out):
             "ms": full["ms"], "plain_ms": full["plain_ms"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
             "library_ms": None, "shape": full["shape"],
-            "off_step": {k: off[k] for k in ("ms", "plain_ms", "bound_ms",
+            "ms_random_planes": full["ms_random_planes"],
+            "off_step": {k: off[k] for k in ("ms", "ms_random_planes",
+                                             "plain_ms", "bound_ms",
                                              "bound_by")},
-            "main_path_kernel_ms": interest_slice["splits"]["kernel"][
-                "kernel_ms"],
+            "main_path_kernel_ms_per_step": interest_slice["splits"][
+                "kernel"]["kernel_ms"],
             "path_launches": paths, "cases": interest_k["cases"],
             "shapes": rows}
 
@@ -3274,7 +3494,7 @@ def main():
     torch.cuda.empty_cache()
     interest_k = phase_interest_kernel(IC, K, TI)
     interest_slice = phase_interest_slice(Runtime, IC, TI, D)
-    load_out = phase_load(TL, TI, IC)
+    load_out = phase_load(TL, TI, IC, D)
     paged_l = (paged["launches"] + clustered["launches"]
                + pages_seam["launches"])
     paged_mesh_l = paged_sharded["launches"]["aoi_step"]

@@ -10,8 +10,9 @@ carrying the radius state (migration, checkpoint, growth all ride the
 existing machinery untouched), while the stack evaluates the full
 composition -- radius AND team mask AND tier cadence AND line of sight
 -- in one launch of ``csrc/interest_step.cu`` on the engine's device
-(interest/device.py) and delivers the enter/leave diff through the same
-``take_events`` seam the buckets use.
+over word planes resident there (interest/device.py), applies the
+changed words the step fetches to its host planes, and delivers the
+enter/leave diff through the same ``take_events`` seam the buckets use.
 
 Every registered policy declares a CPU oracle; stack-level oracle
 composition lives in interest/oracle.py and is bit-exact with the device
@@ -38,6 +39,7 @@ import torch
 from .. import faults, telemetry
 from ..ops import aoi_predicate as P
 from ..ops import interest_kernels as K
+from . import device as D
 from . import oracle as O
 from .field import DistanceField
 
@@ -229,7 +231,14 @@ class PolicyStack:
 
     ``device`` is where a ``mode="device"`` stack steps: ``"cuda"`` (the
     default; the hand kernel, and an error without a GPU) or ``"cpu"``
-    (the kernel's plain PyTorch version, what the tests run).
+    (the kernel's plain PyTorch version, what the tests run).  There
+    both planes stay resident between steps (:mod:`.device`); the host
+    planes ``final`` / ``near`` are kept equal to them by applying each
+    step's changed words, and every host-side rewrite either repeats
+    itself there (``clear_entity``) or marks them for one upload.
+    ``device_stats`` counts ``plane_uploads``, ``changed_words``,
+    ``list_overflows`` and ``h2d_bytes`` / ``d2h_bytes`` (kept out of
+    ``stats``, which equals the JAX package's).
     """
 
     def __init__(self, capacity: int, policies, mode: str = "device",
@@ -272,6 +281,11 @@ class PolicyStack:
                       "demoted_steps": 0, "demotions": 0, "resets": 0,
                       "host_steps": 0, "los_pair_evals": 0}
         self._cfg, self._field = _build_config(policies)
+        self.device_stats = {"plane_uploads": 0, "changed_words": 0,
+                             "list_overflows": 0, "h2d_bytes": 0,
+                             "d2h_bytes": 0}
+        self._planes = (D.ResidentPlanes(self.device, self.device_stats)
+                        if mode == "device" else None)
 
     # -- staging / evaluation ----------------------------------------------
 
@@ -315,6 +329,7 @@ class PolicyStack:
         if self.demoted:
             new_final = O.eval_radius_only(x, z, r, act)
             new_near = np.zeros((c, self.W), np.uint32)
+            changes = self._host_changes(new_final, new_near)
             self.stats["demoted_steps"] += 1
             self.last_step_full = True
         else:
@@ -326,8 +341,7 @@ class PolicyStack:
                     self._cfg, full)
             if self.mode == "device":
                 try:
-                    new_final, new_near = _dev_eval(*args, grid=grid,
-                                                    device=self.device)
+                    changes = D.resident_step(self._planes, *args, grid=grid)
                 except Exception as e:  # noqa: BLE001 -- classified below
                     from ..engine.aoi import _device_fault
 
@@ -335,11 +349,12 @@ class PolicyStack:
                         raise
                     # single-step oracle fallback: same semantics, host
                     # arithmetic; the device path resumes next tick
-                    new_final, new_near = O.eval_step(*args, grid=grid)
+                    changes = self._host_changes(
+                        *O.eval_step(*args, grid=grid))
                     self.stats["host_steps"] += 1
                     _HOST_STEPS.inc()
             else:
-                new_final, new_near = O.eval_step(*args, grid=grid)
+                changes = self._host_changes(*O.eval_step(*args, grid=grid))
             self.last_step_full = full
             if full:
                 self.stats["full_evals"] += 1
@@ -350,28 +365,54 @@ class PolicyStack:
                     _LOS_EVALS.inc(n)
             else:
                 self.stats["off_evals"] += 1
-        chg = new_final ^ self.final
-        rows, ws = np.nonzero(chg)
-        if rows.size:
-            # only the changed words expand (the planes are [C, W])
-            cw = chg[rows, ws]
-            enter = P.pairs_from_sparse(rows, ws, new_final[rows, ws] & cw, c)
-            leave = P.pairs_from_sparse(rows, ws, self.final[rows, ws] & cw,
-                                        c)
-        else:
-            enter = leave = _empty_pairs()
+        enter, leave = self._expand(*self._apply_changes(changes))
         if self._events is None:
             self._events = (enter, leave)
         else:  # two flushes before a dispatch: append, never drop
             pe, pl = self._events
             self._events = (np.concatenate([pe, enter]),
                             np.concatenate([pl, leave]))
-        self.final = new_final
-        self.near = new_near
         self.step_count += 1
         self.stats["steps"] += 1
         _STEPS.inc()
         return True
+
+    def _host_changes(self, new_final, new_near):
+        """The changed words of host-computed planes, as the device step
+        returns them; a device stack's resident planes then go stale, so
+        they are marked for one upload."""
+        self._mark_dirty()
+        out = []
+        for host, new in ((self.final, new_final), (self.near, new_near)):
+            flat = np.asarray(new, np.uint32).reshape(-1)
+            idx = np.flatnonzero(flat ^ host.reshape(-1))
+            out.append((idx, flat[idx]))
+        return out
+
+    def _apply_changes(self, changes):
+        """Write the changed words into the host planes; returns the final
+        plane's (rows, words, old, new) for :meth:`_expand`."""
+        (fi, fw), (ni, nw) = changes
+        flat = self.final.reshape(-1)
+        old = flat[fi]
+        flat[fi] = fw
+        self.near.reshape(-1)[ni] = nw
+        rows, ws = np.divmod(fi, self.W)
+        return rows, ws, old, fw
+
+    def _expand(self, rows, ws, old, new):
+        """(enter, leave) pairs of the changed final words, sorted by
+        (observer, observed)."""
+        if not rows.size:
+            return _empty_pairs(), _empty_pairs()
+        cw = old ^ new
+        c = self.capacity
+        return (P.pairs_from_sparse(rows, ws, new & cw, c),
+                P.pairs_from_sparse(rows, ws, old & cw, c))
+
+    def _mark_dirty(self) -> None:
+        if self._planes is not None:
+            self._planes.dirty = True
 
     def take_events(self):
         ev = self._events
@@ -401,6 +442,8 @@ class PolicyStack:
         for plane in (self.final, self.near):
             plane[slot, :] = 0
             plane[:, w] &= mask
+        if self._planes is not None:
+            self._planes.clear_entity(slot, w, b)
 
     def grow(self, new_capacity: int) -> None:
         """Repack both word planes to a larger capacity (same planar
@@ -428,6 +471,7 @@ class PolicyStack:
         self.final, self.near = grown
         self.capacity = new_capacity
         self.W = P.words_per_row(new_capacity)
+        self._mark_dirty()
 
     # -- degradation / re-arm -----------------------------------------------
 
@@ -447,6 +491,7 @@ class PolicyStack:
         re-emits exactly the policy transitions."""
         self.demoted = False
         self.near[:] = 0
+        self._mark_dirty()
         self._force_full = True
         self.stats["resets"] += 1
 
@@ -472,6 +517,7 @@ class PolicyStack:
             .reshape(cap, w).copy()
         self.near = np.frombuffer(payload["near"], np.uint32) \
             .reshape(cap, w).copy()
+        self._mark_dirty()
         self.step_count = int(payload["step_count"])
         self.demoted = bool(payload["demoted"])
         if "field" in payload and self._field is not None:
@@ -481,8 +527,3 @@ class PolicyStack:
                     p.field = f
             self._cfg, self._field = _build_config(self.policies)
 
-
-def _dev_eval(*args, grid=None, device="cuda"):
-    from . import device as D
-
-    return D.eval_step(*args, grid=grid, device=device)

@@ -156,15 +156,19 @@ def pairs_from_words(words: np.ndarray, capacity: int) -> np.ndarray:
 def pairs_from_sparse(rows: np.ndarray, ws: np.ndarray, vals: np.ndarray,
                       capacity: int) -> np.ndarray:
     """(i, j) pairs of the set bits of words ``vals`` (np.uint32) at (row,
-    word) positions ``rows``, ``ws``, sorted by (i, j): int32 [n, 2]."""
+    word) positions ``rows``, ``ws``, in any order, sorted by (i, j):
+    int32 [n, 2]."""
     w = words_per_row(capacity)
-    shifts = np.arange(WORD_BITS, dtype=np.uint32)
-    bits = ((np.asarray(vals, np.uint32)[:, None] >> shifts) & 1) != 0
-    k, b = np.nonzero(bits)
-    i = np.asarray(rows, np.int64)[k]
-    j = b * w + np.asarray(ws, np.int64)[k]
-    order = np.argsort(i * capacity + j, kind="stable")
-    return np.stack([i[order], j[order]], axis=1).astype(np.int32)
+    # little-endian bytes, each unpacked low bit first: flat bit f is bit
+    # f % 32 of word f // 32
+    le = np.ascontiguousarray(vals, "<u4").view(np.uint8)
+    f = np.flatnonzero(np.unpackbits(le, bitorder="little").view(bool))
+    k = f >> 5
+    key = (np.asarray(rows, np.int64)[k] * capacity + (f & 31) * w
+           + np.asarray(ws, np.int64)[k])
+    key.sort()
+    i = key // capacity
+    return np.stack([i, key - i * capacity], axis=1).astype(np.int32)
 
 
 def words_to_torch(words: np.ndarray, device) -> torch.Tensor:

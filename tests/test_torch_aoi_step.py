@@ -146,6 +146,27 @@ def test_word_carry_roundtrip_and_layout_helpers():
     assert TP.word_bit_for_column(77, 384) == JP.word_bit_for_column(77, 384)
 
 
+@pytest.mark.parametrize("cap", [128, 384, 1024])
+def test_pairs_from_sparse_matches_dense_expansion(cap):
+    """pairs_from_sparse over (row, word) positions given in any order
+    equals the JAX package's pairs_from_words over the dense plane that
+    holds the same words (zero, all-ones and bit-31 words included)."""
+    rng = np.random.default_rng(cap)
+    w = cap // 32
+    dense = np.zeros((cap, w), np.uint32)
+    flat = rng.choice(cap * w, size=cap * w // 3, replace=False)
+    vals = rng.integers(0, 2**32, flat.size, dtype=np.uint64) \
+        .astype(np.uint32)
+    vals[::7] = 0
+    vals[1::7] = 0xFFFFFFFF
+    vals[2::7] = 0x80000000
+    rows, ws = flat // w, flat % w
+    dense[rows, ws] = vals
+    got = TP.pairs_from_sparse(rows, ws, vals, cap)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, JP.pairs_from_words(dense, cap))
+
+
 def test_cpu_step_launches_no_kernel_and_checks_inputs():
     AK.reset_launches()
     x, z, r, act, prev = edge_inputs(1, 128, seed=1)

@@ -155,21 +155,39 @@ def _edge(cap, seed, subnormal=False):
     return x, z, r, act, team, vis, prev[0], prev[1]
 
 
-def _port_plain(frame, cfg, full, grid):
+def _port_step(frame, cfg, full, grid, cap=None):
+    """The port's stack step on CPU tensors: (final, near) after the step
+    in place, and the lists and counts it wrote."""
     x, z, r, act, team, vis, pf, pn = frame
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (x, z, r, act)]
     tv = [torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
           for a in (team, vis)]
     planes = [P.words_to_torch(w, "cpu") for w in (pf, pn)]
     g = None if grid is None else torch.from_numpy(grid)
-    fin, near = IC.interest_step(*t, *tv, *planes, cfg, full, grid=g)
-    return P.words_to_numpy(fin), P.words_to_numpy(near)
+    lists = torch.full((2, planes[0].numel() if cap is None else cap, 2), -1,
+                       dtype=torch.int32)
+    counts = torch.full((2,), -1, dtype=torch.int32)
+    IC.interest_step(*t, *tv, *planes, cfg, full, grid=g, lists=lists,
+                     counts=counts)
+    return [P.words_to_numpy(p) for p in planes], lists, counts
+
+
+def _port_plain(frame, cfg, full, grid):
+    return tuple(_port_step(frame, cfg, full, grid)[0])
 
 
 def _same(got, want, what):
     for g, w, name in zip(got, want, ("final", "near")):
         assert g.dtype == np.uint32 and np.array_equal(g, w), \
             f"{what}: {name} words differ"
+
+
+def _resident_equal(stack):
+    """A device stack's resident planes equal its host planes."""
+    pl = stack._planes
+    assert not pl.dirty
+    assert np.array_equal(P.words_to_numpy(pl.final), stack.final)
+    assert np.array_equal(P.words_to_numpy(pl.near), stack.near)
 
 
 # -- the step: the plain version and the oracle against JAX ------------------
@@ -265,10 +283,60 @@ def test_wrapper_checks():
     bad[0] = bad[0].astype(np.float64)
     with pytest.raises(ValueError, match="float32"):
         _port_plain(bad, tcfg, True, grid)
+    # the planes are written in place: a strided one is refused, as is a
+    # list of the wrong layout
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in frame[:4]]
+    tv = [torch.from_numpy(np.asarray(a, np.uint32).view(np.int32))
+          for a in frame[4:6]]
+    fin, near = (P.words_to_torch(w, "cpu") for w in frame[6:])
+    lists = torch.zeros((2, 16, 2), dtype=torch.int32)
+    counts = torch.zeros(2, dtype=torch.int32)
+    g = torch.from_numpy(grid)
+    wide = torch.zeros((CAP, 2 * fin.shape[1]), dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        IC.interest_step(*t, *tv, wide[:, ::2], near, tcfg, True, grid=g,
+                         lists=lists, counts=counts)
+    with pytest.raises(ValueError, match="lists"):
+        IC.interest_step(*t, *tv, fin, near, tcfg, True, grid=g,
+                         lists=lists[0], counts=counts)
     # a CPU tensor never reaches the kernel
     IC.reset_launches()
     _port_plain(frame, tcfg, True, grid)
     assert IC.launches == {"interest_step": 0}
+
+
+COMPACTION_CASES = [("team+tier+los", True), ("team+tier+los", False),
+                    ("los", True), ("team", True)]
+
+
+@pytest.mark.parametrize("combo,full", COMPACTION_CASES,
+                         ids=[f"{c}-{'full' if f else 'off'}"
+                              for c, f in COMPACTION_CASES])
+def test_plain_compaction_matches_nonzero(combo, full):
+    """The plain step's changed-word lists hold exactly the words of
+    ``np.nonzero(new ^ prev)`` (as a set, each once, with its new word);
+    under a smaller cap the count stays whole and the list holds cap of
+    them, nothing past it."""
+    _, tcfg, grid = _configs(combo, 2)
+    frame = _frame(43, CAP)
+    planes, lists, counts = _port_step(frame, tcfg, full, grid)
+    _same(planes, TO.eval_step(*frame, tcfg, full, grid=grid), "in place")
+    _, lists5, counts5 = _port_step(frame, tcfg, full, grid, cap=5)
+    assert torch.equal(counts5, counts)
+    for p, (new, prev) in enumerate(zip(planes, frame[6:])):
+        rows, ws = np.nonzero(new ^ prev)
+        want = dict(zip((rows * new.shape[1] + ws).tolist(),
+                        new[rows, ws].view(np.int32).tolist()))
+        n = int(counts[p])
+        assert n == len(want) and (p == 1 or n > 0)
+        got = lists[p, :n].numpy()
+        assert len(set(got[:, 0].tolist())) == n
+        assert dict(zip(got[:, 0].tolist(), got[:, 1].tolist())) == want
+        k = min(n, 5)
+        part = lists5[p].numpy()
+        assert all(want[i] == v for i, v in part[:k].tolist())
+        assert len(set(part[:k, 0].tolist())) == k
+        assert (part[k:] == -1).all()
 
 
 # -- PolicyStack --------------------------------------------------------------
@@ -328,6 +396,140 @@ def test_device_stack_needs_a_card_for_cuda():
     # host mode never touches a device
     assert TI.PolicyStack(CAP, _policies(TI, "tier"), mode="host").mode \
         == "host"
+
+
+def _twin_step(dev, ref, frame):
+    """Step a device stack and the JAX host stack on one frame: equal
+    events, planes and stats (but ``host_steps``, a device-mode count)."""
+    for s in (dev, ref):
+        s.submit(*frame)
+        s.step()
+    e, lv = dev.take_events()
+    re_, rl = ref.take_events()
+    assert np.array_equal(e, re_) and np.array_equal(lv, rl)
+    assert np.array_equal(dev.final, ref.final)
+    assert np.array_equal(dev.near, ref.near)
+    assert {k: v for k, v in dev.stats.items() if k != "host_steps"} == \
+        {k: v for k, v in ref.stats.items() if k != "host_steps"}
+    return len(re_) + len(rl)
+
+
+def test_resident_planes_follow_every_mutation(monkeypatch):
+    """A device stack against the JAX host stack over a walk that
+    interleaves clear_entity, a payload rewind, a demotion and its re-arm,
+    an injected DeviceOOM (one host step) and growth: equal events,
+    planes and stats at every step, the resident planes equal to the host
+    planes after each device step, and one counted upload for each
+    rewrite of the host planes -- none for clear_entity, which the device
+    repeats in place."""
+    combo = "team+tier+los"
+    dev = TI.PolicyStack(CAP, _policies(TI, combo), device="cpu")
+    ref = JI.PolicyStack(CAP, _policies(JI, combo), mode="host")
+    small = list(_walk(31, CAP, 12))
+    big = list(_walk(37, 2 * CAP, 3))
+    real = TD.resident_step
+    fail = {"next": False}
+
+    def flaky(*a, **kw):
+        if fail["next"]:
+            fail["next"] = False
+            raise tfaults.DeviceOOM("aoi.interest", 1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TD, "resident_step", flaky)
+
+    def uploads():
+        return dev.device_stats["plane_uploads"]
+
+    def step(frame, resident=True):
+        n = _twin_step(dev, ref, frame)
+        if resident:
+            _resident_equal(dev)
+        return n
+
+    events = step(small[0]) + step(small[1])
+    slot = int(np.nonzero(dev.final.any(1) & dev.near.any(1))[0][0])
+    for s in (dev, ref):
+        s.clear_entity(slot)
+    _resident_equal(dev)
+    events += step(small[2])
+    assert uploads() == 0
+    pay = ref.export_payload()  # a rewind two steps back
+    events += step(small[3]) + step(small[4])
+    for s in (dev, ref):
+        s.import_payload(pay)
+    assert dev._planes.dirty
+    events += step(small[5])
+    assert uploads() == 1
+    for s in (dev, ref):
+        s.force_demote()
+    events += step(small[6], resident=False) + step(small[7], False)
+    for s in (dev, ref):
+        s.reset_interest()
+    events += step(small[8])
+    assert uploads() == 2 and dev.stats["demotions"] == 1
+    fail["next"] = True
+    events += step(small[9], resident=False)
+    assert dev.stats["host_steps"] == 1 and uploads() == 2
+    events += step(small[10])
+    assert uploads() == 3
+    for s in (dev, ref):
+        s.grow(2 * CAP)
+    events += step(big[0])
+    assert uploads() == 4 and dev._planes.final.shape == (2 * CAP, 8)
+    slot = int(np.nonzero(dev.final.any(1))[0][-1])
+    for s in (dev, ref):
+        s.clear_entity(slot)
+    events += step(big[1]) + step(big[2])
+    assert uploads() == 4 and events > 0
+    st = dev.device_stats
+    assert st["list_overflows"] == 0 and st["changed_words"] > 0
+    assert st["h2d_bytes"] > 0 and st["d2h_bytes"] > 0
+
+
+def test_list_overflow_fetches_whole_plane(monkeypatch):
+    """A list cap small enough to overflow: the counted whole-plane path,
+    the same events, planes and stats as the JAX host stack."""
+    monkeypatch.setattr(TD, "list_cap", lambda capacity: 5)
+    dev = TI.PolicyStack(CAP, _policies(TI, "team+tier+los"), device="cpu")
+    ref = JI.PolicyStack(CAP, _policies(JI, "team+tier+los"), mode="host")
+    events = sum(_twin_step(dev, ref, fr) for fr in _walk(41, CAP, N_TICKS))
+    assert events > 0 and dev.stats == ref.stats
+    st = dev.device_stats
+    assert 0 < st["list_overflows"] and st["plane_uploads"] == 0
+    _resident_equal(dev)
+
+
+def test_field_uploads_only_when_its_grid_changes():
+    """A steady step moves this tick's columns up and the counts and
+    changed words down, no plane; the field goes up again only after its
+    grid changed, and the step then samples the new grid."""
+    los = TI.LineOfSightPolicy(_field(TI), depth=2)
+    jlos = JI.LineOfSightPolicy(_field(JI), depth=2)
+    dev = TI.PolicyStack(CAP, [TI.TieredRatePolicy(period=1), los],
+                         device="cpu")
+    ref = JI.PolicyStack(CAP, [JI.TieredRatePolicy(period=1), jlos],
+                         mode="host")
+    cols = TD.COL_BYTES * CAP
+    field = los.field.grid.nbytes
+
+    def step(frame):
+        before = dict(dev.device_stats)
+        _twin_step(dev, ref, frame)
+        return {k: v - before[k] for k, v in dev.device_stats.items()}
+
+    frames = list(_walk(47, CAP, 4))
+    assert step(frames[0])["h2d_bytes"] == cols + field
+    d = step(frames[1])
+    head = min(TD.list_cap(CAP), TD.PREFETCH)  # entries fetched with counts
+    assert d["h2d_bytes"] == cols and 0 < d["changed_words"] <= 2 * head
+    assert d["d2h_bytes"] == 8 + 2 * 8 * head
+    assert d["plane_uploads"] == 0 and d["list_overflows"] == 0
+    for f in (los.field, jlos.field):
+        f.grid[8:30, 8:30] = -1.0
+    assert step(frames[2])["h2d_bytes"] == cols + field
+    assert step(frames[3])["h2d_bytes"] == cols
+    _resident_equal(dev)
 
 
 # -- the engine seam, every bucket kind ----------------------------------------
@@ -456,10 +658,11 @@ def test_corrupt_distance_field_demotes():
 
 def test_device_fault_single_step_fallback(monkeypatch):
     """An injected DeviceOOM inside the device step: that one step runs on
-    the host oracle (``host_steps``), the device path resumes; a real
-    error (anything the port's _device_fault refuses) propagates."""
+    the host oracle (``host_steps``), the device path resumes (after one
+    upload of the planes the host step rewrote); a real error (anything
+    the port's _device_fault refuses) propagates."""
     frames = list(_walk(19, CAP, 6))
-    real = TD.eval_step
+    real = TD.resident_step
     calls = {"n": 0}
 
     def flaky(*a, **kw):
@@ -468,18 +671,20 @@ def test_device_fault_single_step_fallback(monkeypatch):
             raise tfaults.DeviceOOM("aoi.interest", 1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(TD, "eval_step", flaky)
+    monkeypatch.setattr(TD, "resident_step", flaky)
     dev = TI.PolicyStack(CAP, _policies(TI, "team+tier+los"), device="cpu")
     e, lv = _drive(dev, frames)
     host = JI.PolicyStack(CAP, _policies(JI, "team+tier+los"), mode="host")
     he, hl = _drive(host, frames)
     assert np.array_equal(e, he) and np.array_equal(lv, hl)
     assert dev.stats["host_steps"] == 1 and dev.stats["demotions"] == 0
+    assert dev.device_stats["plane_uploads"] == 1
+    _resident_equal(dev)
 
     def broken(*a, **kw):
         raise RuntimeError("CUDA error: an illegal memory access")
 
-    monkeypatch.setattr(TD, "eval_step", broken)
+    monkeypatch.setattr(TD, "resident_step", broken)
     dev.submit(*frames[0])
     with pytest.raises(RuntimeError, match="illegal memory"):
         dev.step()
@@ -508,6 +713,7 @@ def test_grow_space_carries_stack():
     assert eng._stacked == [nh]
     assert np.array_equal(stack.final, ref.final)
     assert np.array_equal(stack.near, ref.near)
+    assert stack._planes.dirty
     x, z, r, act, team, vis = frames[-1]
 
     def pad(a, fill=0):
@@ -519,6 +725,9 @@ def test_grow_space_carries_stack():
     eng.flush()
     e, lv = eng.take_events(nh)
     assert len(e) == 0 and len(lv) == 0  # growth itself emits nothing
+    # the grown planes went up once, and the device step kept them
+    assert stack.device_stats["plane_uploads"] == 1
+    _resident_equal(stack)
     eng.release_space(nh)
     assert eng._stacked == []
 
@@ -542,6 +751,9 @@ def test_clear_entity_clears_both_planes():
     assert not (stack.final[:, w] >> np.uint32(b) & 1).any()
     assert np.array_equal(stack.final, ref.final)
     assert np.array_equal(stack.near, ref.near)
+    # the device planes took the same clear, with no upload
+    _resident_equal(stack)
+    assert stack.device_stats["plane_uploads"] == 0
 
 
 def test_payload_roundtrip_with_field():
