@@ -194,9 +194,39 @@ Phases (any failure raises, so the exit code is non-zero):
                 split as in 18b; no per-entity write, no unclosed update,
                 no demotion, no plane upload, no list overflow; every
                 space's final words equal a host-mode run's.
+ 19. migration -- phase 4's world as AOIEngine spaces on the card's
+                single-device bucket (an engine with a mesh of 4 virtual
+                shards), space 0 with phase 18b's stack, 19 ticks of a
+                seeded walk; live migrations one after another: space 0
+                cuda -> cpp -> cuda, space 1 to the mesh, space 2 to the
+                row-sharded tier (16384 = 32 x 4 x 128), space 3 re-homed
+                on its own tier; pipeline off and on (lag deltas -1, 0,
+                +1), each against the same walk unmoved: every space's
+                enter and leave streams equal, each tick's CRC equal where
+                the cadence held (and for the stacked space); every move
+                done, none rolled back; export, replay, cover flushes,
+                swap and migration ms, snapshot bytes, cover ticks beside
+                steady ticks;
+ 19b. evacuation -- aoi.device:reset at the 4th dispatch of 2 of phase
+                4's spaces on the single-device bucket and on the mesh
+                bucket (4 virtual shards; the faulted tick is recovered on
+                the host, about 4 s a space): per-tick CRCs equal the
+                fault-free run's, one evacuation, every space on one fresh
+                bucket at calc level 0 whose kernel launches every later
+                tick; the aoi.evacuate ms and the three ticks after it;
+ 19c. checkpoints -- Runtime(aoi_checkpoint="continuous") at 2 of phase
+                4's spaces (space 0 stacked) into a temporary directory,
+                16 ticks, then 8 more with their inputs recorded; every
+                space restored into a fresh AOIEngine on the card
+                (restore_into; the stack's payload through
+                attach_interest) and fed them: per-tick CRCs equal the
+                uninterrupted run's; capture ms a tick, record bytes
+                (base, delta), the writer's lag in ticks, restore ms a
+                space; then crash_restart_scenario on the card at its
+                default size (kill -9, restore, events_lost == 0).
 
 Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
-last.  Every
+then 19-19c last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
@@ -204,7 +234,7 @@ are one card's, not a multi-card layout's.  The last lines are
 {"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
 {"paged": ...} (phases 17-17d), {"mesh": ...}, {"interest": ...} (phases
-18-18c), {"issue_floor": [...]} (each kernel's SASS instructions
+18-18c), {"migration": ...} (phases 19-19c), {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
 3), {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -217,7 +247,10 @@ phase 7, the rectangular step in phase 8 and on the row-sharded bucket
 in phase 15b, the entlv mode in phase 10; phase 17's runs (17, 17b,
 17d on the card) and the mesh of 17c add to the square step, the
 row-sharded bucket of 17c to the rectangular one; the stack step's in
-phase 18b (sequential, pipelined, the cut run) and in phase 18c.
+phase 18b (sequential, pipelined, the cut run) and in phase 18c; phase
+19 (its four runs) adds to the square step, its row-sharded target to
+the rectangular one and its stacked space to the stack step, phases 19b
+and 19c to the square step (19c's stacked space to the stack step).
 """
 
 from __future__ import annotations
@@ -3397,7 +3430,500 @@ def phase_load(TL, TI, IC, D):
     return {"runs": out, "launches": launches}
 
 
-def interest_entry(interest_k, interest_slice, load_out):
+# -- phases 19-19c: live migration, evacuation, checkpoints -------------------
+
+MIG_SHARDS = 4  # the mesh and row-sharded targets' virtual shards
+# (tick, space, target tier): space 0 (stacked) cuda -> cpp -> cuda, space
+# 1 to the mesh, space 2 row-sharded (16384 = 32 x 4 x 128), space 3
+# re-homed on its own tier; each cover ends within two flushes
+MIG_MOVES = [(3, 0, "cpp"), (6, 0, "cuda"), (9, 1, "mesh"),
+             (12, 2, "rowshard"), (15, 3, "cuda")]
+MIG_TICKS = 19
+EVAC_SPACES = 2  # the faulted tick is recovered on the host: ~4 s a space
+EVAC_TICKS, EVAC_AT = 8, 4  # 8 ticks; the 4th aoi.device crossing fires
+CKPT_SPACES, CKPT_TICKS, CKPT_AFTER = 2, 16, 8
+
+
+def engine_world(spaces, ticks, seed):
+    """Phase 4's widths for AOIEngine: ``spaces`` spaces of PER_SPACE
+    active entities in CAPACITY slots, world WORLD, r RADIUS, a walk of
+    STEP a tick for everyone; (r, act, frames [tick][space, 2, C], team,
+    vis) with the stacked space's team and vis seeded as phase 18b's."""
+    rng = np.random.default_rng(seed)
+    n = PER_SPACE
+    r = np.full(CAPACITY, RADIUS, np.float32)
+    act = np.arange(CAPACITY) < n
+    pos = np.zeros((spaces, 2, CAPACITY), np.float32)
+    pos[:, :, :n] = rng.uniform(0, WORLD, (spaces, 2, n))
+    frames = []
+    for t in range(ticks):
+        if t:
+            q = pos[:, :, :n] + rng.uniform(-STEP, STEP, (spaces, 2, n))
+            pos[:, :, :n] = np.clip(q, 0, WORLD)
+        frames.append(pos.copy())
+    trng = np.random.default_rng(3)
+    team = np.uint32(1) << trng.integers(0, 4, CAPACITY).astype(np.uint32)
+    vis = np.where(trng.random(CAPACITY) < 0.75, 0xFFFFFFFF, 1).astype(
+        np.uint32)
+    return r, act, frames, team, vis
+
+
+def snapshot_nbytes(snap):
+    pkt = snap["packet"] or ()
+    return sum(a.nbytes for a in (snap["r"], snap["act"], snap["words"],
+                                  *pkt))
+
+
+def span_ms(trace, name):
+    return [(t1 - t0) * 1e3 for n, _, t0, t1 in trace.spans() if n == name]
+
+
+class StreamCRC:
+    """Per space: each tick's event CRC, and the CRCs of the whole enter
+    and the whole leave stream (what a move across a deferred tier keeps:
+    it shifts delivery by one tick, never the content)."""
+
+    def __init__(self, n):
+        self.ticks = [[] for _ in range(n)]
+        self.enter, self.leave, self.events = [0] * n, [0] * n, [0] * n
+
+    def fold(self, i, ev):
+        e, lv = (np.ascontiguousarray(a, np.int32) for a in ev)
+        self.ticks[i].append(f"{crc_of([e, lv]):08x}")
+        self.enter[i] = zlib.crc32(e.tobytes(), self.enter[i])
+        self.leave[i] = zlib.crc32(lv.tobytes(), self.leave[i])
+        self.events[i] += len(e) + len(lv)
+
+    def streams(self):
+        return [f"{a:08x}/{b:08x}" for a, b in zip(self.enter, self.leave)]
+
+
+def mig_run(AOIEngine, SpaceMesh, PL, TI, world, pipeline, moves):
+    """Phase 4's world as AOIEngine spaces on the card's single-device
+    bucket (an engine with a mesh of MIG_SHARDS virtual shards, so the
+    mesh and row-sharded tiers exist), space 0 with phase 18b's stack,
+    MIG_TICKS ticks; each of ``moves`` starts a live migration before its
+    tick.  Per-space stream CRCs, tick ms, and a record a move."""
+    from goworld_tpu_torch.telemetry import trace
+
+    r, act, frames, team, vis = world
+    eng = AOIEngine(device=DEV, pipeline=pipeline,
+                    mesh=SpaceMesh([torch.device(DEV)] * MIG_SHARDS))
+    pc = PL.PlacementController(eng)
+    hs = [eng._create_handle(CAPACITY, "cuda") for _ in range(SPACES)]
+    stack = eng.attach_interest(hs[0], interest_policies(
+        TI, "team+tier+los", interest_field(TI, False)))
+    sc = StreamCRC(SPACES)
+    todo = {t: (i, tier) for t, i, tier in moves}
+    ticks, moved, cur = [], [], None
+
+    def take():
+        for i, h in enumerate(hs):
+            sc.fold(i, eng.take_events(h))
+
+    for t in range(MIG_TICKS):
+        if t in todo:
+            check(cur is None and not eng._migrations,
+                  f"phase 19: a cover still open at tick {t}")
+            i, tier = todo[t]
+            h = hs[i]
+            src, b = eng._tier_of(h.bucket), h.bucket
+            got = {}
+
+            def grab(slot, _f=b.export_snapshot):
+                got["snap"] = _f(slot)
+                return got["snap"]
+
+            b.export_snapshot = grab
+            trace.reset()
+            ms0 = eng.migration_stats["migration_ms"]
+            try:
+                mig = pc.migrate(h, tier)
+            finally:
+                del b.export_snapshot
+            cur = (mig, {"tick": t, "space": i, "from": src, "to": tier,
+                         "lag": mig.lag_t - mig.lag_s,
+                         "export_ms": span_ms(trace, "aoi.migrate.snapshot")[0],
+                         "replay_ms": span_ms(trace, "aoi.migrate.replay")[0],
+                         "snapshot_bytes": snapshot_nbytes(got["snap"]),
+                         "cover_flushes": 0, "cover_tick_ms": []}, ms0)
+        for i, h in enumerate(hs):
+            eng.submit(h, frames[t][i, 0], frames[t][i, 1], r, act)
+        stack.submit(frames[t][0, 0], frames[t][0, 1], r, act, team, vis)
+        covering = bool(eng._migrations)
+        torch.cuda.synchronize()
+        trace.reset()
+        t0 = time.perf_counter()
+        eng.flush()
+        take()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ticks.append({"ms": ms, "cover": covering})
+        if covering:
+            mig, rec, ms0 = cur
+            rec["cover_flushes"] += 1
+            rec["cover_tick_ms"].append(ms)
+            if mig.done:
+                h = hs[rec["space"]]
+                check(h._migration is None and eng._tier_of(h.bucket) in (
+                    rec["to"], "cpu" if rec["to"] == "cpp" else rec["to"])
+                      and eng.migration_stats["migration_rollbacks"] == 0,
+                      f"phase 19: move {rec} rolled back or misplaced")
+                rec["swap_ms"] = span_ms(trace, "aoi.migrate.swap")[0]
+                rec["migration_ms"] = eng.migration_stats["migration_ms"] \
+                    - ms0
+                moved.append(rec)
+                cur = None
+    while eng.has_pending():
+        eng.flush()
+        take()
+    check(cur is None and len(moved) == len(moves)
+          and eng.migration_stats["migrations"] == len(moves)
+          and eng.migration_stats["migration_rollbacks"] == 0,
+          f"phase 19: {eng.migration_stats}, {len(moved)} moves done")
+    check(stack.stats["demotions"] == 0 and stack.stats["host_steps"] == 0,
+          f"phase 19: stack stats {stack.stats}")
+    for b in eng._buckets.values():
+        if hasattr(b, "stats"):
+            healthy(b.stats, f"phase 19 {type(b).__name__}")
+    steady = [r_["ms"] for t, r_ in enumerate(ticks) if t and not r_["cover"]]
+    out = {"pipeline": pipeline, "moves": moved, "crc": sc,
+           "tick_ms_steady": sum(steady) / len(steady),
+           "tick_ms": [r_["ms"] for r_ in ticks]}
+    del eng, hs, stack
+    return out
+
+
+def phase_migration(AOIEngine, SpaceMesh, AK, IC, PL, TI):
+    """Phase 19: live migration at phase 4's world on the card, pipeline
+    off and on (lag deltas 0; and -1, 0, +1), each against an unmigrated
+    run of the same walk: every space's enter and leave streams equal,
+    each tick's CRC equal where a space's moves all kept its cadence;
+    every move done, none rolled back.  Counts the square step's, the
+    rect step's (the row-sharded target) and the stack step's launches
+    over the phase."""
+    from goworld_tpu_torch import telemetry
+
+    world = engine_world(SPACES, MIG_TICKS, seed=19)
+    square = AK.aoi_step_chg
+    rect = {"n": 0}
+
+    def counted(*a, **kw):
+        n0 = AK.launches["aoi_step"]
+        try:
+            return square(*a, **kw)
+        finally:
+            if kw.get("cols") is not None:
+                rect["n"] += AK.launches["aoi_step"] - n0
+
+    AK.reset_launches()
+    IC.reset_launches()
+    AK.aoi_step_chg = counted
+    telemetry.enable()
+    runs = {}
+    try:
+        for pipeline in (False, True):
+            for moves in ((), MIG_MOVES):
+                runs[(pipeline, bool(moves))] = mig_run(
+                    AOIEngine, SpaceMesh, PL, TI, world, pipeline, moves)
+                torch.cuda.empty_cache()
+    finally:
+        telemetry.disable()
+        AK.aoi_step_chg = square
+    launches = {"aoi_step": AK.launches["aoi_step"] - rect["n"],
+                "aoi_step rect": rect["n"],
+                "interest_step": IC.launches["interest_step"]}
+    ref_streams = runs[(False, False)]["crc"].streams()
+    for pipeline in (False, True):
+        ref, got = runs[(pipeline, False)]["crc"], runs[(pipeline, True)]["crc"]
+        check(got.streams() == ref.streams() == ref_streams,
+              f"phase 19 pipeline={pipeline}: a space's stream diverged "
+              f"from the unmigrated run's")
+        for i in range(SPACES):
+            lags = [m["lag"] for m in runs[(pipeline, True)]["moves"]
+                    if m["space"] == i]
+            if i == 0 or all(lag == 0 for lag in lags):
+                # (space 0's stream is its stack's, stepped in the flush
+                # that submitted it whatever the bucket's cadence)
+                check(got.ticks[i] == ref.ticks[i],
+                      f"phase 19 pipeline={pipeline}: space {i}'s per-tick "
+                      f"CRCs diverged")
+    lag_set = sorted({m["lag"] for (p, mv), r_ in runs.items() if mv
+                      for m in r_["moves"]})
+    check(lag_set == [-1, 0, 1], f"phase 19: lag deltas {lag_set}")
+    check(all(v > 0 for v in launches.values()),
+          f"phase 19: a kernel of the path never launched: {launches}")
+    out = {"launches": launches, "lags": lag_set,
+           "stream_crcs": ref_streams,
+           "events": sum(runs[(False, True)]["crc"].events),
+           "runs": {f"pipeline={p}" + (" moved" if mv else " unmoved"): {
+               k: v for k, v in r_.items() if k != "crc"}
+               for (p, mv), r_ in runs.items()}}
+    log("phase 19", json.dumps(out))
+    return out
+
+
+def evac_run(AOIEngine, SpaceMesh, AK, world, shards, plan):
+    """EVAC_SPACES of phase 4's spaces on the card's single-device bucket
+    (``shards`` 0) or on a mesh of ``shards`` virtual shards, EVAC_TICKS
+    ticks, under ``plan``: per tick the CRC, events, ms (a sync before
+    and after), the step's launches and whether the space has moved to
+    a fresh bucket."""
+    from goworld_tpu_torch import faults, telemetry
+    from goworld_tpu_torch.telemetry import trace
+
+    r, act, frames, _team, _vis = world
+    if plan:
+        faults.install(plan)
+    telemetry.enable()
+    trace.reset()
+    try:
+        mesh = (SpaceMesh([torch.device(DEV)] * shards) if shards else None)
+        eng = AOIEngine(device=DEV, mesh=mesh)
+        hs = [eng.create_space(CAPACITY) for _ in range(EVAC_SPACES)]
+        first = hs[0].bucket
+        rows = []
+        for t in range(EVAC_TICKS):
+            for i, h in enumerate(hs):
+                eng.submit(h, frames[t][i, 0], frames[t][i, 1], r, act)
+            n0 = AK.launches["aoi_step"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.flush()
+            evs = [eng.take_events(h) for h in hs]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"crc": f"{crc_of([a for ev in evs for a in ev]):08x}",
+                         "events": sum(len(a) for ev in evs for a in ev),
+                         "ms": ms, "launches": AK.launches["aoi_step"] - n0,
+                         "fresh": hs[0].bucket is not first,
+                         "level": hs[0].bucket.stats["calc_level"]})
+        evac_ms = span_ms(trace, "aoi.evacuate")
+        out = {"rows": rows, "evacuate_ms": evac_ms,
+               "stats": dict(eng.migration_stats),
+               "buckets": len({id(h.bucket) for h in hs}),
+               "final": dict(hs[0].bucket.stats),
+               "old": dict(first.stats)}
+    finally:
+        telemetry.disable()
+        faults.clear()
+    del eng, hs, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_evacuation(AOIEngine, SpaceMesh, AK):
+    """Phase 19b: aoi.device:reset at the EVAC_AT-th dispatch on the
+    single-device bucket and on the mesh bucket (MIG_SHARDS virtual
+    shards), each against its fault-free run: per-tick CRCs equal, one
+    evacuation, every space on one fresh bucket at calc level 0 whose
+    kernel launches on every later tick; the aoi.evacuate ms and the
+    first three ticks after it."""
+    world = engine_world(EVAC_SPACES, EVAC_TICKS, seed=23)
+    out, launches = {}, 0
+    for label, shards in (("single", 0), ("mesh", MIG_SHARDS)):
+        ref = evac_run(AOIEngine, SpaceMesh, AK, world, shards, None)
+        got = evac_run(AOIEngine, SpaceMesh, AK, world, shards,
+                       f"aoi.device:reset@{EVAC_AT}")
+        check([r_["crc"] for r_ in got["rows"]]
+              == [r_["crc"] for r_ in ref["rows"]],
+              f"phase 19b {label}: CRCs diverged from the fault-free run")
+        fault = EVAC_AT - 1
+        per = max(shards, 1)
+        after = got["rows"][fault + 1:]
+        check(got["stats"]["evacuations"] == 1 and got["buckets"] == 1
+              and len(got["evacuate_ms"]) == 1
+              and not any(r_["fresh"] for r_ in got["rows"][:fault])
+              and all(r_["fresh"] for r_ in got["rows"][fault:])
+              and got["rows"][fault]["launches"] == 0
+              and all(r_["launches"] == per and r_["level"] == 0
+                      for r_ in after)
+              and got["old"]["host_ticks"] == 1
+              and got["old"]["calc_level"] == 2,
+              f"phase 19b {label}: {got['stats']} {got['rows']}")
+        healthy(got["final"], f"phase 19b {label} evacuated bucket")
+        healthy(ref["final"], f"phase 19b {label} fault-free")
+        launches += sum(r_["launches"] for r_ in got["rows"])
+        out[label] = {
+            "evacuate_ms": got["evacuate_ms"][0],
+            "faulted_tick_ms": got["rows"][fault]["ms"],
+            "ticks_after_ms": [r_["ms"] for r_ in after[:3]],
+            "fault_free_tick_ms": [r_["ms"] for r_ in ref["rows"][1:]],
+            "crcs": [r_["crc"] for r_ in got["rows"]]}
+        log(f"phase 19b {label}", json.dumps(out[label]))
+    return {"runs": out, "launches": launches}
+
+
+def phase_checkpoint(Runtime, AOIEngine, AK, IC, TI):
+    """Phase 19c: Runtime(aoi_checkpoint="continuous") at CKPT_SPACES of
+    phase 4's spaces (space 0 with phase 18b's stack) into a temporary
+    directory for CKPT_TICKS ticks, then CKPT_AFTER more ticks with the
+    inputs recorded; every space restored into a fresh AOIEngine on the
+    card (restore_into, the stack's payload through attach_interest) and
+    fed the recorded inputs: per-tick, per-space CRCs equal the
+    uninterrupted run's.  Then crash_restart_scenario on the card at its
+    default size: events_lost == 0."""
+    import shutil
+    import tempfile
+
+    from goworld_tpu_torch.engine import checkpoint as CK
+
+    tmp = tempfile.mkdtemp(prefix="gw_ckpt_")
+    field = interest_field(TI, False)
+    stacked = []
+
+    def setup(sp):
+        if not stacked:
+            stacked.append(sp.enable_interest(
+                *interest_policies(TI, "team+tier+los", field)))
+
+    try:
+        AK.reset_launches()
+        IC.reset_launches()
+        rt, crc, spaces_l, slots, pos, rng = build_world(
+            Runtime, DEV, CKPT_SPACES, PER_SPACE, CAPACITY, seed=29,
+            setup=setup, aoi_checkpoint="continuous",
+            aoi_checkpoint_dir=os.path.join(tmp, "ck"))
+        trng = np.random.default_rng(3)
+        sp0, sl0 = spaces_l[0], slots[0]
+        team = np.uint32(1) << trng.integers(0, 4, len(sl0)).astype(np.uint32)
+        vis = np.where(trng.random(len(sl0)) < 0.75, 0xFFFFFFFF, 1)
+        for s, t_, v in zip(sl0.tolist(), team.tolist(), vis.tolist()):
+            sp0.set_aoi_team(sp0._slot_entity[s], t_, v)
+        ctl = rt.checkpoint
+        cap_t = HostTimer(CK.CheckpointController, "capture")
+        lag, tick_ms = [], []
+        try:
+            cap_t.on = True
+            for t in range(CKPT_TICKS):
+                if t:
+                    walk(spaces_l, slots, pos, rng)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rt.tick()
+                torch.cuda.synchronize()
+                tick_ms.append((time.perf_counter() - t0) * 1e3)
+                lag.append(max(sh.enqueued_tick - sh.acked_tick
+                               for sh in ctl._shadows.values()))
+        finally:
+            cap_t.restore()
+        t0 = time.perf_counter()
+        check(ctl.drain(timeout=600), "phase 19c: the writer did not drain")
+        drain_s = time.perf_counter() - t0
+        stats = dict(ctl.stats)
+        ctl.close()
+        rt.checkpoint = None  # the continuation is not journaled
+        check(stats["records_written"] == CKPT_SPACES * CKPT_TICKS
+              and stats["backlog_drops"] == 0
+              and stats["dropped_epochs"] == 0,
+              f"phase 19c: {stats}")
+        store, kv = CK._open_backends(os.path.join(tmp, "ck"))
+        rec_bytes = {"base": [], "delta": []}
+        for sp in spaces_l:
+            for _k, v in kv.find(f"{CK.MANIFEST_PREFIX}{sp.id}/",
+                                 f"{CK.MANIFEST_PREFIX}{sp.id}/~"):
+                e = json.loads(v)
+                rec_bytes[e["kind"]].append(e["nbytes"])
+        # the uninterrupted run's next ticks, their inputs recorded
+        handles = [sp._aoi_handle for sp in spaces_l]
+        inputs, stack_in = [], []
+        sc_run = StreamCRC(CKPT_SPACES)
+        aoi = rt.aoi
+        submit, take = aoi.submit, aoi.take_events
+        stack_submit = stacked[0].submit
+
+        def rec_submit(h, *a):
+            inputs[-1][handles.index(h)] = [np.array(x) for x in a]
+            return submit(h, *a)
+
+        def rec_stack(*a):
+            stack_in.append([np.array(x) for x in a])
+            return stack_submit(*a)
+
+        def rec_take(h):
+            ev = take(h)
+            sc_run.fold(handles.index(h), ev)
+            return ev
+
+        aoi.submit, aoi.take_events = rec_submit, rec_take
+        stacked[0].submit = rec_stack
+        try:
+            for t in range(CKPT_AFTER):
+                inputs.append([None] * CKPT_SPACES)
+                walk(spaces_l, slots, pos, rng)
+                rt.tick()
+        finally:
+            aoi.submit, aoi.take_events = submit, take
+            del stacked[0].submit
+        check(all(all(x is not None for x in row) for row in inputs)
+              and len(stack_in) == CKPT_AFTER,
+              "phase 19c: a space did not submit every tick")
+        # a fresh engine: every space restored, fed the recorded inputs
+        eng = AOIEngine(device=DEV)
+        rest = CK.CheckpointController(eng, store, kv, mode="off")
+        hs, restore_ms = [], []
+        for sp in spaces_l:
+            t0 = time.perf_counter()
+            res = rest.restore_into(eng, sp.id, tier="cuda")
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+            check(res is not None and res[1] == CKPT_TICKS,
+                  f"phase 19c: restore of space {sp.id}: {res}")
+            hs.append(res[0])
+        check(hs[0]._interest_snapshot is not None,
+              "phase 19c: the stack's payload did not ride the journal")
+        stack2 = eng.attach_interest(hs[0], interest_policies(
+            TI, "team+tier+los", field))
+        check(stack2.step_count == stacked[0].step_count - CKPT_AFTER,
+              "phase 19c: the restored stack's step count")
+        sc_rest = StreamCRC(CKPT_SPACES)
+        for t in range(CKPT_AFTER):
+            for h, a in zip(hs, inputs[t]):
+                eng.submit(h, *a)
+            stack2.submit(*stack_in[t])
+            eng.flush()
+            for i, h in enumerate(hs):
+                sc_rest.fold(i, eng.take_events(h))
+        torch.cuda.synchronize()
+        check(sc_rest.ticks == sc_run.ticks and sum(sc_run.events),
+              "phase 19c: the restored CRCs diverged from the "
+              "uninterrupted run's")
+        for h in hs:
+            healthy(h.bucket.stats, "phase 19c restored bucket")
+        launches = {"aoi_step": AK.launches["aoi_step"],
+                    "interest_step": IC.launches["interest_step"]}
+        store.close()
+        kv.close()
+        del rt, eng, hs, stack2, rest, stacked[:]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        crash = CK.crash_restart_scenario(os.path.join(tmp, "crash"),
+                                          tier="cuda", device=DEV,
+                                          timeout=300)
+        crash["wall_s"] = time.perf_counter() - t0
+        check(crash["events_lost"] == 0 and crash["parity_ok"]
+              and crash["crash_rc"] == -9 and crash["oracle_rc"] == 0
+              and crash["resume_rc"] == 0,
+              f"phase 19c: crash_restart_scenario {crash}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = CKPT_SPACES * CKPT_TICKS
+    out = {"capture_ms_per_tick": cap_t.s * 1e3 / CKPT_TICKS,
+           "capture_ms_per_space": cap_t.s * 1e3 / n,
+           "tick_ms": sum(tick_ms[1:]) / (CKPT_TICKS - 1),
+           "record_bytes": {k: sum(v) / max(len(v), 1)
+                            for k, v in rec_bytes.items()},
+           "records": {k: len(v) for k, v in rec_bytes.items()},
+           "bytes_written": stats["bytes_written"],
+           "lag_ticks_max": max(lag), "lag_ticks_last": lag[-1],
+           "drain_s": drain_s, "restore_ms": restore_ms,
+           "crcs": sc_run.ticks, "launches": launches,
+           "crash_restart": crash}
+    log("phase 19c", json.dumps(out))
+    return out
+
+
+def interest_entry(interest_k, interest_slice, load_out, moved):
     """The ``kernels`` line's entry of csrc/interest_step.cu: its times
     at the main path's full team + tier + LOS step (C = 16384, a path
     step's planes; from random planes beside), the off step beside them,
@@ -3406,7 +3932,8 @@ def interest_entry(interest_k, interest_slice, load_out):
     full = next(r for r in rows if r["step"] == "full"
                 and r["combo"] == "team+tier+los")
     off = next(r for r in rows if r["step"] == "off")
-    paths = {**interest_slice["launches"], "load": load_out["launches"]}
+    paths = {**interest_slice["launches"], "load": load_out["launches"],
+             **moved}
     return {"name": "interest_step", "route": "cuda",
             "source": "goworld_tpu_torch/csrc/interest_step.cu",
             "replaces": "goworld_tpu/interest/device.py:32",
@@ -3429,6 +3956,7 @@ def main():
         log("chip_smoke: torch sees no CUDA device")
         return 2
     from goworld_tpu_torch.engine.aoi import AOIEngine
+    from goworld_tpu_torch.engine import placement as PL
     from goworld_tpu_torch import interest as TI
     from goworld_tpu_torch import load as TL
     from goworld_tpu_torch.engine.runtime import Runtime
@@ -3495,6 +4023,11 @@ def main():
     interest_k = phase_interest_kernel(IC, K, TI)
     interest_slice = phase_interest_slice(Runtime, IC, TI, D)
     load_out = phase_load(TL, TI, IC, D)
+    torch.cuda.empty_cache()
+    migration = phase_migration(AOIEngine, SpaceMesh, AK, IC, PL, TI)
+    evacuation = phase_evacuation(AOIEngine, SpaceMesh, AK)
+    checkpoint = phase_checkpoint(Runtime, AOIEngine, AK, IC, TI)
+    mig_l = migration["launches"]
     paged_l = (paged["launches"] + clustered["launches"]
                + pages_seam["launches"])
     paged_mesh_l = paged_sharded["launches"]["aoi_step"]
@@ -3514,7 +4047,15 @@ def main():
                     ("aoi_step rect paged rowshard", paged_row_l),
                     *((f"interest_step {k}", v) for k, v in
                       interest_slice["launches"].items()),
-                    ("interest_step load", load_out["launches"])):
+                    ("interest_step load", load_out["launches"]),
+                    ("aoi_step migration", mig_l["aoi_step"]),
+                    ("aoi_step rect migration", mig_l["aoi_step rect"]),
+                    ("interest_step migration", mig_l["interest_step"]),
+                    ("aoi_step evacuation", evacuation["launches"]),
+                    ("aoi_step checkpoint",
+                     checkpoint["launches"]["aoi_step"]),
+                    ("interest_step checkpoint",
+                     checkpoint["launches"]["interest_step"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -3541,7 +4082,9 @@ def main():
         entry("aoi_step", "goworld_tpu/ops/aoi_pallas.py:176",
               main_out["kernel_launches"] + pipelined["launches"]
               + fused["launches"] + faults_out["launches"] + mesh_fault_l
-              + routing["launches"] + paged_l + paged_mesh_l, rows,
+              + routing["launches"] + paged_l + paged_mesh_l
+              + mig_l["aoi_step"] + evacuation["launches"]
+              + checkpoint["launches"]["aoi_step"], rows,
               MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               path_launches={"main": main_out["kernel_launches"],
@@ -3552,13 +4095,19 @@ def main():
                              "faults_mesh": mesh_fault_l,
                              "routing": routing["launches"],
                              "paged": paged_l,
-                             "paged_mesh": paged_mesh_l}),
+                             "paged_mesh": paged_mesh_l,
+                             "migration": mig_l["aoi_step"],
+                             "evacuation": evacuation["launches"],
+                             "checkpoint": checkpoint["launches"][
+                                 "aoi_step"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
-              rect_launches + row_fault_l + paged_row_l, rect_rows,
+              rect_launches + row_fault_l + paged_row_l
+              + mig_l["aoi_step rect"], rect_rows,
               RECT_PATH_SHAPE, main_path_ms=share_out["kernel_ms"],
               path_launches={"share": rect_launches,
                              "faults_rowshard": row_fault_l,
-                             "paged_rowshard": paged_row_l}),
+                             "paged_rowshard": paged_row_l,
+                             "migration_rowshard": mig_l["aoi_step rect"]}),
         entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
               culled_launches["aoi_words_culled"],
               culled_rows["aoi_words_culled"], (64, 16384),
@@ -3574,7 +4123,10 @@ def main():
         entry("aoi_step_entlv", "goworld_tpu/ops/aoi_pallas.py:176",
               entlv_launches, entlv_rows, ENTLV_PATH_SHAPE,
               main_path_ms=entlv_path_ms),
-        interest_entry(interest_k, interest_slice, load_out)]}
+        interest_entry(interest_k, interest_slice, load_out,
+                       {"migration": mig_l["interest_step"],
+                        "checkpoint": checkpoint["launches"][
+                            "interest_step"]})]}
     issue = {"issue_floor": [
         issue_floors("aoi_step", rows, per_pair["aoi_step"]),
         issue_floors("aoi_step_rect", rect_rows, per_pair["aoi_step"]),
@@ -3613,6 +4165,10 @@ def main():
     print(json.dumps({"interest": {
         "kernel": interest_k, "slice": interest_slice,
         "load": load_out["runs"]}}))
+    print(json.dumps({"migration": {
+        "note": "virtual shards are shards of one card taking turns",
+        "live": migration, "evacuation": evacuation["runs"],
+        "checkpoint": checkpoint}}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -74,12 +74,25 @@ staged stack once (the ``aoi.interest`` span; one launch of
 ``csrc/interest_step.cu`` on the engine's device, or the numpy oracle
 under ``interest_mode="host"``), and ``take_events`` returns the stack's
 diff in place of the bucket's, whatever the bucket kind.
+
+Snapshots, migration and evacuation (the JAX package's): every bucket
+kind exports a slot's wire image (:func:`_build_snapshot`: its inputs as
+a delta-staging packet and its previous-tick words; a deferred bucket
+delivers its tick in flight first) and imports one into a slot, after
+which the next tick full-restages.  :mod:`.placement` moves a live space
+between tiers through them (``flush`` drives the double cover), and an
+``aoi.device`` ``reset`` (the device lost) rebuilds every space of the
+bucket onto a fresh device bucket of its tier at calc level 0 at the end
+of the flush (:meth:`AOIEngine._evacuate_bucket`): the bucket's own
+recovery has already served the tick from the host copies, and the
+snapshots come from them, never from the lost device.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -113,22 +126,8 @@ _LATER_BACKENDS = {
     "tpu": "nothing: the port's device backend is named 'cuda'",
 }
 BACKENDS = ("cuda", "cpu", "cpp", "auto")
-
-
-# options of the JAX package's AOIEngine/Runtime and bucket methods that
-# the port does not have yet, and the ROADMAP.md entry that brings each
-_LATER_OPTIONS = {
-    "export_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
-    "import_snapshot": "snapshots (ROADMAP.md queue 1, item 9)",
-    "evacuate": "failover (ROADMAP.md queue 1, item 9)",
-}
-
-
-def refuse_later(name: str):
-    """Raise for an option or method the port does not have yet, naming
-    the ROADMAP.md entry that brings it (never silently ignored)."""
-    raise ValueError(f"{name} is not in the port yet; it comes with "
-                     f"{_LATER_OPTIONS[name]}")
+# the bucket tiers a placement names (AOIEngine._create_handle)
+TIERS = ("cpu", "cpp", "cuda", "mesh", "rowshard")
 
 
 def resolve_device(device) -> torch.device:
@@ -240,6 +239,47 @@ def _split_rows(tri: np.ndarray) -> dict[int, np.ndarray]:
         for s in np.unique(tri[:, 0]).tolist():
             out[s] = tri[tri[:, 0] == s][:, 1:]
     return out
+
+
+def _build_snapshot(capacity: int, x, z, r, act, sub: bool,
+                    words: np.ndarray) -> dict:
+    """One space's wire image, the JAX package's: its inputs and its
+    previous-tick words, all a bucket needs to resume the space
+    bit-exactly.  Positions travel as a delta-staging packet
+    (:func:`..ops.aoi_stage.pad_packet`, rows zero: the importer scatters
+    into its own slot) over every column whose x or z BIT PATTERN is
+    nonzero, so -0.0, NaN and subnormal positions travel and a 0.0 never
+    written does not.  Undelivered events are not state: the migration
+    swap and the evacuation carry them."""
+    x = np.asarray(x, np.float32)
+    z = np.asarray(z, np.float32)
+    nz = np.nonzero((x.view(np.uint32) != 0) | (z.view(np.uint32) != 0))[0]
+    pkt = None
+    if len(nz):
+        pkt = AS.pad_packet(np.zeros(len(nz), np.int64), nz, x[nz], z[nz])
+    return {"capacity": capacity, "packet": pkt,
+            "r": np.array(r, np.float32, copy=True),
+            "act": np.array(act, bool, copy=True),
+            "sub": bool(sub),
+            "words": np.array(words, np.uint32, copy=True)}
+
+
+def _unpack_positions(snap: dict) -> tuple[np.ndarray, np.ndarray]:
+    """A snapshot's packet scattered back into dense [C] x and z."""
+    c = snap["capacity"]
+    x = np.zeros(c, np.float32)
+    z = np.zeros(c, np.float32)
+    if snap["packet"] is not None:
+        _rows, cols, xv, zv = snap["packet"]
+        x[cols] = xv
+        z[cols] = zv
+    return x, z
+
+
+def _check_snapshot(snap: dict, capacity: int) -> None:
+    if snap["capacity"] != capacity:
+        raise ValueError(f"snapshot capacity {snap['capacity']} != bucket "
+                         f"capacity {capacity}")
 
 
 class _CapDecay:
@@ -521,6 +561,11 @@ class SpaceAOIHandle:
     requested: str = ""
     # the attached interest-policy stack (AOIEngine.attach_interest)
     _policy_stack: object = None
+    # the live migration in its cover (placement._Migration)
+    _migration: object = None
+    # a restored stack payload, imported by attach_interest
+    # (checkpoint.CheckpointController.restore_into)
+    _interest_snapshot: object = None
 
 
 class AOIEngine:
@@ -610,6 +655,15 @@ class AOIEngine:
         # (kind, capacity or serial) -> bucket; kinds "cpp", "cpu",
         # "cuda", "mesh", "rowshard" (one exclusive bucket per space)
         self._buckets: dict[tuple, _Bucket] = {}
+        # the live handles (weak: a dropped Space must not pin its slot);
+        # an evacuation re-points them in place
+        self._handles: "weakref.WeakSet[SpaceAOIHandle]" = weakref.WeakSet()
+        # live migrations in their cover (placement._Migration); flush
+        # drives their compare
+        self._migrations: list = []
+        self.migration_stats = {"migrations": 0, "evacuations": 0,
+                                "migration_rollbacks": 0,
+                                "migration_ms": 0.0}
 
     def _resolve_emit(self) -> str:
         """Resolve the requested emit mode once (resolution may build
@@ -644,33 +698,65 @@ class AOIEngine:
                 and capacity % (mesh.n_devices * 128) == 0):
             # oversized single space: its interest rows shard over the
             # mesh, in a bucket of its own, freed with the space
+            bucket = self._device_bucket("rowshard", capacity)
+        else:
+            bucket = self._device_bucket(
+                "cuda" if mesh is None else "mesh", capacity)
+        slot = bucket.acquire_slot()
+        h = SpaceAOIHandle(backend, capacity, bucket, slot,
+                           requested=requested)
+        self._handles.add(h)
+        return h
+
+    def _create_handle(self, capacity: int, tier: str) -> SpaceAOIHandle:
+        """A slot on an explicit bucket tier (:data:`TIERS`): the
+        placement's entry point, where capacity routing is
+        :meth:`create_space`'s.  ``cuda`` is the single-device bucket even
+        on a mesh engine (its key never collides with the mesh bucket's);
+        ``mesh`` and ``rowshard`` need a mesh, ``rowshard`` a capacity
+        that is a multiple of ``n_shards * 128``."""
+        capacity = P.round_capacity(capacity)
+        if tier in ("cpu", "cpp"):
+            return self.create_space(capacity, tier)
+        if tier not in TIERS:
+            if tier in _LATER_BACKENDS:
+                _check_backend(tier)  # raises, naming the port's tier
+            raise ValueError(f"unknown placement tier {tier!r} (one of "
+                             f"{TIERS})")
+        mesh = self.mesh
+        if tier != "cuda" and mesh is None:
+            raise ValueError(f"tier {tier!r} needs a mesh engine")
+        if tier == "rowshard" and capacity % (mesh.n_devices * 128):
+            raise ValueError(
+                f"capacity {capacity} cannot row-shard on this engine")
+        bucket = self._device_bucket(tier, capacity)
+        slot = bucket.acquire_slot()
+        h = SpaceAOIHandle("cuda", capacity, bucket, slot, requested="cuda")
+        self._handles.add(h)
+        return h
+
+    def _device_bucket(self, kind: str, capacity: int) -> "_Bucket":
+        """The shared ``cuda`` or ``mesh`` bucket of ``capacity`` (made on
+        first use), or a new exclusive ``rowshard`` bucket."""
+        kw = dict(delta_staging=self.delta_staging,
+                  emit=self._resolve_emit(), **self._modes())
+        if kind == "rowshard":
             from .aoi_rowshard import _RowShardCUDABucket
 
-            bucket = _RowShardCUDABucket(capacity, mesh,
-                                         delta_staging=self.delta_staging,
-                                         emit=self._resolve_emit(),
-                                         **self._modes())
             self._rowshard_serial += 1
+            bucket = _RowShardCUDABucket(capacity, self.mesh, **kw)
             self._buckets[("rowshard", self._rowshard_serial)] = bucket
-        else:
-            key = ("cuda" if mesh is None else "mesh", capacity)
-            bucket = self._buckets.get(key)
-            if bucket is None:
-                if mesh is None:
-                    bucket = _CUDABucket(capacity, self.device,
-                                         delta_staging=self.delta_staging,
-                                         emit=self._resolve_emit(),
-                                         **self._modes())
-                else:
-                    from .aoi_mesh import _MeshCUDABucket
+            return bucket
+        bucket = self._buckets.get((kind, capacity))
+        if bucket is None:
+            if kind == "cuda":
+                bucket = _CUDABucket(capacity, self.device, **kw)
+            else:
+                from .aoi_mesh import _MeshCUDABucket
 
-                    bucket = _MeshCUDABucket(
-                        capacity, mesh, delta_staging=self.delta_staging,
-                        emit=self._resolve_emit(), **self._modes())
-                self._buckets[key] = bucket
-        slot = bucket.acquire_slot()
-        return SpaceAOIHandle(backend, capacity, bucket, slot,
-                              requested=requested)
+                bucket = _MeshCUDABucket(capacity, self.mesh, **kw)
+            self._buckets[(kind, capacity)] = bucket
+        return bucket
 
     def _host_bucket(self, backend: str, capacity: int) -> "_CPUBucket":
         if backend == "cpp":
@@ -686,6 +772,10 @@ class AOIEngine:
         return _CPUBucket(capacity, self.oracle_algorithm)
 
     def release_space(self, h: SpaceAOIHandle) -> None:
+        if h._migration is not None:
+            # released mid-cover: the migration rolls back first (its
+            # target slot must not outlive the space)
+            h._migration.abort("space released mid-cover")
         if not h.released:
             h.bucket.release_slot(h.slot)
             h.released = True
@@ -702,6 +792,10 @@ class AOIEngine:
         capacity)."""
         if h.released:
             raise ValueError("space AOI handle already released")
+        if h._migration is not None:
+            # the cover: the migration target computes the same tick from
+            # the same inputs
+            h._migration.on_submit(x, z, radius, active)
         h.bucket.stage(h.slot, (x, z, radius, active))
 
     def flush(self) -> None:
@@ -716,7 +810,14 @@ class AOIEngine:
         order (kind, capacity), so the order in which fault seams are
         crossed does not depend on the order spaces were created.
         ``flush_sched=False`` runs each bucket's dispatch and harvest
-        before the next starts."""
+        before the next starts.
+
+        After the harvests, in this order: each live migration compares
+        the deltas its two homes published (``aoi.migrate.cover``; it
+        swaps or rolls back here), each bucket whose device was lost is
+        evacuated (``aoi.evacuate``), and the interest stacks step."""
+        for m in list(self._migrations):
+            m.on_flush_begin()
         buckets = [self._buckets[k] for k in sorted(self._buckets)]
         if not self.flush_sched:
             for bucket in buckets:
@@ -727,18 +828,13 @@ class AOIEngine:
                 bucket.dispatch()
             for bucket in buckets:
                 bucket.harvest()
-        for bucket in buckets:
-            if getattr(bucket, "_evacuating", False) \
-                    and not bucket._evacuation_noted:
-                # the JAX engine rebuilds a lost device's spaces onto a
-                # fresh bucket here (_evacuate_bucket); the port keeps
-                # serving them from the host at calc level 2
-                bucket._evacuation_noted = True
-                _log.warning(
-                    "AOI bucket (cap %d) lost its device; its spaces stay "
-                    "on the host oracle (calc level 2): evacuation to a "
-                    "fresh bucket comes with snapshots (ROADMAP.md queue "
-                    "1, item 9)", bucket.capacity)
+        if self._migrations:
+            with _T.span("aoi.migrate.cover"):
+                for m in list(self._migrations):
+                    m.on_flush_end()
+        for key in sorted(k for k, b in self._buckets.items()
+                          if getattr(b, "_evacuating", False)):
+            self._evacuate_bucket(key)
         # interest-policy stacks evaluate LAST, after every bucket's
         # harvest: each staged stack runs one step and accumulates its
         # enter/leave diff for take_events (in the flush that submitted
@@ -748,6 +844,57 @@ class AOIEngine:
             with _T.span("aoi.interest"):
                 for h in staged:
                     h._policy_stack.step()
+
+    @staticmethod
+    def _tier_of(bucket) -> str:
+        """The placement tier (:data:`TIERS`) of a live bucket."""
+        if getattr(bucket, "exclusive", False):
+            return "rowshard"
+        name = type(bucket).__name__
+        if name == "_MeshCUDABucket":
+            return "mesh"
+        if name == "_CUDABucket":
+            return "cuda"
+        return ("cpu" if getattr(bucket, "_oracle_cls", None) is CPUAOIOracle
+                else "cpp")
+
+    def _evacuate_bucket(self, key) -> None:
+        """The bucket's device is lost (``aoi.device`` ``reset``).  Its
+        recovery already served the tick from the host copies (the input
+        shadows and the mirror), which are the truth now: rebuild every
+        live space from them onto a fresh bucket of the same tier, at calc
+        level 0, carry the undelivered events and re-point the handles in
+        place.  No tick is dropped and no event lost or repeated."""
+        bucket = self._buckets[key]
+        t0 = time.perf_counter()
+        with _T.span("aoi.evacuate"):
+            for m in [m for m in self._migrations
+                      if m.h.bucket is bucket or m.t.bucket is bucket]:
+                m.abort("bucket evacuating after device loss")
+            tier = self._tier_of(bucket)
+            snaps = bucket.evacuate()
+            del self._buckets[key]
+            owners = {h.slot: h for h in self._handles
+                      if h.bucket is bucket and not h.released}
+            for slot in sorted(snaps):
+                h = owners.get(slot)
+                if h is None:
+                    continue  # no live space behind the slot
+                nh = self._create_handle(h.capacity, tier)
+                nh.bucket.import_snapshot(nh.slot, snaps[slot])
+                pending = bucket._events.pop(slot, None)
+                if pending is not None:
+                    nh.bucket._events[nh.slot] = pending
+                # the space's handle object stays; it points at the new
+                # home, and the shell handle gives up its slot to it
+                h.bucket, h.slot = nh.bucket, nh.slot
+                nh.released = True
+        self.migration_stats["evacuations"] += 1
+        self.migration_stats["migration_ms"] += (
+            time.perf_counter() - t0) * 1e3
+        _log.warning("AOI bucket (cap %d) lost its device; %d spaces "
+                     "rebuilt on a fresh %s bucket", bucket.capacity,
+                     len(owners), tier)
 
     def has_pending(self) -> bool:
         """True when a bucket holds a dispatched-but-undelivered tick (the
@@ -848,6 +995,11 @@ class AOIEngine:
         stack = PolicyStack(h.capacity, policies,
                             mode=mode or self.interest_mode,
                             device=self.device)
+        if h._interest_snapshot is not None:
+            # a restored space re-declares its policies (code); the
+            # checkpoint's payload restores their state
+            stack.import_payload(h._interest_snapshot)
+            h._interest_snapshot = None
         h._policy_stack = stack
         self._stacked.append(h)
         return stack
@@ -923,8 +1075,23 @@ class _Bucket:
         :meth:`get_prev`)."""
         return None
 
+    def evacuate(self) -> dict[int, dict]:
+        """A snapshot of every occupied slot, for its rebuild on another
+        bucket (the engine's evacuation after a device loss)."""
+        live = sorted(set(range(self.n_slots)) - set(self._free))
+        return {slot: self.export_snapshot(slot) for slot in live}
+
     # subclass API
     def flush(self) -> None:
+        raise NotImplementedError
+
+    def export_snapshot(self, slot: int) -> dict:
+        """The slot's wire image (:func:`_build_snapshot`)."""
+        raise NotImplementedError
+
+    def import_snapshot(self, slot: int, snap: dict) -> None:
+        """Resume a space from a wire image in this slot: the next tick
+        diffs against exactly the exported state."""
         raise NotImplementedError
 
     def get_prev(self, slot: int) -> np.ndarray:
@@ -955,6 +1122,8 @@ class _CPUBucket(_Bucket):
         self.algorithm = algorithm
         self._oracle_cls = oracle_cls
         self._oracles: list = []
+        # per slot, the inputs of its last step (what a snapshot exports)
+        self._last: dict[int, tuple] = {}
         # cumulative seconds of the calculators' steps
         self.perf = {"calc_s": 0.0}
 
@@ -965,13 +1134,37 @@ class _CPUBucket(_Bucket):
 
     def _reset_slot(self, slot: int) -> None:
         self._oracles[slot].reset()
+        self._last.pop(slot, None)
 
     def flush(self) -> None:
         t0 = time.perf_counter()
         for slot, (x, z, r, act) in self._staged.items():
             self._events[slot] = self._oracles[slot].step(x, z, r, act)
+            self._last[slot] = (x, z, r, act)
         self._staged.clear()
         self.perf["calc_s"] += time.perf_counter() - t0
+
+    def export_snapshot(self, slot: int) -> dict:
+        """The last stepped inputs (the staged arrays themselves: a
+        snapshot is taken between ticks, before the next submit) padded to
+        the capacity, and the oracle's words; always subscribed (a host
+        bucket has no subscription)."""
+        c = self.capacity
+        xx, zz, rr = (np.zeros(c, np.float32) for _ in range(3))
+        aa = np.zeros(c, bool)
+        last = self._last.get(slot)
+        if last is not None:
+            x, z, r, act = last
+            n = len(x)
+            xx[:n], zz[:n], rr[:n], aa[:n] = x, z, r, act
+        return _build_snapshot(c, xx, zz, rr, aa, True,
+                               self._oracles[slot].prev_words)
+
+    def import_snapshot(self, slot: int, snap: dict) -> None:
+        _check_snapshot(snap, self.capacity)
+        x, z = _unpack_positions(snap)
+        self._last[slot] = (x, z, snap["r"].copy(), snap["act"].copy())
+        self.set_prev(slot, snap["words"])
 
     def peek_words(self, slot: int) -> np.ndarray:
         return self._oracles[slot].prev_words
@@ -1002,10 +1195,9 @@ class _CalcChain:
         self._fault_phase = "stage"
         # a level-2 tick, computed on the host at harvest
         self._oracle = None
-        # the device is lost (injected DeviceLost): level 2 for good,
-        # noted once by the engine
+        # the device is lost (injected DeviceLost): level 2 until the
+        # engine evacuates the bucket at the end of the flush
         self._evacuating = False
-        self._evacuation_noted = False
 
     def _count_fault(self, e: BaseException) -> None:
         """Count a recovered fault and demote the calculator one level
@@ -1021,7 +1213,9 @@ class _CalcChain:
 
     def _mark_evacuating(self) -> None:
         """The device is lost: never touch it again.  The host oracle (calc
-        level 2) keeps serving bit-exact ticks from the durable copies."""
+        level 2) serves bit-exact ticks from the durable copies until the
+        engine rebuilds the bucket's spaces on a fresh bucket
+        (:meth:`AOIEngine._evacuate_bucket`, at the end of the flush)."""
         self._evacuating = True
         self._calc_level = 2
         self.stats["calc_level"] = 2
@@ -2225,15 +2419,25 @@ class _CUDABucket(_Deferred, _Bucket):
         if self._mirror is not None:
             self._mirror[slot] = w
 
-    def import_state(self, slot: int, words, x, z, r, act) -> None:
-        """Carry a slot's whole AOI state in from another engine (the JAX
-        package's bucket included): its previous-tick words [C, W] uint32
-        and the [C] inputs they were computed from.  The next tick then
-        diffs against exactly that state, as the source would have."""
+    def export_snapshot(self, slot: int) -> dict:
+        """The slot's wire image from the input shadows and its words,
+        after the tick in flight is delivered (so the delivered stream and
+        the snapshot agree); on a lost device from the mirror."""
         self.drain()
+        return _build_snapshot(
+            self.capacity, self._hx[slot], self._hz[slot], self._hr[slot],
+            self._hact[slot], bool(self._hsub[slot]), self.get_prev(slot))
+
+    def import_snapshot(self, slot: int, snap: dict) -> None:
+        """The snapshot's inputs into the slot's shadows, its subscription
+        flag and its words; every device role goes stale, so the next tick
+        restages in full (never a fused replay over stale device x/z)."""
+        _check_snapshot(snap, self.capacity)
+        x, z = _unpack_positions(snap)
         self._hx[slot] = x
         self._hz[slot] = z
-        self._hr[slot] = r
-        self._hact[slot] = act
-        self._dev_stale.update(("xz", "ra"))
-        self.set_prev(slot, words)
+        self._hr[slot] = snap["r"]
+        self._hact[slot] = snap["act"]
+        self.set_subscribed(slot, snap["sub"])
+        self._dev_stale.update(("xz", "ra", "sub"))
+        self.set_prev(slot, snap["words"])

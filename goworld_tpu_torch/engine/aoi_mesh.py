@@ -83,10 +83,10 @@ from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
 from ..ops import events as EV
-from .aoi import (_LANES, _Bucket, _calc_step, _CapDecay, _Deferred,
-                  _device_fault, _emit_expand, _grid_stream, _log,
-                  _packed_predicate, _paged_absorb_shard, _split_rows,
-                  refuse_later)
+from .aoi import (_LANES, _Bucket, _build_snapshot, _calc_step, _CapDecay,
+                  _check_snapshot, _Deferred, _device_fault, _emit_expand,
+                  _grid_stream, _log, _packed_predicate,
+                  _paged_absorb_shard, _split_rows, _unpack_positions)
 
 
 def _np_words(t: torch.Tensor) -> np.ndarray:
@@ -334,18 +334,6 @@ class _ShardCodec:
         """One shard's classified stream from its raw grids: (gidx,
         chg_vals, ent_vals), ascending flat order."""
         return _grid_stream(sh["chg"], sh["new"])
-
-    # -- not in the port yet ------------------------------------------------
-
-    def export_snapshot(self, slot: int):
-        refuse_later("export_snapshot")
-
-    def import_snapshot(self, slot: int, snap) -> None:
-        refuse_later("import_snapshot")
-
-    def evacuate(self):
-        refuse_later("evacuate")
-
 
 class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
     """Interest state [S, C, W] int32 split over the mesh's shards (S a
@@ -616,6 +604,31 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self._mirror_stale.discard(slot)
         if self._mirror is not None:
             self._mirror[slot] = words
+
+    def export_snapshot(self, slot: int) -> dict:
+        """The slot's wire image (as the single-device bucket's: the tick
+        in flight delivered first; on a lost device from the mirror)."""
+        self.drain()
+        return _build_snapshot(
+            self.capacity, self._hx[slot], self._hz[slot], self._hr[slot],
+            self._hact[slot], bool(self._hsub[slot]), self.get_prev(slot))
+
+    def import_snapshot(self, slot: int, snap: dict) -> None:
+        """The snapshot into the slot's shadows, subscription flag and
+        words; the device x/z and r/act/sub copies re-upload whole at the
+        next tick.  The slot is seeded (``set_prev``): its space must stage
+        before the next flush, as a migration cover and an evacuated space
+        do."""
+        _check_snapshot(snap, self.capacity)
+        x, z = _unpack_positions(snap)
+        self._hx[slot] = x
+        self._hz[slot] = z
+        self._hr[slot] = snap["r"]
+        self._hact[slot] = snap["act"]
+        self.set_subscribed(slot, snap["sub"])
+        self._xz_stale = True
+        self._h2d_cache.clear()
+        self.set_prev(slot, snap["words"])
 
     # -- the tick ----------------------------------------------------------
 

@@ -62,9 +62,9 @@ from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
-from .aoi import (_Bucket, _calc_step, _CalcChain, _clear_words,
-                  _device_fault, _device_lost, _emit_expand,
-                  _packed_predicate)
+from .aoi import (_Bucket, _build_snapshot, _calc_step, _CalcChain,
+                  _check_snapshot, _clear_words, _device_fault, _device_lost,
+                  _emit_expand, _packed_predicate, _unpack_positions)
 from .aoi_mesh import _ShardCodec
 
 
@@ -505,6 +505,34 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
             # the seed is the only durable copy of carried-in state until
             # the next step: keep it on the host while a plan is active
             self._seed_prev = words.copy()
+
+    def export_snapshot(self, slot: int) -> dict:
+        """The space's wire image from its 1-D shadows and words (the
+        flush is synchronous: nothing in flight to deliver; on a lost
+        device from the host copy)."""
+        return _build_snapshot(self.capacity, self._hx, self._hz, self._hr,
+                               self._hact, self._subscribed,
+                               self.get_prev(slot))
+
+    def import_snapshot(self, slot: int, snap: dict) -> None:
+        """The snapshot into the shadows, the subscription flag and the
+        words; the device inputs re-upload whole at the next tick."""
+        _check_snapshot(snap, self.capacity)
+        x, z = _unpack_positions(snap)
+        self._hx[:] = x
+        self._hz[:] = z
+        self._hr[:] = snap["r"]
+        self._hact[:] = snap["act"]
+        self.set_subscribed(slot, snap["sub"])
+        self._xz_stale = True
+        self._h2d_cache.clear()
+        self.set_prev(slot, snap["words"])
+        if self._ft:
+            # set_prev kept the words on the host and dropped the seed;
+            # under a plan the seed is the recovery base of a fault on the
+            # first tick after the import (the words need not be the
+            # predicate of the shadows until that tick lands)
+            self._seed_prev = np.ascontiguousarray(snap["words"], np.uint32)
 
     def peek_words(self, slot: int):
         return None  # no host mirror at this size: derive_row / derive_col

@@ -24,9 +24,19 @@ device, ``host``: the numpy oracle).  The sync phase first drains the
 spaces whose sync column the batched ingest (:mod:`..ingest`) flagged.
 ``fault_plan`` (a :class:`..faults.FaultPlan` or its string) installs into
 the port's :mod:`..faults` before the engine is built, as the JAX runtime
-does.  Placement, cohorts, checkpoints, telemetry and the crontab of
-the JAX runtime are not in the port yet (ROADMAP.md lists them; the
-options that select them raise).
+does.
+
+After the post phase, in the JAX runtime's order: the placement
+controller steps (:mod:`.placement`; ``aoi_placement="auto"`` moves hot
+host spaces to the device and idle device spaces to the host, live, one
+at a time; ``static`` leaves that to ``placement.migrate``), then the
+checkpoint controller tracks the live AOI spaces and captures the due
+ones (:mod:`.checkpoint`; ``aoi_checkpoint="interval"`` every
+``aoi_checkpoint_interval`` ticks or ``"continuous"`` every tick, into
+``aoi_checkpoint_store`` / ``aoi_checkpoint_kvdb`` or the filesystem
+backends under ``aoi_checkpoint_dir``; :meth:`arm_checkpoints` attaches
+one later).  Cohorts, telemetry export and the crontab of the JAX runtime
+are not in the port yet (ROADMAP.md lists them).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from .. import faults
 from .aoi import AOIEngine
 from .entity import SYNC_NEIGHBORS, SYNC_OWN, Entity
 from .manager import EntityManager
+from .placement import PlacementController
 from .post import PostQueue
 from .timers import TimerQueue
 
@@ -58,6 +69,14 @@ class Runtime:
         aoi_fused: bool = False,
         aoi_paged: bool = False,
         aoi_interest: str = "device",
+        aoi_placement: str = "static",
+        aoi_migration_threshold_ms: float = 5.0,
+        aoi_migration_cooldown: int = 64,
+        aoi_checkpoint: str = "off",
+        aoi_checkpoint_interval: int = 16,
+        aoi_checkpoint_dir: str | None = None,
+        aoi_checkpoint_store=None,
+        aoi_checkpoint_kvdb=None,
         fault_plan=None,
         now: Callable[[], float] = time.monotonic,
         on_error: Callable[[BaseException], None] | None = None,
@@ -79,6 +98,24 @@ class Runtime:
                              pipeline=aoi_pipeline, cross_tick=aoi_cross_tick,
                              fused=aoi_fused, paged=aoi_paged,
                              interest_mode=aoi_interest)
+        self.placement = PlacementController(
+            self.aoi, mode=aoi_placement,
+            threshold_ms=aoi_migration_threshold_ms,
+            cooldown_ticks=aoi_migration_cooldown)
+        self.checkpoint = None
+        if aoi_checkpoint != "off":
+            if aoi_checkpoint_store is None or aoi_checkpoint_kvdb is None:
+                if aoi_checkpoint_dir is None:
+                    raise ValueError(
+                        f"aoi_checkpoint={aoi_checkpoint!r} needs "
+                        "aoi_checkpoint_dir or store and kvdb backends")
+                from .checkpoint import _open_backends
+
+                aoi_checkpoint_store, aoi_checkpoint_kvdb = \
+                    _open_backends(aoi_checkpoint_dir)
+            self.arm_checkpoints(aoi_checkpoint_store, aoi_checkpoint_kvdb,
+                                 mode=aoi_checkpoint,
+                                 interval=aoi_checkpoint_interval)
         self.timers = TimerQueue(now)
         self.post = PostQueue()
         self.entities = EntityManager(self)
@@ -94,6 +131,18 @@ class Runtime:
         # (client_id, gate_id, entity_id, x, y, z, yaw)
         self.sync_out: list[tuple] = []
 
+    def arm_checkpoints(self, store, manifest, mode: str = "interval",
+                        interval: int = 16, **kw):
+        """Attach (or replace) the checkpoint controller, journaling into
+        ``store`` with its manifest in ``manifest``."""
+        from .checkpoint import CheckpointController
+
+        if self.checkpoint is not None:
+            self.checkpoint.close()
+        self.checkpoint = CheckpointController(
+            self.aoi, store, manifest, mode=mode, interval=interval, **kw)
+        return self.checkpoint
+
     def _default_on_error(self, e: BaseException):
         import traceback
 
@@ -106,6 +155,15 @@ class Runtime:
         self._aoi_phase()
         self._sync_phase()
         self.post.tick(self.on_error)
+        # between ticks: this tick's events are delivered, so a migration
+        # snapshots no half-staged state and a capture is consistent
+        self.placement.step()
+        if self.checkpoint is not None:
+            self.checkpoint.sync_tracked({
+                sid: sp._aoi_handle
+                for sid, sp in self.entities.spaces.items()
+                if sp._aoi_handle is not None})
+            self.checkpoint.step(self.tick_count)
 
     def _aoi_phase(self):
         spaces = list(self.entities.spaces.values())

@@ -225,9 +225,10 @@ def test_forced_triple_overflow_recovers_and_grows():
 
 
 def test_state_carry_from_jax_bucket():
-    """Seed a port bucket mid-walk from a JAX bucket's words and input
-    shadows; both must then continue identically (the carry-over of this
-    system's state, as weights are carried in a model port)."""
+    """Seed a port bucket mid-walk from a JAX bucket's snapshot (its words
+    and input shadows); both must then continue identically (the
+    carry-over of this system's state, as weights are carried in a model
+    port)."""
     cap = 256
     scenarios = [list(random_walk_scenario(s, cap, 200, 6)) for s in (4, 5)]
     jax_eng = JaxEngine(default_backend="tpu")
@@ -242,8 +243,7 @@ def test_state_carry_from_jax_bucket():
     phs = [port.create_space(cap) for _ in scenarios]
     for ph, jh in zip(phs, jhs):
         jb, s = jh.bucket, jh.slot
-        ph.bucket.import_state(ph.slot, jb.get_prev(s), jb._hx[s], jb._hz[s],
-                               jb._hr[s], jb._hact[s])
+        ph.bucket.import_snapshot(ph.slot, jb.export_snapshot(s))
         assert ph.bucket.prev.dtype == torch.int32
     for t in range(3, 6):
         for eng, hs in ((jax_eng, jhs), (port, phs)):

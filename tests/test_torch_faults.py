@@ -180,19 +180,26 @@ def test_fault_scenarios_match_jax(plan, ticks, cap, n, kw, want):
 
 
 def test_device_lost_stays_on_the_host(caplog):
-    """``aoi.device`` kind ``reset``: the JAX engine evacuates the bucket's
-    spaces onto a fresh bucket; the port keeps them on the host oracle
-    (calc level 2, noted once).  The events stay exact either way."""
+    """``aoi.device`` kind ``reset``: the faulted tick stays on the host
+    (one host tick), then both engines evacuate the bucket's spaces onto
+    a fresh bucket, which steps at calc level 0.  The events stay exact,
+    and the same plan fires the same faults in both packages."""
     _install("aoi.device:reset@3")
     engines, handles = _three()
+    old = handles["port"].bucket
     with caplog.at_level("WARNING", logger="goworld_tpu_torch.aoi"):
         out, _ = _drive(engines, handles, 256, 6)
     _assert_same(out)
     assert tfaults.plan().fired == jfaults.plan().fired
+    assert old.stats["calc_level"] == 2 and old.stats["host_ticks"] == 1
     st = handles["port"].bucket.stats
-    assert st["calc_level"] == 2 and st["host_ticks"] == 4, st
-    assert engines["tpu"].migration_stats["evacuations"] == 1
-    assert sum("item 9" in r.getMessage() for r in caplog.records) == 1
+    assert handles["port"].bucket is not old
+    assert st["calc_level"] == 0 and st["host_ticks"] == 0, st
+    assert st["full_flushes"] + st["delta_flushes"] == 3, st
+    for k in ("tpu", "port"):
+        assert engines[k].migration_stats["evacuations"] == 1
+    assert sum("lost its device" in r.getMessage()
+               for r in caplog.records) == 1
 
 
 def test_chain_to_oracle_and_reset():
@@ -363,11 +370,12 @@ def test_fault_classifier():
 def test_raised_step_errors(exc, level):
     """A fault raised by the kernel's wrapper: a real error propagates
     (the bucket never steps in for a failing kernel); an injected fault
-    demotes the calculator, a lost device to the host; the events stay
-    exact."""
+    demotes the calculator, a lost device to the host, whose spaces then
+    move to a fresh bucket at level 0; the events stay exact."""
     engines = {"cpu": JaxEngine(default_backend="cpu"),
                "port": AOIEngine(device="cpu")}
     handles = {k: e.create_space(256) for k, e in engines.items()}
+    old = handles["port"].bucket
     step = AK.aoi_step_chg
     n = [0]
 
@@ -390,9 +398,14 @@ def test_raised_step_errors(exc, level):
     finally:
         AK.aoi_step_chg = step
     _assert_same(out)
-    st = handles["port"].bucket.stats
+    st = old.stats
     assert st["rebuilds"] == 1 and st["host_ticks"] >= 1
     assert st["calc_level"] == level
+    evacuated = level == 2  # the lost device's space was rebuilt
+    assert (handles["port"].bucket is not old) == evacuated
+    assert engines["port"].migration_stats["evacuations"] == int(evacuated)
+    assert handles["port"].bucket.stats["calc_level"] == (0 if evacuated
+                                                          else level)
 
 
 # -- the freed world ---------------------------------------------------------

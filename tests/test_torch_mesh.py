@@ -261,10 +261,10 @@ def test_runtime_on_mesh_matches_jax():
 
 
 def test_later_options_raise():
-    """Options the port does not have yet raise, naming their ROADMAP.md
-    item; pipeline, cross_tick, fused and paged (items 1, 2 and 5) are in
-    and reach the mesh bucket, and a fault plan (item 4) installs into
-    the port's faults module."""
+    """Options of the earlier ROADMAP.md items reach the mesh bucket:
+    pipeline, cross_tick, fused and paged (items 1, 2 and 5), a fault
+    plan (item 4) installs into the port's faults module, and the
+    snapshot methods (item 9) no longer raise."""
     from goworld_tpu_torch import faults
     from goworld_tpu_torch.engine.runtime import Runtime
 
@@ -278,10 +278,16 @@ def test_later_options_raise():
         assert [sp.seam for sp in faults.plan().specs] == ["aoi.kernel"]
     finally:
         faults.clear()
-    h = AOIEngine(device="cpu", mesh=mesh).create_space(128)
-    for call, item in ((lambda: h.bucket.export_snapshot(h.slot), "item 9"),
-                       (lambda: h.bucket.import_snapshot(h.slot, {}),
-                        "item 9"),
-                       (h.bucket.evacuate, "item 9")):
-        with pytest.raises(ValueError, match=item):
-            call()
+    # snapshots (item 9) are in: the mesh bucket exports, imports and
+    # evacuates a slot
+    eng = AOIEngine(device="cpu", mesh=mesh)
+    h = eng.create_space(128)
+    x = np.arange(128, dtype=np.float32)
+    eng.submit(h, x, x, np.full(128, 3.0, np.float32), np.ones(128, bool))
+    eng.flush()
+    snap = h.bucket.export_snapshot(h.slot)
+    h2 = eng.create_space(128)
+    h2.bucket.import_snapshot(h2.slot, snap)
+    assert np.array_equal(h2.bucket.get_prev(h2.slot), snap["words"])
+    assert snap["words"].any()
+    assert sorted(h.bucket.evacuate()) == [h.slot, h2.slot]
