@@ -11,7 +11,9 @@ Phases (any failure raises, so the exit code is non-zero):
                 card, bit-exact, over edge-case inputs at the main path's
                 shapes and around them (the persistent tile's edges too:
                 W = 33 with R % 64 = 32, fewer work units than the
-                resident grid and many more), timed with CUDA events;
+                resident grid and many more), timed with CUDA events; the
+                square step also under random row masks (stg / sub, the
+                fused tick's) against ops/aoi_cuda.row_masks_plain;
   4. main    -- the port's main path at full size: Runtime(device="cuda"),
                 8 spaces x 10,000 entities (capacity 16384, radius 100,
                 world 4000, walk step 5), one hook-overriding watcher per
@@ -47,7 +49,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 ships a delta packet, a subscription change restages
                 x/z/sub in full (as the JAX bucket does); the ms, stage ms
                 and H2D bytes of each;
- 15. faults  -- phase 4's widths at 2 of its spaces (each host-recovered
+ 15. faults  -- phase 4's widths at 1 of its spaces (each host-recovered
                 tick is numpy, about 4 s a space) through FAULT_PLAN (the
                 plan of scripts/faults_smoke.py), then a second kernel
                 failure (to the host oracle), an emit failure (to the
@@ -58,7 +60,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 counters, levels and fired faults as planned, the kernel
                 launched at the level-0 ticks only; the ms of the
                 recovered, level-1, level-2 and back-at-0 ticks;
- 15b. sharded faults -- the same plan on the mesh bucket (2 spaces on 4
+ 15b. sharded faults -- the same plan on the mesh bucket (1 space on 4
                 virtual shards; sequential and cross_tick) and on the
                 row-sharded bucket (one space of 16384 over 4 virtual
                 shards), each against its own fault-free run, with the
@@ -89,7 +91,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 steady and with _max_chunks forced to 1 (every shard
                 absorbed): CRCs equal those phases' non-paged ones,
                 decode_overflow 0, no cap growth; the ms of each absorb;
- 17d. pages seam -- phase 15's 2 spaces, paged, under aoi.pages oom at
+ 17d. pages seam -- phase 15's space, paged, under aoi.pages oom at
                 3, partial at 5 and poison at 7, on the card and on the
                 CPU path: CRCs equal the fault-free card run's; 2 spills,
                 1 poisoned table recovered on the host, calc level 0.
@@ -224,9 +226,51 @@ Phases (any failure raises, so the exit code is non-zero):
                 (base, delta), the writer's lag in ticks, restore ms a
                 space; then crash_restart_scenario on the card at its
                 default size (kill -9, restore, events_lost == 0).
+ 20. cohorts -- bench.py's bench_engine_multispace shard (256 spaces x
+                96 entities, capacity 128, ladder (256,), world 1000, r
+                100, 10% movers up to 15, 3 warm-up + 5 measured ticks)
+                through AOIEngine(cohort="auto", fused), cohort="solo"
+                (fused) and the cpu backend: per-tick CRCs equal, 1
+                dispatch a tick against 256, no new capture key after
+                warm-up, the solo buckets (and their device memory) freed
+                with their spaces; ms a tick, the cohort bucket's stage /
+                fetch / decode / emit split, captures and graph-pool
+                bytes; then the shard through Runtime(aoi_cohort=True,
+                aoi_fused=True) with a quarter of the spaces quiet each
+                tick: CRCs the cpu backend's Runtime's, 1 dispatch a
+                steady tick (the staged-row mask of ops/fused.py);
+ 20b. ladder -- 192 spaces, capacities uniform in [96, 4000], 75% full,
+                world side 1000 * sqrt(n / 96): the cohort engine (3
+                buckets, one a rung of 256/1024/4096), the classic pooling
+                (a bucket a rounded capacity), the cohort paged, all
+                fused, and the cpp backend: equal CRCs, dispatches and ms
+                a tick;
+ 20c. demotion -- scripts/multispace_smoke.py's 24 spaces on rung 256:
+                aoi.cohort fail, oom and reset at the seam's 4th crossing,
+                split-phase and sequential flush: the cohort demotes in
+                that tick (24 spaces onto solo buckets), recohort()
+                stacks them back, CRCs the fault-free run's; then
+                CohortPlanner(mode="auto") sheds a member a window under
+                a tiny hot_ms and folds them back under a large one;
+ 14c. fused graph -- the device ms of one replay of ops/fused.FusedTri at
+                phase 4's shape under a 10% walk (CUDA events), every row
+                staged and a quarter of the rows quiet (the staged-row
+                mask in the kernel's store);
+ 20d. rung shapes -- every (S, C) at which phases 20-20c launched the
+                square step (recorded by a spy on ops/aoi_cuda._launch
+                that leaves the counts alone: the grown cohort grids, the
+                solo and classic buckets), the kernel against its plain
+                version there, bit-exact, unmasked and under random row
+                masks; ms (masked with all-ones masks where the path
+                launched it masked), plain ms and the bound;
+ 21. telemetry -- phase 4's world and schedule with Runtime(
+                telemetry_on=True) and off, in turns: CRCs phase 4's,
+                tick ms on and off, the tick's spans present and nested in
+                the Chrome export, render_prometheus() parsed with the
+                aoi.* families of phase 20's live cohort engine.
 
 Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
-then 19-19c last.  Every
+then 19-19c, then 20-21, 20d and 14c last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
@@ -234,7 +278,8 @@ are one card's, not a multi-card layout's.  The last lines are
 {"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
 {"paged": ...} (phases 17-17d), {"mesh": ...}, {"interest": ...} (phases
-18-18c), {"migration": ...} (phases 19-19c), {"issue_floor": [...]} (each kernel's SASS instructions
+18-18c), {"migration": ...} (phases 19-19c), {"cohort": ...} (phases
+20-20c), {"telemetry": ...} (phase 21), {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
 3), {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -250,7 +295,9 @@ row-sharded bucket of 17c to the rectangular one; the stack step's in
 phase 18b (sequential, pipelined, the cut run) and in phase 18c; phase
 19 (its four runs) adds to the square step, its row-sharded target to
 the rectangular one and its stacked space to the stack step, phases 19b
-and 19c to the square step (19c's stacked space to the stack step).
+and 19c to the square step (19c's stacked space to the stack step), and
+phases 20-20c (each run: a cohort bucket's replay steps hundreds of
+spaces in one launch) and 21 to the square step.
 """
 
 from __future__ import annotations
@@ -278,10 +325,11 @@ SM_CLOCK_HZ = []   # SM clocks read during phase 3's timings
 
 DEV = "cuda"  # every phase's tensors live on the current card
 
-# the last two: the persistent tile's edges (W = 33 with R % 64 = 32;
-# W = 3 and S above one SM's blocks)
+# (2, 1056) and (3, 96): the persistent tile's edges (W = 33 with R % 64
+# = 32; W = 3 and S above one SM's blocks); the last three: a cohort of
+# each rung's size (phase 20d checks the shapes the cohort phases launch)
 KERNEL_SHAPES = [(1, 128), (3, 384), (8, 4096), (8, 16384), (64, 16384),
-                 (2, 1056), (3, 96)]
+                 (2, 1056), (3, 96), (256, 256), (192, 1024), (64, 4096)]
 MAIN_SHAPE = (8, 16384)
 
 SPACES, PER_SPACE, CAPACITY = 8, 10_000, 16384
@@ -364,6 +412,31 @@ def cuda_ms(fn, reps, warm=2):
     return e0.elapsed_time(e1) / reps
 
 
+def word_diff(a, b):
+    """Max |a - b| over two int32 word arrays (0: bit-exact)."""
+    if torch.equal(a, b):
+        return 0
+    return int((a.long() - b.long()).abs().max())
+
+
+def row_masks(s, seed):
+    """Random per-space row masks (int32 [S] of 1 or 0) on the card: the
+    staged rows ``stg`` and the subscribed rows ``sub``."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.random(s) < p).astype(np.int32)).to(DEV)
+            for p in (0.6, 0.7)]
+
+
+def masked_err(AK, x, z, r, act, prev, new_p, chg_p, seed):
+    """The square step under random row masks against the plain step's
+    ``new_p`` / ``chg_p`` (masked in place by row_masks_plain)."""
+    stg, sub = row_masks(x.shape[0], seed)
+    new_m, chg_m = AK.aoi_step_chg_cuda(x, z, r, act, prev, stg=stg,
+                                        sub=sub)
+    AK.row_masks_plain(prev, new_p, chg_p, stg, sub)
+    return max(word_diff(new_m, new_p), word_diff(chg_m, chg_p))
+
+
 def aoi_step_bound(s, c, word_arrays=3):
     """Least time for one step at [S, C]: each input read once, each
     output written once, over the memory rate; the pair tests' f32
@@ -391,10 +464,13 @@ def read_sm_clock():
 # the kernels whose pair region sass_per_pair reads: library, the
 # function name's mark of the kernel, and whether its plane loop is
 # unrolled (the dense step) or walks the voted planes (the culled kernels)
-SASS_KERNELS = {"aoi_step": ("aoi_step", "aoi_step_kernelILN8aoi_tile4EmitE0E",
-                             True),
+SASS_KERNELS = {"aoi_step": ("aoi_step",
+                             "aoi_step_kernelILN8aoi_tile4EmitE0ELb0E", True),
+                "aoi_step_masked": ("aoi_step",
+                                    "aoi_step_kernelILN8aoi_tile4EmitE0ELb1E",
+                                    True),
                 "aoi_step_entlv": ("aoi_step",
-                                   "aoi_step_kernelILN8aoi_tile4EmitE1E",
+                                   "aoi_step_kernelILN8aoi_tile4EmitE1ELb0E",
                                    True),
                 "aoi_words_culled": ("aoi_grid", "culled_words_kernel",
                                      False),
@@ -483,17 +559,20 @@ def phase_kernels(AK, AD):
         x, z, r, act, prev = edge_inputs(s, c, seed=100 + i)
         new_k, chg_k = AK.aoi_step_chg_cuda(x, z, r, act, prev)
         new_p, chg_p = AD.aoi_step_chg_dense(x, z, r, act, prev)
-        torch.cuda.synchronize()
-        err = 0
-        if not (torch.equal(new_k, new_p) and torch.equal(chg_k, chg_p)):
-            err = max(int((new_k.long() - new_p.long()).abs().max()),
-                      int((chg_k.long() - chg_p.long()).abs().max()))
+        err = max(word_diff(new_k, new_p), word_diff(chg_k, chg_p))
+        del new_k, chg_k
+        err = max(err, masked_err(AK, x, z, r, act, prev, new_p, chg_p,
+                                  seed=200 + i))
         check(err == 0,
               f"aoi_step kernel != plain at S={s} C={c} (max |diff| {err})")
-        del new_k, chg_k, new_p, chg_p
+        del new_p, chg_p
+        reps = 20 if c >= 16384 else 100
         ms = cuda_ms(lambda: AK.aoi_step_chg_cuda(x, z, r, act, prev),
-                     reps=20 if c >= 16384 else 100)
+                     reps=reps)
         read_sm_clock()  # just after the kernel's timing, under load
+        ones = torch.ones(s, dtype=torch.int32, device=DEV)
+        masked_ms = cuda_ms(lambda: AK.aoi_step_chg_cuda(
+            x, z, r, act, prev, stg=ones, sub=ones), reps=reps)
         plain_ms = cuda_ms(lambda: AD.aoi_step_chg_dense(x, z, r, act, prev),
                            reps=1 if s * c >= 64 * 16384 else 3, warm=1)
         bound_ms, bound_by = aoi_step_bound(s, c)
@@ -501,9 +580,9 @@ def phase_kernels(AK, AD):
                                   torch.device(DEV))
         plan = AK.last_plan["aoi_step"]  # what the timed launches walked
         units.append(plan.units / (n_sms * bps))
-        row = {"shape": [s, c], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "max_abs_err": err}
+        row = {"shape": [s, c], "ms": ms, "masked_ms": masked_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": err}
         log("kernel aoi_step", json.dumps(row), "plan",
             json.dumps(dataclasses.asdict(plan)), "resident", n_sms * bps)
         rows.append(row)
@@ -519,11 +598,12 @@ def phase_kernels(AK, AD):
 
 
 def build_world(Runtime, device, spaces, per_space, capacity, seed,
-                extra=None, setup=None, **rt_kw):
-    """``spaces`` spaces of ``per_space`` entities (world WORLD) on
-    ``Runtime(device=device, **rt_kw)``, and with ``extra`` = (capacity,
-    entities, world) one more space after them; ``setup(space)`` runs on
-    each space after ``enable_aoi``, before its entities enter."""
+                extra=None, setup=None, world=WORLD, **rt_kw):
+    """``spaces`` spaces of ``per_space`` entities (world side ``world``)
+    on ``Runtime(device=device, **rt_kw)``, and with ``extra`` =
+    (capacity, entities, world) one more space after them;
+    ``setup(space)`` runs on each space after ``enable_aoi``, before its
+    entities enter."""
     from goworld_tpu_torch.engine.entity import Entity
     from goworld_tpu_torch.engine.space import Space
     from goworld_tpu_torch.engine.vector import Vector3
@@ -563,7 +643,7 @@ def build_world(Runtime, device, spaces, per_space, capacity, seed,
     rt.aoi.take_events = folding_take
     rng = np.random.default_rng(seed)
     spaces_l, slots, pos = [], [], []
-    layout = [(capacity, per_space, WORLD)] * spaces
+    layout = [(capacity, per_space, world)] * spaces
     if extra is not None:
         layout.append(extra)
     for cap, n, world in layout:
@@ -1082,11 +1162,12 @@ def phase_sub_change(Runtime):
 
 # -- phases 15/16: the fault chains and the host calculators -------------
 
-# phase 15: phase 4's widths with 2 of its 8 spaces (each host-recovered
-# tick is the numpy predicate, about 4 s a space); the plan of
+# phase 15: phase 4's widths with 1 of its 8 spaces (each host-recovered
+# tick is the numpy predicate, about 4 s a space: cut from 2 spaces to
+# keep the script inside its time limit); the plan of
 # scripts/faults_smoke.py, then (added while the run goes, at the seam's
 # next crossing) a second kernel failure and an emit failure
-FAULT_SPACES = 2
+FAULT_SPACES = 1
 FAULT_PLAN = ("seed=7;aoi.h2d:oom@3;aoi.kernel:fail@5;aoi.scalars:poison@7;"
               "aoi.fetch:stall@2:0.001")
 FAULT_TICKS = 9       # a prime tick and 8 walk ticks under FAULT_PLAN
@@ -1255,7 +1336,7 @@ def phase_sharded_faults(Runtime, AK, SpaceMesh):
 
 
 def phase_faults(Runtime, AK):
-    """Phase 15: phase 4's widths at 2 spaces through FAULT_PLAN and the
+    """Phase 15: phase 4's widths at 1 space through FAULT_PLAN and the
     added faults, sequential and under cross_tick, on the card; the same
     plan sequential on the port's CPU path; the fault-free card run of the
     same world.  Per-tick CRCs: the sequential runs (card, CPU) equal the
@@ -1432,7 +1513,7 @@ CLUSTER = dict(cap=2048, n=1800, ticks=8, world=4000.0, seed=23)
 CLUSTER_FLOOR = 4  # the tiny pool of the re-arm run
 # phase 17c: the sharded absorbers, a prime tick and 2 walk ticks
 PAGED_SHARDED_TICKS = 3
-# phase 17d: the aoi.pages seam at phase 15's 2 spaces, a prime tick and
+# phase 17d: the aoi.pages seam at phase 15's space, a prime tick and
 # 8 walk ticks (the seam is crossed once a tick)
 PAGES_PLAN = "aoi.pages:oom@3;aoi.pages:partial@5;aoi.pages:poison@7"
 PAGES_TICKS = 9
@@ -1798,7 +1879,7 @@ def pages_run(Runtime, AK, device, plan):
 
 def phase_pages_seam(Runtime, AK):
     """Phase 17d: PAGES_PLAN (aoi.pages oom at 3, partial at 5, poison at
-    7) at phase 15's 2 spaces, sequential, on the card and on the CPU
+    7) at phase 15's space, sequential, on the card and on the CPU
     path, against the fault-free paged card run: per-tick CRCs equal, the
     counters and fired faults as planned (oom and partial spill the whole
     tick; the poisoned table is caught and the tick recomputed on the
@@ -3923,6 +4004,620 @@ def phase_checkpoint(Runtime, AOIEngine, AK, IC, TI):
     return out
 
 
+# -- phases 20-21: space-stacked cohorts and the tick's telemetry -----------
+
+# phase 20: bench.py bench_engine_multispace at its defaults (the shard
+# shape: hundreds of scenes of ~100 entities)
+MS_SPACES, MS_CAP, MS_N = 256, 128, 96
+MS_WORLD, MS_RADIUS = 1000.0, 100.0  # bench.py: cfg.world / 4, cfg.radius
+MS_TICKS, MS_WARMUP = 8, 3
+MS_LADDER = (256,)
+MS_QUIET = 4  # the Runtime run: space i is quiet on tick t >= 1 when
+              # (i + t) % MS_QUIET == 0 (a quarter of them every tick)
+# phase 20b: the full ladder, capacities uniform in [96, 4000], 75% full,
+# each world side scaled so the density is phase 20's
+LADDER_SPACES, LADDER_CAPS, LADDER_FILL = 192, (96, 4000), 0.75
+# phase 20c: scripts/multispace_smoke.py's shard on one rung
+DEMOTE_CAPS = [128 if i % 3 else 256 for i in range(24)]
+DEMOTE_TICKS, DEMOTE_AT = 8, 4
+# phase 21: the spans the tick must record with telemetry on
+TICK_SPANS = ("tick", "tick.timers", "tick.aoi", "aoi.flush", "aoi.dispatch",
+              "aoi.harvest", "aoi.emit", "tick.sync", "tick.post")
+TELEMETRY_TURNS = ["telemetry off", "telemetry on", "telemetry on",
+                   "telemetry off"]
+RT_MODES.update({"telemetry off": {}, "telemetry on": {"telemetry_on": True}})
+
+
+def ms_frames(ns, worlds, ticks, seed=31):
+    """bench.py's _multispace_frames with an entity count and a world side
+    per space: per tick, per space (x, z); about 10% of the entities move
+    up to 15 a tick, clipped to the world.  One generator drives every
+    space, so every engine sees the same positions (with one count and
+    one side for all, the same numbers as bench.py's)."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.uniform(0, w, n).astype(np.float32) for n, w in zip(ns, worlds)]
+    zs = [rng.uniform(0, w, n).astype(np.float32) for n, w in zip(ns, worlds)]
+    frames = []
+    for _t in range(ticks):
+        frame = []
+        for s, (n, w) in enumerate(zip(ns, worlds)):
+            move = rng.random(n) < 0.1
+            k = int(move.sum())
+            xs[s][move] = np.clip(xs[s][move] + rng.uniform(-15, 15, k), 0,
+                                  w).astype(np.float32)
+            zs[s][move] = np.clip(zs[s][move] + rng.uniform(-15, 15, k), 0,
+                                  w).astype(np.float32)
+            frame.append((xs[s].copy(), zs[s].copy()))
+        frames.append(frame)
+    return frames
+
+
+def fold_events(evs, crc=0):
+    for e, lv in evs:
+        crc = zlib.crc32(np.ascontiguousarray(lv, np.int32).tobytes(),
+                         zlib.crc32(np.ascontiguousarray(
+                             e, np.int32).tobytes(), crc))
+    return crc
+
+
+def graph_pool_bytes(fzs):
+    """Bytes the private memory pools of these fused ticks hold on the
+    card (one memory snapshot for all of them)."""
+    pools = {tuple(fz.pool) for fz in fzs if fz.pool is not None}
+    if not pools:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
+
+
+def ms_run(AOIEngine, AK, DC, frames, caps, radius, warmup, keep=False,
+           **kw):
+    """The many-spaces walk through ``AOIEngine(device=DEV, **kw)``: per
+    tick every space submits and the engine flushes once; the per-tick
+    CRC of every space's enter and leave arrays in space order, and over
+    the ticks from ``warmup`` on the dispatches (ops/dispatch_count), the
+    new capture keys, ms a tick (submit to delivered events, a sync at
+    the end), the device buckets' perf split, their graphs and pool
+    bytes.  ``keep``: the engine and handles ride along (``"engine"``)."""
+    eng = AOIEngine(device=DEV, **kw)
+    hs = [eng.create_space(c) for c in caps]
+    rs = [np.full(len(x), radius, np.float32) for x, _z in frames[0]]
+    acts = [np.ones(len(x), bool) for x, _z in frames[0]]
+    l0 = AK.launches["aoi_step"]
+    crcs, walls = [], []
+    for t, frame in enumerate(frames):
+        if t == warmup:
+            torch.cuda.synchronize()
+            DC.reset()
+            DC.reset_keys()
+            perf0 = {id(b): dict(getattr(b, "perf", {}))
+                     for b in eng._buckets.values()}
+        t0 = time.perf_counter()
+        for h, (x, z), r, a in zip(hs, frame, rs, acts):
+            eng.submit(h, x, z, r, a)
+        eng.flush()
+        evs = [eng.take_events(h) for h in hs]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        crcs.append(f"{fold_events(evs):08x}")
+    meas = len(frames) - warmup
+    buckets = list({id(h.bucket): h.bucket for h in hs}.values())
+    split = {}
+    for b in buckets:
+        for k, v in getattr(b, "perf", {}).items():
+            split[k[:-2] + "_ms"] = split.get(k[:-2] + "_ms", 0.0) + (
+                v - perf0.get(id(b), {}).get(k, 0.0)) * 1e3 / meas
+    fzs = [b._fz for b in buckets if getattr(b, "_fz", None) is not None]
+    for b in buckets:
+        if hasattr(b, "_calc_level"):
+            healthy(b.stats, f"multispace {kw}")
+    out = {"crcs": crcs, "ms_per_tick": sum(walls[warmup:]) * 1e3 / meas,
+           "dispatches_per_tick": DC.read() / meas,
+           "new_keys_after_warmup": DC.new_keys(), "buckets": len(buckets),
+           "split_ms": split, "launches": AK.launches["aoi_step"] - l0,
+           "captures": sum(fz.captures for fz in fzs),
+           "graphs": sum(len(fz.graphs) for fz in fzs),
+           "graph_pool_bytes": graph_pool_bytes(fzs),
+           "allocated_bytes": torch.cuda.memory_allocated()}
+    if keep:
+        out["engine"] = (eng, hs)
+    return out
+
+
+def quiet_walk(spaces_l, slots, pos, rng, t):
+    """Phase 20's Runtime walk: on tick t a space moves 10% of its
+    entities up to 15 (clipped to its world), except the quarter that is
+    quiet on that tick (nothing moves: it stages nothing)."""
+    for i, (sp, sl, p) in enumerate(zip(spaces_l, slots, pos)):
+        if (i + t) % MS_QUIET == 0:
+            continue
+        sel = np.flatnonzero(rng.random(p.shape[1]) < 0.1)
+        q = p[:, sel] + rng.uniform(-15, 15, (2, len(sel))).astype(
+            np.float32)
+        p[:, sel] = np.clip(q, 0, sp.world)
+        sp.move_entities(sl[sel], p[0, sel], p[1, sel])
+
+
+def quiet_runtime(Runtime, DC, **rt_kw):
+    """Phase 20's shard through ``Runtime.tick`` (one watcher a space, so
+    every space is subscribed), a prime tick and MS_TICKS quiet-walk
+    ticks: per tick (CRC, events, dispatches)."""
+    rt, crc, spaces_l, slots, pos, rng = build_world(
+        Runtime, DEV, MS_SPACES, MS_N, MS_CAP, seed=31, world=MS_WORLD,
+        **rt_kw)
+    rows = []
+    for t in range(1 + MS_TICKS):
+        if t:
+            quiet_walk(spaces_l, slots, pos, rng, t)
+        crc["t"] = crc["te"] = 0
+        DC.reset()
+        rt.tick()
+        rows.append((f"{crc['t']:08x}", crc["te"], DC.read()))
+    return rt, rows
+
+
+def phase_cohort(Runtime, AOIEngine, AK, DC):
+    """Phase 20: bench.py's bench_engine_multispace shard (256 spaces x 96
+    entities, capacity 128, ladder (256,), world 1000, r 100, 10% movers,
+    3 warm-up + 5 measured ticks) through the cohort engine, the solo
+    baseline (both fused) and the cpu backend: equal per-tick CRCs, 1
+    dispatch a tick against 256, no new capture key after warm-up; the
+    solo buckets freed with their spaces; then the same shard through
+    Runtime(aoi_cohort=True, aoi_fused=True) with a quarter of the spaces
+    quiet each tick, equal to the cpu backend's Runtime and still 1
+    dispatch a tick."""
+    import gc
+
+    caps = [MS_CAP] * MS_SPACES
+    frames = ms_frames([MS_N] * MS_SPACES, [MS_WORLD] * MS_SPACES, MS_TICKS)
+    AK.reset_launches()
+    runs = {"cpu": ms_run(AOIEngine, AK, DC, frames, caps, MS_RADIUS,
+                          MS_WARMUP, default_backend="cpu"),
+            "cohort": ms_run(AOIEngine, AK, DC, frames, caps, MS_RADIUS,
+                             MS_WARMUP, keep=True, fused=True,
+                             cohort="auto", cohort_ladder=MS_LADDER)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated()
+    runs["solo"] = ms_run(AOIEngine, AK, DC, frames, caps, MS_RADIUS,
+                          MS_WARMUP, keep=True, fused=True, cohort="solo")
+    eng, hs = runs["solo"].pop("engine")
+    for h in hs:
+        eng.release_space(h)
+    left = len(eng._buckets)
+    del eng, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["solo"]["allocated_after_release"] = torch.cuda.memory_allocated()
+    check(left == 0, f"phase 20: {left} solo buckets outlived their spaces")
+    check(runs["solo"]["allocated_after_release"] - alloc0 <= 16 << 20,
+          f"phase 20: solo release left "
+          f"{runs['solo']['allocated_after_release'] - alloc0} bytes")
+    co, so = runs["cohort"], runs["solo"]
+    check(co["crcs"] == so["crcs"] == runs["cpu"]["crcs"],
+          "phase 20: cohort / solo / cpu CRCs differ")
+    check(co["buckets"] == 1 and so["buckets"] == MS_SPACES,
+          f"phase 20: buckets {co['buckets']} / {so['buckets']}")
+    check(co["dispatches_per_tick"] == 1
+          and so["dispatches_per_tick"] == MS_SPACES,
+          f"phase 20: dispatches a tick {co['dispatches_per_tick']} / "
+          f"{so['dispatches_per_tick']}")
+    ratio = co["dispatches_per_tick"] / so["dispatches_per_tick"]
+    check(ratio <= 0.05, f"phase 20: dispatch ratio {ratio}")
+    check(co["new_keys_after_warmup"] == so["new_keys_after_warmup"] == 0,
+          "phase 20: a capture key after warm-up")
+    eng_c, _hs_c = co["engine"]
+    (bucket,) = eng_c._buckets.values()
+    check(bucket.stats["cohort_dispatches"] == MS_TICKS
+          and bucket.stats["fused_dispatches"] >= MS_TICKS - 1,
+          f"phase 20: cohort bucket stats {bucket.stats}")
+    # the Runtime with quiet spaces: still one replay a tick (the staged-
+    # row mask), equal to the cpu backend's Runtime
+    rt, rows = quiet_runtime(Runtime, DC, aoi_cohort=True, aoi_fused=True,
+                             aoi_cohort_ladder=MS_LADDER)
+    rb = list(rt.aoi._buckets.values())
+    check(len(rb) == 1 and rb[0].cohort,
+          f"phase 20: Runtime buckets {list(rt.aoi._buckets)}")
+    rt_stats = dict(rb[0].stats)
+    del rt, rb
+    rt_cpu, rows_cpu = quiet_runtime(Runtime, DC, aoi_backend="cpu")
+    del rt_cpu
+    check([r[:2] for r in rows] == [r[:2] for r in rows_cpu],
+          "phase 20: quiet Runtime CRCs differ from the cpu backend's")
+    steady = [r[2] for r in rows[1 + MS_WARMUP:]]
+    check(steady == [1] * len(steady),
+          f"phase 20: quiet Runtime dispatches a tick {steady}")
+    check(rt_stats["fused_dispatches"] >= len(steady),
+          f"phase 20: quiet Runtime stats {rt_stats}")
+    out = {"spaces": MS_SPACES, "entities": MS_N, "capacity": MS_CAP,
+           "ladder": list(MS_LADDER), "ticks": MS_TICKS,
+           "warmup": MS_WARMUP, "crc": co["crcs"][-1],
+           "dispatch_ratio": ratio,
+           "runs": {k: {kk: vv for kk, vv in v.items()
+                        if kk not in ("crcs", "engine")}
+                    for k, v in runs.items()},
+           "runtime_quiet": {"rows": rows, "steady_dispatches": steady,
+                             "fused_dispatches": rt_stats[
+                                 "fused_dispatches"]},
+           "launches": AK.launches["aoi_step"]}
+    log("phase 20", json.dumps(out))
+    return out, co["engine"]
+
+
+def phase_ladder(AOIEngine, AK, DC):
+    """Phase 20b: the full ladder (256/1024/4096): LADDER_SPACES spaces,
+    capacities from the seed uniform in LADDER_CAPS, LADDER_FILL of each
+    occupied, world side 1000 * sqrt(n / 96) (phase 20's density), r 100,
+    10% movers: the cohort engine (fused; one bucket a rung), the classic
+    pooling (cohort=False, fused: one bucket a rounded capacity), the cpp
+    backend (the CRC truth) and the cohort engine paged: equal per-tick
+    CRCs; dispatches and ms a tick of each."""
+    rng = np.random.default_rng(41)
+    caps = [int(c) for c in rng.integers(LADDER_CAPS[0],
+                                         LADDER_CAPS[1] + 1, LADDER_SPACES)]
+    ns = [int(c * LADDER_FILL) for c in caps]
+    worlds = [MS_WORLD * float(np.sqrt(n / MS_N)) for n in ns]
+    frames = ms_frames(ns, worlds, MS_TICKS, seed=43)
+    AK.reset_launches()
+    runs = {}
+    for name, kw in (("cpp", {"default_backend": "cpp"}),
+                     ("cohort", {"fused": True, "cohort": "auto"}),
+                     ("classic", {"fused": True}),
+                     ("cohort paged", {"fused": True, "cohort": "auto",
+                                       "paged": True})):
+        runs[name] = ms_run(AOIEngine, AK, DC, frames, caps, MS_RADIUS,
+                            MS_WARMUP, **kw)
+        torch.cuda.empty_cache()
+    for name in ("cohort", "classic", "cohort paged"):
+        check(runs[name]["crcs"] == runs["cpp"]["crcs"],
+              f"phase 20b: {name} CRCs differ from cpp's")
+    check(runs["cohort"]["buckets"] == 3
+          and runs["cohort"]["dispatches_per_tick"] == 3,
+          f"phase 20b: cohort {runs['cohort']['buckets']} buckets, "
+          f"{runs['cohort']['dispatches_per_tick']} dispatches a tick")
+    check(runs["cohort"]["new_keys_after_warmup"] == 0,
+          "phase 20b: a capture key after warm-up")
+    out = {"spaces": LADDER_SPACES, "caps": caps,
+           "rungs": {str(r): sum(1 for c in caps if
+                                 (r // 4 if r > 256 else 0) < c <= r)
+                     for r in (256, 1024, 4096)},
+           "runs": {k: {kk: vv for kk, vv in v.items() if kk != "crcs"}
+                    for k, v in runs.items()},
+           "crc": runs["cpp"]["crcs"][-1],
+           "launches": AK.launches["aoi_step"]}
+    log("phase 20b", json.dumps(out))
+    return out
+
+
+def demote_frames(ticks, seed):
+    """scripts/multispace_smoke.py's shard: 24 spaces, cap - 32 entities
+    each in a 400 x 400 world, r in [20, 60], 30% movers up to 8 a tick."""
+    rng = np.random.default_rng(seed)
+    scenes = []
+    for cap in DEMOTE_CAPS:
+        n = cap - 32
+        scenes.append([rng.uniform(0, 400, n).astype(np.float32),
+                       rng.uniform(0, 400, n).astype(np.float32),
+                       rng.uniform(20, 60, n).astype(np.float32)])
+    frames = []
+    for _t in range(ticks):
+        for sc in scenes:
+            move = rng.random(len(sc[0])) < 0.3
+            k = int(move.sum())
+            sc[0][move] += rng.uniform(-8, 8, k).astype(np.float32)
+            sc[1][move] += rng.uniform(-8, 8, k).astype(np.float32)
+        frames.append([(x.copy(), z.copy(), r) for x, z, r in scenes])
+    return frames
+
+
+def demote_drive(eng, hs, frames, after=None):
+    """Per-tick CRCs of the shard through ``eng``; ``after(t)`` runs
+    after tick t (a planner's step)."""
+    crcs = []
+    for t, frame in enumerate(frames):
+        for h, (x, z, r) in zip(hs, frame):
+            eng.submit(h, x, z, r, np.ones(len(x), bool))
+        eng.flush()
+        crcs.append(f"{fold_events([eng.take_events(h) for h in hs]):08x}")
+        if after is not None:
+            after(t)
+    return crcs
+
+
+def phase_demotion(AOIEngine, PL, AK, FT):
+    """Phase 20c: the aoi.cohort seam and the planner on the card at
+    scripts/multispace_smoke.py's 24 spaces (one rung, 256): ``fail``,
+    ``oom`` and ``reset`` at the seam's 4th crossing, split-phase and
+    sequential flush: the cohort demotes in that tick (24 spaces onto solo
+    buckets) with the fault-free run's CRCs, ``recohort()`` stacks all 24
+    back on one bucket and 2 more ticks (a second walk) stay equal; then
+    CohortPlanner(mode="auto") with a tiny hot_ms sheds one member a
+    window and with a large one folds them back, CRCs unchanged."""
+    frames = demote_frames(DEMOTE_TICKS, 11) + demote_frames(2, 12)
+    AK.reset_launches()
+    ladder = {"cohort": "auto", "cohort_ladder": (256,)}
+    eng = AOIEngine(device=DEV, **ladder)
+    hs = [eng.create_space(c) for c in DEMOTE_CAPS]
+    ref = demote_drive(eng, hs, frames)
+    del eng, hs
+    runs = []
+    for sched in (True, False):
+        for kind in ("fail", "oom", "reset"):
+            FT.install(f"aoi.cohort:{kind}@{DEMOTE_AT}")
+            try:
+                eng = AOIEngine(device=DEV, flush_sched=sched, **ladder)
+                hs = [eng.create_space(c) for c in DEMOTE_CAPS]
+                t0 = time.perf_counter()
+                crcs = demote_drive(eng, hs, frames[:DEMOTE_TICKS])
+                drive_s = time.perf_counter() - t0
+                fired = [(f["seam"], f["kind"], f["occurrence"])
+                         for f in FT.plan().fired]
+            finally:
+                FT.clear()
+            label = f"phase 20c {kind} flush_sched={sched}"
+            st = dict(eng.cohort_stats)
+            check(fired == [("aoi.cohort", kind, DEMOTE_AT)],
+                  f"{label}: fired {fired}")
+            check(st["cohort_demoted_spaces"] == len(DEMOTE_CAPS)
+                  and not any(getattr(h.bucket, "cohort", False)
+                              for h in hs), f"{label}: {st}")
+            moved = eng.recohort()
+            check(moved == len(DEMOTE_CAPS)
+                  and len({id(h.bucket) for h in hs}) == 1,
+                  f"{label}: recohort moved {moved}")
+            crcs += demote_drive(eng, hs, frames[DEMOTE_TICKS:])
+            check(crcs == ref, f"{label}: CRCs differ from the fault-free "
+                               f"run's")
+            runs.append({"kind": kind, "flush_sched": sched,
+                         "demoted": st["cohort_demoted_spaces"],
+                         "restacked": moved, "drive_ms": drive_s * 1e3,
+                         "demote_ms": eng.migration_stats["migration_ms"]})
+            del eng, hs
+    # the planner: a tiny hot_ms sheds a member each window, a large one
+    # folds the solo spaces back
+    eng = AOIEngine(device=DEV, **ladder)
+    hs = [eng.create_space(c) for c in DEMOTE_CAPS]
+    planner = PL.CohortPlanner(eng, mode="auto", hot_ms=1e-6,
+                               churn_budget=1, cooldown_ticks=0)
+
+    def step(t):
+        if t == 4:
+            planner.hot_ms = 1e9  # from here on every solo space is light
+            planner.churn_budget = 4
+        planner.step()
+
+    crcs = demote_drive(eng, hs, frames, after=step)
+    st = dict(eng.cohort_stats)
+    check(crcs == ref, "phase 20c planner: CRCs differ")
+    check(st["cohort_leaves"] >= 3 and st["cohort_joins"] == st[
+        "cohort_leaves"] and all(h.bucket.cohort for h in hs),
+          f"phase 20c planner: {st}")
+    out = {"runs": runs, "planner": st, "ref_crc": ref[-1],
+           "launches": AK.launches["aoi_step"]}
+    log("phase 20c", json.dumps(out))
+    return out
+
+
+class LaunchShapes:
+    """While entered, records the (S, C) of every square chg launch of
+    ``aoi_step.cu`` and whether it carried row masks (a spy around
+    ops/aoi_cuda._launch: a captured graph's launch passes through it at
+    capture, its replays run the same shape).  It counts nothing: the
+    launch counts stay the wrapper's."""
+
+    def __init__(self, AK):
+        self.AK, self.shapes = AK, {}
+
+    def __enter__(self):
+        self._launch = self.AK._launch
+
+        def spy(mode, x, z, radius, active, prev, cols, row_ids, out,
+                stg=None, sub=None):
+            if mode == "aoi_step" and cols is None:
+                key = tuple(x.shape)
+                self.shapes[key] = self.shapes.get(key, False) or (
+                    stg is not None)
+            return self._launch(mode, x, z, radius, active, prev, cols,
+                                row_ids, out, stg, sub)
+
+        self.AK._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.AK._launch = self._launch
+
+
+def phase_rung_shapes(AK, AD, shapes):
+    """Phase 20d: ``aoi_step.cu`` against its plain version at every (S, C)
+    that phases 20-20c launched (``shapes``: (S, C) -> launched with row
+    masks), bit-exact, unmasked and under random row masks; ms (under
+    all-ones masks where the path launched it masked), the plain step's
+    ms (one run) and the bound."""
+    rows = []
+    for i, ((s, c), masked) in enumerate(sorted(shapes.items())):
+        x, z, r, act, prev = edge_inputs(s, c, seed=300 + i)
+        new_k, chg_k = AK.aoi_step_chg_cuda(x, z, r, act, prev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        new_p, chg_p = AD.aoi_step_chg_dense(x, z, r, act, prev)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        err = max(word_diff(new_k, new_p), word_diff(chg_k, chg_p))
+        del new_k, chg_k
+        err = max(err, masked_err(AK, x, z, r, act, prev, new_p, chg_p,
+                                  seed=400 + i))
+        del new_p, chg_p
+        check(err == 0, f"phase 20d: aoi_step kernel != plain at S={s} "
+                        f"C={c} (max |diff| {err})")
+        ones = torch.ones(s, dtype=torch.int32, device=DEV)
+        mk = {"stg": ones, "sub": ones} if masked else {}
+        ms = cuda_ms(lambda: AK.aoi_step_chg_cuda(x, z, r, act, prev, **mk),
+                     reps=20)
+        bound_ms, bound_by = aoi_step_bound(s, c)
+        rows.append({"shape": [s, c], "masked": masked, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err})
+        del x, z, r, act, prev
+    torch.cuda.empty_cache()
+    log("phase 20d", json.dumps(rows))
+    return rows
+
+
+def fused_graph_ms(AK, AS, FZ, reps=20, warm=3):
+    """Phase 14c: the device ms of one fused replay (ops/fused.FusedTri,
+    CUDA events around ``run``) at phase 4's shape and widths (8 x 16384,
+    10,000 entities a space, world 4000, r 100), a 10% walk of step 5 a
+    tick, every row subscribed: with every row staged (a steady tick)
+    and with a quarter of the rows quiet (a cohort's quiet members).  Runs
+    after every path has been read, and puts the launch counts back."""
+    s, c = MAIN_SHAPE
+    launches0 = dict(AK.launches)
+    rng = np.random.default_rng(17)
+    hx = np.zeros((s, c), np.float32)
+    hz = np.zeros((s, c), np.float32)
+    hx[:, :PER_SPACE] = rng.uniform(0, WORLD, (s, PER_SPACE))
+    hz[:, :PER_SPACE] = rng.uniform(0, WORLD, (s, PER_SPACE))
+    act = np.zeros((s, c), bool)
+    act[:, :PER_SPACE] = True
+    x, z = (torch.from_numpy(a).to(DEV) for a in (hx, hz))
+    r = torch.full((s, c), RADIUS, dtype=torch.float32, device=DEV)
+    act = torch.from_numpy(act).to(DEV)
+    fz = FZ.FusedTri(s, c, FZ.packet_len(s, c, 0.25), torch.device(DEV))
+    fz.words[0].copy_(AK.aoi_step_chg_cuda(x, z, r, act,
+                                           torch.zeros_like(fz.words[0]))[0])
+    fz.set_sub(np.ones(s, bool))
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = {}
+    for label, quiet in (("all staged", 0), ("a quarter quiet", 4)):
+        staged = np.ones(s, bool)
+        if quiet:
+            staged[::quiet] = False
+        fz.set_staged(staged)
+        times = []
+        for t in range(warm + reps):
+            mv = (rng.random((s, PER_SPACE)) < 0.1) & staged[:, None]
+            rows, cols = np.nonzero(mv)
+            for h in (hx, hz):
+                h[rows, cols] = np.clip(
+                    h[rows, cols] + rng.uniform(-STEP, STEP, len(rows)), 0,
+                    WORLD)
+            fz.load_packet(t % 2, *AS.pad_packet(
+                rows, cols, hx[rows, cols], hz[rows, cols], length=fz.plen))
+            e0.record()
+            fz.run(t % 2, 1 << 20, x, z, r, act)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        out[label] = sum(times[warm:]) / reps
+    AK.launches.update(launches0)
+    log("phase 14c", json.dumps(out))
+    return out
+
+
+def span_tree_ok(doc):
+    """Every X span of a Chrome trace lies inside the spans that enclose
+    it in TICK_SPANS's nesting (aoi.dispatch/harvest in aoi.flush, it and
+    aoi.emit in tick.aoi, the phases in tick)."""
+    parent = {"aoi.dispatch": "aoi.flush", "aoi.harvest": "aoi.flush",
+              "aoi.flush": "tick.aoi", "aoi.emit": "tick.aoi",
+              "tick.timers": "tick", "tick.aoi": "tick", "tick.sync": "tick",
+              "tick.post": "tick"}
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    by = {}
+    for e in xs:
+        by.setdefault(e["name"], []).append(e)
+    n = 0
+    for e in xs:
+        p = parent.get(e["name"])
+        if p is None:
+            continue
+        n += 1
+        if not any(o["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                   <= o["ts"] + o["dur"] + 1e-3 for o in by.get(p, ())):
+            return False, n
+    return True, n
+
+
+def phase_telemetry(Runtime, AK, DC, TEL, main_crcs, main_out, cohort_eng):
+    """Phase 21: phase 4's world and schedule with Runtime(telemetry_on=
+    True) and with it off, in turns: per-tick CRCs equal phase 4's, tick
+    ms on and off (their difference the overhead), the tick's spans
+    present and nested in the Chrome export (which loads as JSON), and
+    render_prometheus() parsing with the aoi.* families of a live cohort
+    engine (phase 20's)."""
+    from goworld_tpu_torch.telemetry import trace as TR
+
+    runs = []
+    for mode in TELEMETRY_TURNS:
+        TR.reset()
+        out, rows, trailing = run_schedule(Runtime, AK, DC, mode,
+                                           PIPE_SCHEDULE, 1 + WARMUP)
+        check([r[:2] for r in rows] == [tuple(c) for c in main_crcs]
+              and trailing[1] == 0, f"phase 21 {mode}: CRCs differ from "
+                                    f"phase 4's")
+        if mode == "telemetry on":
+            names = [nm for nm, *_ in TR.spans()]
+            missing = [nm for nm in TICK_SPANS if nm not in names]
+            check(not missing, f"phase 21: spans missing {missing}")
+            doc = json.loads(json.dumps(TR.export_chrome_trace(
+                last_ticks=4)))
+            nested, n_nested = span_tree_ok(doc)
+            check(nested and n_nested > 0, "phase 21: spans not nested")
+            out["spans"] = {nm: names.count(nm) for nm in TICK_SPANS}
+            out["chrome_events"] = len(doc["traceEvents"])
+            TEL.disable()
+        out["crc"] = main_out["crc"]
+        runs.append(out)
+        log("phase 21", json.dumps(out))
+    # the exposition: the cohort engine of phase 20 is alive
+    eng, _hs = cohort_eng
+    text = TEL.render_prometheus()
+    fams, samples = {}, 0
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split()
+            fams[name] = kind
+        elif ln and not ln.startswith("#"):
+            name, val = ln.rsplit(" ", 1)
+            float(val)
+            samples += 1
+    lbl = 'engine="%d"' % eng._telemetry_id
+    want = ("gw_aoi_buckets", "gw_aoi_cohorts", "gw_aoi_cohort_spaces",
+            "gw_aoi_cohort_joins_total", "gw_aoi_cohort_leaves_total",
+            "gw_aoi_cohort_demoted_spaces_total",
+            "gw_aoi_cohort_dispatches_total", "gw_aoi_fused_dispatches_total",
+            "gw_aoi_stage_seconds_total", "gw_aoi_migrations_total",
+            "gw_faults_active", "gw_accelerator_absent")
+    check(all(w in fams for w in want),
+          f"phase 21: families missing {[w for w in want if w not in fams]}")
+    check(f"gw_aoi_cohorts{{{lbl}}} 1" in text
+          and f"gw_aoi_cohort_spaces{{{lbl}}} {MS_SPACES}" in text
+          and "gw_accelerator_absent 0" in text,
+          "phase 21: the cohort engine's gauges")
+    mean = {m: mean_of(runs, m, "tick_ms") for m in ("telemetry off",
+                                                     "telemetry on")}
+    # one span's own cost with tracing on (enter, two clock reads, the
+    # ring append), times the spans a tick records
+    TEL.enable()
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with TR.span("tick.aoi"):
+            pass
+    span_us = (time.perf_counter() - t0) * 1e6 / n
+    TEL.disable()
+    out = {"runs": runs, "tick_ms": mean,
+           "overhead_ms": mean["telemetry on"] - mean["telemetry off"],
+           "span_us": span_us,
+           "spans_per_tick": len(TICK_SPANS),
+           "prometheus": {"families": len(fams), "samples": samples},
+           "launches": sum(r["launches"] for r in runs)}
+    log("phase 21", json.dumps({k: v for k, v in out.items()
+                                if k != "runs"}))
+    return out
+
+
 def interest_entry(interest_k, interest_slice, load_out, moved):
     """The ``kernels`` line's entry of csrc/interest_step.cu: its times
     at the main path's full team + tier + LOS step (C = 16384, a path
@@ -3957,8 +4652,10 @@ def main():
         return 2
     from goworld_tpu_torch.engine.aoi import AOIEngine
     from goworld_tpu_torch.engine import placement as PL
+    from goworld_tpu_torch import faults as FT
     from goworld_tpu_torch import interest as TI
     from goworld_tpu_torch import load as TL
+    from goworld_tpu_torch import telemetry as TEL
     from goworld_tpu_torch.engine.runtime import Runtime
     from goworld_tpu_torch.interest import device as D
     from goworld_tpu_torch.ops import _build
@@ -3968,7 +4665,9 @@ def main():
     from goworld_tpu_torch.ops import aoi_grid as AG
     from goworld_tpu_torch.ops import cadence as CD
     from goworld_tpu_torch.ops import dispatch_count as DC
+    from goworld_tpu_torch.ops import aoi_stage as AS
     from goworld_tpu_torch.ops import events as EV
+    from goworld_tpu_torch.ops import fused as FZ
     from goworld_tpu_torch.ops import interest_cuda as IC
     from goworld_tpu_torch.ops import interest_kernels as K
     from goworld_tpu_torch.parallel import SpaceMesh, make_sharded_aoi_step
@@ -3989,18 +4688,32 @@ def main():
     interest_pp = interest_sass_per_pair(_build)
     log("interest_step SASS per pair", json.dumps(interest_pp))
 
+    laps, lap_t = {}, [time.perf_counter()]
+
+    def lap(name):  # wall seconds of each phase, logged at the end
+        now = time.perf_counter()
+        laps[name] = now - lap_t[0]
+        lap_t[0] = now
+
     rows = phase_kernels(AK, AD)
+    lap("3")
     main_out, main_crcs = phase_main(Runtime, AK, AD, EV)
+    lap("4")
     phase_parity(Runtime)
     pipelined = phase_pipeline(Runtime, AK, DC, main_crcs, main_out)
     fused = phase_fused(Runtime, AK, DC)
     sub_change = phase_sub_change(Runtime)
+    lap("5, 13-14b")
     faults_out = phase_faults(Runtime, AK)
+    lap("15")
     sharded_faults = phase_sharded_faults(Runtime, AK, SpaceMesh)
+    lap("15b")
     routing = phase_routing(Runtime, AK)
+    lap("16")
     paged = phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused)
     clustered = phase_clustered(AOIEngine, AK)
     pages_seam = phase_pages_seam(Runtime, AK)
+    lap("17, 17b, 17d")
     rect_rows = phase_rect(AK, AD)
     culled_rows = phase_culled(AG, AK)
     phase_plans(AK, AG, AD)
@@ -4015,18 +4728,37 @@ def main():
     sharded = phase_sharded_step(AK, AD, EV, SpaceMesh,
                                  make_sharded_aoi_step)
     entlv_launches = AK.launches["aoi_step_entlv"]
+    lap("6-10")
     engine_mesh = phase_engine_mesh(Runtime, AOIEngine, AK, AD, SpaceMesh)
     rowshard = phase_rowshard(AOIEngine, AK, SpaceMesh)
     paged_sharded = phase_paged_sharded(AOIEngine, AK, SpaceMesh,
                                         engine_mesh, rowshard)
     torch.cuda.empty_cache()
+    lap("11-12, 17c")
     interest_k = phase_interest_kernel(IC, K, TI)
     interest_slice = phase_interest_slice(Runtime, IC, TI, D)
     load_out = phase_load(TL, TI, IC, D)
     torch.cuda.empty_cache()
+    lap("18-18c")
     migration = phase_migration(AOIEngine, SpaceMesh, AK, IC, PL, TI)
     evacuation = phase_evacuation(AOIEngine, SpaceMesh, AK)
     checkpoint = phase_checkpoint(Runtime, AOIEngine, AK, IC, TI)
+    torch.cuda.empty_cache()
+    lap("19-19c")
+    with LaunchShapes(AK) as spy:
+        cohort, cohort_eng = phase_cohort(Runtime, AOIEngine, AK, DC)
+        ladder = phase_ladder(AOIEngine, AK, DC)
+        demotion = phase_demotion(AOIEngine, PL, AK, FT)
+    telemetry_out = phase_telemetry(Runtime, AK, DC, TEL, main_crcs,
+                                    main_out, cohort_eng)
+    del cohort_eng
+    lap("20-21")
+    rung_rows = phase_rung_shapes(AK, AD, spy.shapes)
+    fused_graph = fused_graph_ms(AK, AS, FZ)
+    lap("20d, 14c")
+    log("phase seconds", json.dumps(laps))
+    cohort_l = {"cohort": cohort["launches"], "ladder": ladder["launches"],
+                "demotion": demotion["launches"]}
     mig_l = migration["launches"]
     paged_l = (paged["launches"] + clustered["launches"]
                + pages_seam["launches"])
@@ -4055,7 +4787,9 @@ def main():
                     ("aoi_step checkpoint",
                      checkpoint["launches"]["aoi_step"]),
                     ("interest_step checkpoint",
-                     checkpoint["launches"]["interest_step"])):
+                     checkpoint["launches"]["interest_step"]),
+                    *((f"aoi_step {k}", v) for k, v in cohort_l.items()),
+                    ("aoi_step telemetry", telemetry_out["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -4064,7 +4798,9 @@ def main():
                 "source": "goworld_tpu_torch/csrc/" + (
                     "aoi_grid.cu" if "culled" in name else "aoi_step.cu"),
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in shape_rows),
+                "max_abs_err": max(r["max_abs_err"] for r in
+                                   shape_rows + extra.get("cohort_shapes",
+                                                          [])),
                 "ms": at["ms"], "plain_ms": at["plain_ms"],
                 "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
                 "library_ms": None, "shape": list(shape), **extra,
@@ -4084,9 +4820,11 @@ def main():
               + fused["launches"] + faults_out["launches"] + mesh_fault_l
               + routing["launches"] + paged_l + paged_mesh_l
               + mig_l["aoi_step"] + evacuation["launches"]
-              + checkpoint["launches"]["aoi_step"], rows,
+              + checkpoint["launches"]["aoi_step"]
+              + sum(cohort_l.values()) + telemetry_out["launches"], rows,
               MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
+              cohort_shapes=rung_rows,
               path_launches={"main": main_out["kernel_launches"],
                              "deferred": pipelined["launches"],
                              "fused": fused["launches"],
@@ -4099,7 +4837,9 @@ def main():
                              "migration": mig_l["aoi_step"],
                              "evacuation": evacuation["launches"],
                              "checkpoint": checkpoint["launches"][
-                                 "aoi_step"]}),
+                                 "aoi_step"],
+                             **cohort_l,
+                             "telemetry": telemetry_out["launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
               rect_launches + row_fault_l + paged_row_l
               + mig_l["aoi_step rect"], rect_rows,
@@ -4143,6 +4883,7 @@ def main():
     print(json.dumps({"giant": grid_out + [share_out]}))
     print(json.dumps({"deferred": {"pipelined": pipelined["summary"],
                                    "fused": fused["summary"],
+                                   "fused_graph_ms": fused_graph,
                                    "sub_change": {k: v for k, v in
                                                   sub_change.items()
                                                   if k != "rows"},
@@ -4169,6 +4910,10 @@ def main():
         "note": "virtual shards are shards of one card taking turns",
         "live": migration, "evacuation": evacuation["runs"],
         "checkpoint": checkpoint}}))
+    print(json.dumps({"cohort": {
+        "multispace": cohort, "ladder": ladder, "demotion": demotion}}))
+    print(json.dumps({"telemetry": {k: v for k, v in telemetry_out.items()
+                                    if k != "launches"}}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

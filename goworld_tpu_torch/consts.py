@@ -3,3 +3,4 @@
 
 MAX_PACKET_SIZE = 25 * 1024 * 1024  # a packet's largest payload (25 MiB)
 TRACE_RING_SPANS = 65536  # completed spans kept by the tracer
+TRACE_TICK_MARKS = 1024   # tick boundaries kept for last-N-ticks windowing

@@ -13,6 +13,9 @@
 //       |xc_j - x_i| <= r_i  &&  |zc_j - z_i| <= r_i  &&  act_i && actc_j
 //       && g_i != j
 //   chg   = new ^ prev                      (emit="chg")
+//   and, given the per-space row masks stg and sub (chg mode, the fused
+//   tick's): new = prev and chg = 0 where stg[s] = 0, chg = 0 where
+//   sub[s] = 0
 //   enter = new & ~prev, leave = prev & ~new (emit="entlv")
 // in IEEE float32 (sub -> abs -> compare), with W = C / 32.  Square mode
 // is the call with the candidates equal to the rows (xc = x, R = C) and
@@ -72,7 +75,14 @@
 //   * the output writes are coalesced along w (a warp covers 32
 //     consecutive words of one row), 4 bytes a thread; offsets are
 //     64-bit;
-//   * the output mode is a template parameter of the tile's store.
+//   * the output mode is a template parameter of the tile's store;
+//   * the fused tick's row masks (stg / sub) select a second chg kernel
+//     (template parameter MASKED) that reads them once a work unit and
+//     applies them in the store: the unmasked kernels are the code they
+//     were.  A branch around the pair loop for an unstaged space (to skip
+//     its tests) made every launch slower (0.564 ms at 8 x 16384, where
+//     this code runs 0.528-0.535): the compiler stopped scheduling the
+//     next tile's fetches into the loop.
 // Measured by chip_smoke.py (CUDA events) on an H100 80GB HBM3 at 700 W:
 // 0.535 ms at 8 x 16384 (chg), 4.09 / 4.21 ms at 64 x 16384 (chg /
 // entlv), 0.533 ms for the 16384 x 131072 rect block.  Its cuobjdump
@@ -80,7 +90,9 @@
 // instructions a pair (chg) and 6.1 (entlv): the compiler schedules the
 // next tile's row fetch and copies in between.  The first design with
 // only this pair test swapped in ran 1.9-2.2x slower at those shapes:
-// the walk, the staging once per unit and the ring earn the rest.
+// the walk, the staging once per unit and the ring earn the rest.  The
+// masked kernel: 0.543 ms at 8 x 16384 against the unmasked 0.529 in
+// the same run, 4.22 against 4.10 at 64 x 16384 (5.27 SASS a pair).
 // Outputs may not alias prev.
 #include "aoi_tile.cuh"
 
@@ -88,7 +100,9 @@ namespace {
 
 using namespace aoi_tile;
 
-template <Emit E>
+// MASKED: the chg kernel under the row masks stg / sub (either may be
+// null); the unmasked kernels never read them.
+template <Emit E, bool MASKED>
 __global__ void __launch_bounds__(TW * TY, 3)
 aoi_step_kernel(const float* __restrict__ x, const float* __restrict__ z,
                 const float* __restrict__ r, const uint8_t* __restrict__ act,
@@ -98,7 +112,8 @@ aoi_step_kernel(const float* __restrict__ x, const float* __restrict__ z,
                 const int32_t* __restrict__ prev,
                 int32_t* __restrict__ new_out, int32_t* __restrict__ out1,
                 int32_t* __restrict__ out2, int R, int C, int W,
-                const Plan plan) {
+                const Plan plan, const int32_t* __restrict__ stg,
+                const int32_t* __restrict__ sub) {
   __shared__ Cols cols;
   __shared__ __align__(16) PrevSlot ring[SLOTS];
 
@@ -111,6 +126,7 @@ aoi_step_kernel(const float* __restrict__ x, const float* __restrict__ z,
   copy_prev(ring[0], prev, (int64_t)cur.s * R, cur.t * TR, R, W, cur.g, vec);
   cp_async_commit();
   int staged = -1, slot = 0;
+  bool keep = true, emit = true;  // the unit's space's row masks
   for (;;) {
     const int64_t row_base = (int64_t)cur.s * R;
     const int row0 = cur.t * TR;
@@ -118,6 +134,10 @@ aoi_step_kernel(const float* __restrict__ x, const float* __restrict__ z,
     if (cur.u != staged) {  // uniform across the block
       stage_cols(cols, xc, zc, actc, (int64_t)cur.s * C, W, w);
       staged = cur.u;
+      if constexpr (MASKED) {  // once a unit, uniform across the block
+        keep = !stg || stg[cur.s] != 0;
+        emit = !sub || sub[cur.s] != 0;
+      }
     }
     Rows rows;
     take_rows(rows, f);
@@ -136,7 +156,7 @@ aoi_step_kernel(const float* __restrict__ x, const float* __restrict__ z,
     cp_async_wait_prior();  // this thread's copies of this tile landed
     __syncthreads();        // and every other thread's
     store_rows<E>(cols, rows, acc, ring[slot], plan, C, row_base, row0, R, W,
-                  w, new_out, out1, out2);
+                  w, new_out, out1, out2, keep, emit);
     if (!more) break;
     cur = nxt;
     slot = (slot + 1) % SLOTS;
@@ -148,38 +168,45 @@ int launch(const void* x, const void* z, const void* r, const void* act,
            const void* xc, const void* zc, const void* actc,
            const void* row_ids, const void* prev, void* new_out, void* out1,
            void* out2, int64_t S, int64_t R, int64_t C, void* stream,
-           int64_t grid, int64_t tiles) {
+           int64_t grid, int64_t tiles, const void* stg, const void* sub) {
   if (S <= 0 || R <= 0 || C <= 0) return 0;
   Plan plan;
   if (C % 32 != 0 || C > (1 << 30) || R > (1 << 30) ||
       (!row_ids && R != C) || !make_plan(plan, S, R, C / 32, grid, tiles))
     return (int)cudaErrorInvalidValue;
-  aoi_step_kernel<E><<<(unsigned)grid, dim3(TW, TY), 0,
-                       (cudaStream_t)stream>>>(
+  auto kernel = (stg || sub) ? aoi_step_kernel<E, true>
+                             : aoi_step_kernel<E, false>;
+  kernel<<<(unsigned)grid, dim3(TW, TY), 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)z, (const float*)r, (const uint8_t*)act,
       (const float*)xc, (const float*)zc, (const uint8_t*)actc,
       (const int32_t*)row_ids, (const int32_t*)prev, (int32_t*)new_out,
-      (int32_t*)out1, (int32_t*)out2, (int)R, (int)C, (int)(C / 32), plan);
+      (int32_t*)out1, (int32_t*)out2, (int)R, (int)C, (int)(C / 32), plan,
+      (const int32_t*)stg, (const int32_t*)sub);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The persistent grid's inputs for one mode (entlv != 0: the entlv
-// kernel, else the chg kernel of square and rectangular mode) on the
-// current device: its SM count and how many blocks of the kernel fit on
-// one SM.  Returns a CUDA error code (0 = read).
-extern "C" int gw_aoi_step_occupancy(int entlv, int* n_sms,
+// The persistent grid's inputs for one kernel (kind 1: entlv; 2: chg
+// under row masks; else chg, square and rectangular mode) on the current
+// device: its SM count and how many blocks of the kernel fit on one SM.
+// Returns a CUDA error code (0 = read).
+extern "C" int gw_aoi_step_occupancy(int kind, int* n_sms,
                                      int* blocks_per_sm) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = entlv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    blocks_per_sm, aoi_step_kernel<Emit::kEntlv>, TW * TY, 0)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    blocks_per_sm, aoi_step_kernel<Emit::kChg>, TW * TY, 0);
+    e = kind == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        blocks_per_sm, aoi_step_kernel<Emit::kEntlv, false>,
+                        TW * TY, 0)
+        : kind == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks_per_sm, aoi_step_kernel<Emit::kChg, true>,
+                          TW * TY, 0)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks_per_sm, aoi_step_kernel<Emit::kChg, false>,
+                          TW * TY, 0);
   return (int)e;
 }
 
@@ -192,17 +219,21 @@ extern "C" int gw_aoi_step_occupancy(int entlv, int* n_sms,
 // entry launches on `stream` and returns cudaGetLastError() (0 =
 // launched).
 
-// emit="chg": new and chg = new ^ prev.
+// emit="chg": new and chg = new ^ prev.  stg and sub: int32 [S] row masks
+// or null (all ones): a space with stg 0 keeps prev as new and has chg 0;
+// a space with sub 0 has chg 0.  Given either, the masked kernel runs.  The fused
+// tick (ops/fused.py) passes its static staged-row and subscription masks.
 extern "C" int gw_aoi_step_chg(const void* x, const void* z, const void* r,
                                const void* act, const void* xc,
                                const void* zc, const void* actc,
                                const void* row_ids, const void* prev,
                                void* new_out, void* chg_out, int64_t S,
                                int64_t R, int64_t C, void* stream,
-                               int64_t grid, int64_t tiles) {
+                               int64_t grid, int64_t tiles, const void* stg,
+                               const void* sub) {
   return launch<Emit::kChg>(x, z, r, act, xc, zc, actc, row_ids, prev,
                             new_out, chg_out, nullptr, S, R, C, stream, grid,
-                            tiles);
+                            tiles, stg, sub);
 }
 
 // emit="entlv": new, enter = new & ~prev and leave = prev & ~new.
@@ -216,5 +247,5 @@ extern "C" int gw_aoi_step_entlv(const void* x, const void* z, const void* r,
                                  int64_t tiles) {
   return launch<Emit::kEntlv>(x, z, r, act, xc, zc, actc, row_ids, prev,
                               new_out, enter_out, leave_out, S, R, C, stream,
-                              grid, tiles);
+                              grid, tiles, nullptr, nullptr);
 }

@@ -311,7 +311,9 @@ enum class Emit { kChg, kEntlv };
 
 // Write new and the words of mode E for the thread's rows below R,
 // coalesced along w.  Every word is written, zero where nothing was
-// tested.  Outputs may not alias prev.
+// tested.  Outputs may not alias prev.  The space's row masks (chg mode):
+// where `staged` is false new is prev and chg zero; where `emit` is false
+// chg is zero (new stays the tested words).
 template <Emit E>
 __device__ __forceinline__ void store_rows(const Cols& c, const Rows& rw,
                                            const uint32_t* acc,
@@ -321,7 +323,9 @@ __device__ __forceinline__ void store_rows(const Cols& c, const Rows& rw,
                                            int W, int w,
                                            int32_t* __restrict__ new_out,
                                            int32_t* __restrict__ out1,
-                                           int32_t* __restrict__ out2) {
+                                           int32_t* __restrict__ out2,
+                                           bool staged = true,
+                                           bool emit = true) {
   const uint32_t am = c.actw[threadIdx.x];
   const int i0 = row0 + (int)threadIdx.y * RPT;
   int64_t o = (row_base + i0) * (int64_t)W + w;
@@ -338,10 +342,13 @@ __device__ __forceinline__ void store_rows(const Cols& c, const Rows& rw,
     if (w < W && i0 + q < R) {
       const uint32_t keep = w == (self >> 5) ? ~(1u << (self & 31)) : FULL;
       const uint32_t v = ((rw.act >> q) & 1u) ? (acc[q] & am & keep) : 0u;
-      new_out[o] = (int32_t)v;
       const uint32_t p = pv[threadIdx.y * RPT + q][threadIdx.x];
-      if constexpr (E == Emit::kChg) out1[o] = (int32_t)(v ^ p);
+      if constexpr (E == Emit::kChg) {
+        new_out[o] = (int32_t)(staged ? v : p);
+        out1[o] = staged && emit ? (int32_t)(v ^ p) : 0;
+      }
       if constexpr (E == Emit::kEntlv) {
+        new_out[o] = (int32_t)v;
         out1[o] = (int32_t)(v & ~p);
         out2[o] = (int32_t)(p & ~v);
       }

@@ -98,7 +98,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, telemetry
+from ..ops import aoi_cohort as AC
 from ..ops import aoi_cuda as AK
 from ..ops import aoi_dense as AD
 from ..ops import aoi_emit as AE
@@ -110,6 +111,7 @@ from ..ops import events as EV
 from ..ops import fused as FZ
 from ..ops.aoi_oracle import CPUAOIOracle
 from ..telemetry import trace as _T
+from ..telemetry.metrics import Sample
 
 _log = logging.getLogger("goworld_tpu_torch.aoi")
 
@@ -609,7 +611,23 @@ class AOIEngine:
 
     ``interest_mode`` (``device`` | ``host``) is where an attached
     interest-policy stack evaluates: on ``device`` (the hand kernel on a
-    CUDA device, its plain version on the CPU) or on the numpy oracle."""
+    CUDA device, its plain version on the CPU) or on the numpy oracle.
+
+    ``cohort`` stacks spaces (:mod:`..ops.aoi_cohort`, :mod:`.aoi_cohort`):
+    ``"auto"`` (or True) rounds a ``cuda``/``auto`` space within the
+    ``cohort_ladder`` (default 256/1024/4096) up to its rung and stacks it
+    into the one shared cohort bucket of that rung, so one step ticks the
+    whole cohort; ``"solo"`` gives each such space an exclusive bucket of
+    its own (the per-space baseline, and the ``aoi.cohort`` seam's
+    demotion target); False keeps the (backend, capacity) pooling.
+    Cohorts are a single-device tier: a mesh engine keeps its mesh
+    routing.  ``cohort_stats`` counts joins, leaves and demoted spaces.
+
+    Each engine registers a weak telemetry collector
+    (:meth:`_telemetry_collect`): its buckets' stats and perf, the cohort
+    gauges and counters and ``migration_stats`` under ``aoi.*`` names."""
+
+    _next_telemetry_id = 0
 
     def __init__(self, device="cuda", default_backend: str = "cuda",
                  oracle_algorithm: str = "sweep",
@@ -617,8 +635,21 @@ class AOIEngine:
                  flush_sched: bool = True, emit: str = "auto", mesh=None,
                  rowshard_min_capacity: int = 65536, pipeline: bool = False,
                  cross_tick: bool = False, fused: bool = False,
-                 paged: bool = False, interest_mode: str = "device"):
+                 paged: bool = False, interest_mode: str = "device",
+                 cohort=False, cohort_ladder=None):
         _check_backend(default_backend)
+        if cohort is True:
+            cohort = "auto"
+        if cohort not in (False, "auto", "solo"):
+            raise ValueError(
+                f"aoi_cohort must be False|True|'auto'|'solo', got "
+                f"{cohort!r}")
+        self.cohort = cohort
+        self.cohort_ladder = AC.validate_ladder(
+            cohort_ladder if cohort_ladder is not None else AC.DEFAULT_LADDER)
+        self._cohort_serial = 0
+        self.cohort_stats = {"cohort_joins": 0, "cohort_leaves": 0,
+                             "cohort_demoted_spaces": 0}
         if interest_mode not in ("device", "host"):
             raise ValueError(
                 f"interest_mode must be device|host, got {interest_mode!r}")
@@ -664,6 +695,11 @@ class AOIEngine:
         self.migration_stats = {"migrations": 0, "evacuations": 0,
                                 "migration_rollbacks": 0,
                                 "migration_ms": 0.0}
+        # weak: the registry must never keep a dead engine (and its device
+        # state) alive; the label tells concurrent engines apart
+        self._telemetry_id = AOIEngine._next_telemetry_id
+        AOIEngine._next_telemetry_id += 1
+        telemetry.register_collector(self._telemetry_collect, weak=True)
 
     def _resolve_emit(self) -> str:
         """Resolve the requested emit mode once (resolution may build
@@ -681,6 +717,23 @@ class AOIEngine:
         requested = backend or self.default_backend
         _check_backend(requested)
         capacity = P.round_capacity(capacity)
+        if self.cohort and self.mesh is None \
+                and requested in ("cuda", "auto"):
+            # cohort routing: a device-eligible space within the ladder
+            # rounds up to its rung -- "auto" stacks it into the shared
+            # cohort bucket there, "solo" gives it an exclusive bucket;
+            # past the ladder's top the routing below holds
+            shape = AC.cohort_shape(capacity, self.cohort_ladder)
+            if shape is not None:
+                if self.cohort == "solo":
+                    h = self._solo_handle(shape)
+                else:
+                    bucket = self._cohort_bucket(shape)
+                    h = SpaceAOIHandle("cuda", shape, bucket,
+                                       bucket.acquire_slot())
+                    self._handles.add(h)
+                h.requested = requested
+                return h
         backend = requested
         if backend == "auto":
             # capacity routing: a tiny space is dispatch-bound on the
@@ -771,6 +824,174 @@ class AOIEngine:
                          "aoi_backend=cpp falls back to the numpy oracle")
         return _CPUBucket(capacity, self.oracle_algorithm)
 
+    # -- space-stacked cohorts ---------------------------------------------
+
+    def _cohort_bucket(self, shape: int) -> "_Bucket":
+        """The shared cohort bucket of a rung (made on first use).  One
+        bucket a rung: membership churn moves spaces between rungs and
+        never mints a shape, so the capture keys stay pinned after
+        warm-up."""
+        key = ("cuda-cohort", shape)
+        bucket = self._buckets.get(key)
+        if bucket is None:
+            from .aoi_cohort import _CohortCUDABucket
+
+            bucket = _CohortCUDABucket(
+                shape, self.device, delta_staging=self.delta_staging,
+                emit=self._resolve_emit(), **self._modes())
+            self._buckets[key] = bucket
+        return bucket
+
+    def _solo_bucket(self, capacity: int) -> "_Bucket":
+        """One exclusive single-space device bucket: the per-space baseline
+        (``cohort="solo"``) and the ``aoi.cohort`` demotion target.
+        ``exclusive`` frees it with its space (:meth:`release_space`);
+        ``cohort_solo`` marks it for :meth:`recohort` and gives it the
+        ``cuda`` tier under evacuation.  Its key ``("cuda-solo-<n>",
+        capacity)`` sorts after ``("cuda-cohort", ...)`` and as strings
+        (``solo-10`` before ``solo-9``), as the JAX package's
+        ``tpu-solo-<n>`` keys do: the fault seams are crossed in the same
+        bucket order."""
+        self._cohort_serial += 1
+        bucket = _CUDABucket(capacity, self.device,
+                             delta_staging=self.delta_staging,
+                             emit=self._resolve_emit(), **self._modes())
+        bucket.exclusive = True
+        bucket.cohort_solo = True
+        self._buckets[(f"cuda-solo-{self._cohort_serial}", capacity)] = bucket
+        return bucket
+
+    def _solo_handle(self, capacity: int) -> SpaceAOIHandle:
+        bucket = self._solo_bucket(capacity)
+        h = SpaceAOIHandle("cuda", capacity, bucket, bucket.acquire_slot(),
+                           requested="cuda")
+        self._handles.add(h)
+        return h
+
+    def _drop_bucket(self, bucket) -> None:
+        """Forget an exclusive bucket (its device state frees with it)."""
+        for k, b in list(self._buckets.items()):
+            if b is bucket:
+                del self._buckets[k]
+
+    def _restack_handle(self, h: SpaceAOIHandle, bucket, shape: int) -> None:
+        """Move one live space onto ``bucket`` (capacity ``shape`` >= the
+        space's) through the snapshot seam: the join/leave primitive.
+        Between flushes; the undelivered events and a staged tick move
+        with it (the export delivers a deferred tick in flight first), so
+        nothing is dropped or repeated.  The padding is bit-exact: the
+        grown tail is inactive."""
+        if h._migration is not None:
+            h._migration.abort("space re-stacked mid-cover")
+        old_bucket, old_slot = h.bucket, h.slot
+        snap = AC.pad_snapshot(old_bucket.export_snapshot(old_slot), shape)
+        staged = old_bucket._staged.pop(old_slot, None)
+        slot = bucket.acquire_slot()
+        bucket.import_snapshot(slot, snap)
+        pending = old_bucket._events.pop(old_slot, None)
+        if pending is not None:
+            bucket._events[slot] = pending
+        if staged is not None:
+            bucket.stage(slot, staged)
+        old_bucket.release_slot(old_slot)
+        if getattr(old_bucket, "exclusive", False):
+            self._drop_bucket(old_bucket)
+        if h._policy_stack is not None and shape != h.capacity:
+            h._policy_stack.grow(shape)
+        h.bucket, h.slot = bucket, slot
+        h.capacity, h.backend = shape, "cuda"
+
+    def cohort_join(self, h: SpaceAOIHandle) -> SpaceAOIHandle:
+        """Stack a live space into the cohort bucket of its rung (a
+        planner's decision, or the re-arm after a demotion); in place:
+        the handle object stays, re-pointed."""
+        if h.released:
+            raise ValueError("space AOI handle already released")
+        if self.mesh is not None:
+            raise ValueError("cohorts are a single-device tier")
+        shape = AC.cohort_shape(h.capacity, self.cohort_ladder)
+        if shape is None:
+            raise ValueError(
+                f"capacity {h.capacity} is past the cohort ladder "
+                f"{self.cohort_ladder}")
+        bucket = self._cohort_bucket(shape)
+        if h.bucket is bucket:
+            return h
+        with _T.span("aoi.cohort.join"):
+            self._restack_handle(h, bucket, shape)
+        self.cohort_stats["cohort_joins"] += 1
+        return h
+
+    def cohort_leave(self, h: SpaceAOIHandle) -> SpaceAOIHandle:
+        """Un-stack a live space onto a solo bucket of its own (a
+        planner's decision: one hot space must not gate its cohort's
+        shared step); in place, like :meth:`cohort_join`."""
+        if h.released:
+            raise ValueError("space AOI handle already released")
+        if not getattr(h.bucket, "cohort", False):
+            return h
+        with _T.span("aoi.cohort.leave"):
+            self._restack_handle(h, self._solo_bucket(h.capacity),
+                                 h.capacity)
+        self.cohort_stats["cohort_leaves"] += 1
+        return h
+
+    def recohort(self) -> int:
+        """Re-arm after ``aoi.cohort`` demotions: stack every space on a
+        demoted (or planner) solo bucket back into its cohort; returns
+        how many moved.  The seam stays one-shot per cohort bucket: a
+        fresh bucket probes it afresh, so a re-armed plan can fire
+        again."""
+        moved = 0
+        for h in list(self._handles):
+            if h.released or not getattr(h.bucket, "cohort_solo", False):
+                continue
+            self.cohort_join(h)
+            moved += 1
+        return moved
+
+    def _demote_cohort(self, bucket) -> list:
+        """The ``aoi.cohort`` seam fired at this bucket's dispatch (its
+        shared step is suspect; nothing was staged to the device this
+        tick): rebuild every member space onto a solo bucket of its own
+        now, re-staging this tick's inputs, and return the new buckets,
+        not yet dispatched, so the flush runs them under its schedule --
+        the republish is same-tick and bit-exact."""
+        t0 = time.perf_counter()
+        new_buckets: list = []
+        with _T.span("aoi.cohort.demote"):
+            for m in [m for m in self._migrations
+                      if m.h.bucket is bucket or m.t.bucket is bucket]:
+                m.abort("cohort demoting to per-space dispatch")
+            staged = dict(bucket._staged)
+            bucket._staged.clear()
+            snaps = bucket.evacuate()
+            self._drop_bucket(bucket)
+            owners = {h.slot: h for h in self._handles
+                      if h.bucket is bucket and not h.released}
+            for slot in sorted(snaps):
+                h = owners.get(slot)
+                if h is None:
+                    continue  # no live space behind the slot
+                nb = self._solo_bucket(h.capacity)
+                ns = nb.acquire_slot()
+                nb.import_snapshot(ns, snaps[slot])
+                pending = bucket._events.pop(slot, None)
+                if pending is not None:
+                    nb._events[ns] = pending
+                tick = staged.get(slot)
+                if tick is not None:
+                    nb.stage(ns, tick)
+                h.bucket, h.slot = nb, ns
+                self.cohort_stats["cohort_demoted_spaces"] += 1
+                new_buckets.append(nb)
+        self.migration_stats["migration_ms"] += (
+            time.perf_counter() - t0) * 1e3
+        _log.warning("AOI cohort bucket (shape %d) demoted: %d spaces "
+                     "rebuilt on solo buckets", bucket.capacity,
+                     len(new_buckets))
+        return new_buckets
+
     def release_space(self, h: SpaceAOIHandle) -> None:
         if h._migration is not None:
             # released mid-cover: the migration rolls back first (its
@@ -782,10 +1003,9 @@ class AOIEngine:
             if h in self._stacked:
                 self._stacked.remove(h)
             if getattr(h.bucket, "exclusive", False):
-                # a row-sharded space's bucket frees with it
-                for k, b in list(self._buckets.items()):
-                    if b is h.bucket:
-                        del self._buckets[k]
+                # a row-sharded or solo space's bucket (its device state,
+                # pinned staging and graphs) frees with it
+                self._drop_bucket(h.bucket)
 
     def submit(self, h: SpaceAOIHandle, x, z, radius, active) -> None:
         """Stage one space's tick inputs (numpy arrays of length <=
@@ -810,7 +1030,11 @@ class AOIEngine:
         order (kind, capacity), so the order in which fault seams are
         crossed does not depend on the order spaces were created.
         ``flush_sched=False`` runs each bucket's dispatch and harvest
-        before the next starts.
+        before the next starts.  A cohort bucket whose ``aoi.cohort``
+        seam fired at its dispatch is demoted there (its spaces onto solo
+        buckets, which run this tick under the same schedule) and has
+        nothing to harvest.  Spans: ``aoi.dispatch`` and ``aoi.harvest``
+        (split-phase).
 
         After the harvests, in this order: each live migration compares
         the deltas its two homes published (``aoi.migrate.cover``; it
@@ -822,12 +1046,28 @@ class AOIEngine:
         if not self.flush_sched:
             for bucket in buckets:
                 bucket.dispatch()
+                if getattr(bucket, "_cohort_demote", False):
+                    for nb in self._demote_cohort(bucket):
+                        nb.flush()
+                    continue  # the torn-down cohort has nothing to harvest
                 bucket.harvest()
         else:
-            for bucket in buckets:
-                bucket.dispatch()
-            for bucket in buckets:
-                bucket.harvest()
+            with _T.span("aoi.dispatch"):
+                for bucket in buckets:
+                    bucket.dispatch()
+                demoting = [b for b in buckets
+                            if getattr(b, "_cohort_demote", False)]
+                if demoting:
+                    for b in demoting:
+                        for nb in self._demote_cohort(b):
+                            nb.dispatch()
+                    # re-list: the demoted cohorts are gone, their solo
+                    # buckets (dispatched above) harvest in key order
+                    buckets = [self._buckets[k]
+                               for k in sorted(self._buckets)]
+            with _T.span("aoi.harvest"):
+                for bucket in buckets:
+                    bucket.harvest()
         if self._migrations:
             with _T.span("aoi.migrate.cover"):
                 for m in list(self._migrations):
@@ -847,7 +1087,14 @@ class AOIEngine:
 
     @staticmethod
     def _tier_of(bucket) -> str:
-        """The placement tier (:data:`TIERS`) of a live bucket."""
+        """The placement tier (:data:`TIERS`) of a live bucket.  Cohort
+        and solo buckets are single-device tiers, checked before
+        ``exclusive`` (a solo bucket is exclusive too): an evacuation
+        re-homes their spaces on the shared ``cuda`` bucket of the same
+        (rung) capacity."""
+        if getattr(bucket, "cohort", False) \
+                or getattr(bucket, "cohort_solo", False):
+            return "cuda"
         if getattr(bucket, "exclusive", False):
             return "rowshard"
         name = type(bucket).__name__
@@ -907,6 +1154,75 @@ class AOIEngine:
         one (shutdown, state carry-over, tests); buckets in key order."""
         for k in sorted(self._buckets):
             self._buckets[k].drain()
+
+    def _telemetry_collect(self) -> list:
+        """The registry's collector: the buckets' stats and perf summed
+        (``calc_level``, ``emit_path`` and ``page_occupancy`` are the
+        worst bucket's), the cohort gauges and counters and the migration
+        totals.  Reads host dicts only: no device sync."""
+        lbl = {"engine": str(self._telemetry_id)}
+        stats: dict[str, float] = {}
+        perf: dict[str, float] = {}
+        calc_level = emit_path = 0
+        page_occ = 0.0
+        for b in (self._buckets[k] for k in sorted(self._buckets)):
+            for k, v in getattr(b, "stats", {}).items():
+                if k == "calc_level":
+                    calc_level = max(calc_level, v)
+                elif k == "emit_path":
+                    emit_path = max(emit_path, v)
+                elif k == "page_occupancy":
+                    page_occ = max(page_occ, v)
+                else:
+                    stats[k] = stats.get(k, 0) + v
+            for k, v in getattr(b, "perf", {}).items():
+                perf[k] = perf.get(k, 0.0) + v
+        cohorts = sum(1 for b in self._buckets.values()
+                      if getattr(b, "cohort", False))
+        cohort_spaces = sum(1 for h in self._handles
+                            if not h.released
+                            and getattr(h.bucket, "cohort", False))
+        out = [Sample("aoi.buckets", "gauge", len(self._buckets), lbl,
+                      "live AOI buckets in this engine"),
+               Sample("aoi.cohorts", "gauge", cohorts, lbl,
+                      "live cohort buckets (space-stacked planes)"),
+               Sample("aoi.cohort_spaces", "gauge", cohort_spaces, lbl,
+                      "spaces currently stacked into cohort buckets"),
+               Sample("aoi.calc_level", "gauge", calc_level, lbl,
+                      "worst calculator fallback level "
+                      "(0=kernel 1=plain step 2=host oracle)"),
+               Sample("aoi.emit_path", "gauge", emit_path, lbl,
+                      "worst emit-path fallback level "
+                      "(0=native 1=vector 2=host decode)"),
+               Sample("aoi.page_occupancy", "gauge", page_occ, lbl,
+                      "fullest page pool at last harvest "
+                      "(used/total pages; paged buckets only)")]
+        for k in sorted(stats):
+            out.append(Sample("aoi." + k, "counter", stats[k], lbl,
+                              "summed per-bucket AOI stat"))
+        for k in sorted(perf):
+            out.append(Sample("aoi." + k.replace("_s", "_seconds"), "counter",
+                              perf[k], lbl,
+                              "cumulative per-phase flush time"))
+        ms = self.migration_stats
+        cs = self.cohort_stats
+        for name, v, help_ in (
+                ("migrations", ms["migrations"],
+                 "completed live space migrations"),
+                ("evacuations", ms["evacuations"],
+                 "bucket evacuations after device loss"),
+                ("migration_rollbacks", ms["migration_rollbacks"],
+                 "migrations aborted back to their source bucket"),
+                ("migration_ms", ms["migration_ms"],
+                 "cumulative migration/evacuation wall time (ms)"),
+                ("cohort_joins", cs["cohort_joins"],
+                 "spaces stacked into a cohort live"),
+                ("cohort_leaves", cs["cohort_leaves"],
+                 "spaces un-stacked onto solo buckets"),
+                ("cohort_demoted_spaces", cs["cohort_demoted_spaces"],
+                 "spaces rebuilt per-space by aoi.cohort demotions")):
+            out.append(Sample("aoi." + name, "counter", v, lbl, help_))
+        return out
 
     def take_events(self, h: SpaceAOIHandle):
         """(enter_pairs, leave_pairs) for this space from the last flush."""
@@ -1138,10 +1454,12 @@ class _CPUBucket(_Bucket):
 
     def flush(self) -> None:
         t0 = time.perf_counter()
+        _ts = _T.t()
         for slot, (x, z, r, act) in self._staged.items():
             self._events[slot] = self._oracles[slot].step(x, z, r, act)
             self._last[slot] = (x, z, r, act)
         self._staged.clear()
+        _T.lap("aoi.kernel", _ts)  # the host calculator's step
         self.perf["calc_s"] += time.perf_counter() - t0
 
     def export_snapshot(self, slot: int) -> dict:
@@ -1431,14 +1749,16 @@ class _Deferred(_CalcChain):
             self._publish(rec["slots"], rec["epochs"], *rec["payload"])
             rec_slots: list[int] = []
         else:
-            rec_slots = rec["slots"]
+            # the slots the record computed (its grid may hold more rows)
+            rec_slots = rec.get("staged", rec["slots"])
         newest, self._inflight = self._inflight, None
         host_rec = None
         if newest is not None:
             if newest.get("host"):
                 host_rec = newest  # its mirror effects already landed
             else:
-                rec_slots = sorted(set(rec_slots) | set(newest["slots"]))
+                rec_slots = sorted(set(rec_slots) | set(
+                    newest.get("staged", newest["slots"])))
         self._ensure_mirror()
         self._apply_mirror_ops()
         self._land_maintenance()
@@ -1556,10 +1876,14 @@ class _CUDABucket(_Deferred, _Bucket):
 
     ``fused`` runs each eligible steady tick (delta staging on, no stale
     device role, r and act unchanged, at most ``_delta_max_frac`` of the
-    entries changed, every acquired slot staged, calc level 0, emit mode
-    not ``host`` unless paged) as one replay of a CUDA graph over the
-    whole [S] grid (:mod:`..ops.fused`); any other tick runs the unfused
-    flow, and both records take the same harvest.  An
+    entries changed, calc level 0, emit mode not ``host`` unless paged)
+    as one replay of a CUDA graph over the whole [S] grid
+    (:mod:`..ops.fused`); a slot the tick did not stage is masked in the
+    graph (it keeps its words and emits nothing), so quiet spaces never
+    take the unfused flow or a new capture.  Any other tick runs the
+    unfused flow, and both records take the same harvest: a record's
+    ``slots``/``epochs`` name its grid's rows (epoch -1: a row that emits
+    nothing) and ``staged`` the slots the tick computed.  An
     ``aoi.delta``/``aoi.kernel`` fault in the fused attempt moves the tick
     to the unfused flow before any device work (``fused_demotions``), as
     the JAX bucket does.
@@ -1813,11 +2137,24 @@ class _CUDABucket(_Deferred, _Bucket):
         self.perf["stage_s"] += time.perf_counter() - t_stage0
         return rec
 
-    def _record(self, slots, sub, new, chg, tri=None, count=None) -> dict:
+    def _grid_rows(self, slots, grid: bool):
+        """(row slots, row epochs) of a record's grid: the staged slots, or
+        (``grid``: the fused tick's whole [S] grid) every row, epoch -1
+        where the tick staged nothing."""
+        if not grid:
+            return slots, [self._slot_epoch.get(s, 0) for s in slots]
+        live = set(slots)
+        rows = list(range(self.s_max))
+        return rows, [self._slot_epoch.get(s, 0) if s in live else -1
+                      for s in rows]
+
+    def _record(self, slots, sub, new, chg, tri=None, count=None,
+                grid=False) -> dict:
         """A dispatched tick's record; its count (and, deferred, the
         optimistic triple slice) starts for the host."""
-        rec = {"slots": slots, "s_n": len(slots), "mt": self._max_triples,
-               "epochs": [self._slot_epoch.get(s, 0) for s in slots],
+        rows, epochs = self._grid_rows(slots, grid)
+        rec = {"slots": rows, "s_n": len(rows), "mt": self._max_triples,
+               "epochs": epochs, "staged": slots,
                "grids": (new, chg), "tri": tri, "count": None,
                "ready": None, "all_unsub": not sub.any(), "prefetch": None}
         if rec["all_unsub"]:
@@ -1838,12 +2175,14 @@ class _CUDABucket(_Deferred, _Bucket):
         return ev
 
     def _paged_record(self, slots, sub, new, chg, pools=None, tab=None,
-                      spill=None, scalars=None, bundle=None) -> dict:
+                      spill=None, scalars=None, bundle=None,
+                      grid=False) -> dict:
         """A dispatched paged tick's record: its grids and pools; its page
         table, spilled bins and scalars (or the fused tick's bundle) and,
         deferred, the optimistic slice of its pools start for the host."""
-        rec = {"mode": "paged", "slots": slots,
-               "epochs": [self._slot_epoch.get(s, 0) for s in slots],
+        rows, epochs = self._grid_rows(slots, grid)
+        rec = {"mode": "paged", "slots": rows, "epochs": epochs,
+               "staged": slots,
                "grids": (new, chg), "n_pages": self._n_pages,
                "pools": pools, "tab": None, "spill": None, "scalars": None,
                "bundle": None, "ready": None, "all_unsub": not sub.any(),
@@ -1916,11 +2255,7 @@ class _CUDABucket(_Deferred, _Bucket):
                 or any(role not in self._dev
                        for role in ("x", "z", "r", "act", "sub"))
                 or self._calc_level >= 1 or self._need_rebuild
-                or (self._emit == "host" and not self.paged)
-                or len(slots) != self.n_slots):
-            # the graph steps all s_max rows: every acquired slot must be
-            # staged (rows never acquired hold zero words and inactive
-            # inputs, so they stay zero and emit nothing)
+                or (self._emit == "host" and not self.paged)):
             return None
         if not (np.array_equal(self._hr[sl], old_r)
                 and np.array_equal(self._hact[sl], old_act)):
@@ -1960,6 +2295,11 @@ class _CUDABucket(_Deferred, _Bucket):
         parity = fz.parity_of(self.prev)
         fz.load_packet(parity, *pkt)
         fz.set_sub(self._hsub)
+        # the graph steps all s_max rows; the rows this tick did not stage
+        # (quiet spaces, free and never-acquired slots) are masked
+        staged = np.zeros(self.s_max, bool)
+        staged[sl] = True
+        fz.set_staged(staged)
         dev = self._dev
         inputs = (dev["x"], dev["z"], dev["r"], dev["act"])
         self.stats["fused_dispatches"] += 1
@@ -1968,10 +2308,10 @@ class _CUDABucket(_Deferred, _Bucket):
                 parity, self._page_free, *inputs)
             self.prev = new
             return self._paged_record(slots, sub, new, chg, pools,
-                                      bundle=bundle)
+                                      bundle=bundle, grid=True)
         new, chg, tri, count = fz.run(parity, self._max_triples, *inputs)
         self.prev = new
-        return self._record(slots, sub, new, chg, tri, count)
+        return self._record(slots, sub, new, chg, tri, count, grid=True)
 
     def _detach_parked_new(self) -> None:
         """Before ``self.prev`` is written in place: a parked record whose

@@ -1,7 +1,6 @@
 """Placement: live space migration between AOI tiers.
 
-Port of the JAX package's ``engine/placement.py`` without its
-``CohortPlanner`` (ROADMAP.md queue 1, item 7).  Two halves:
+Port of the JAX package's ``engine/placement.py``.  Three parts:
 
   * :class:`PlacementController` -- scores each bucket from its load
     counters (flush seconds, occupied slots, staged H2D bytes) and, in
@@ -25,7 +24,11 @@ Port of the JAX package's ``engine/placement.py`` without its
     re-pointed in place, the undelivered events are carried (none lost,
     none repeated, no tick dropped) and the source slot's release
     silences a source tick still in flight.  A mismatch, or any fault
-    recovery on the target during the cover, rolls back to the source.
+    recovery on the target during the cover, rolls back to the source;
+
+  * :class:`CohortPlanner` -- scores the cohort tier from the same load
+    counters and moves spaces between a cohort bucket and solo buckets
+    (:meth:`..engine.aoi.AOIEngine.cohort_join` / ``cohort_leave``).
 
 The chip-loss evacuation (``aoi.device`` kind ``reset``) uses the same
 snapshots: :meth:`..engine.aoi.AOIEngine._evacuate_bucket`.
@@ -46,7 +49,8 @@ import numpy as np
 
 from ..telemetry import trace as _T
 
-__all__ = ["PlacementController", "LoadSample", "MigrationError"]
+__all__ = ["PlacementController", "CohortPlanner", "LoadSample",
+           "MigrationError"]
 
 _log = logging.getLogger("goworld_tpu_torch.placement")
 
@@ -225,9 +229,7 @@ class _Migration:
         self._finish()
         src_bucket.release_slot(src_slot)
         if getattr(src_bucket, "exclusive", False):
-            for k, b in list(eng._buckets.items()):
-                if b is src_bucket:
-                    del eng._buckets[k]
+            eng._drop_bucket(src_bucket)
         eng.migration_stats["migrations"] += 1
         eng.migration_stats["migration_ms"] += (
             time.perf_counter() - self.t0) * 1e3
@@ -373,4 +375,94 @@ class PlacementController:
                 self.migrate(h, tier)
             except MigrationError:
                 pass  # raced with a release; score again next window
+            self._cooldown = self.cooldown_ticks
+
+
+class CohortPlanner:
+    """Load-driven cohort membership (``Runtime(aoi_cohort_planner=
+    "static" | "auto")``).
+
+    Scores the cohort tier as :class:`PlacementController` scores bucket
+    tiers -- per-bucket flush-ms deltas from the same counters the
+    telemetry collector exports -- and moves membership live through
+    :meth:`..engine.aoi.AOIEngine.cohort_join` / ``cohort_leave`` (the
+    snapshot seam, between flushes, bit-exact).  Two rules:
+
+      * a cohort whose shared step takes more than ``hot_ms`` a tick sheds
+        one member a window (the lowest slot: the load of one member is
+        not attributed, and shedding any member shrinks the step);
+      * a light solo space -- a planner leave or an ``aoi.cohort``
+        demotion alike -- folds back into its rung's cohort, so the
+        planner doubles as the demotion's re-arm loop.
+
+    At most ``churn_budget`` moves a decision window and
+    ``cooldown_ticks`` quiet ticks after any move; target shapes come
+    only from the engine's ladder, so churn moves spaces between buckets
+    that exist and mints no capture key."""
+
+    def __init__(self, engine, mode: str = "static", hot_ms: float = 8.0,
+                 churn_budget: int = 2, cooldown_ticks: int = 32):
+        if mode not in ("static", "auto"):
+            raise ValueError(
+                f"aoi_cohort_planner must be 'static' or 'auto', "
+                f"got {mode!r}")
+        self.engine = engine
+        self.mode = mode
+        self.hot_ms = hot_ms
+        self.churn_budget = churn_budget
+        self.cooldown_ticks = cooldown_ticks
+        self._cooldown = 0
+        self._tick = 0
+        self._base: dict[tuple, tuple] = {}
+
+    def load_samples(self) -> list[LoadSample]:
+        """Each bucket's load since the previous call (the planner's own
+        window: the placement controller's sampling is undisturbed)."""
+        return _load_samples(self.engine, self._base, self._tick)
+
+    def decide(self) -> list[tuple]:
+        """[(handle, "leave" | "join"), ...] for this window: bounded by
+        the churn budget, deterministic (bucket key order, hot leaves
+        first)."""
+        eng = self.engine
+        samples = self.load_samples()
+        plan: list[tuple] = []
+        for s in samples:
+            if len(plan) >= self.churn_budget:
+                return plan
+            b = eng._buckets.get(s.key)
+            if (b is not None and getattr(b, "cohort", False)
+                    and s.entities > 1 and s.flush_ms > self.hot_ms):
+                h = _first_live_handle(eng, b)
+                if h is not None:
+                    plan.append((h, "leave"))
+        for s in samples:
+            if len(plan) >= self.churn_budget:
+                return plan
+            b = eng._buckets.get(s.key)
+            if (b is not None and getattr(b, "cohort_solo", False)
+                    and s.entities and s.flush_ms * 4 < self.hot_ms):
+                h = _first_live_handle(eng, b)
+                if h is not None:
+                    plan.append((h, "join"))
+        return plan
+
+    def step(self) -> None:
+        """One planner tick (the runtime calls it after placement.step)."""
+        self._tick += 1
+        if self.mode != "auto":
+            return
+        if self._cooldown > 0:
+            self._cooldown -= 1
+            return
+        moved = 0
+        for h, action in self.decide():
+            if h.released:
+                continue  # released inside the window
+            if action == "leave":
+                self.engine.cohort_leave(h)
+            else:
+                self.engine.cohort_join(h)
+            moved += 1
+        if moved:
             self._cooldown = self.cooldown_ticks

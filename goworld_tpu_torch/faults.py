@@ -309,16 +309,24 @@ class FaultPlan:
 
     # -- firing ------------------------------------------------------------
     def _hit(self, seam: str) -> tuple[FaultSpec | None, int]:
-        hit = None
+        entry = hit = None
         with self._lock:
             n = self.counts.get(seam, 0) + 1
             self.counts[seam] = n
             for spec in self.specs:
                 if spec.seam == seam and spec.matches(n):
-                    self.fired.append({"seam": seam, "kind": spec.kind,
-                                       "occurrence": n, "arg": spec.arg})
+                    entry = {"seam": seam, "kind": spec.kind,
+                             "occurrence": n, "arg": spec.arg}
+                    self.fired.append(entry)
                     hit = spec
                     break
+        if entry is not None:
+            # the flight recorder's hook, outside the plan lock: a clu.*
+            # firing dumps the black box, whose metric snapshot reads back
+            # through the faults collector
+            from .telemetry import flight as _flight
+
+            _flight.note_fault(entry)
         return hit, n
 
     def check(self, seam: str) -> FaultSpec | None:
@@ -457,6 +465,31 @@ if _env:
 del _env
 
 
-# The JAX package registers a telemetry collector here (plan live, per-seam
-# crossings and faults taken); the port's telemetry registry comes with
-# ROADMAP.md queue 1, item 12, and the collector with it.
+def _telemetry_collect():
+    """Fault-injection state as registry samples: whether a plan is live,
+    per-seam crossings, and per-seam faults taken."""
+    from .telemetry.metrics import Sample
+
+    p = _PLAN
+    out = [Sample("faults.active", "gauge", 1.0 if p is not None else 0.0,
+                  None, "1 while a fault plan is installed")]
+    if p is None:
+        return out
+    with p._lock:
+        counts = dict(p.counts)
+        fired: dict[str, int] = {}
+        for f in p.fired:
+            fired[f["seam"]] = fired.get(f["seam"], 0) + 1
+    for seam, n in sorted(counts.items()):
+        out.append(Sample("faults.occurrences", "counter", float(n),
+                          {"seam": seam}, "times the seam was crossed"))
+    for seam, n in sorted(fired.items()):
+        out.append(Sample("faults.fired", "counter", float(n),
+                          {"seam": seam}, "injected faults taken"))
+    return out
+
+
+from .telemetry import register_collector as _register_collector  # noqa: E402
+
+_register_collector(_telemetry_collect)
+del _register_collector

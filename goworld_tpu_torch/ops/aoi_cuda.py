@@ -14,7 +14,10 @@ launches of the chg mode (square and rectangular),
 
 ``out=`` hands the step preallocated output tensors (the buckets keep one
 reusable set per shard); every output word is written, and no output may
-be ``prev_words`` itself.
+be ``prev_words`` itself.  ``stg=`` / ``sub=`` (chg mode) are the per-space
+row masks of the fused tick, int32 [S] of 1 or 0 (:func:`row_masks_plain`
+is their plain version): a space not staged keeps its ``prev`` words and
+has no change, a space not subscribed has no change.
 
 The kernel is persistent: :func:`step_plan` sizes its grid from what fits
 on the card at once (read on the card by ``gw_aoi_step_occupancy``) and
@@ -164,19 +167,47 @@ def occupancy(lib_name: str, fn_name: str, kind: int,
     return got
 
 
-# C entry point and output count of each mode
-_MODES = {"aoi_step": ("gw_aoi_step_chg", 2),
-          "aoi_step_entlv": ("gw_aoi_step_entlv", 3)}
+# C entry point, output count and row-mask count of each mode
+_MODES = {"aoi_step": ("gw_aoi_step_chg", 2, 2),
+          "aoi_step_entlv": ("gw_aoi_step_entlv", 3, 0)}
 
 
 def _lib(mode):
-    name, n_out = _MODES[mode]
+    name, n_out, n_masks = _MODES[mode]
     fn = getattr(_build.library("aoi_step"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * (9 + n_out) + \
-            [ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 2
+            [ctypes.c_int64] * 3 + [ctypes.c_void_p] + \
+            [ctypes.c_int64] * 2 + [ctypes.c_void_p] * n_masks
     return fn
+
+
+def _masks(x, stg, sub):
+    """The row masks after a check: int32 [S] on the inputs' device,
+    contiguous (None stays None)."""
+    out = []
+    for name, m in (("stg", stg), ("sub", sub)):
+        if m is not None:
+            _want(name, m, torch.int32, (x.shape[0],))
+            if m.device != x.device:
+                raise ValueError(f"{name}: on {m.device}, the inputs on "
+                                 f"{x.device}")
+            m = m.contiguous()
+        out.append(m)
+    return out
+
+
+def row_masks_plain(prev_words, new, chg, stg=None, sub=None) -> None:
+    """The plain version of the kernel's row masks, in place on the
+    unmasked step's ``new`` and ``chg``: a space with ``stg`` 0 keeps
+    ``prev_words`` and has ``chg`` 0; a space with ``sub`` 0 has ``chg``
+    0."""
+    if stg is not None:
+        torch.where(stg.bool()[:, None, None], new, prev_words, out=new)
+        chg.mul_(stg[:, None, None])
+    if sub is not None:
+        chg.mul_(sub[:, None, None])
 
 
 def _outputs(prev, n_out, out):
@@ -194,7 +225,8 @@ def _outputs(prev, n_out, out):
     return tuple(out)
 
 
-def _launch(mode, x, z, radius, active, prev_words, cols, row_ids, out):
+def _launch(mode, x, z, radius, active, prev_words, cols, row_ids, out,
+            stg=None, sub=None):
     cols = check_inputs(x, z, radius, active, prev_words, cols, row_ids)
     if x.device.type != "cuda":
         raise ValueError(f"the AOI kernel runs on CUDA tensors, got "
@@ -203,6 +235,7 @@ def _launch(mode, x, z, radius, active, prev_words, cols, row_ids, out):
     cand = [t.contiguous() for t in cols]
     rid = None if row_ids is None else row_ids.contiguous()
     prev = prev_words.contiguous()
+    masks = _masks(x, stg, sub)
     outs = _outputs(prev, _MODES[mode][1], out)
     s, c_rows = x.shape
     if s == 0 or c_rows == 0:
@@ -211,15 +244,18 @@ def _launch(mode, x, z, radius, active, prev_words, cols, row_ids, out):
         raise ValueError("out: an output may not be prev_words")
     fn = _lib(mode)
     c_cols = cand[0].shape[1]
+    kind = 1 if mode == "aoi_step_entlv" else 2 if any(
+        m is not None for m in masks) else 0
     plan = step_plan(s, c_rows, words_per_row(c_cols), *occupancy(
-        "aoi_step", "gw_aoi_step_occupancy", int(mode == "aoi_step_entlv"),
-        x.device))
+        "aoi_step", "gw_aoi_step_occupancy", kind, x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in rows + cand),
                 None if rid is None else rid.data_ptr(), prev.data_ptr(),
                 *(t.data_ptr() for t in outs), s, c_rows, c_cols, stream,
-                plan.grid, plan.tiles)
+                plan.grid, plan.tiles,
+                *(None if m is None else m.data_ptr()
+                  for m in masks[:_MODES[mode][2]]))
     if rc != 0:
         raise RuntimeError(f"{mode} kernel launch failed: CUDA error {rc}")
     launches[mode] += 1
@@ -239,12 +275,13 @@ def _plain(fn, x, z, radius, active, prev_words, cols, row_ids, out):
 
 
 def aoi_step_chg_cuda(x, z, radius, active, prev_words, cols=None,
-                      row_ids=None, out=None):
+                      row_ids=None, out=None, stg=None, sub=None):
     """Launch the kernel in chg mode: [S, C_rows] inputs, [S, C_rows, W]
     int32 prev (W = C_cols / 32; square mode C_cols = C_rows) -> ``(new,
-    chg)``, [S, C_rows, W] int32 tensors (fresh, or ``out``)."""
+    chg)``, [S, C_rows, W] int32 tensors (fresh, or ``out``), under the
+    row masks ``stg`` / ``sub`` where given."""
     return _launch("aoi_step", x, z, radius, active, prev_words, cols,
-                   row_ids, out)
+                   row_ids, out, stg, sub)
 
 
 def aoi_step_entlv_cuda(x, z, radius, active, prev_words, cols=None,
@@ -256,15 +293,19 @@ def aoi_step_entlv_cuda(x, z, radius, active, prev_words, cols=None,
 
 
 def aoi_step_chg(x, z, radius, active, prev_words, cols=None, row_ids=None,
-                 out=None):
-    """THE step entry (``emit="chg"``, square or rectangular mode): the
-    kernel on CUDA tensors, the plain version on CPU tensors, an error on
-    anything else."""
+                 out=None, stg=None, sub=None):
+    """THE step entry (``emit="chg"``, square or rectangular mode, under
+    the row masks ``stg`` / ``sub`` where given): the kernel on CUDA
+    tensors, the plain version on CPU tensors, an error on anything
+    else."""
     if x.device.type == "cpu":
-        return _plain(aoi_step_chg_dense, x, z, radius, active, prev_words,
-                      cols, row_ids, out)
+        stg, sub = _masks(x, stg, sub)
+        new, chg = _plain(aoi_step_chg_dense, x, z, radius, active,
+                          prev_words, cols, row_ids, out)
+        row_masks_plain(prev_words, new, chg, stg, sub)
+        return new, chg
     return aoi_step_chg_cuda(x, z, radius, active, prev_words, cols=cols,
-                             row_ids=row_ids, out=out)
+                             row_ids=row_ids, out=out, stg=stg, sub=sub)
 
 
 def aoi_step_entlv(x, z, radius, active, prev_words, cols=None,

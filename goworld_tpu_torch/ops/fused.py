@@ -9,9 +9,10 @@ reference's order:
 
     the packet's scatter (aoi_stage.scatter_packet)
       -> the step (aoi_cuda.aoi_step_chg with out=: csrc/aoi_step.cu,
-         chg mode, on CUDA tensors)
-      -> the subscription mask (a multiply by the device-resident sub
-         vector)
+         chg mode, on CUDA tensors) under two row masks, applied in the
+         kernel's store from the device-resident vectors: the staged-row
+         mask (a row the tick did not stage keeps its words and
+         contributes no change) and the subscription mask
       -> the triple extraction (events.extract_triples), copied into a
          static triple buffer, and the count into a static count buffer
          (:class:`FusedTri`); or, on a paged bucket (:class:`FusedPaged`),
@@ -39,7 +40,9 @@ survives the next tick's replay.  A bucket's graphs are keyed by
 :func:`capture_key` -- its shapes, the packet length, the parity and the
 size of its outputs (the triple cap, or the page pool's ``n_pages``: a
 pool resize is a new capture) -- and share one memory pool; graphs of a
-size the bucket has left are dropped.
+size the bucket has left are dropped.  Which rows the tick staged is a
+buffer (``stg``, int32 [S]), not part of the key: a tick with quiet
+spaces replays the same graph as one that staged every space.
 
 The first replay of a key is preceded by one eager run of the body on a
 side stream (``torch.cuda.graph``'s warm-up; it builds the kernel library
@@ -89,32 +92,31 @@ def capture_key(s: int, c: int, plen: int, parity: int,
     return (s, c, plen, parity, size)
 
 
-def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, idx, val,
+def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, stg, idx, val,
              capacity: int, max_triples: int) -> None:
     """One fused tick, in place: scatter ``(idx, val)`` into ``x``/``z``,
-    step from ``prev`` into ``new``/``chg``, mask ``chg`` by ``sub`` (int32
-    [S], 1 or 0), extract the triples into ``tri`` [max_triples, 3] and
-    their count into ``count`` [1] int64.  No host work, so a CUDA graph
-    can hold it."""
+    step from ``prev`` into ``new``/``chg`` under the staged-row mask
+    ``stg`` and the subscription mask ``sub`` (both int32 [S], 1 or 0),
+    extract the triples into ``tri`` [max_triples, 3] and their count
+    into ``count`` [1] int64.  No host work, so a CUDA graph can hold
+    it."""
     AS.scatter_packet(x, z, idx, val)
-    AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg))
-    chg.mul_(sub[:, None, None])
+    AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg), stg=stg, sub=sub)
     t, n = EV.extract_triples(chg, new, capacity, max_triples)
     tri.copy_(t)
     count.copy_(n.reshape(1))
 
 
 def paged_body(prev, new, chg, pg, pc, pn, bundle, free, x, z, r, act, sub,
-               idx, val, bin_words: int) -> None:
+               stg, idx, val, bin_words: int) -> None:
     """One fused paged tick, in place: :func:`tri_body`'s scatter, step and
-    mask, then the page allocator over ``free`` (int32 [n_pages], updated
+    masks, then the page allocator over ``free`` (int32 [n_pages], updated
     to the rotated list), its pools into ``pg``/``pc``/``pn`` [n_pages,
     PAGE_WORDS] and ``bundle`` (int32) = [scalars (4), page table
     (n_pages), spilled bins].  No host work, so a CUDA graph can hold
     it."""
     AS.scatter_packet(x, z, idx, val)
-    AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg))
-    chg.mul_(sub[:, None, None])
+    AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg), stg=stg, sub=sub)
     g, c, n, tab, free_next, spill, scal = PG.allocate_pages(
         chg, new, free, PG.PAGE_WORDS, bin_words, PG.MAX_SPILL)
     pg.copy_(g)
@@ -155,6 +157,8 @@ class FusedTri:
         self.val = buf(2, plen, dtype=torch.float32)
         self.sub = torch.ones(s, dtype=torch.int32, device=device)
         self.sub_host = np.ones(s, bool)  # what self.sub holds
+        self.stg = torch.ones(s, dtype=torch.int32, device=device)
+        self.stg_host = np.ones(s, bool)  # what self.stg holds
         self.cuda = device.type == "cuda"
         self.graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
         self.inputs: dict[tuple, tuple] = {}  # key -> captured input ptrs
@@ -208,6 +212,13 @@ class FusedTri:
             self.sub.copy_(AS.h2d(hsub.astype(np.int32), self.device))
             self.sub_host = hsub.copy()
 
+    def set_staged(self, staged: np.ndarray) -> None:
+        """Bring the device staged-row vector up to ``staged`` (bool [S]:
+        the rows this tick staged).  A transfer, only when it changed."""
+        if not np.array_equal(staged, self.stg_host):
+            self.stg.copy_(AS.h2d(staged.astype(np.int32), self.device))
+            self.stg_host = staged.copy()
+
     def load_packet(self, parity: int, rows, cols, xv, zv) -> None:
         """Upload one packet of exactly ``plen`` entries into the static
         device packet buffer."""
@@ -232,7 +243,7 @@ class FusedTri:
         p = parity
         outs = self.outputs(p, size)
         args = (self.words[p], self.words[1 - p], self.chg[p], *outs,
-                x, z, r, act, self.sub, self.idx, self.val)
+                x, z, r, act, self.sub, self.stg, self.idx, self.val)
         key = capture_key(self.s, self.capacity, self.plen, p, size)
         DC.record_key(self.site, key)
         DC.record()

@@ -180,6 +180,33 @@ def test_cpu_step_launches_no_kernel_and_checks_inputs():
         AK.aoi_step_chg_cuda(*t, TP.words_to_torch(prev, "cpu"))
 
 
+@pytest.mark.parametrize("c", [128, 256])
+def test_plain_row_masks_match_jax_dense(c):
+    """The fused tick's row masks (``stg`` / ``sub``): a staged space's new
+    words are the JAX dense step's, an unstaged space keeps prev, and chg
+    is the JAX step's only where the space is staged and subscribed; the
+    entry refuses masks of the wrong dtype, length or device."""
+    x, z, r, act, prev = edge_inputs(4, c, seed=c + 7)
+    new_j, chg_j = (np.asarray(a) for a in JD.aoi_step_chg_dense(
+        jnp.asarray(x), jnp.asarray(z), jnp.asarray(r), jnp.asarray(act),
+        jnp.asarray(prev)))
+    stg = np.array([1, 0, 1, 0], np.int32)
+    sub = np.array([1, 1, 0, 0], np.int32)
+    t = [torch.from_numpy(a) for a in (x, z, r, act)]
+    new, chg = AK.aoi_step_chg(*t, TP.words_to_torch(prev, "cpu"),
+                               stg=torch.from_numpy(stg),
+                               sub=torch.from_numpy(sub))
+    new, chg = TP.words_to_numpy(new), TP.words_to_numpy(chg)
+    keep = stg.astype(bool)[:, None, None]
+    np.testing.assert_array_equal(new, np.where(keep, new_j, prev))
+    emit = (stg & sub).astype(bool)[:, None, None]
+    np.testing.assert_array_equal(chg, np.where(emit, chg_j, 0))
+    for bad in (torch.ones(4, dtype=torch.int64),
+                torch.ones(3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="stg"):
+            AK.aoi_step_chg(*t, TP.words_to_torch(prev, "cpu"), stg=bad)
+
+
 def rect_inputs(s, c_rows, c_cols, row0, seed, inf_radius=False):
     """Rectangular operands: the candidates are a whole edge-case space
     of ``c_cols`` slots, the rows its block ``[row0, row0 + c_rows)``

@@ -35,7 +35,7 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240,
                          check=True).stdout.split()
-    assert int(out[0]) >= 58  # every module of the eleven slices
+    assert int(out[0]) >= 66  # every module of the twelve slices
     loaded = out[1:]
     for mod in ("engine.runtime", "ops.aoi_grid", "ops.cadence",
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
@@ -47,7 +47,9 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
                 "telemetry", "telemetry.metrics", "telemetry.trace",
                 "netutil", "netutil.packet", "consts", "engine.placement",
                 "engine.checkpoint", "kvdb", "kvdb.backends", "storage",
-                "storage.backends"):
+                "storage.backends", "ops.aoi_cohort", "engine.aoi_cohort",
+                "utils", "utils.gwlog", "utils.gwutils", "utils.crontab",
+                "telemetry.flight", "telemetry.tracectx"):
         assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
