@@ -268,9 +268,39 @@ Phases (any failure raises, so the exit code is non-zero):
                 tick ms on and off, the tick's spans present and nested in
                 the Chrome export, render_prometheus() parsed with the
                 aoi.* families of phase 20's live cohort engine.
+ 22. game server -- phase 4's world as one GameService's spaces: of each
+                space's 10,000 entities 32 are client avatars (256 in
+                all), joined and walking in one 150 x 150 patch, 9,968
+                NPCs that walk every 100 ms (a game timer, through
+                Space.move_entities).  (a) The game with its
+                DispatcherCluster a recorder, driven by step() through
+                a script of inbound packets (connects, joins, a move
+                batch a tick, an attr RPC, a disconnect; ids from one
+                counter), on aoi_backend="cuda" (the card) and "cpp":
+                every tick's outbound payloads equal (sorted, as the
+                engine walks sets in hash order), its event CRC equal;
+                step()'s split (inbound, Runtime.tick with a CUDA sync,
+                outbox, position syncs, flush).  (b) Live over TCP: the
+                port's dispatcher and gate as child processes (python
+                -m, from an ini, ready on gwlog.READY_TAG), the game on
+                its logic thread here, 256 bot clients
+                (client.GameClientConnection) in 4 more children (two
+                spaces' clients each: one process saturated); 5 s of
+                warm-up, 30 s of steady traffic: ticks run against ticks
+                due at 5 ms, the loop's split, launches, the clients'
+                move latency (A's send_position to B's mirror update)
+                and its legs (send to ingest, ingest to sync, sync to
+                mirror; time.monotonic, one clock for the host), the
+                gate's wire each way at the clients' sockets, each
+                process's CPU seconds; once the clients' last moves are
+                ingested and the wire is quiet, every client's
+                mirror set equals its avatar's row of the device words
+                and of the plain interest_matrix over the staged
+                columns; no fault counter or decode_overflow moved, no
+                logged tick error; the children exit 0.
 
 Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
-then 19-19c, then 20-21, 20d and 14c last.  Every
+then 19-19c, then 20-21, 20d and 14c, and 22 last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
@@ -279,7 +309,8 @@ are one card's, not a multi-card layout's.  The last lines are
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
 {"paged": ...} (phases 17-17d), {"mesh": ...}, {"interest": ...} (phases
 18-18c), {"migration": ...} (phases 19-19c), {"cohort": ...} (phases
-20-20c), {"telemetry": ...} (phase 21), {"issue_floor": [...]} (each kernel's SASS instructions
+20-20c), {"telemetry": ...} (phase 21), {"game": ...} (phase 22),
+{"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
 3), {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -295,9 +326,10 @@ row-sharded bucket of 17c to the rectangular one; the stack step's in
 phase 18b (sequential, pipelined, the cut run) and in phase 18c; phase
 19 (its four runs) adds to the square step, its row-sharded target to
 the rectangular one and its stacked space to the stack step, phases 19b
-and 19c to the square step (19c's stacked space to the stack step), and
+and 19c to the square step (19c's stacked space to the stack step),
 phases 20-20c (each run: a cohort bucket's replay steps hundreds of
-spaces in one launch) and 21 to the square step.
+spaces in one launch) and 21 to the square step, and phase 22 (22a's
+card run, 22b's steady window) to the square step.
 """
 
 from __future__ import annotations
@@ -4646,6 +4678,1073 @@ def interest_entry(interest_k, interest_slice, load_out, moved):
             "shapes": rows}
 
 
+# -- phase 22: the game server over the wire -----------------------------------
+
+# phase 22: phase 4's world (8 x 10,000 in 16384 slots, world 4000, r 100,
+# step 5) as the spaces of one game: of each space's entities GAME_CLIENTS
+# are client avatars (256 in all), joined and walking in one patch of the
+# space so that they see each other, the rest server-side NPCs that walk
+# every POSITION_SYNC_INTERVAL_MS; each client moves once every 100 ms
+GAME_CLIENTS = 32
+GAME_PATCH = 150.0
+# 22a: the scripted run (cpp costs about 0.66 s a tick at this world); a
+# client moves every GAME_EVERY-th tick; the NPCs walk at GAME_NPC_TICKS
+# (at 12 after nine client-only ticks, whose few events decay the triple
+# cap; at 13 again with the cap grown back)
+GAME_SCRIPT_TICKS = 14
+GAME_EVERY = 10
+GAME_NPC_TICKS = (2, 12, 13)
+# 22b: warm-up and steady seconds of the live run; ticks run after the
+# clients' last move is ingested, before the mirrors are read; the longest
+# wait for a process or a state
+GAME_WARM_S, GAME_STEADY_S = 5.0, 30.0
+# bot processes, each with whole spaces' clients: one Python process
+# saturates its core at 256 clients, sends fewer than the 2,560 moves a
+# second, and its backlog reads as move latency
+GAME_BOT_PROCS = 4
+GAME_QUIET_TICKS = 8
+GAME_DRAIN_S = 0.5  # no client move ingested for this long: five gate flushes
+GAME_WAIT_S = 120.0
+SYNC_RECORD = 48  # client id, entity id, x, y, z, yaw
+
+
+def port_game_mods():
+    """The port's modules the scripted game runs on (the tests build the
+    same namespace over the JAX package)."""
+    import types
+
+    from goworld_tpu_torch import config, telemetry
+    from goworld_tpu_torch.components.game import service as game_service
+    from goworld_tpu_torch.engine import ids, manager
+    from goworld_tpu_torch.engine.entity import Entity
+    from goworld_tpu_torch.engine.rpc import OWN_CLIENT, rpc
+    from goworld_tpu_torch.engine.space import Space
+    from goworld_tpu_torch.engine.vector import Vector3
+    from goworld_tpu_torch.netutil import Packet
+    from goworld_tpu_torch.proto import GWConnection
+    from goworld_tpu_torch.proto import msgtypes as MT
+
+    return types.SimpleNamespace(
+        config=config, telemetry=telemetry,
+        GameService=game_service.GameService,
+        id_modules=(ids, manager, game_service), fixed_id=ids.fixed_id,
+        Entity=Entity, Space=Space, Vector3=Vector3, rpc=rpc,
+        OWN_CLIENT=OWN_CLIENT, Packet=Packet, GWConnection=GWConnection,
+        MT=MT, device_key=True)
+
+
+def game_types(m):
+    """The smoke game's entity types over the engine of ``m``."""
+
+    class SmokeScene(m.Space):
+        pass
+
+    class SmokeNpc(m.Entity):
+        use_aoi = True
+        aoi_distance = RADIUS
+
+    class SmokeAvatar(m.Entity):
+        use_aoi = True
+        aoi_distance = RADIUS
+        all_client_attrs = frozenset({"name"})
+        client_attrs = frozenset({"secret"})
+
+        def on_created(self):
+            self.attrs.set("name", "anon")
+            self.attrs.set("secret", 7)
+            self.set_client_syncing(True)
+
+        @m.rpc(expose=m.OWN_CLIENT)
+        def join(self, space, x, z):
+            sp = self._runtime().game.smoke_spaces[space]
+            self.enter_space(sp.id, m.Vector3(x, 0.0, z))
+
+        @m.rpc(expose=m.OWN_CLIENT)
+        def set_name(self, name):
+            self.attrs.set("name", name)
+
+        def on_client_disconnected(self):
+            self.destroy()
+
+    return SmokeScene, SmokeNpc, SmokeAvatar
+
+
+class CounterIds:
+    """One counter stood in for ``gen_id`` in each of ``modules``: a script
+    then names its entities alike in every run and in both packages."""
+
+    def __init__(self, modules):
+        self.n = 0
+        self.saved = [(mod, mod.gen_id) for mod in modules]
+        for mod in modules:
+            mod.gen_id = self
+
+    def __call__(self):
+        self.n += 1
+        return f"E{self.n:015d}"
+
+    def restore(self):
+        for mod, f in self.saved:
+            mod.gen_id = f
+
+
+class RecorderPC:
+    """A PacketConnection that keeps the payload of every packet sent."""
+
+    closed = False
+
+    def __init__(self):
+        self.sent = []
+
+    def send_packet(self, p, release=True):
+        self.sent.append(p.payload)
+        if release:
+            p.release()
+
+    def flush(self):
+        return 0
+
+    def close(self):
+        pass
+
+
+class RecorderCluster:
+    """A game's DispatcherCluster with no dispatcher: every route is one
+    connection of the game's package over a :class:`RecorderPC`."""
+
+    def __init__(self, GWConnection):
+        self.pc = RecorderPC()
+        self.conn = GWConnection(self.pc)
+        self.conns = [self.conn]
+        self.addrs = [("recorder", 0)]
+
+    def by_entity(self, _key):
+        return self.conn
+
+    by_gate = by_srvid = by_entity
+
+    def all(self):
+        return [self.conn]
+
+    def flush_all(self):
+        pass
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def renew_leases(self, *a, **kw):
+        pass
+
+    def take(self):
+        out, self.pc.sent = self.pc.sent, []
+        return out
+
+
+def canonical(payloads, MT):
+    """A tick's outbound payloads, sorted; a position-sync batch's records
+    sorted too.  The engine walks its dirty set and each entity's
+    ``interested_by`` set in hash order, which differs between runs (and
+    between the packages); what is sent does not."""
+    out = []
+    for b in payloads:
+        if int.from_bytes(b[:2], "little") == MT.MT_SYNC_POSITION_YAW_ON_CLIENTS:
+            body = b[4:]
+            b = b[:4] + b"".join(sorted(
+                body[i:i + SYNC_RECORD]
+                for i in range(0, len(body), SYNC_RECORD)))
+        out.append(b)
+    return sorted(out)
+
+
+def client_patches(spaces, clients, seed, world):
+    """Each client's patch (lower corner) and join position."""
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(GAME_PATCH, world - GAME_PATCH, (spaces, 2))
+    lo = np.repeat(center - GAME_PATCH / 2, clients, axis=0)
+    pos = lo + rng.uniform(0, GAME_PATCH, lo.shape)
+    return lo.astype(np.float32), pos.astype(np.float32)
+
+
+def client_ids(n):
+    return ([f"C{i:015d}" for i in range(n)],
+            [f"A{i:015d}" for i in range(n)])
+
+
+def game_script(spaces, clients, ticks, every, seed, world):
+    """Per tick, the payloads a dispatcher would deliver to the smoke game:
+    deployment ready and every client's connect (tick 0), each client's
+    join RPC (1), one client-move batch a tick from tick 2 (each client
+    every ``every``-th tick), client 0's attr RPC (3) and client 1's
+    disconnect (``ticks - 2``)."""
+    import struct
+
+    from goworld_tpu_torch.netutil import Packet
+    from goworld_tpu_torch.proto import msgtypes as MT
+
+    n = spaces * clients
+    cids, eids = client_ids(n)
+    lo, pos = client_patches(spaces, clients, seed, world)
+    rng = np.random.default_rng(seed + 1)
+    script = [[] for _ in range(ticks)]
+    script[0].append(Packet.for_msgtype(MT.MT_NOTIFY_DEPLOYMENT_READY).payload)
+    for i in range(n):
+        p = Packet.for_msgtype(MT.MT_NOTIFY_CLIENT_CONNECTED)
+        p.append_client_id(cids[i])
+        p.append_entity_id(eids[i])
+        p.append_u16(1)
+        script[0].append(p.payload)
+
+    def call(t, i, method, *args):
+        p = Packet.for_msgtype(MT.MT_CALL_ENTITY_METHOD_FROM_CLIENT)
+        p.append_entity_id(eids[i])
+        p.append_varstr(method)
+        p.append_args(args)
+        p.append_client_id(cids[i])
+        script[t].append(p.payload)
+
+    for i in range(n):
+        call(1, i, "join", i // clients, float(pos[i, 0]), float(pos[i, 1]))
+    call(3, 0, "set_name", "bob")
+    for t in range(2, ticks):
+        movers = np.arange(t % every, n, every)
+        q = pos[movers] + rng.uniform(-STEP, STEP, (len(movers), 2))
+        pos[movers] = np.clip(q, lo[movers], lo[movers] + GAME_PATCH)
+        p = Packet.for_msgtype(MT.MT_SYNC_POSITION_YAW_FROM_CLIENT)
+        for i in movers:
+            p.append_entity_id(eids[i])
+            p.append_bytes(struct.pack("<ffff", pos[i, 0], 0.0, pos[i, 1],
+                                       0.0))
+        script[t].append(p.payload)
+    p = Packet.for_msgtype(MT.MT_NOTIFY_CLIENT_DISCONNECTED)
+    p.append_client_id(cids[1])
+    p.append_entity_id(eids[1])
+    script[ticks - 2].append(p.payload)
+    return script
+
+
+def build_game_world(game, m, spaces, per_space, clients, capacity, world,
+                     seed):
+    """``spaces`` SmokeScenes of ``capacity`` slots, each with ``per_space
+    - clients`` NPCs at seeded positions; ``game.smoke_spaces`` lists them
+    for the avatars' join RPC."""
+    rng = np.random.default_rng(seed)
+    game.smoke_spaces = []
+    for _ in range(spaces):
+        sp = game.rt.entities.create_space("SmokeScene", kind=1)
+        sp.enable_aoi(RADIUS, capacity=capacity)
+        p = rng.uniform(0, world, (2, per_space - clients)).astype(np.float32)
+        for i in range(p.shape[1]):
+            game.rt.entities.create("SmokeNpc", space=sp, pos=m.Vector3(
+                float(p[0, i]), 0.0, float(p[1, i])))
+        game.smoke_spaces.append(sp)
+
+
+class NpcWalk:
+    """The NPCs' walk: a call moves every smoke space's NPCs one seeded
+    step of at most STEP (``Space.move_entities``), clipped to the world."""
+
+    def __init__(self, spaces, seed, world):
+        self.spaces, self.seed, self.world = spaces, seed, world
+        self.calls = 0
+        self.slots, self.pos = [], []
+        for sp in spaces:
+            npcs = sorted((e for e in sp.entities
+                           if e.type_name == "SmokeNpc"), key=lambda e: e.id)
+            self.slots.append(np.array([e.aoi_slot for e in npcs], np.int64))
+            self.pos.append(np.array(
+                [[e.position.x for e in npcs], [e.position.z for e in npcs]],
+                np.float32))
+
+    def __call__(self):
+        rng = np.random.default_rng((self.seed, self.calls))
+        self.calls += 1
+        for sp, sl, p in zip(self.spaces, self.slots, self.pos):
+            q = p + rng.uniform(-STEP, STEP, p.shape).astype(np.float32)
+            p[:] = np.clip(q, 0, self.world)
+            sp.move_entities(sl, p[0], p[1])
+
+
+def game_ini(backend, device=None, dispatcher=None, gate=None):
+    lines = ["[deployment]", "dispatchers = 1", "games = 1", "gates = 1", "",
+             "[game1]", "boot_entity = SmokeAvatar",
+             f"aoi_backend = {backend}", "save_interval_s = 0"]
+    if device is not None:
+        lines.append(f"aoi_device = {device}")
+    if dispatcher is not None:
+        lines += ["", "[dispatcher1]", "host = 127.0.0.1",
+                  f"port = {dispatcher}"]
+    if gate is not None:
+        lines += ["", "[gate1]", "host = 127.0.0.1", f"port = {gate}"]
+    return "\n".join(lines) + "\n"
+
+
+class ErrorCount:
+    """Counts the ERROR records of a game's logger: run_panicless logs a
+    tick's exception there, and the loop goes on."""
+
+    def __init__(self, log_):
+        import logging
+
+        count = self
+
+        class H(logging.Handler):
+            def emit(self, record):
+                count.n += 1
+                count.last = record.getMessage()[:2000]
+
+        self.n, self.last = 0, ""
+        self.log, self.handler = log_, H(logging.ERROR)
+        log_.addHandler(self.handler)
+
+    def close(self):
+        self.log.removeHandler(self.handler)
+
+
+class LoopSplit:
+    """Times a game loop's parts on the host clock: inbound handling
+    (``_handle``), ``Runtime.tick`` (``sync()`` at its end), the outbox
+    drain, ``_send_position_syncs`` and ``flush_all``.  An iteration ends
+    at ``flush_all``; ``rows`` keeps each iteration's parts in ms, and
+    with ``probe`` (the kernel's launch count) whether its tick
+    launched the kernel."""
+
+    PARTS = ("inbound", "tick", "outbox", "syncs", "flush")
+
+    def __init__(self, game, sync, probe=None):
+        self.rows, self.cur = [], dict.fromkeys(self.PARTS, 0.0)
+        self.saved, self.probe, self.launched = [], probe, False
+        for part, owner, name in (
+                ("inbound", game, "_handle"), ("tick", game.rt, "tick"),
+                ("outbox", game, "_drain_client_outboxes"),
+                ("syncs", game, "_send_position_syncs"),
+                ("flush", game.cluster, "flush_all")):
+            self.saved.append((owner, name))
+            setattr(owner, name, self.timed(part, getattr(owner, name),
+                                            sync if part == "tick" else None))
+
+    def timed(self, part, inner, after):
+        def run(*a, **kw):
+            n0 = self.probe() if self.probe and part == "tick" else 0
+            t0 = time.perf_counter()
+            try:
+                out = inner(*a, **kw)
+                if after is not None:
+                    after()
+                return out
+            finally:
+                self.cur[part] += (time.perf_counter() - t0) * 1e3
+                if part == "tick" and self.probe:
+                    self.launched = self.probe() > n0
+                if part == "flush":
+                    row, self.cur = self.cur, dict.fromkeys(self.PARTS, 0.0)
+                    row["loop"] = sum(row.values())
+                    if self.probe:
+                        row["launched"], self.launched = self.launched, False
+                    self.rows.append(row)
+        return run
+
+    def restore(self):
+        for owner, name in self.saved:
+            try:
+                delattr(owner, name)  # the instance attribute over the method
+            except AttributeError:
+                pass
+
+    @staticmethod
+    def summary(rows):
+        out = {}
+        for key in LoopSplit.PARTS + ("loop",):
+            v = np.array([r[key] for r in rows]) if rows else np.zeros(1)
+            out[key] = {"p50": float(np.percentile(v, 50)),
+                        "p99": float(np.percentile(v, 99)),
+                        "mean": float(v.mean())}
+        return out
+
+
+class ScriptedGame:
+    """One GameService of the package ``m`` (see :func:`port_game_mods`)
+    whose DispatcherCluster is a recorder, driven by ``step()``: the
+    inbound payloads of a script in, each tick's outbound payloads and AOI
+    event CRC out.  ``restore`` starts it from the freeze file in
+    ``tmpdir`` (the JAX package's ``_do_freeze`` format) instead of a nil
+    space."""
+
+    def __init__(self, m, backend, device, tmpdir, restore=False):
+        self.m = m
+        ini = game_ini(backend, device if m.device_key else None)
+        self.game = g = m.GameService(1, m.config.loads(ini),
+                                      freeze_dir=str(tmpdir))
+        self.rec = g.cluster = RecorderCluster(m.GWConnection)
+        for cls in game_types(m):
+            g.register_entity_type(cls)
+        if restore:
+            g._is_restore = True
+            g._restore_from_freeze()
+        else:
+            g.nil_space = g.rt.entities.create(
+                "__nil_space__", eid=m.fixed_id(f"nilspace-game{g.id}"))
+        # the per-tick CRC folds the events delivered to subscribed spaces:
+        # a space no entity observes is unsubscribed, and the card then
+        # emits no events for it (its state is still computed) where the
+        # host calculators emit them anyway, unread
+        self.crc = {"t": 0}
+        take = g.rt.aoi.take_events
+
+        def folding_take(h):
+            ev = take(h)
+            if any(sp._aoi_handle is h and sp._aoi_subscribed
+                   for sp in g.rt.entities.spaces.values()):
+                for a in ev:
+                    self.crc["t"] = zlib.crc32(
+                        np.ascontiguousarray(a).tobytes(), self.crc["t"])
+            return ev
+
+        g.rt.aoi.take_events = folding_take
+
+    def run(self, script, ticks, walk=None, walk_at=(), after=None):
+        """Feed ``script[t]`` and step once for each ``t`` in ``ticks``
+        (``walk`` as a timer of the tick at the ``walk_at`` ticks;
+        ``after()`` after each step); returns each tick's canonical
+        payloads and event CRC."""
+        out, crcs = [], []
+        g = self.game
+        for t in ticks:
+            for b in script[t]:
+                g.queue.put((0, self.m.Packet(bytearray(b))))
+            if t in walk_at:
+                g.rt.timers.add(0.0, walk)
+            self.crc["t"] = 0
+            g.step()
+            if after is not None:
+                after()
+            out.append(canonical(self.rec.take(), self.m.MT))
+            crcs.append(f"{self.crc['t']:08x}")
+        return out, crcs
+
+
+def scripted_run(m, backend, device, tmpdir, spaces, per_space, clients,
+                 capacity, world, ticks=GAME_SCRIPT_TICKS, every=GAME_EVERY,
+                 walk_at=GAME_NPC_TICKS, seed=11, split_sync=None):
+    """22a and its CPU twin: the script on a fresh game of ``m``; returns
+    the setup payloads, each tick's payloads and CRCs, the game, and with
+    ``split_sync`` the loop split of every step and the cuda bucket's
+    ``decode_overflow`` after it."""
+    ids = CounterIds(m.id_modules)
+    try:
+        sg = ScriptedGame(m, backend, device, tmpdir)
+        g = sg.game
+        build_game_world(g, m, spaces, per_space, clients, capacity, world,
+                         seed)
+        setup = canonical(sg.rec.take(), m.MT)
+        walk = NpcWalk(g.smoke_spaces, seed, world)
+        split = LoopSplit(g, split_sync) if split_sync else None
+        errors = ErrorCount(g.log)
+        script = game_script(spaces, clients, ticks, every, seed, world)
+        overflow = []
+
+        def after():
+            if split is not None and backend == "cuda":
+                overflow.append(bucket_of(g.rt).stats["decode_overflow"])
+
+        out, crcs = sg.run(script, range(ticks), walk, set(walk_at), after)
+        if split is not None:
+            split.restore()
+        errors.close()
+    finally:
+        ids.restore()
+    return {"setup": setup, "ticks": out, "crcs": crcs, "game": g,
+            "errors": errors.n, "last_error": errors.last,
+            "split": split.rows if split is not None else None,
+            "overflow": overflow}
+
+
+def interest_rows(game, AP):
+    """For every avatar in a smoke space: its row of the device's interest
+    words and of the plain ``interest_matrix`` over the bucket's staged
+    columns, as sets of entity ids.  Runs on the game's logic thread."""
+    out = {}
+    for sp in game.smoke_spaces:
+        h = sp._aoi_handle
+        bk = h.bucket
+        words = bk.get_prev(h.slot)
+        cols = (bk._hx[h.slot], bk._hz[h.slot], bk._hr[h.slot],
+                bk._hact[h.slot])
+        se = sp._slot_entity
+
+        def ids(row):
+            return sorted(se[j].id for j in np.nonzero(row)[0])
+
+        for e in list(sp.entities):
+            if e.type_name == "SmokeAvatar":
+                i = e.aoi_slot
+                out[e.id] = {
+                    "device": ids(AP.unpack_rows(words[i:i + 1],
+                                                 bk.capacity)[0]),
+                    "plain": ids(AP.interest_matrix(*cols, lo=i,
+                                                    hi=i + 1)[0])}
+    return out
+
+
+def phase_game_script(AK):
+    """22a: the script at phase 4's world on cuda (on the card) and on cpp;
+    outbound payloads equal tick by tick, and each tick's event CRC."""
+    import tempfile
+
+    m = port_game_mods()
+    m.telemetry.disable()
+    runs = {}
+    for backend, device in (("cuda", DEV), ("cpp", "cpu")):
+        torch.cuda.synchronize()
+        AK.reset_launches()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            r = scripted_run(m, backend, device, tmp, SPACES, PER_SPACE,
+                             GAME_CLIENTS, CAPACITY, WORLD,
+                             split_sync=torch.cuda.synchronize)
+        r["seconds"] = time.perf_counter() - t0
+        r["launches"] = AK.launches["aoi_step"]
+        g = r.pop("game")
+        r["stats"] = dict(bucket_of(g.rt).stats) if backend == "cuda" \
+            else None
+        check(r["errors"] == 0, f"22a {backend}: {r['errors']} logged errors:"
+              f" {r['last_error']}")
+        runs[backend] = r
+        log(f"22a {backend}: {r['seconds']:.1f} s, crcs {r['crcs']}")
+        del g
+        torch.cuda.empty_cache()
+    cu, cp = runs["cuda"], runs["cpp"]
+    check(cu["setup"] == cp["setup"], "22a: setup payloads differ")
+    for t, (a, b) in enumerate(zip(cu["ticks"], cp["ticks"])):
+        check(a == b, f"22a tick {t}: outbound payloads differ "
+              f"({len(a)} against {len(b)})")
+    check(cu["crcs"] == cp["crcs"], f"22a: CRCs {cu['crcs']} != {cp['crcs']}")
+    # every tick stages a move but tick 1 (the joins land in its post
+    # phase)
+    check(cu["launches"] == GAME_SCRIPT_TICKS - 1,
+          f"22a: {cu['launches']} launches in {GAME_SCRIPT_TICKS} ticks")
+    check(cp["launches"] == 0, "22a: the cpp run launched the kernel")
+    stats = cu["stats"]
+    healthy(stats, "22a cuda")
+    rows = cu["split"]
+    # client-only ticks: 3 to 11 (tick 2 also lands the joins)
+    client = [rows[t] for t in range(3, GAME_NPC_TICKS[1])]
+    out = {"ticks": GAME_SCRIPT_TICKS, "crcs": cu["crcs"],
+           "npc_ticks": GAME_NPC_TICKS,
+           "packets": [len(t) for t in cu["ticks"]],
+           "bytes": [sum(map(len, t)) for t in cu["ticks"]],
+           "launches": cu["launches"],
+           "tick_ms": [r["tick"] for r in rows],
+           "loop_ms": [r["loop"] for r in rows],
+           "decode_overflow": cu["overflow"],
+           "split_ms": rows, "client_tick_split": LoopSplit.summary(client),
+           "npc_tick_split": {k: rows[GAME_NPC_TICKS[2]][k]
+                              for k in LoopSplit.PARTS + ("loop",)},
+           "cuda_s": cu["seconds"], "cpp_s": cp["seconds"],
+           "cpp_tick_ms": [r["tick"] for r in cp["split"]]}
+    log("22a", json.dumps({k: v for k, v in out.items() if k != "split_ms"}))
+    return out
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def proc_cpu_s(pid):
+    """User + system CPU seconds of a live process (/proc)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class LatencyProbe:
+    """The game's stamps on 22b's move latency, on ``time.monotonic``
+    (CLOCK_MONOTONIC: one clock for every process of the host, the one
+    the bots stamp with): when each client-move batch is ingested, with
+    its records, and when each ``_send_position_syncs`` ends."""
+
+    REC = np.dtype([("eid", "S16"), ("x", "<f4"), ("y", "<f4"),
+                    ("z", "<f4"), ("yaw", "<f4")])
+
+    def __init__(self, game):
+        self.on, self.batches, self.syncs = False, [], []
+        self.last = time.monotonic()  # the last batch's ingest, always
+        syncs, probe = game._send_position_syncs, self
+
+        class StampedIngest:  # the MovementIngest, its batches stamped
+            def __init__(self, inner):
+                self.inner = inner
+
+            def ingest(self, pkt):
+                probe.last = time.monotonic()
+                if probe.on:
+                    probe.batches.append((probe.last, np.frombuffer(
+                        bytes(pkt.buf[pkt.rpos:]), probe.REC)))
+                return self.inner.ingest(pkt)
+
+            def __getattr__(self, name):
+                return getattr(self.inner, name)
+
+        def stamped_syncs():
+            out = syncs()
+            if self.on:
+                self.syncs.append(time.monotonic())
+            return out
+
+        game.ingest = StampedIngest(game.ingest)
+        game._send_position_syncs = stamped_syncs
+
+    def legs(self, players, moves, receipts):
+        """Per mirror update: client A's send -> client B's mirror update
+        (the move latency); per move: send -> game ingest (the gate's
+        batching, the dispatcher), ingest -> the end of the next
+        position-sync send (the tick, the sync cadence); per mirror
+        update: that send -> the update (dispatcher, gate fan-out, the
+        client's read).  ms percentiles of each."""
+        idx = {p.encode(): i for i, p in enumerate(players)}
+        ing = {}
+        for t, recs in self.batches:
+            for r in recs:
+                key = (idx.get(bytes(r["eid"]), -1), float(r["x"]),
+                       float(r["z"]))
+                ing.setdefault(key, t)
+        syncs = np.array(sorted(self.syncs))
+
+        def after(t):
+            k = np.searchsorted(syncs, t)
+            return syncs[k] if k < len(syncs) else np.nan
+
+        a, b, c, total = [], [], [], []
+        sent = {}
+        for i, x, z, t in moves:
+            key = (int(i), float(x), float(z))
+            sent[key] = t
+            ti = ing.get(key)
+            if ti is not None:
+                a.append(ti - t)
+                b.append(after(ti) - ti)
+        for i, x, z, t in receipts:
+            key = (int(i), float(x), float(z))
+            total.append(t - sent[key])
+            ti = ing.get(key)
+            if ti is not None:
+                c.append(t - after(ti))
+
+        def pct(v):
+            v = np.array(v, np.float64) * 1e3
+            v = v[np.isfinite(v)]
+            if not len(v):
+                return None
+            return {"p50": float(np.percentile(v, 50)),
+                    "p99": float(np.percentile(v, 99)), "n": len(v)}
+
+        return {"send_to_mirror": pct(total), "send_to_ingest": pct(a),
+                "ingest_to_sync": pct(b), "sync_to_mirror": pct(c),
+                "moves_ingested": len(a), "moves_sent": len(moves)}
+
+
+def phase_game_live(AK):
+    """22b: the port's dispatcher and gate as child processes, the game
+    in this process on the card, 256 bot clients in GAME_BOT_PROCS more
+    children."""
+    import signal
+    import tempfile
+
+    from goworld_tpu_torch.ops import aoi_predicate as AP
+    from goworld_tpu_torch.utils import gwlog
+
+    from goworld_tpu_torch.netutil import compress
+
+    m = port_game_mods()
+    m.telemetry.disable()
+    # the codec every process of the cluster loads, built here before any
+    # child starts (a process on the flate fallback corrupts its peers'
+    # frames)
+    check(compress.new_compressor("gwlz").name == "gwlz",
+          "22b: libgwlz.so did not load")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs, files = {}, {}
+    tmpd = tempfile.TemporaryDirectory()
+    tmp = tmpd.name
+    disp_port, gate_port = free_port(), free_port()
+    ini = os.path.join(tmp, "goworld.ini")
+    with open(ini, "w") as f:
+        f.write(game_ini("cuda", DEV, disp_port, gate_port))
+
+    def spawn(name, args):
+        files[name] = open(os.path.join(tmp, f"{name}.log"), "w+")
+        procs[name] = subprocess.Popen(
+            [sys.executable, *args], cwd=root, env=env,
+            stdout=files[name], stderr=subprocess.STDOUT)
+
+    def logged(name, tag):
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            return tag in f.read()
+
+    def tail(name):
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            return f.read()[-3000:]
+
+    def wait_for(pred, what, timeout=GAME_WAIT_S):
+        """Poll ``pred`` until it holds; a child's exit or the timeout
+        fails the phase with the children's log tails."""
+        deadline = time.monotonic() + timeout
+        while not pred():
+            gone = [k for k, p in procs.items() if p.poll() is not None]
+            late = time.monotonic() >= deadline
+            if gone or late:
+                logs = "".join(f"\n--- {k}: {tail(k)[-1500:]}"
+                               for k in (gone or procs))
+                check(False, f"22b: {what}: " + (
+                    f"{gone} exited" if gone else "timed out") + logs)
+            time.sleep(0.01)
+
+    game = errors = split = None
+    try:
+        spawn("dispatcher", ["-m", "goworld_tpu_torch.components.dispatcher",
+                             "-dispid", "1", "-configfile", ini])
+        wait_for(lambda: logged("dispatcher", gwlog.READY_TAG),
+                 "dispatcher ready")
+        gwlog.setup("warning")
+        cfg = m.config.load(ini)
+        game = m.GameService(1, cfg, freeze_dir=tmp)
+        for cls in game_types(m):
+            game.register_entity_type(cls)
+        t0 = time.perf_counter()
+        build_game_world(game, m, SPACES, PER_SPACE, GAME_CLIENTS, CAPACITY,
+                         WORLD, seed=12)
+        walk = NpcWalk(game.smoke_spaces, 12, WORLD)
+        interval = game.gcfg.position_sync_interval_ms / 1000.0
+        walk_tid = game.rt.timers.add(interval, walk, repeat=True,
+                                      interval=interval)
+        log(f"22b: world built in {time.perf_counter() - t0:.1f} s")
+        errors = ErrorCount(game.log)
+        split = LoopSplit(game, torch.cuda.synchronize,
+                          lambda: AK.launches["aoi_step"])
+        probe = LatencyProbe(game)
+        game.start()
+        spawn("gate", ["-m", "goworld_tpu_torch.components.gate",
+                       "-gateid", "1", "-configfile", ini])
+        wait_for(lambda: logged("gate", gwlog.READY_TAG), "gate ready")
+        wait_for(lambda: game.deployment_ready, "deployment ready")
+        check(SPACES % GAME_BOT_PROCS == 0, "22b: spaces per bot process")
+        n = SPACES * GAME_CLIENTS
+        share = n // GAME_BOT_PROCS
+        bots_k = [f"bots{k}" for k in range(GAME_BOT_PROCS)]
+        for k, name in enumerate(bots_k):
+            spawn(name, [os.path.abspath(__file__), "--bots", json.dumps({
+                "gate": ["127.0.0.1", gate_port], "proc": k,
+                "first": k * share, "count": share, "spaces": SPACES,
+                "per_space": GAME_CLIENTS, "seed": 12, "world": WORLD,
+                "dir": tmp, "warm_s": GAME_WARM_S,
+                "steady_s": GAME_STEADY_S})])
+
+        def marks(what):
+            return all(os.path.exists(os.path.join(tmp, f"{what}-{k}.mark"))
+                       for k in range(GAME_BOT_PROCS))
+
+        wait_for(lambda: marks("joined"), "bots joined")
+        with open(os.path.join(tmp, "go.mark"), "w"):
+            pass
+        wait_for(lambda: marks("steady"), "bots warm")
+        bucket = bucket_of(game.rt)
+        overflow0 = bucket.stats["decode_overflow"]
+        rows0, ticks0 = len(split.rows), game.rt.tick_count
+        AK.reset_launches()
+        probe.on = True
+        cpu0 = {k: proc_cpu_s(p.pid) for k, p in procs.items()}
+        ot = os.times()
+        cpu0["game"] = ot.user + ot.system
+        t_steady = time.perf_counter()
+        wait_for(lambda: marks("stopped"), "steady traffic",
+                 timeout=GAME_STEADY_S + GAME_WAIT_S)
+        steady_s = time.perf_counter() - t_steady
+        probe.on = False
+        launches = AK.launches["aoi_step"]
+        cpu1 = {k: proc_cpu_s(p.pid) for k, p in procs.items()}
+        ot = os.times()
+        cpu1["game"] = ot.user + ot.system
+        steady_rows = split.rows[rows0:]
+        ticks = game.rt.tick_count - ticks0
+        # quiescence: the NPC timer stops; the clients' last moves (up to
+        # a gate flush interval behind) are ingested and GAME_QUIET_TICKS
+        # ticks run after the last; then the interest rows are read on
+        # the logic thread
+        stop_at = []
+        game.rt.post.post(lambda: stop_at.append(
+            (game.rt.timers.cancel(walk_tid), game.rt.tick_count)))
+        wait_for(lambda: stop_at, "the NPC timer's stop")
+        quiet = {"last": probe.last, "tick": game.rt.tick_count}
+
+        def drained():
+            if probe.last != quiet["last"]:
+                quiet.update(last=probe.last, tick=game.rt.tick_count)
+            return (time.monotonic() - probe.last > GAME_DRAIN_S
+                    and game.rt.tick_count >= quiet["tick"]
+                    + GAME_QUIET_TICKS)
+
+        wait_for(drained, "the clients' last moves")
+        got = []
+        game.rt.post.post(lambda: got.append(interest_rows(game, AP)))
+        wait_for(lambda: got, "interest rows")
+        rows = got[0]
+        with open(os.path.join(tmp, "snap.mark"), "w"):
+            pass
+        bots = []
+        for k, name in enumerate(bots_k):
+            rc = procs[name].wait(timeout=GAME_WAIT_S)
+            check(rc == 0, f"22b: {name} exited {rc}: {tail(name)}")
+            with open(os.path.join(tmp, f"result-{k}.mark")) as f:
+                bots.append(json.load(f))
+            bots[-1]["lat"] = np.load(os.path.join(tmp,
+                                                   f"latency-{k}.npz"))
+        players = [p for b in bots for p in b["players"]]
+        legs = probe.legs(players, *(np.concatenate([b["lat"][key]
+                                                     for b in bots])
+                                     for key in ("moves", "receipts")))
+        stats = dict(bucket.stats)
+        quiet_launches = AK.launches["aoi_step"] - launches
+        game.stop(save=False)
+        game = None
+        for name in ("gate", "dispatcher"):
+            procs[name].send_signal(signal.SIGTERM)
+            rc = procs[name].wait(timeout=GAME_WAIT_S)
+            check(rc == 0, f"22b: {name} exited {rc} on SIGTERM: {tail(name)}")
+        for name in procs:
+            check(not logged(name, "falling back to flate"),
+                  f"22b: {name} fell back to flate")
+    finally:
+        if game is not None:
+            game.stop(save=False)
+        if split is not None:
+            split.restore()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files.values():
+            f.close()
+        tmpd.cleanup()
+    check(errors.n == 0, f"22b: the game logged {errors.n} errors: "
+          f"{errors.last}")
+    errors.close()
+    healthy(stats, "22b")
+    check(stats["decode_overflow"] == overflow0,
+          f"22b: decode_overflow {overflow0} -> {stats['decode_overflow']}")
+    check(launches > 0, "22b: no kernel launch in the steady window")
+    mirrors = {eid: seen for b in bots for eid, seen in b["mirrors"].items()}
+    check(len(mirrors) == n, f"22b: {len(mirrors)} bots reported of {n}")
+    bad = []
+    for eid, seen in mirrors.items():
+        row = rows.get(eid)
+        check(row is not None, f"22b: avatar {eid} is in no smoke space")
+        check(row["device"] == row["plain"],
+              f"22b: {eid}: device interest row != plain interest_matrix")
+        if sorted(seen) != row["device"]:
+            bad.append((eid, len(set(row["device"]) - set(seen)),
+                        len(set(seen) - set(row["device"]))))
+    check(not bad, f"22b: {len(bad)} clients' mirrors differ from their "
+          f"avatars' interest rows (avatar, missing, extra: {bad[:3]})")
+    due = steady_s * 1000.0 / cfg.games[1].tick_interval_ms
+    busy = [r for r in steady_rows if r["launched"]]
+    out = {"clients": n, "steady_s": steady_s, "ticks_run": ticks,
+           "ticks_due": due, "ticks_run_frac": ticks / due,
+           "ticks_launched": len(busy),
+           "loop": LoopSplit.summary(steady_rows),
+           "loop_launched": LoopSplit.summary(busy),
+           "launches": launches, "launches_quiet": quiet_launches,
+           "move_latency_ms": legs.pop("send_to_mirror"),
+           "latency_legs_ms": legs,
+           "gate_wire": {key: sum(b["wire_per_s"][key] for b in bots)
+                         for key in bots[0]["wire_per_s"]},
+           "mirrors_checked": len(mirrors),
+           "mirror_entities": int(sum(len(v) for v in mirrors.values())),
+           "cpu_s": {k: cpu1[k] - cpu0[k] for k in cpu1},
+           "bot_procs": GAME_BOT_PROCS,
+           "bots_cpu_s": [b["cpu_s"] for b in bots],
+           "anomalies": [b["anomalies"] for b in bots if b["anomalies"]],
+           "decode_overflow": stats["decode_overflow"],
+           "tick_errors": errors.n}
+    log("22b", json.dumps(out))
+    return out
+
+
+def bots_main(a):
+    """One 22b bot process: the clients ``first`` to ``first + count`` (whole
+    spaces, so a move and its neighbors' mirrors share the process)
+    connect, join their patches, move every 100 ms (warm-up, then steady)
+    and stop; after the parent's snap mark they drain the wire, and the
+    process reports each client's mirror set, the wire counts, and on
+    ``time.monotonic`` its moves and its mirror updates of them."""
+    import select
+
+    from goworld_tpu_torch.client import GameClientConnection
+    from goworld_tpu_torch.proto import msgtypes as MT
+
+    first, n, per = a["first"], a["count"], a["per_space"]
+    lo, pos = client_patches(a["spaces"], per, a["seed"], a["world"])
+    lo, pos = lo[first:first + n], pos[first:first + n]
+    rng = np.random.default_rng((a["seed"], first))
+    mark = os.path.join(a["dir"], "{}" + f"-{a['proc']}.mark")
+    wire = {"rx_packets": 0, "rx_bytes": 0, "tx_packets": 0, "tx_bytes": 0}
+    sent, moves, receipts = {}, [], []
+    measure = [False]
+    rec = LatencyProbe.REC
+
+    class CountingSock:
+        def __init__(self, sock):
+            self._s = sock
+
+        def recv(self, k):
+            d = self._s.recv(k)
+            wire["rx_bytes"] += len(d)
+            return d
+
+        def sendall(self, b):
+            wire["tx_bytes"] += len(b)
+            wire["tx_packets"] += 1
+            return self._s.sendall(b)
+
+        def __getattr__(self, k):
+            return getattr(self._s, k)
+
+    class Bot(GameClientConnection):
+        def read_ready(self):
+            """One recv on a socket select found readable (so it does not
+            block), its frames handled: poll() would wait out a socket
+            timeout after the data, per client."""
+            data = self.pc._sock.recv(65536)
+            if not data:
+                self.closed = True
+                return
+            for pkt in self.pc._parser.feed(data):
+                self._handle(pkt)
+
+        def _handle(self, pkt):
+            wire["rx_packets"] += 1
+            b = pkt.buf
+            if measure[0] and int.from_bytes(b[:2], "little") == \
+                    MT.MT_SYNC_POSITION_YAW_ON_CLIENTS:
+                now = time.monotonic()
+                r = np.frombuffer(bytes(b[2:]), rec)
+                r = r[np.isin(r["eid"], eid_arr)]
+                for eid, x, z in zip(r["eid"].tolist(), r["x"].tolist(),
+                                     r["z"].tolist()):
+                    key = (eid, x, z)
+                    if key in sent:
+                        receipts.append((idx_of[eid], x, z, now))
+            super()._handle(pkt)
+
+    bots = []
+    for _ in range(n):
+        c = Bot(tuple(a["gate"]))
+        c.pc._sock.settimeout(None)
+        c.pc._sock = CountingSock(c.pc._sock)
+        bots.append(c)
+    by_fd = {c.pc._sock.fileno(): c for c in bots}
+
+    def pump(timeout):
+        r, _, _ = select.select(list(by_fd), [], [], timeout)
+        for fd in r:
+            by_fd[fd].read_ready()
+        return len(r)
+
+    def until(pred, what):
+        deadline = time.monotonic() + GAME_WAIT_S
+        while not pred():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"bots: {what}: timed out")
+            pump(0.01)
+
+    until(lambda: all(c.player is not None for c in bots), "boot entities")
+    for i, c in enumerate(bots):
+        c.call_player("join", (first + i) // per, float(pos[i, 0]),
+                      float(pos[i, 1]))
+    until(lambda: all(len(c.entities) > 1 for c in bots), "joins")
+    eid_bytes = [c.player.id.encode() for c in bots]
+    eid_arr = np.array(eid_bytes, "S16")
+    idx_of = {e: first + i for i, e in enumerate(eid_bytes)}
+    with open(mark.format("joined"), "w"):
+        pass
+    until(lambda: os.path.exists(os.path.join(a["dir"], "go.mark")),
+          "the parent's go")
+
+    def drive(seconds):
+        period = 0.1
+        t0 = time.perf_counter()
+        nxt = t0 + np.arange(n) * (period / n)
+        end = t0 + seconds
+        while True:
+            now = time.perf_counter()
+            if now >= end:
+                return
+            for i in np.nonzero(nxt <= now)[0]:
+                q = pos[i] + rng.uniform(-STEP, STEP, 2)
+                pos[i] = np.clip(q, lo[i], lo[i] + GAME_PATCH)
+                x, z = (float(v) for v in pos[i])
+                if measure[0]:
+                    t = time.monotonic()
+                    sent[(eid_bytes[i], x, z)] = t
+                    moves.append((first + i, x, z, t))
+                bots[i].send_position(x, 0.0, z)
+                nxt[i] += period
+            pump(max(0.0, min(0.005, float(nxt.min()) - now)))
+
+    drive(a["warm_s"])
+    with open(mark.format("steady"), "w"):
+        pass
+    w0 = dict(wire)
+    t0 = time.perf_counter()
+    measure[0] = True
+    drive(a["steady_s"])
+    measure[0] = False
+    dt = time.perf_counter() - t0
+    w1 = dict(wire)
+    with open(mark.format("stopped"), "w"):
+        pass
+    last_hb = time.monotonic()
+    snap = os.path.join(a["dir"], "snap.mark")
+    while not os.path.exists(snap):
+        pump(0.01)
+        if time.monotonic() - last_hb > 5.0:
+            for c in bots:
+                c.heartbeat()
+            last_hb = time.monotonic()
+    quiet = time.monotonic()
+    while time.monotonic() - quiet < 1.0:
+        if pump(0.05):
+            quiet = time.monotonic()
+    check(not any(c.closed for c in bots), "bots: a client was disconnected")
+    ot = os.times()
+    result = {
+        "mirrors": {c.player.id: sorted(e for e in c.entities
+                                        if e != c.player.id) for c in bots},
+        "wire_per_s": {k: (w1[k] - w0[k]) / dt for k in w1},
+        "cpu_s": ot.user + ot.system,
+        "players": [c.player.id for c in bots],
+        "anomalies": [c.anomalies for c in bots if c.anomalies][:5]}
+    np.savez(os.path.join(a["dir"], f"latency-{a['proc']}.npz"),
+             moves=np.array(moves, np.float64).reshape(-1, 4),
+             receipts=np.array(receipts, np.float64).reshape(-1, 4))
+    tmp = mark.format("result") + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(result, f)
+    os.replace(tmp, mark.format("result"))
+    for c in bots:
+        c.close()
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
@@ -4756,6 +5855,10 @@ def main():
     rung_rows = phase_rung_shapes(AK, AD, spy.shapes)
     fused_graph = fused_graph_ms(AK, AS, FZ)
     lap("20d, 14c")
+    game_script_out = phase_game_script(AK)
+    lap("22a")
+    game_live = phase_game_live(AK)
+    lap("22b")
     log("phase seconds", json.dumps(laps))
     cohort_l = {"cohort": cohort["launches"], "ladder": ladder["launches"],
                 "demotion": demotion["launches"]}
@@ -4789,7 +5892,9 @@ def main():
                     ("interest_step checkpoint",
                      checkpoint["launches"]["interest_step"]),
                     *((f"aoi_step {k}", v) for k, v in cohort_l.items()),
-                    ("aoi_step telemetry", telemetry_out["launches"])):
+                    ("aoi_step telemetry", telemetry_out["launches"]),
+                    ("aoi_step game script", game_script_out["launches"]),
+                    ("aoi_step game live", game_live["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -4821,7 +5926,8 @@ def main():
               + routing["launches"] + paged_l + paged_mesh_l
               + mig_l["aoi_step"] + evacuation["launches"]
               + checkpoint["launches"]["aoi_step"]
-              + sum(cohort_l.values()) + telemetry_out["launches"], rows,
+              + sum(cohort_l.values()) + telemetry_out["launches"]
+              + game_script_out["launches"] + game_live["launches"], rows,
               MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               cohort_shapes=rung_rows,
@@ -4839,7 +5945,9 @@ def main():
                              "checkpoint": checkpoint["launches"][
                                  "aoi_step"],
                              **cohort_l,
-                             "telemetry": telemetry_out["launches"]}),
+                             "telemetry": telemetry_out["launches"],
+                             "game_script": game_script_out["launches"],
+                             "game_live": game_live["launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
               rect_launches + row_fault_l + paged_row_l
               + mig_l["aoi_step rect"], rect_rows,
@@ -4914,6 +6022,10 @@ def main():
         "multispace": cohort, "ladder": ladder, "demotion": demotion}}))
     print(json.dumps({"telemetry": {k: v for k, v in telemetry_out.items()
                                     if k != "launches"}}))
+    print(json.dumps({"game": {
+        "script": {k: v for k, v in game_script_out.items()
+                   if k != "split_ms"},
+        "live": game_live}}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -4923,4 +6035,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--bots"]:  # phase 22b's client process
+        sys.exit(bots_main(json.loads(sys.argv[2])))
     sys.exit(main())

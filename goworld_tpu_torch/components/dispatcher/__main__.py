@@ -1,0 +1,32 @@
+"""Dispatcher process entry: ``python -m goworld_tpu_torch.components.dispatcher
+-dispid N -configfile goworld.ini`` (reference: components/dispatcher/dispatcher.go)."""
+
+import argparse
+import signal
+import sys
+import threading
+
+from ... import config as gwconfig
+from ...utils import gwlog
+from .service import DispatcherService
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-dispid", type=int, default=1)
+    ap.add_argument("-configfile", required=True)
+    ap.add_argument("-log", default="info")
+    args = ap.parse_args()
+    gwlog.setup(args.log)
+    cfg = gwconfig.load(args.configfile)
+    svc = DispatcherService(args.dispid, cfg).start()
+    gwlog.announce_ready(f"dispatcher{args.dispid}", "dispatcher")
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    stop.wait()
+    svc.stop()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

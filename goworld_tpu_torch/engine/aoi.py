@@ -98,7 +98,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import faults, telemetry
+from .. import consts, faults, telemetry
 from ..ops import aoi_cohort as AC
 from ..ops import aoi_cuda as AK
 from ..ops import aoi_dense as AD
@@ -123,11 +123,10 @@ _TRI_MAX = 1 << 18
 # words per extraction chunk of the sharded buckets' row-stream codec
 _LANES = 128
 
-# backend names of the JAX package that the port does not have, and why
-_LATER_BACKENDS = {
-    "tpu": "nothing: the port's device backend is named 'cuda'",
-}
-BACKENDS = ("cuda", "cpu", "cpp", "auto")
+# the calculators a space can get, and the JAX package's names the port
+# does not have (consts.py: config.py checks them without importing torch)
+BACKENDS = consts.AOI_BACKENDS
+_LATER_BACKENDS = consts.LATER_AOI_BACKENDS
 # the bucket tiers a placement names (AOIEngine._create_handle)
 TIERS = ("cpu", "cpp", "cuda", "mesh", "rowshard")
 
@@ -148,15 +147,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_backend(backend) -> None:
-    if backend in BACKENDS:
-        return
-    later = _LATER_BACKENDS.get(backend)
-    if later is None:
-        raise ValueError(f"unknown AOI backend {backend!r} (one of "
-                         f"{BACKENDS})")
-    raise ValueError(f"AOI backend {backend!r} is not in the port; it "
-                     f"comes with {later}")
+_check_backend = consts.check_aoi_backend
 
 
 # -- fault classification --------------------------------------------------

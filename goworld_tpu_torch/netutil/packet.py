@@ -4,9 +4,8 @@ append/read.
 The port's copy of the JAX package's ``netutil/packet.py``: a Packet
 wraps a bytearray from a size-classed free pool; reads use a cursor.
 Wire scalar encoding: little-endian; EntityID/ClientID are fixed 16-byte
-ascii; varstr is u32 length + utf-8 bytes.  The msgpack ``data`` blobs
-(``append_data`` / ``read_data`` / ``append_args`` / ``read_args``)
-come with the game service (ROADMAP.md queue 1, item 10).
+ascii; varstr is u32 length + utf-8 bytes; ``data`` blobs are msgpack
+(:mod:`.msgpacker`) with a u32 length prefix.
 """
 
 from __future__ import annotations
@@ -117,6 +116,18 @@ class Packet:
         self.append_u32(len(b))
         self.buf += b
 
+    def append_data(self, obj, packer=None):
+        """msgpack-encode an object with a u32 length prefix."""
+        from .msgpacker import default_packer
+
+        raw = (packer or default_packer).pack(obj)
+        self.append_varbytes(raw)
+
+    def append_args(self, args: tuple, packer=None):
+        self.append_u16(len(args))
+        for a in args:
+            self.append_data(a, packer)
+
     # -- reads -------------------------------------------------------------
     def _take(self, n: int) -> memoryview:
         if self.rpos + n > len(self.buf):
@@ -159,6 +170,15 @@ class Packet:
         n = self.read_u32()
         return bytes(self._take(n))
 
+    def read_data(self, packer=None):
+        from .msgpacker import default_packer
+
+        return (packer or default_packer).unpack(self.read_varbytes())
+
+    def read_args(self, packer=None) -> tuple:
+        n = self.read_u16()
+        return tuple(self.read_data(packer) for _ in range(n))
+
     def read_view(self, n: int) -> memoryview:
         """Consume ``n`` bytes and return them as a zero-copy memoryview
         (the batched ingest decodes flat record arrays straight out of the
@@ -176,3 +196,12 @@ class Packet:
 
     def __len__(self) -> int:
         return len(self.buf)
+
+
+def pack_args(args: tuple, packer=None) -> bytes:
+    """The ``append_args`` wire encoding as raw bytes -- lets a batched
+    fanout pack its args ONCE and splice them into per-shard/per-game
+    packets without re-serializing."""
+    p = Packet(bytearray())
+    p.append_args(args, packer)
+    return bytes(p.buf)

@@ -2,7 +2,7 @@
 ``storage/`` that the checkpoint journal opens
 (:class:`EntityStorageBackend`, :class:`FilesystemEntityStorage`).  The
 service, the SQL, Redis and Mongo backends and ``new_entity_storage``
-come with the game service (ROADMAP.md queue 1, item 10)."""
+come with ROADMAP.md queue 1, item 10b."""
 
 from .backends import EntityStorageBackend, FilesystemEntityStorage
 

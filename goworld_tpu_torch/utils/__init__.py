@@ -1,6 +1,7 @@
-"""Cross-cutting utilities of the port: logging, crash isolation, cron.
+"""Cross-cutting utilities of the port: logging, crash isolation, cron,
+published variables, ordered async jobs, the operation monitor and the
+debug HTTP endpoint.
 
-The port's copies of the JAX package's ``utils/gwlog``, ``gwutils`` and
-``crontab``; ``opmon``, ``gwvar``, ``asyncjobs`` and ``binutil`` come
-with the cluster components (ROADMAP.md queue 1, item 10).
+The port's copies of the JAX package's ``utils/gwlog``, ``gwutils``,
+``crontab``, ``gwvar``, ``asyncjobs``, ``opmon`` and ``binutil``.
 """
