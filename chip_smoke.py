@@ -28,7 +28,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 enter/leave arrays must be equal;
  13. deferred -- phase 4's world and walk on Runtime(aoi_pipeline=True),
                 (aoi_cross_tick=True) and both, in turns with the
-                sequential Runtime (each twice): the sequential per-tick
+                sequential Runtime (each once): the sequential per-tick
                 CRCs equal phase 4's, a deferred run's equal them shifted
                 by one tick (tick 0 empty, the last out of
                 AOIEngine.drain); tick, loop (walk + tick) and split
@@ -190,7 +190,7 @@ Phases (any failure raises, so the exit code is non-zero):
  18c. load harness -- LoadHarness at scripts/loadgen_smoke.py's
                 configuration (100,000 clients, 256 spaces, 8 gates,
                 period 4) and bench.py bench_engine_load's (8192 clients,
-                8 spaces, 4 gates), a 4-tick warm-up then 9 ticks, over
+                8 spaces, 4 gates), a 4-tick warm-up then 5 ticks, over
                 the cpu and the cuda base calculators: moves/s, ms a
                 tick, near/far p50/p99, the stack step's share and its
                 split as in 18b; no per-entity write, no unclosed update,
@@ -298,9 +298,37 @@ Phases (any failure raises, so the exit code is non-zero):
                 and of the plain interest_matrix over the staged
                 columns; no fault counter or decode_overflow moved, no
                 logged tick error; the children exit 0.
+ 23. deployed game -- (a) python -m goworld_tpu_torch.cli build and
+                start: a dispatcher, a game (components/game/__main__:
+                aoi_backend and aoi_device cuda, sqlite storage, kvdb on
+                a miniredis served here, interval checkpoints, telemetry
+                on its http_port, the default 5 ms tick interval) and a
+                gate, each one's readiness timed; the game script is
+                the port's unity_demo twin with phase 4's world filled
+                in (8 spaces of 16384 slots, 9,968 monsters each walking
+                every 100 ms); 64 strict bots
+                of the port's test_client (one process, 30 s: all OK,
+                visibility checks > 0, their latency profile); a keeper
+                client names itself and writes a kvdb key through the
+                facade; cli reload (SIGHUP: freeze, restart with
+                -restore on the card; its wall time and the freeze
+                file's bytes) with the keeper connected, whoami answers
+                its name; the game's /debug/metrics before and after the
+                reload show ticks at calc level 0 and the step kernel's
+                launches and dispatches (ops/aoi_cuda's collector);
+                capture ms from its /debug/trace; cli stop; here the
+                sqlite backend holds the keeper's record, the redis kvdb
+                its key, and every checkpointed space restores onto the
+                card (restore_into, no torn record) with its words equal
+                to the plain words of its restored inputs.  (b)
+                engine/failover.host_failover_scenario at 16384 slots and
+                world 4000, two --tier cuda workers, worker 1 SIGKILLed
+                at tick 24: events_lost == 0, every parity flag, the
+                survivor's restore ms and launches, ticks_to_recover and
+                the dispatcher's clu.* counters.
 
 Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
-then 19-19c, then 20-21, 20d and 14c, and 22 last.  Every
+then 19-19c, then 20-21, 20d and 14c, then 22, and 23 last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
@@ -310,6 +338,7 @@ are one card's, not a multi-card layout's.  The last lines are
 {"paged": ...} (phases 17-17d), {"mesh": ...}, {"interest": ...} (phases
 18-18c), {"migration": ...} (phases 19-19c), {"cohort": ...} (phases
 20-20c), {"telemetry": ...} (phase 21), {"game": ...} (phase 22),
+{"deploy": ...} (phase 23),
 {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
@@ -328,8 +357,12 @@ phase 18b (sequential, pipelined, the cut run) and in phase 18c; phase
 the rectangular one and its stacked space to the stack step, phases 19b
 and 19c to the square step (19c's stacked space to the stack step),
 phases 20-20c (each run: a cohort bucket's replay steps hundreds of
-spaces in one launch) and 21 to the square step, and phase 22 (22a's
-card run, 22b's steady window) to the square step.
+spaces in one launch) and 21 to the square step, phase 22 (22a's
+card run, 22b's steady window) to the square step, and phase 23's child
+processes too: 23a's game (its two processes around the reload, each
+count read from its /debug/metrics just before the reload and just
+before cli stop; a fresh process counts from 0) and 23b's surviving
+worker (written at its clean exit).
 """
 
 from __future__ import annotations
@@ -921,16 +954,16 @@ RT_MODES = {"sequential": {}, "pipeline": {"aoi_pipeline": True},
 RT_MODES.update({f"paged {k}": dict(v, aoi_paged=True)
                  for k, v in list(RT_MODES.items())})
 # phase 13: phase 4's schedule (a prime tick, 3 warm-up, 20 measured, the
-# full walk); the modes in turns, each twice
-PIPE_TURNS = ["sequential", "pipeline", "cross_tick", "both", "both",
-              "cross_tick", "pipeline", "sequential"]
+# full walk); the modes in turns, each once (twice, in mirrored order,
+# until the script neared its time limit with phase 23)
+PIPE_TURNS = ["sequential", "pipeline", "cross_tick", "both"]
 PIPE_SCHEDULE = [None] + [1.0] * (WARMUP + MEASURED)
 # phase 14: a prime tick, then bench.py's movers_frac=0.1 walk with one
 # r-change tick and one tick where every entity moves (both restage in
 # full: the unfused flow), then warm-up ticks until the triple cap has
-# settled; measured from FUSED_MEASURE_FROM on
-FUSED_TURNS = ["unfused", "fused", "fused+cross_tick", "fused+cross_tick",
-               "fused", "unfused"]
+# settled; measured from FUSED_MEASURE_FROM on; each mode once (twice
+# before phase 23, as PIPE_TURNS)
+FUSED_TURNS = ["unfused", "fused", "fused+cross_tick"]
 FUSED_SCHEDULE = [None, 0.1, 0.1, 0.1, "radius", 1.0] + [0.1] * 40
 FUSED_FALLBACK = [0, 4, 5]  # the ticks that restage in full
 FUSED_MEASURE_FROM = 30
@@ -2902,10 +2935,11 @@ INTEREST_SASS = {"off": ("interest_step_kernelILb1ELb1ELb0ELb0EE", 3),
                  "full": ("interest_step_kernelILb1ELb1ELb1ELb1EE", 3)}
 # phase 18c: scripts/loadgen_smoke.py's and bench.py bench_engine_load's
 # harnesses (clients, spaces, gates, period, seed), a 4-tick warm-up then
-# 9 ticks (2 periods + 1: the last tick a full step)
+# 5 ticks (a period + 1: the last tick a full step; 9 before the script
+# passed 1,050 s with phase 23)
 LOAD_CONFIGS = {"loadgen_smoke": (100_000, 256, 8, 4, 11),
                 "engine_load": (8192, 8, 4, 4, 29)}
-LOAD_WARMUP, LOAD_TICKS = 4, 9
+LOAD_WARMUP, LOAD_TICKS = 4, 5
 
 
 def interest_policies(TI, combo, field, depth=INTEREST_DEPTH,
@@ -5745,6 +5779,512 @@ def bots_main(a):
     return 0
 
 
+# -- phase 23: the deployed game (the operator CLI) and host failover -------
+
+# 23a: the bots' process (the port's strict test_client) and its seconds.
+# The game runs at the default 5 ms tick interval.  Every 16th tick
+# captures 8 spaces (0.5-2.2 s), and the clients then hear nothing for
+# about a second; a bot's oracle parks for 15 s after 1 s of silence, so
+# a 10 s run could end with no visibility check at all (it did, once at
+# 5 ms and once at 50 ms).  30 s leaves the oracle time to assert after a
+# park.  The longest wait for a component, the fill, a reload or a scrape
+DEPLOY_BOTS, DEPLOY_BOT_S = 64, 30.0
+DEPLOY_WAIT_S = 300.0
+# 23b: host_failover_scenario at phase 4's slot count and world, a space a
+# worker.  The lease is sized from the capture, not the reference's 2 s:
+# a worker renews once a batch it applies, and a batch costs about 0.2 s
+# a space on the card (phase 19c's 165 ms capture and the tick); the
+# survivor applies the replayed batches and its own back to back, up to
+# the whole run (48 ticks x 2 spaces x 0.2 s = 19 s) without a renewal
+# in between.  A kill -9 is seen at once all the same: the dead worker's
+# link drops, and a dropped link fails over when leases are armed.
+FAILOVER = {"cap": CAPACITY, "world": WORLD, "ticks": 48, "kill_at": 24,
+            "tier": "cuda"}
+FAILOVER_LEASE_S = 30.0
+FAILOVER_PACE_S = 0.05
+
+# the game script of 23a: the unity_demo twin, its spaces filled to phase
+# 4's world (written beside the ini; the smoke's constants formatted in)
+DEPLOY_SCRIPT = '''"""Phase 23's game: goworld_tpu_torch's unity_demo twin with its
+spaces filled to chip_smoke.py phase 4's world: {spaces} spaces of
+{capacity} slots, {fill} monsters each at seeded positions, walking one
+step of at most {step} every position_sync_interval_ms (one batched
+``Space.move_entities`` a space, not an AI timer a monster).  The
+SpaceService seats players in the filled spaces; ``put_kv`` writes a
+kvdb key through the facade."""
+
+import time
+
+import numpy as np
+
+from goworld_tpu_torch import goworld
+from goworld_tpu_torch.examples import unity_demo as U
+from goworld_tpu_torch.services import ServiceManager
+
+SPACES, CAPACITY, FILL = {spaces}, {capacity}, {fill}
+WORLD, STEP, SEED = {world}, {step}, {seed}
+
+
+class FilledSpace(U.MySpace):
+    def on_space_init(self):
+        self.enable_aoi(U.AOI_DISTANCE, capacity=CAPACITY)
+
+
+class Monster(U.Monster):
+    def on_created(self):
+        self.attrs.set("name", "monster")
+
+
+class Player(U.Player):
+    @goworld.rpc(expose=goworld.OWN_CLIENT)
+    def put_kv(self, key):
+        goworld.kvdb_put(key, self.attrs.get_str("name"),
+                         lambda _r: self.call_client("on_kv_put", key))
+
+
+def filled(game):
+    return sorted((sp for sp in game.rt.entities.spaces.values()
+                   if sp.type_name == "FilledSpace"), key=lambda sp: sp.id)
+
+
+class SpaceService(U.SpaceService):
+    @goworld.rpc
+    def enter_space(self, player_eid):
+        spaces = self.attrs.get_list("spaces")
+        if not len(spaces):
+            counts = self.attrs.get_map("counts")
+            for sp in filled(goworld.current_game()):
+                spaces.append(sp.id)
+                counts.set(sp.id, 0)
+        U.SpaceService.enter_space(self, player_eid)
+
+    def on_restored(self):
+        # a restored game gets no deployment-ready notice (on_ready does
+        # not run): the walk re-arms once the restore is done
+        goworld.post(lambda: walk(goworld.current_game(), True, 0.0))
+
+
+class Walk:
+    def __init__(self, spaces, seed):
+        self.spaces, self.rng = spaces, np.random.default_rng(seed)
+        self.slots, self.pos = [], []
+        for sp in spaces:
+            ms = sorted((e for e in sp.entities if e.type_name == "Monster"),
+                        key=lambda e: e.id)
+            self.slots.append(np.array([e.aoi_slot for e in ms], np.int64))
+            self.pos.append(np.array([[e.position.x for e in ms],
+                                      [e.position.z for e in ms]],
+                                     np.float32))
+
+    def __call__(self):
+        for sp, sl, p in zip(self.spaces, self.slots, self.pos):
+            q = p + self.rng.uniform(-STEP, STEP, p.shape).astype(np.float32)
+            p[:] = np.clip(q, 0, WORLD)
+            sp.move_entities(sl, p[0], p[1])
+
+
+def setup(game):
+    for cls in (U.MySpace, FilledSpace, Player, Monster):
+        game.register_entity_type(cls)
+    services = ServiceManager(game)
+    services.register(SpaceService)
+    services.setup()
+    game.services = services
+
+
+ARMED = []
+
+
+def walk(game, restored, seconds):
+    """Arm the monsters' walk once (a timer of the game)."""
+    if ARMED:
+        return
+    ARMED.append(Walk(filled(game), (SEED, int(restored))))
+    interval = game.gcfg.position_sync_interval_ms / 1000.0
+    game.rt.timers.add(interval, ARMED[0], repeat=True, interval=interval)
+    print(f"DEPLOY_FILLED restored={{int(restored)}} "
+          f"spaces={{len(ARMED[0].spaces)}} "
+          f"monsters={{sum(len(s) for s in ARMED[0].slots)}} "
+          f"seconds={{seconds:.3f}}", flush=True)
+
+
+def on_ready(game):
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    for _ in range(SPACES):
+        sp = game.rt.entities.create_space("FilledSpace", kind=1)
+        p = rng.uniform(0, WORLD, (2, FILL)).astype(np.float32)
+        for i in range(FILL):
+            game.rt.entities.create("Monster", space=sp, pos=goworld.Vector3(
+                float(p[0, i]), 0.0, float(p[1, i])))
+    walk(game, False, time.perf_counter() - t0)
+'''
+
+
+def deploy_ini(disp, gate, http, redis_addr, device):
+    return "\n".join([
+        "[deployment]", "dispatchers = 1", "games = 1", "gates = 1", "",
+        "[dispatcher1]", "host = 127.0.0.1", f"port = {disp}", "",
+        "[game1]", "boot_entity = Player", "aoi_backend = cuda",
+        f"aoi_device = {device}",
+        "aoi_checkpoint = interval",
+        "telemetry = true", f"http_port = {http}", "",
+        "[gate1]", "host = 127.0.0.1", f"port = {gate}", "",
+        "[storage]", "backend = sqlite", "directory = entity_storage", "",
+        "[kvdb]", "backend = redis", f"host = {redis_addr[0]}",
+        f"port = {redis_addr[1]}", "db = 0", ""])
+
+
+def scrape(port, path="/debug/metrics"):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return resp.read().decode("utf-8", "replace")
+
+
+def game_metrics(port, CLI):
+    """The game's ``/debug/metrics`` as ``cli gwtop`` reads it: the tick
+    count, the worst calc level, the step kernel's launches and the
+    dispatches (``ops/aoi_cuda``'s collector)."""
+    out = {"ticks": 0.0, "calc_level": 0.0, "launches": 0.0,
+           "dispatches": 0.0}
+    seen = set()
+    for name, labels, val in CLI._parse_prometheus(scrape(port)):
+        seen.add(name)
+        if name == "gw_tick_seconds_count":
+            out["ticks"] += val
+        elif name == "gw_aoi_calc_level":
+            out["calc_level"] = max(out["calc_level"], val)
+        elif name == "gw_ops_kernel_launches_total" \
+                and labels.get("kernel") == "aoi_step":
+            out["launches"] += val
+        elif name == "gw_ops_dispatches_total":
+            out["dispatches"] += val
+    check({"gw_tick_seconds_count", "gw_aoi_calc_level",
+           "gw_ops_kernel_launches_total"} <= seen,
+          f"23a: the game's metrics lack a series: {sorted(seen)[:40]}")
+    return out
+
+
+def capture_ms(port, spaces):
+    """Checkpoint capture ms from the game's ``/debug/trace``: the
+    ``ckpt.snapshot`` (export) and ``ckpt.delta`` spans a space, and their
+    sum over a capture tick (``spaces`` captures)."""
+    ev = json.loads(scrape(port, "/debug/trace"))["traceEvents"]
+    snap = [e["dur"] / 1e3 for e in ev if e.get("name") == "ckpt.snapshot"]
+    delta = [e["dur"] / 1e3 for e in ev if e.get("name") == "ckpt.delta"]
+    if not snap:
+        return {"captures": 0}
+    return {"captures": len(snap),
+            "snapshot_ms": float(np.mean(snap)),
+            "delta_ms": float(np.mean(delta)) if delta else None,
+            "capture_ms_per_tick": (sum(snap) + sum(delta))
+            / (len(snap) / spaces)}
+
+
+def serve_keeper(keeper, proc, each=None):
+    """Keep a client's connection served (its mirror read, a heartbeat
+    every 5 s: the gate drops a client silent for heartbeat_timeout_s)
+    until ``proc`` exits or DEPLOY_WAIT_S pass; ``each()`` every round."""
+    deadline = time.monotonic() + DEPLOY_WAIT_S
+    beat = time.monotonic()
+    while proc.poll() is None:
+        check(time.monotonic() < deadline, "23a: a child process hung")
+        keeper.poll(0.02)
+        if each is not None:
+            each()
+        if time.monotonic() - beat > 5.0:
+            keeper.heartbeat()
+            beat = time.monotonic()
+
+
+def phase_deploy(AD):
+    """23a: ``python -m goworld_tpu_torch.cli`` builds and starts a
+    dispatcher, a game (``aoi_device`` the card, sqlite storage, kvdb on a
+    miniredis served here, interval checkpoints, telemetry on its
+    ``http_port``) and a gate; the game script fills phase 4's world; 64
+    strict bots; a keeper client across ``cli reload``; the game's metrics
+    before and after; ``cli stop``; the keeper's record and kvdb key read
+    back here; every checkpointed space restored onto the card."""
+    import tempfile
+    import types
+
+    from goworld_tpu_torch import cli as CLI
+    from goworld_tpu_torch.client import GameClientConnection
+    from goworld_tpu_torch.engine import checkpoint as CK
+    from goworld_tpu_torch.engine.aoi import AOIEngine, _unpack_positions
+    from goworld_tpu_torch.ext.db.miniredis import MiniRedis
+    from goworld_tpu_torch.kvdb.backends import RedisKVDB
+    from goworld_tpu_torch.storage.backends import SqliteEntityStorage
+    from goworld_tpu_torch.utils import gwlog
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    tmpd = tempfile.TemporaryDirectory(prefix="gw_deploy_")
+    tmp = tmpd.name
+    run = os.path.join(tmp, "run")
+    redis = MiniRedis()
+    disp, gate, http = free_port(), free_port(), free_port()
+    ini = os.path.join(tmp, "goworld.ini")
+    script = os.path.join(tmp, "deploy_game.py")
+    with open(ini, "w") as f:
+        f.write(deploy_ini(disp, gate, http, redis.addr, DEV))
+    with open(script, "w") as f:
+        f.write(DEPLOY_SCRIPT.format(spaces=SPACES, capacity=CAPACITY,
+                                     fill=PER_SPACE - GAME_CLIENTS,
+                                     world=WORLD, step=STEP, seed=41))
+    names = ("dispatcher1", "game1", "gate1")
+
+    def cli(*args, timeout=DEPLOY_WAIT_S):
+        return subprocess.run(
+            [sys.executable, "-m", "goworld_tpu_torch.cli", *args],
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=timeout)
+
+    def log_of(name):
+        try:
+            with open(os.path.join(run, f"{name}.log")) as f:
+                return f.read()
+        except OSError:
+            return ""
+
+    def tails():
+        return "".join(f"\n--- {n}: {log_of(n)[-2000:]}" for n in names)
+
+    def wait_for(pred, what, timeout=DEPLOY_WAIT_S):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            check(time.monotonic() < deadline,
+                  f"23a: {what}: timed out" + tails())
+            time.sleep(0.05)
+
+    def filled_lines():
+        return re.findall(r"DEPLOY_FILLED (.*)", log_of("game1"))
+
+    out, keeper, started = {}, None, False
+    try:
+        t0 = time.perf_counter()
+        r = cli("build", "-c", ini, "-s", script)
+        out["build_s"] = time.perf_counter() - t0
+        check(r.returncode == 0 and "build OK" in r.stdout,
+              f"23a: cli build: {r.stdout}{r.stderr}")
+        # start, each component's readiness timed from its log
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "goworld_tpu_torch.cli", "start", "-c",
+             ini, "-s", script, "-d", run], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started = True
+        ready = {}
+        while proc.poll() is None or len(ready) < len(names):
+            for n in names:
+                if n not in ready and gwlog.READY_TAG in log_of(n):
+                    ready[n] = time.perf_counter() - t0
+            if proc.poll() is not None and proc.returncode != 0:
+                break
+            check(time.perf_counter() - t0 < DEPLOY_WAIT_S,
+                  "23a: cli start timed out" + tails())
+            time.sleep(0.05)
+        start_out = proc.communicate()[0]
+        out["start_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"23a: cli start: {start_out}" + tails())
+        out["ready_s"] = ready
+        r = cli("status", "-d", run)
+        check(r.returncode == 0 and r.stdout.count("RUNNING") == 3,
+              f"23a: cli status: {r.stdout}")
+        wait_for(lambda: filled_lines(), "the game's fill")
+        out["fill"] = filled_lines()[0]
+        # the keeper: a name, a kvdb key through the facade
+        # (first: once it stands in a filled space, the space service is
+        # up and the bots' oracle has a space to judge)
+        t0 = time.perf_counter()
+        keeper = GameClientConnection(("127.0.0.1", gate))
+        check(keeper.wait_for(lambda c: c.player is not None, 60),
+              "23a: the keeper got no boot entity" + tails())
+        out["keeper_login_s"] = time.perf_counter() - t0
+        keeper.call_player("enter_game", "keeper")
+        check(keeper.wait_for(
+            lambda c: c.player.attrs.get("name") == "keeper"
+            and len(c.entities) > 1, 60),
+            "23a: the keeper did not enter a space" + tails())
+        out["keeper_enter_s"] = time.perf_counter() - t0
+        keeper.call_player("put_kv", "deploy:keeper")
+        check(keeper.wait_for(lambda c: any(
+            ("on_kv_put", ("deploy:keeper",)) in e.calls
+            for e in c.entities.values()), 60),
+            "23a: the keeper's kvdb write was not acknowledged" + tails())
+        # 64 strict bots of the port's test_client, one process
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "goworld_tpu_torch.examples.test_client",
+             "--gate", f"127.0.0.1:{gate}", "-N", str(DEPLOY_BOTS),
+             "--duration", str(DEPLOY_BOT_S), "--strict"], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        serve_keeper(keeper, proc)
+        bots = types.SimpleNamespace(returncode=proc.returncode)
+        bots.stdout, bots.stderr = proc.communicate()
+        out["bots_s"] = time.perf_counter() - t0
+        check(bots.returncode == 0
+              and f"{DEPLOY_BOTS}/{DEPLOY_BOTS} bots OK" in bots.stdout,
+              f"23a: bots: {bots.stdout[-3000:]}{bots.stderr[-3000:]}")
+        vis = re.search(r"visibility checks: (\d+)", bots.stdout)
+        check(vis and int(vis.group(1)) > 0,
+              f"23a: no visibility check: {bots.stdout[-2000:]} "
+              f"{game_metrics(http, CLI)}" + tails())
+        out["visibility_checks"] = int(vis.group(1))
+        out["bot_profile_ms"] = {
+            m.group(1): {"n": int(m.group(2)), "avg": float(m.group(3)),
+                         "p95": float(m.group(4)), "max": float(m.group(5))}
+            for m in re.finditer(
+                r"^(\w+)\s+n=(\d+)\s+avg=\s*([\d.]+)ms p95=\s*([\d.]+)ms "
+                r"max=\s*([\d.]+)ms", bots.stdout, re.M)}
+        out["bot_anomalies"] = dict(
+            (m.group(1), int(m.group(2))) for m in
+            re.finditer(r"^anomaly\.(\w+): (\d+)", bots.stdout, re.M))
+        kid = keeper.player.id
+        before = game_metrics(http, CLI)
+        check(before["ticks"] > 0 and before["calc_level"] == 0
+              and before["launches"] > 0 and before["dispatches"] > 0,
+              f"23a: the game's metrics before reload: {before}")
+        out["capture"] = capture_ms(http, SPACES)
+        out["metrics_before"] = before
+        # hot reload: SIGHUP, freeze, restart with -restore on the card
+        frozen = os.path.join(run, "game1_frozen.dat")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "goworld_tpu_torch.cli", "reload", "-c",
+             ini, "-s", script, "-d", run], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        seen = []
+
+        def watch():
+            try:
+                seen.append(os.path.getsize(frozen))
+            except OSError:
+                pass
+
+        serve_keeper(keeper, proc, watch)
+        freeze_bytes = max(seen, default=0)
+        reload_out = proc.communicate()[0]
+        out["reload_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"23a: cli reload: {reload_out}"
+              + tails())
+        out["freeze_bytes"] = freeze_bytes
+        check(freeze_bytes > 0, "23a: no freeze file seen")
+        wait_for(lambda: len(filled_lines()) > 1, "the restored fill")
+        out["restored_fill"] = filled_lines()[1]
+        check("restored=1" in out["restored_fill"],
+              f"23a: the reload did not restore the spaces: "
+              f"{out['restored_fill']}")
+        keeper.call_player("whoami")
+        check(keeper.wait_for(lambda c: any(
+            ("on_whoami", ("keeper",)) in e.calls
+            for e in c.entities.values()), 60),
+            "23a: the keeper's name did not survive the reload" + tails())
+        check(not keeper.closed, "23a: the keeper's connection broke")
+        wait_for(lambda: game_metrics(http, CLI)["launches"] > 0,
+                 "a launch after the reload")
+        after = game_metrics(http, CLI)
+        check(after["calc_level"] == 0 and after["dispatches"] > 0,
+              f"23a: the game's metrics after reload: {after}")
+        out["metrics_after"] = after
+        out["launches"] = int(before["launches"] + after["launches"])
+        keeper.close()
+        keeper = None
+        t0 = time.perf_counter()
+        r = cli("stop", "-d", run)
+        check(r.returncode == 0, f"23a: cli stop: {r.stdout}{r.stderr}")
+        # the game saves, then destroys every entity (about 16 s for
+        # 80,000 on a host core), and may outlive cli stop's wait
+        wait_for(lambda: "RUNNING" not in cli("status", "-d", run).stdout,
+                 "the components' exit")
+        started = False
+        out["stop_s"] = time.perf_counter() - t0
+        # the keeper's record and key, read back here
+        be = SqliteEntityStorage(os.path.join(run, "entity_storage"))
+        rec = be.read("Player", kid)
+        be.close()
+        check(rec is not None and rec.get("name") == "keeper",
+              f"23a: the keeper's record after stop: {rec}")
+        kv = RedisKVDB(*redis.addr)
+        check(kv.get("deploy:keeper") == "keeper",
+              "23a: the keeper's kvdb key after stop")
+        # every checkpointed space, restored onto the card
+        store = SqliteEntityStorage(os.path.join(
+            run, "checkpoints", "entity_storage"))
+        sids = sorted({k.split("/")[1] for k, _v in kv.find(
+            CK.MANIFEST_PREFIX, CK.MANIFEST_PREFIX + "~")})
+        check(len(sids) == SPACES, f"23a: {len(sids)} spaces checkpointed")
+        restore_ms, restored_ticks = [], []
+        for sid in sids:
+            eng = AOIEngine(device=DEV)
+            ctl = CK.CheckpointController(eng, store, kv, mode="off")
+            t0 = time.perf_counter()
+            res = ctl.restore_into(eng, sid, tier="cuda")
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+            check(res is not None and ctl.stats["torn_records"] == 0,
+                  f"23a: restore of {sid}: {res} {ctl.stats}")
+            h, tick, _epoch = res
+            restored_ticks.append(tick)
+            snap = h.bucket.export_snapshot(h.slot)
+            x, z = _unpack_positions(snap)
+            t = [torch.from_numpy(a).to(DEV) for a in
+                 (x, z, snap["r"], snap["act"])]
+            want = AD.interest_words_dense(*t).cpu().numpy().view(np.uint32)
+            check(np.array_equal(snap["words"], want),
+                  f"23a: space {sid}: restored words != the plain words "
+                  "of its restored inputs")
+            check(int(snap["act"].sum()) >= PER_SPACE - GAME_CLIENTS,
+                  f"23a: space {sid}: {int(snap['act'].sum())} active")
+            del eng, ctl, h
+        store.close()
+        kv.close()
+        out["restore_ms"] = restore_ms
+        out["restored_ticks"] = restored_ticks
+    finally:
+        if keeper is not None:
+            keeper.close()
+        if started:
+            cli("kill", "-d", run, timeout=60)
+        redis.close()
+        tmpd.cleanup()
+    torch.cuda.empty_cache()
+    log("23a", json.dumps(out))
+    return out
+
+
+def phase_failover():
+    """23b: the host-failover driver on the card: two worker processes
+    (``--tier cuda``), one space of FAILOVER["cap"] slots each, worker 1
+    SIGKILLed at FAILOVER["kill_at"]; the survivor restores its space onto
+    the card and replays; the unkilled oracle runs on the native ``cpp``
+    calculator."""
+    import tempfile
+
+    from goworld_tpu_torch.engine.failover import host_failover_scenario
+
+    with tempfile.TemporaryDirectory(prefix="gw_failover_") as tmp:
+        t0 = time.perf_counter()
+        res = host_failover_scenario(
+            tmp, oracle_tier="cpp", lease_ttl_s=FAILOVER_LEASE_S,
+            pace_s=FAILOVER_PACE_S, **FAILOVER)
+        res["wall_s"] = time.perf_counter() - t0
+    surv = res.get("survivor", {})
+    check(res["events_lost"] == 0 and res["parity_ok"]
+          and res["replay_parity_ok"] and res["survivor_space_ok"]
+          and res["survivor_done"] and res["clu_stats"]["failovers"] >= 1,
+          f"23b: {res}")
+    check(len(surv.get("restore_ms", [])) == 1,
+          f"23b: the survivor's restore: {surv}")
+    res["launches"] = surv["launches"]["aoi_step"]
+    log("23b", json.dumps(res))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
@@ -5859,6 +6399,10 @@ def main():
     lap("22a")
     game_live = phase_game_live(AK)
     lap("22b")
+    deploy = phase_deploy(AD)
+    lap("23a")
+    failover = phase_failover()
+    lap("23b")
     log("phase seconds", json.dumps(laps))
     cohort_l = {"cohort": cohort["launches"], "ladder": ladder["launches"],
                 "demotion": demotion["launches"]}
@@ -5894,7 +6438,9 @@ def main():
                     *((f"aoi_step {k}", v) for k, v in cohort_l.items()),
                     ("aoi_step telemetry", telemetry_out["launches"]),
                     ("aoi_step game script", game_script_out["launches"]),
-                    ("aoi_step game live", game_live["launches"])):
+                    ("aoi_step game live", game_live["launches"]),
+                    ("aoi_step deploy", deploy["launches"]),
+                    ("aoi_step failover", failover["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -5927,7 +6473,8 @@ def main():
               + mig_l["aoi_step"] + evacuation["launches"]
               + checkpoint["launches"]["aoi_step"]
               + sum(cohort_l.values()) + telemetry_out["launches"]
-              + game_script_out["launches"] + game_live["launches"], rows,
+              + game_script_out["launches"] + game_live["launches"]
+              + deploy["launches"] + failover["launches"], rows,
               MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               cohort_shapes=rung_rows,
@@ -5947,7 +6494,9 @@ def main():
                              **cohort_l,
                              "telemetry": telemetry_out["launches"],
                              "game_script": game_script_out["launches"],
-                             "game_live": game_live["launches"]}),
+                             "game_live": game_live["launches"],
+                             "deploy": deploy["launches"],
+                             "failover": failover["launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
               rect_launches + row_fault_l + paged_row_l
               + mig_l["aoi_step rect"], rect_rows,
@@ -6026,6 +6575,10 @@ def main():
         "script": {k: v for k, v in game_script_out.items()
                    if k != "split_ms"},
         "live": game_live}}))
+    print(json.dumps({"deploy": {
+        "note": "23a's launches are scraped from the game process's "
+                "/debug/metrics, 23b's from the surviving worker",
+        "cli": deploy, "failover": failover}}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ Maintains:
 
 The port's copy of the JAX package's ``client.py``, over TCP and TLS.
 ``transport="kcp"`` and ``"ws"`` raise until the port's KCP and
-WebSocket transports come (ROADMAP.md queue 1, item 10b).
+WebSocket transports come (ROADMAP.md queue 1, item 10c).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ class GameClientConnection:
         if transport in ("kcp", "ws"):
             raise NotImplementedError(
                 f"transport={transport!r}: the port's KCP and WebSocket "
-                "transports come with ROADMAP.md queue 1, item 10b "
+                "transports come with ROADMAP.md queue 1, item 10c "
                 "(netutil/kcp.py, netutil/websocket.py); use 'tcp'")
         if transport == "tcp":
             sock = connect_tcp(addr)

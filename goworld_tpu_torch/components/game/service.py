@@ -14,10 +14,9 @@ Outbound plumbing per tick:
 The port's copy of the JAX package's ``components/game/service.py``.  Its
 Runtime ticks the AOI on ``gcfg.aoi_device`` (``cuda`` by default: the
 hand-written step kernel; ``cpu`` runs its plain PyTorch version) with
-the calculator ``gcfg.aoi_backend`` names.  Entity storage, kvdb and
-checkpoints come with ROADMAP.md queue 1, item 10b: until then
-``attach_storage``, ``attach_kvdb`` and ``attach_checkpoints`` raise, and
-a game with no storage attached saves nothing at :meth:`stop`.
+the calculator ``gcfg.aoi_backend`` names.  ``attach_checkpoints``
+journals the game's spaces as ``aoi_device`` holds them: a ``cuda``
+bucket's words are exported from the card.
 """
 
 from __future__ import annotations
@@ -43,6 +42,9 @@ from ...proto import GWConnection, msgtypes as MT
 from ...utils.asyncjobs import JobError
 from ...utils import binutil, gwlog, gwutils, gwvar, opmon
 from .lbc import LoadReporter
+
+# the most inbound packets the logic loop handles between two due ticks
+DRAIN_MAX = 1024
 
 
 class NilSpace(Space):
@@ -107,26 +109,57 @@ class GameService:
         self.replayed_batches = 0
         self.rt.entities.register(NilSpace, "__nil_space__")
 
-    def _later(self, what: str):
-        raise NotImplementedError(
-            f"game{self.id}: {what} comes with ROADMAP.md queue 1, item 10b "
-            "(kvdb/service.py, storage/service.py and the backend "
-            "factories) in the port")
-
     def attach_storage(self, base_dir: str = "."):
-        """The async entity-storage service (reference: storage.Initialize,
-        game.go:100): not in the port yet."""
-        self._later("attach_storage")
+        """Create the async entity-storage service from config (reference:
+        storage.Initialize, game.go:100)."""
+        from ...storage import EntityStorageService, new_entity_storage
+        from ...storage.backends import config_kwargs
+
+        backend = new_entity_storage(
+            self.cfg.storage.backend,
+            **config_kwargs(self.cfg.storage.backend, self.cfg.storage, base_dir),
+        )
+        self.storage = EntityStorageService(backend, post=self.rt.post.post)
+        return self.storage
 
     def attach_kvdb(self, base_dir: str = "."):
-        """The async kvdb service: not in the port yet."""
-        self._later("attach_kvdb")
+        from ...kvdb import KVDBService, new_kvdb_backend
+        from ...kvdb.backends import config_kwargs
+
+        backend = new_kvdb_backend(
+            self.cfg.kvdb.backend,
+            **config_kwargs(self.cfg.kvdb.backend, self.cfg.kvdb, base_dir),
+        )
+        self.kvdb = KVDBService(backend, post=self.rt.post.post)
+        return self.kvdb
 
     def attach_checkpoints(self, base_dir: str = "."):
-        """Durable world state over the [storage]/[kvdb] backends: not in
-        the port yet (``Runtime.arm_checkpoints`` takes backends
-        directly)."""
-        self._later("attach_checkpoints")
+        """Arm durable world state (engine/checkpoint.py) when
+        ``aoi_checkpoint`` is non-off: the journal rides the configured
+        [storage] backend, the manifest the [kvdb] backend, both under
+        their own sub-directories so entity saves and checkpoints never
+        share a namespace.  Returns the controller (None when off)."""
+        if self.gcfg.aoi_checkpoint == "off":
+            return None
+        from ...kvdb import new_kvdb_backend
+        from ...kvdb.backends import config_kwargs as kv_kwargs
+        from ...storage import new_entity_storage
+        from ...storage.backends import config_kwargs as st_kwargs
+
+        ck_dir = os.path.join(base_dir, "checkpoints")
+        # the flight recorder dumps into a namespace beside the durable
+        # store: the post-mortem lands where the forensics already live
+        flight.configure(dir=os.path.join(base_dir, "flight"),
+                         component=f"game{self.id}")
+        store = new_entity_storage(
+            self.cfg.storage.backend,
+            **st_kwargs(self.cfg.storage.backend, self.cfg.storage, ck_dir))
+        manifest = new_kvdb_backend(
+            self.cfg.kvdb.backend,
+            **kv_kwargs(self.cfg.kvdb.backend, self.cfg.kvdb, ck_dir))
+        return self.rt.arm_checkpoints(
+            store, manifest, mode=self.gcfg.aoi_checkpoint,
+            interval=self.gcfg.aoi_checkpoint_interval)
 
     # -- boot --------------------------------------------------------------
     def register_entity_type(self, cls, name=None):
@@ -207,12 +240,7 @@ class GameService:
         next_lbc = time.monotonic() + 1.0
         next_renew = time.monotonic()
         while not self._stop.is_set():
-            timeout = max(0.0, next_tick - time.monotonic())
-            try:
-                i, pkt = self.queue.get(timeout=timeout)
-                gwutils.run_panicless(self._handle, pkt, i, logger=self.log)
-            except queue.Empty:
-                pass
+            self._handle_queued(max(0.0, next_tick - time.monotonic()))
             now = time.monotonic()
             if now >= next_tick:
                 gwutils.run_panicless(self.rt.tick, logger=self.log)
@@ -228,6 +256,20 @@ class GameService:
                     next_renew = now + self._renew_every
                 self.cluster.flush_all()
                 next_tick = now + tick_s
+
+    def _handle_queued(self, timeout: float):
+        """Handle the packets queued by now, up to DRAIN_MAX, waiting up
+        to ``timeout`` for the first.  Taking one packet a loop iteration
+        falls behind once a tick outlasts the packets' spacing (at the
+        card's width a tick takes 70 ms and more): the queue then grows
+        by a packet or more a tick, and what it holds goes stale."""
+        for n in range(DRAIN_MAX):
+            try:
+                i, pkt = (self.queue.get(timeout=timeout) if n == 0
+                          else self.queue.get_nowait())
+            except queue.Empty:
+                return
+            gwutils.run_panicless(self._handle, pkt, i, logger=self.log)
 
     def _report_load(self):
         """Report CPU load to every dispatcher for LBC placement

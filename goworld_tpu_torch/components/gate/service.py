@@ -16,7 +16,7 @@ Heartbeat timeout kicks dead clients (reference: :202-212).
 The port's copy of the JAX package's ``components/gate/service.py``: the
 TCP listener (TLS when ``tls_cert`` and ``tls_key`` are set),
 compression, heartbeats, the filter trees and the sync fan-out.  The KCP
-and WebSocket listeners come with ROADMAP.md queue 1, item 10b: until
+and WebSocket listeners come with ROADMAP.md queue 1, item 10c: until
 then a gate configured with ``kcp_port`` or ``websocket_port`` raises at
 :meth:`GateService.start`.
 """
@@ -116,7 +116,7 @@ class GateService:
                 raise NotImplementedError(
                     f"gate{self.id}: {key} = {getattr(self.gatecfg, key)}: "
                     "the port's KCP and WebSocket listeners come with "
-                    "ROADMAP.md queue 1, item 10b (netutil/kcp.py, "
+                    "ROADMAP.md queue 1, item 10c (netutil/kcp.py, "
                     "netutil/websocket.py); set it to 0")
         self._listener = serve_tcp(self.addr, self._on_client_connection)
         self.addr = self._listener.getsockname()

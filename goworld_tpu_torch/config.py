@@ -90,8 +90,7 @@ class GameConfig:
     aoi_pipeline: bool = False
     # durable world state (engine/checkpoint.py): off | interval |
     # continuous.  Non-off streams per-space incremental checkpoints into
-    # the [storage]/[kvdb] backends (GameService.attach_checkpoints, which
-    # comes with ROADMAP.md queue 1, item 10b)
+    # the [storage]/[kvdb] backends (GameService.attach_checkpoints)
     aoi_checkpoint: str = "off"
     aoi_checkpoint_interval: int = 16
     tick_interval_ms: int = consts.TICK_INTERVAL_MS

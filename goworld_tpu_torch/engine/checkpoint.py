@@ -207,7 +207,22 @@ class CheckpointController:
             nsh.acked_tick, nsh.acked_epoch = sh.acked_tick, sh.acked_epoch
             self._shadows[space_id] = nsh
             return
-        self._shadows[space_id] = _SpaceShadow(handle)
+        nsh = _SpaceShadow(handle)
+        nsh.epoch = self._next_epoch(space_id)
+        self._shadows[space_id] = nsh
+
+    def _next_epoch(self, space_id: str) -> int:
+        """The epoch after the newest the manifest holds for the space: a
+        game restarted over its own store (``-restore``) continues the
+        chain, so a restore never folds the earlier process's records into
+        the new one's (a fresh store starts at 0)."""
+        lo = _manifest_key(space_id, 0)[:-8]
+        try:
+            rows = self.manifest.find(lo, lo + _MANIFEST_END)
+        except OSError:
+            return 0
+        epochs = [int(k[len(lo):]) for k, _v in rows if k[len(lo):].isdigit()]
+        return max(epochs) + 1 if epochs else 0
 
     def untrack(self, space_id: str) -> None:
         self._shadows.pop(space_id, None)

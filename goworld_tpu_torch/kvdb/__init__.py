@@ -1,9 +1,19 @@
-"""Key-value store backends of the port: the part of the JAX package's
-``kvdb/`` that the checkpoint manifest opens (:class:`KVDBBackend`,
-:class:`FilesystemKVDB`).  The service, the other backends and
-``new_kvdb_backend`` come with ROADMAP.md queue 1, item 10b (the
-game service's storage half)."""
+"""Ordered async key-value store (reference: engine/kvdb/kvdb.go:20-101,
+backend iface engine/kvdb/types/kvdb_types.go:4-25).
 
-from .backends import FilesystemKVDB, KVDBBackend
+The reference serializes all KVDB ops through one async job group
+(``_kvdb``) so operations are strictly ordered; callbacks re-enter the
+logic thread.  Here one daemon worker drains an ordered queue and results
+are delivered through ``post``.  The port's copy of the JAX package's
+``kvdb/``.
+"""
 
-__all__ = ["FilesystemKVDB", "KVDBBackend"]
+from .backends import FilesystemKVDB, KVDBBackend, new_kvdb_backend
+from .service import KVDBService
+
+__all__ = [
+    "FilesystemKVDB",
+    "KVDBBackend",
+    "KVDBService",
+    "new_kvdb_backend",
+]

@@ -1,24 +1,32 @@
-"""KVDB backends: the port's copy of the JAX package's ``KVDBBackend``
-and ``FilesystemKVDB`` (``kvdb/backends.py``).
+"""KVDB backends.
 
-Backend interface: ``get(key) -> str | None``, ``put(key, val)``,
-``find(begin, end) -> list[(key, val)]`` over the half-open range
-``[begin, end)`` in key order, ``close()``; ``get_or_put`` is built from
-get and put.
+Backend interface (reference: kvdb/types/kvdb_types.go:4-25):
+``get(key) -> str|None``, ``put(key, val)``, ``find(begin, end) ->
+list[(key, val)]`` over the half-open range ``[begin, end)`` in key order,
+``close()``.  ``get_or_put`` is provided on the base class from get/put;
+backends with native compare-and-set may override it.
 
-``FilesystemKVDB`` is an append-only log (one JSON record a line)
-replayed into a dict on open: a torn trailing line (a kill -9 mid-append)
-is discarded and sealed off with a newline, and the log is compacted when
-it grows well past the live key count.
+``filesystem`` is an append-only log (one JSON record per line) replayed
+into a dict on open -- hermetic, crash-safe (partial trailing lines are
+discarded), and compacted when the log grows well past the live key count.
+``sqlite``, ``redis`` and ``redis_cluster`` sit behind the same seam;
+``mongodb`` and ``mysql`` are registered names whose drivers come with
+ROADMAP.md queue 1, item 10c (their constructors raise); other backends
+plug in via ``register_backend``.
+
+The port's copy of the JAX package's ``kvdb/backends.py``: the log
+lines, compaction, table and redis keys are the same bytes, so either
+package reads what the other wrote.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 
-log = logging.getLogger("goworld_tpu_torch.kvdb")
+from ..utils import gwlog
+
+log = gwlog.logger("kvdb")
 
 
 class KVDBBackend:
@@ -32,7 +40,9 @@ class KVDBBackend:
         raise NotImplementedError
 
     def get_or_put(self, key: str, val: str) -> str | None:
-        """The existing value, or write ``val`` and return None."""
+        """Return the existing value, or write ``val`` and return None
+        (reference: kvdb.go GetOrPut).  Atomic because the service runs
+        all ops on one ordered worker."""
         cur = self.get(key)
         if cur is not None:
             return cur
@@ -43,7 +53,7 @@ class KVDBBackend:
         pass
 
 
-_COMPACT_MIN_LOG = 1024  # a smaller log is never compacted
+_COMPACT_MIN_LOG = 1024  # don't bother compacting tiny logs
 
 
 class FilesystemKVDB(KVDBBackend):
@@ -58,17 +68,17 @@ class FilesystemKVDB(KVDBBackend):
         self._log = open(self.path, "a", encoding="utf-8")
 
     def _seal_torn_tail(self):
-        """A kill -9 mid-append can leave the log without its trailing
-        newline; the next record appended straight after would join the
-        torn fragment and both lines would be lost at the next replay.
-        Close the tail with a newline, so the fragment stays a line of its
-        own, discarded."""
+        """A kill -9 mid-append can leave the log without a trailing
+        newline; appending straight after would glue the next record onto
+        the torn fragment and lose BOTH lines at the next replay.  Close
+        the tail with a newline so the fragment stays an isolated
+        discardable line."""
         try:
             with open(self.path, "rb") as f:
                 f.seek(-1, os.SEEK_END)
                 torn = f.read(1) != b"\n"
         except (FileNotFoundError, OSError):
-            return  # no log, or an empty one: nothing to seal
+            return  # absent or empty log: nothing to seal
         if torn:
             with open(self.path, "ab") as f:
                 f.write(b"\n")
@@ -83,7 +93,7 @@ class FilesystemKVDB(KVDBBackend):
                     try:
                         rec = json.loads(line)
                     except json.JSONDecodeError:
-                        continue  # a torn trailing write
+                        continue  # torn trailing write
                     self.data[rec["k"]] = rec["v"]
                     self._log_records += 1
         except FileNotFoundError:
@@ -112,15 +122,16 @@ class FilesystemKVDB(KVDBBackend):
         self._log.flush()
         self._log_records += 1
         if self._compaction_due():
-            # the record above is durable already: a failed compaction
-            # (a full disk) must not fail the put, and later puts keep
-            # appending to the intact log
+            # The live handle must be reopened even if compaction fails
+            # (disk full writing the tmp file) -- the pre-compaction log is
+            # still intact and later puts must keep appending to it.  A
+            # compaction failure must not fail the put: the record above is
+            # already durable.
             self._log.close()
             try:
                 self._compact_if_worthwhile()
             except OSError as e:
-                log.warning("kvdb compaction failed (will retry later): "
-                            "%r", e)
+                log.warning("kvdb compaction failed (will retry later): %r", e)
             finally:
                 self._log = open(self.path, "a", encoding="utf-8")
 
@@ -130,3 +141,192 @@ class FilesystemKVDB(KVDBBackend):
 
     def close(self) -> None:
         self._log.close()
+
+
+class SqliteKVDB(KVDBBackend):
+    """SQL-family kvdb (reference role: kvdb/backend/kvdb_mysql).  One
+    ``kv(k, v)`` table; range find is an indexed scan."""
+
+    def __init__(self, directory: str):
+        import sqlite3
+
+        os.makedirs(directory, exist_ok=True)
+        self.path = os.path.join(directory, "kvdb.sqlite")
+        self._db = sqlite3.connect(self.path, check_same_thread=False)
+        self._db.execute(
+            "CREATE TABLE IF NOT EXISTS kv"
+            " (k TEXT PRIMARY KEY, v TEXT NOT NULL)"
+        )
+        self._db.commit()
+
+    def get(self, key: str) -> str | None:
+        row = self._db.execute(
+            "SELECT v FROM kv WHERE k = ?", (key,)
+        ).fetchone()
+        return None if row is None else row[0]
+
+    def put(self, key: str, val: str) -> None:
+        self._db.execute(
+            "INSERT INTO kv (k, v) VALUES (?, ?)"
+            " ON CONFLICT (k) DO UPDATE SET v = excluded.v",
+            (key, val),
+        )
+        self._db.commit()
+
+    def find(self, begin: str, end: str) -> list[tuple[str, str]]:
+        rows = self._db.execute(
+            "SELECT k, v FROM kv WHERE k >= ? AND k < ? ORDER BY k",
+            (begin, end),
+        ).fetchall()
+        return [(k, v) for k, v in rows]
+
+    def close(self) -> None:
+        self._db.close()
+
+
+class RedisKVDB(KVDBBackend):
+    """Redis kvdb (reference: kvdb/backend/kvdb_redis).  Values live at
+    ``kvdb:<key>``; a sorted set mirrors the key space so ``find`` is an
+    ordered lex range instead of a KEYS scan.  ``get_or_put`` uses SETNX
+    for native compare-and-set."""
+
+    config_kind = "server"
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 6379,
+                 db: int = 0):
+        from ..ext.db.resp import RespClient
+
+        self._c = RespClient(host, port, db=db)
+
+    @staticmethod
+    def _key(key: str) -> str:
+        return f"kvdb:{key}"
+
+    _INDEX = "kvdb-index"
+
+    def get(self, key: str) -> str | None:
+        v = self._c.command("GET", self._key(key))
+        return None if v is None else v.decode("utf-8")
+
+    def put(self, key: str, val: str) -> None:
+        # index first: a crash between the two commands then self-heals
+        # (find() filters keys whose value is missing), whereas value-first
+        # would leave a value invisible to find() forever
+        self._c.command("ZADD", self._INDEX, 0, key)
+        self._c.command("SET", self._key(key), val)
+
+    def get_or_put(self, key: str, val: str) -> str | None:
+        if self._c.command("SETNX", self._key(key), val):
+            self._c.command("ZADD", self._INDEX, 0, key)
+            return None
+        v = self._c.command("GET", self._key(key))
+        return None if v is None else v.decode("utf-8")
+
+    def find(self, begin: str, end: str) -> list[tuple[str, str]]:
+        if end == "":
+            return []  # half-open [begin, "") is empty
+        lo = "-" if begin == "" else f"[{begin}"
+        members = self._c.command("ZRANGEBYLEX", self._INDEX, lo, f"({end}")
+        if not members:
+            return []
+        keys = [m.decode("utf-8") for m in members]
+        vals = self._c.command("MGET", *[self._key(k) for k in keys])
+        return [
+            (k, v.decode("utf-8"))
+            for k, v in zip(keys, vals)
+            if v is not None
+        ]
+
+    def close(self) -> None:
+        self._c.close()
+
+
+class RedisClusterKVDB(RedisKVDB):
+    """Redis-cluster kvdb (reference: kvdb/backend/kvdb_redis_cluster).
+    Same schema as the redis kvdb, through the slot-aware cluster client.
+    ``find`` issues per-key GETs instead of one MGET -- the keys span slots
+    and cross-slot multi-key commands are illegal in a cluster."""
+
+    config_kind = "cluster"
+
+    def __init__(self, addrs: str | list[tuple[str, int]]):
+        from ..ext.db.dbutil import parse_addrs
+        from ..ext.db.respcluster import RespClusterClient
+
+        self._c = RespClusterClient(parse_addrs(addrs))
+
+    def find(self, begin: str, end: str) -> list[tuple[str, str]]:
+        if end == "":
+            return []
+        lo = "-" if begin == "" else f"[{begin}"
+        members = self._c.command(
+            "ZRANGEBYLEX", self._INDEX, lo, f"({end}"
+        )
+        out = []
+        for m in members or []:
+            k = m.decode("utf-8")
+            v = self._c.command("GET", self._key(k))
+            if v is not None:
+                out.append((k, v.decode("utf-8")))
+        return out
+
+
+class _LaterBackend:
+    """A registered backend name whose driver comes to the port with
+    ROADMAP.md queue 1, item 10c: constructing it raises, and no other
+    backend stands in for it."""
+
+    family = ""
+    config_kind = "server"
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"the {self.family} kvdb backend comes to goworld_tpu_torch "
+            "with ROADMAP.md queue 1, item 10c; use filesystem, sqlite, "
+            "redis or redis_cluster")
+
+
+class MongoKVDB(_LaterBackend, KVDBBackend):
+    family = "mongodb"
+
+
+class MySQLKVDB(_LaterBackend, KVDBBackend):
+    family = "mysql"
+    config_kind = "sql_server"
+
+
+_REGISTRY = {
+    "filesystem": FilesystemKVDB,
+    "sqlite": SqliteKVDB,
+    "redis": RedisKVDB,
+    "redis_cluster": RedisClusterKVDB,
+    "mongodb": MongoKVDB,
+    "mysql": MySQLKVDB,
+}
+
+
+def register_backend(name: str, cls):
+    _REGISTRY[name] = cls
+
+
+def new_kvdb_backend(backend: str, **kwargs) -> KVDBBackend:
+    cls = _REGISTRY.get(backend)
+    if cls is None:
+        raise ValueError(
+            f"unknown kvdb backend {backend!r} (have {sorted(_REGISTRY)})"
+        )
+    return cls(**kwargs)
+
+
+def config_kwargs(backend: str, cfg, base_dir: str = ".") -> dict:
+    """Constructor kwargs for a backend from its config section; the class
+    attribute ``config_kind`` ("server" vs default "directory") selects the
+    keys, so registered custom backends compose (see storage.backends)."""
+    cls = _REGISTRY.get(backend)
+    if cls is None:
+        raise ValueError(
+            f"unknown kvdb backend {backend!r} (have {sorted(_REGISTRY)})"
+        )
+    from ..ext.db.dbutil import backend_config_kwargs
+
+    return backend_config_kwargs(cls, cfg, base_dir)

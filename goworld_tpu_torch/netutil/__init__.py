@@ -1,6 +1,6 @@
 """Wire layer of the port: packets, framing, connections, compression,
 packers (the port's copy of the JAX package's ``netutil/``; the KCP and
-WebSocket transports come with ROADMAP.md queue 1, item 10b)."""
+WebSocket transports come with ROADMAP.md queue 1, item 10c)."""
 
 from .compress import Compressor, new_compressor  # noqa: F401
 from .conn import (  # noqa: F401

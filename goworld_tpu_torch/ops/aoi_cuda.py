@@ -24,6 +24,11 @@ on the card at once (read on the card by ``gw_aoi_step_occupancy``) and
 cuts the work into units of (space, 32-word group, a run of 64-row tiles)
 that the blocks walk (a pure function, tested on the CPU); ``last_plan``
 holds the plan of each mode's last launch.
+
+Telemetry: the collector registered at import serves ``launches`` as
+``ops.kernel_launches{kernel=...}`` and :mod:`dispatch_count` as
+``ops.dispatches`` on every process's ``/debug/metrics`` (telemetry on or
+off): a child process's scrape shows whether its ticks ran the kernel.
 """
 
 from __future__ import annotations
@@ -33,7 +38,10 @@ import dataclasses
 
 import torch
 
+from .. import telemetry
+from ..telemetry.metrics import Sample
 from . import _build
+from . import dispatch_count as DC
 from .aoi_dense import aoi_step_chg_dense, aoi_step_entlv_dense
 from .aoi_predicate import words_per_row
 
@@ -46,6 +54,17 @@ last_plan: dict[str, StepPlan] = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def _telemetry_collect() -> list:
+    return [Sample("ops.dispatches", "counter", DC.read(), None,
+                   "device dispatches recorded (ops/dispatch_count)"),
+            *(Sample("ops.kernel_launches", "counter", n, {"kernel": k},
+                     "launches of the hand-written step kernel")
+              for k, n in sorted(launches.items()))]
+
+
+telemetry.register_collector(_telemetry_collect)
 
 
 def _want(name, t, dt, shape):

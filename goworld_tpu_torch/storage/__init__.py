@@ -1,9 +1,15 @@
-"""Entity storage backends of the port: the part of the JAX package's
-``storage/`` that the checkpoint journal opens
-(:class:`EntityStorageBackend`, :class:`FilesystemEntityStorage`).  The
-service, the SQL, Redis and Mongo backends and ``new_entity_storage``
-come with ROADMAP.md queue 1, item 10b."""
+"""Async entity persistence.
 
-from .backends import EntityStorageBackend, FilesystemEntityStorage
+Reference: engine/storage (storage.go -- one background worker drains an op
+queue; save failures retry forever; completion callbacks re-enter the logic
+thread via post).  Backend interface mirrors
+storage_common.EntityStorage{List,Write,Read,Exists,Close}.  The port's
+copy of the JAX package's ``storage/``.
+"""
 
-__all__ = ["EntityStorageBackend", "FilesystemEntityStorage"]
+from .backends import (EntityStorageBackend, FilesystemEntityStorage,
+                       new_entity_storage)
+from .service import EntityStorageService
+
+__all__ = ["EntityStorageBackend", "EntityStorageService",
+           "FilesystemEntityStorage", "new_entity_storage"]

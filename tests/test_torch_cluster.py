@@ -326,24 +326,61 @@ def test_jax_gate_serves_port_client(tmp_path):
 
 
 def test_kcp_websocket_and_storage_wait_for_the_next_slice(tmp_path):
+    """KCP and WebSocket still wait (ROADMAP.md item 10c) and raise; the
+    storage half they once waited with attaches now."""
     from goworld_tpu_torch import client, config
     from goworld_tpu_torch.components.game.service import GameService
     from goworld_tpu_torch.components.gate.service import GateService
 
     for transport in ("kcp", "ws"):
-        with pytest.raises(NotImplementedError, match="item 10b"):
+        with pytest.raises(NotImplementedError, match="item 10c"):
             client.GameClientConnection(("127.0.0.1", 1), transport=transport)
     for key in ("kcp_port", "websocket_port"):
         cfg = config.loads(f"[gate1]\nport = 0\n{key} = 1\n")
-        with pytest.raises(NotImplementedError, match=f"{key}.*item 10b"):
+        with pytest.raises(NotImplementedError, match=f"{key}.*item 10c"):
             GateService(1, cfg).start()
-    cfg = config.loads("[game1]\naoi_device = cpu\n")
+    cfg = config.loads("[game1]\naoi_device = cpu\n"
+                       "aoi_checkpoint = interval\n")
     game = GameService(1, cfg, freeze_dir=str(tmp_path))
     for attach in (game.attach_storage, game.attach_kvdb,
                    game.attach_checkpoints):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            attach(str(tmp_path))
-    assert game.storage is None and game.kvdb is None
+        assert attach(str(tmp_path)) is not None
+    assert game.storage is not None and game.kvdb is not None
+    assert game.rt.checkpoint is not None
+    for svc in (game.storage, game.kvdb, game.rt.checkpoint):
+        svc.close()
+
+
+def test_game_loop_drains_the_queue_before_a_due_tick(tmp_path, monkeypatch):
+    """The logic loop handles every packet queued by the time a tick is
+    due (up to DRAIN_MAX), not one a loop iteration: with a tick that
+    outlasts the packets' spacing, one a tick would leave the rest
+    waiting a tick each."""
+    from goworld_tpu_torch import config
+    from goworld_tpu_torch.components.game import service as S
+
+    cfg = config.loads("[game1]\naoi_device = cpu\ntick_interval_ms = 5\n")
+    game = S.GameService(1, cfg, freeze_dir=str(tmp_path))
+    handled, at_tick = [], []
+    game._handle = lambda pkt, i: handled.append(pkt)
+
+    def tick():
+        at_tick.append(len(handled))
+        if len(at_tick) == 2:
+            game._stop.set()
+
+    game.rt.tick = tick
+    game.cluster.flush_all = lambda: None
+    n = S.DRAIN_MAX + 7
+    for k in range(n):
+        game.queue.put((0, k))
+    # a clock on which every loop iteration finds its tick due
+    clock = iter(range(0, 10 ** 9, 10))
+    monkeypatch.setattr(S, "time", types.SimpleNamespace(
+        monotonic=lambda: next(clock) / 1000.0))
+    game._run()
+    assert at_tick == [S.DRAIN_MAX, n]
+    assert handled == list(range(n))
 
 
 def test_game_on_cuda_without_a_card_raises(tmp_path):

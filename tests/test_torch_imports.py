@@ -35,7 +35,7 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240,
                          check=True).stdout.split()
-    assert int(out[0]) >= 90  # every module of the thirteen slices
+    assert int(out[0]) >= 113  # every module of the fourteen slices
     loaded = out[1:]
     for mod in ("engine.runtime", "ops.aoi_grid", "ops.cadence",
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
@@ -57,7 +57,14 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
                 "components.dispatcher.__main__",
                 "components.gate.filtertree", "components.gate.service",
                 "components.gate.__main__", "components.game.lbc",
-                "components.game.service", "client"):
+                "components.game.service", "client", "ext", "ext.db",
+                "ext.db.dbutil", "ext.db.resp", "ext.db.respcluster",
+                "ext.db.miniredis", "ext.db.gwredis", "ext.db.gwsql",
+                "storage.service", "kvdb.service", "services", "ext.pubsub",
+                "goworld", "goworld_cn", "components.game.__main__", "cli",
+                "examples", "examples.unity_demo", "examples.test_game",
+                "examples.chatroom_demo", "examples.nil_game",
+                "examples.test_client", "engine.failover"):
         assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
