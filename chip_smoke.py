@@ -5983,20 +5983,123 @@ def capture_ms(port, spaces):
             / (len(snap) / spaces)}
 
 
-def serve_keeper(keeper, proc, each=None):
+def serve_keeper(keeper, procs, each=None):
     """Keep a client's connection served (its mirror read, a heartbeat
     every 5 s: the gate drops a client silent for heartbeat_timeout_s)
-    until ``proc`` exits or DEPLOY_WAIT_S pass; ``each()`` every round."""
+    until every process of ``procs`` exits or DEPLOY_WAIT_S pass;
+    ``each()`` every round."""
     deadline = time.monotonic() + DEPLOY_WAIT_S
     beat = time.monotonic()
-    while proc.poll() is None:
-        check(time.monotonic() < deadline, "23a: a child process hung")
+    while any(p.poll() is None for p in procs):
+        check(time.monotonic() < deadline, "a deployment child process hung")
         keeper.poll(0.02)
         if each is not None:
             each()
         if time.monotonic() - beat > 5.0:
             keeper.heartbeat()
             beat = time.monotonic()
+
+
+def bot_profile(text):
+    """Per-op latency of a bots process's summary (``Stats.dump``)."""
+    return {m.group(1): {"n": int(m.group(2)), "avg": float(m.group(3)),
+                         "p50": float(m.group(4)), "p95": float(m.group(5)),
+                         "max": float(m.group(6))}
+            for m in re.finditer(
+                r"^(\w+)\s+n=(\d+)\s+avg=\s*([\d.]+)ms p50=\s*([\d.]+)ms "
+                r"p95=\s*([\d.]+)ms max=\s*([\d.]+)ms", text, re.M)}
+
+
+class CliRun:
+    """One deployment through ``python -m goworld_tpu_torch.cli`` in a
+    temporary directory: the CLI's commands, the components' logs, a
+    bounded wait; ``tag`` names the phase in every failure."""
+
+    NAMES = ("dispatcher1", "game1", "gate1")
+
+    def __init__(self, tag):
+        import tempfile
+
+        self.tag = tag
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=self.root + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.tmpd = tempfile.TemporaryDirectory(prefix=f"gw_{tag}_")
+        self.tmp = self.tmpd.name
+        self.run = os.path.join(self.tmp, "run")
+        self.started = False
+
+    def cli(self, *args, timeout=DEPLOY_WAIT_S):
+        return subprocess.run(
+            [sys.executable, "-m", "goworld_tpu_torch.cli", *args],
+            cwd=self.root, env=self.env, capture_output=True, text=True,
+            timeout=timeout)
+
+    def popen(self, *args, **kw):
+        return subprocess.Popen([sys.executable, "-m", *args],
+                                cwd=self.root, env=self.env, text=True, **kw)
+
+    def log_of(self, name):
+        try:
+            with open(os.path.join(self.run, f"{name}.log")) as f:
+                return f.read()
+        except OSError:
+            return ""
+
+    def tails(self):
+        return "".join(f"\n--- {n}: {self.log_of(n)[-2000:]}"
+                       for n in self.NAMES)
+
+    def wait_for(self, pred, what, timeout=DEPLOY_WAIT_S):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            check(time.monotonic() < deadline,
+                  f"{self.tag}: {what}: timed out" + self.tails())
+            time.sleep(0.05)
+
+    def filled_lines(self):
+        return re.findall(r"DEPLOY_FILLED (.*)", self.log_of("game1"))
+
+    def start(self, ini, script):
+        """``cli start``; each component's readiness s from its log."""
+        from goworld_tpu_torch.utils import gwlog
+
+        t0 = time.perf_counter()
+        proc = self.popen("goworld_tpu_torch.cli", "start", "-c", ini, "-s",
+                          script, "-d", self.run, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT)
+        self.started = True
+        ready = {}
+        while proc.poll() is None or len(ready) < len(self.NAMES):
+            for n in self.NAMES:
+                if n not in ready and gwlog.READY_TAG in self.log_of(n):
+                    ready[n] = time.perf_counter() - t0
+            if proc.poll() is not None and proc.returncode != 0:
+                break
+            check(time.perf_counter() - t0 < DEPLOY_WAIT_S,
+                  f"{self.tag}: cli start timed out" + self.tails())
+            time.sleep(0.05)
+        start_out = proc.communicate()[0]
+        start_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"{self.tag}: cli start: {start_out}" + self.tails())
+        return start_s, ready
+
+    def stop(self):
+        """``cli stop``, then wait for the components' exit (a game saves,
+        then destroys every entity, and may outlive the stop's wait)."""
+        t0 = time.perf_counter()
+        r = self.cli("stop", "-d", self.run)
+        check(r.returncode == 0, f"{self.tag}: cli stop: {r.stdout}{r.stderr}")
+        self.wait_for(lambda: "RUNNING" not in self.cli(
+            "status", "-d", self.run).stdout, "the components' exit")
+        self.started = False
+        return time.perf_counter() - t0
+
+    def close(self):
+        if self.started:
+            self.cli("kill", "-d", self.run, timeout=60)
+        self.tmpd.cleanup()
 
 
 def phase_deploy(AD):
@@ -6007,7 +6110,6 @@ def phase_deploy(AD):
     strict bots; a keeper client across ``cli reload``; the game's metrics
     before and after; ``cli stop``; the keeper's record and kvdb key read
     back here; every checkpointed space restored onto the card."""
-    import tempfile
     import types
 
     from goworld_tpu_torch import cli as CLI
@@ -6017,80 +6119,28 @@ def phase_deploy(AD):
     from goworld_tpu_torch.ext.db.miniredis import MiniRedis
     from goworld_tpu_torch.kvdb.backends import RedisKVDB
     from goworld_tpu_torch.storage.backends import SqliteEntityStorage
-    from goworld_tpu_torch.utils import gwlog
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    tmpd = tempfile.TemporaryDirectory(prefix="gw_deploy_")
-    tmp = tmpd.name
-    run = os.path.join(tmp, "run")
+    dep = CliRun("23a")
+    cli, run, tails, wait_for = dep.cli, dep.run, dep.tails, dep.wait_for
+    filled_lines = dep.filled_lines
     redis = MiniRedis()
     disp, gate, http = free_port(), free_port(), free_port()
-    ini = os.path.join(tmp, "goworld.ini")
-    script = os.path.join(tmp, "deploy_game.py")
+    ini = os.path.join(dep.tmp, "goworld.ini")
+    script = os.path.join(dep.tmp, "deploy_game.py")
     with open(ini, "w") as f:
         f.write(deploy_ini(disp, gate, http, redis.addr, DEV))
     with open(script, "w") as f:
         f.write(DEPLOY_SCRIPT.format(spaces=SPACES, capacity=CAPACITY,
                                      fill=PER_SPACE - GAME_CLIENTS,
                                      world=WORLD, step=STEP, seed=41))
-    names = ("dispatcher1", "game1", "gate1")
-
-    def cli(*args, timeout=DEPLOY_WAIT_S):
-        return subprocess.run(
-            [sys.executable, "-m", "goworld_tpu_torch.cli", *args],
-            cwd=root, env=env, capture_output=True, text=True,
-            timeout=timeout)
-
-    def log_of(name):
-        try:
-            with open(os.path.join(run, f"{name}.log")) as f:
-                return f.read()
-        except OSError:
-            return ""
-
-    def tails():
-        return "".join(f"\n--- {n}: {log_of(n)[-2000:]}" for n in names)
-
-    def wait_for(pred, what, timeout=DEPLOY_WAIT_S):
-        deadline = time.monotonic() + timeout
-        while not pred():
-            check(time.monotonic() < deadline,
-                  f"23a: {what}: timed out" + tails())
-            time.sleep(0.05)
-
-    def filled_lines():
-        return re.findall(r"DEPLOY_FILLED (.*)", log_of("game1"))
-
-    out, keeper, started = {}, None, False
+    out, keeper = {}, None
     try:
         t0 = time.perf_counter()
         r = cli("build", "-c", ini, "-s", script)
         out["build_s"] = time.perf_counter() - t0
         check(r.returncode == 0 and "build OK" in r.stdout,
               f"23a: cli build: {r.stdout}{r.stderr}")
-        # start, each component's readiness timed from its log
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "goworld_tpu_torch.cli", "start", "-c",
-             ini, "-s", script, "-d", run], cwd=root, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        started = True
-        ready = {}
-        while proc.poll() is None or len(ready) < len(names):
-            for n in names:
-                if n not in ready and gwlog.READY_TAG in log_of(n):
-                    ready[n] = time.perf_counter() - t0
-            if proc.poll() is not None and proc.returncode != 0:
-                break
-            check(time.perf_counter() - t0 < DEPLOY_WAIT_S,
-                  "23a: cli start timed out" + tails())
-            time.sleep(0.05)
-        start_out = proc.communicate()[0]
-        out["start_s"] = time.perf_counter() - t0
-        check(proc.returncode == 0, f"23a: cli start: {start_out}" + tails())
-        out["ready_s"] = ready
+        out["start_s"], out["ready_s"] = dep.start(ini, script)
         r = cli("status", "-d", run)
         check(r.returncode == 0 and r.stdout.count("RUNNING") == 3,
               f"23a: cli status: {r.stdout}")
@@ -6117,13 +6167,12 @@ def phase_deploy(AD):
             "23a: the keeper's kvdb write was not acknowledged" + tails())
         # 64 strict bots of the port's test_client, one process
         t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "goworld_tpu_torch.examples.test_client",
-             "--gate", f"127.0.0.1:{gate}", "-N", str(DEPLOY_BOTS),
-             "--duration", str(DEPLOY_BOT_S), "--strict"], cwd=root,
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-        serve_keeper(keeper, proc)
+        proc = dep.popen(
+            "goworld_tpu_torch.examples.test_client", "--gate",
+            f"127.0.0.1:{gate}", "-N", str(DEPLOY_BOTS), "--duration",
+            str(DEPLOY_BOT_S), "--strict", stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+        serve_keeper(keeper, [proc])
         bots = types.SimpleNamespace(returncode=proc.returncode)
         bots.stdout, bots.stderr = proc.communicate()
         out["bots_s"] = time.perf_counter() - t0
@@ -6135,12 +6184,7 @@ def phase_deploy(AD):
               f"23a: no visibility check: {bots.stdout[-2000:]} "
               f"{game_metrics(http, CLI)}" + tails())
         out["visibility_checks"] = int(vis.group(1))
-        out["bot_profile_ms"] = {
-            m.group(1): {"n": int(m.group(2)), "avg": float(m.group(3)),
-                         "p95": float(m.group(4)), "max": float(m.group(5))}
-            for m in re.finditer(
-                r"^(\w+)\s+n=(\d+)\s+avg=\s*([\d.]+)ms p95=\s*([\d.]+)ms "
-                r"max=\s*([\d.]+)ms", bots.stdout, re.M)}
+        out["bot_profile_ms"] = bot_profile(bots.stdout)
         out["bot_anomalies"] = dict(
             (m.group(1), int(m.group(2))) for m in
             re.finditer(r"^anomaly\.(\w+): (\d+)", bots.stdout, re.M))
@@ -6154,10 +6198,9 @@ def phase_deploy(AD):
         # hot reload: SIGHUP, freeze, restart with -restore on the card
         frozen = os.path.join(run, "game1_frozen.dat")
         t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "goworld_tpu_torch.cli", "reload", "-c",
-             ini, "-s", script, "-d", run], cwd=root, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = dep.popen("goworld_tpu_torch.cli", "reload", "-c", ini, "-s",
+                         script, "-d", run, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT)
         seen = []
 
         def watch():
@@ -6166,7 +6209,7 @@ def phase_deploy(AD):
             except OSError:
                 pass
 
-        serve_keeper(keeper, proc, watch)
+        serve_keeper(keeper, [proc], watch)
         freeze_bytes = max(seen, default=0)
         reload_out = proc.communicate()[0]
         out["reload_s"] = time.perf_counter() - t0
@@ -6194,15 +6237,7 @@ def phase_deploy(AD):
         out["launches"] = int(before["launches"] + after["launches"])
         keeper.close()
         keeper = None
-        t0 = time.perf_counter()
-        r = cli("stop", "-d", run)
-        check(r.returncode == 0, f"23a: cli stop: {r.stdout}{r.stderr}")
-        # the game saves, then destroys every entity (about 16 s for
-        # 80,000 on a host core), and may outlive cli stop's wait
-        wait_for(lambda: "RUNNING" not in cli("status", "-d", run).stdout,
-                 "the components' exit")
-        started = False
-        out["stop_s"] = time.perf_counter() - t0
+        out["stop_s"] = dep.stop()
         # the keeper's record and key, read back here
         be = SqliteEntityStorage(os.path.join(run, "entity_storage"))
         rec = be.read("Player", kid)
@@ -6248,10 +6283,8 @@ def phase_deploy(AD):
     finally:
         if keeper is not None:
             keeper.close()
-        if started:
-            cli("kill", "-d", run, timeout=60)
+        dep.close()
         redis.close()
-        tmpd.cleanup()
     torch.cuda.empty_cache()
     log("23a", json.dumps(out))
     return out
@@ -6283,6 +6316,148 @@ def phase_failover():
     res["launches"] = surv["launches"]["aoi_step"]
     log("23b", json.dumps(res))
     return res
+
+
+# -- phase 24: the deployment over KCP, WebSocket, mongo and mysql ---------
+
+# 23a's filled unity_demo twin at phase 4's width (CAPACITY slots, PER_SPACE
+# - GAME_CLIENTS monsters a space), on WIRE_SPACES spaces; entity storage on
+# a MiniMongoServer and kvdb on a MiniMySQLServer, both served here and
+# reached over their wire protocols; no checkpoints (23a drives them, and a
+# capture's stall parks the bots' oracle); WIRE_BOTS strict bots a
+# transport, one process each, for WIRE_BOT_S.
+WIRE_SPACES = 2
+WIRE_BOTS, WIRE_BOT_S = 16, 15.0
+WIRE_TRANSPORTS = ("tcp", "kcp", "ws")
+WIRE_DB = 24
+
+
+def wire_ini(disp, gates, http, mongo_port, mysql_port, device):
+    return "\n".join([
+        "[deployment]", "dispatchers = 1", "games = 1", "gates = 1", "",
+        "[dispatcher1]", "host = 127.0.0.1", f"port = {disp}", "",
+        "[game1]", "boot_entity = Player", "aoi_backend = cuda",
+        f"aoi_device = {device}", "telemetry = true", f"http_port = {http}",
+        "",
+        "[gate1]", "host = 127.0.0.1", f"port = {gates['tcp']}",
+        f"kcp_port = {gates['kcp']}", f"websocket_port = {gates['ws']}", "",
+        "[storage]", "backend = mongodb", "host = 127.0.0.1",
+        f"port = {mongo_port}", f"db = {WIRE_DB}", "",
+        "[kvdb]", "backend = mysql", "host = 127.0.0.1",
+        f"port = {mysql_port}", f"db = {WIRE_DB}", ""])
+
+
+def phase_deploy_wire():
+    """24: ``python -m goworld_tpu_torch.cli start`` of a dispatcher, a game
+    (``aoi_device`` the card, ``mongodb`` storage and ``mysql`` kvdb over
+    the wire to the port's mini servers served here) and a gate serving
+    TCP, KCP and WebSocket; WIRE_SPACES of 23a's filled spaces; a keeper
+    over WebSocket names itself and writes a kvdb key; WIRE_BOTS strict
+    bots over each transport; ``cli stop``; the keeper's record read back
+    from the mongo server and its key from the mysql server, each over
+    its wire."""
+    from goworld_tpu_torch import cli as CLI
+    from goworld_tpu_torch.client import GameClientConnection
+    from goworld_tpu_torch.ext.db.mongowire import MiniMongoServer
+    from goworld_tpu_torch.ext.db.mysqlwire import MiniMySQLServer
+    from goworld_tpu_torch.kvdb.backends import MySQLKVDB
+    from goworld_tpu_torch.storage.backends import MongoEntityStorage
+
+    t_phase = time.perf_counter()
+    dep = CliRun("24")
+    mongo, mysql = MiniMongoServer(), MiniMySQLServer()
+    disp, http = free_port(), free_port()
+    gates = {t: free_port() for t in WIRE_TRANSPORTS}
+    ini = os.path.join(dep.tmp, "goworld.ini")
+    script = os.path.join(dep.tmp, "wire_game.py")
+    with open(ini, "w") as f:
+        f.write(wire_ini(disp, gates, http, mongo.port, mysql.port, DEV))
+    with open(script, "w") as f:
+        f.write(DEPLOY_SCRIPT.format(spaces=WIRE_SPACES, capacity=CAPACITY,
+                                     fill=PER_SPACE - GAME_CLIENTS,
+                                     world=WORLD, step=STEP, seed=43))
+    out, keeper, bots = {}, None, []
+    try:
+        out["start_s"], out["ready_s"] = dep.start(ini, script)
+        dep.wait_for(dep.filled_lines, "the game's fill")
+        out["fill"] = dep.filled_lines()[0]
+        # the keeper over WebSocket: a name, a kvdb key through the facade
+        t0 = time.perf_counter()
+        keeper = GameClientConnection(("127.0.0.1", gates["ws"]),
+                                      transport="ws")
+        check(keeper.wait_for(lambda c: c.player is not None, 60),
+              "24: the keeper got no boot entity" + dep.tails())
+        out["keeper_login_s"] = time.perf_counter() - t0
+        keeper.call_player("enter_game", "keeper")
+        check(keeper.wait_for(
+            lambda c: c.player.attrs.get("name") == "keeper"
+            and len(c.entities) > 1, 60),
+            "24: the keeper did not enter a space" + dep.tails())
+        keeper.call_player("put_kv", "wire:keeper")
+        check(keeper.wait_for(lambda c: any(
+            ("on_kv_put", ("wire:keeper",)) in e.calls
+            for e in c.entities.values()), 60),
+            "24: the keeper's kvdb write was not acknowledged" + dep.tails())
+        kid = keeper.player.id
+        # WIRE_BOTS strict bots over each transport, one process each
+        t0 = time.perf_counter()
+        bots = [dep.popen(
+            "goworld_tpu_torch.examples.test_client", "--gate",
+            f"127.0.0.1:{gates[t]}", "--transport", t, "-N", str(WIRE_BOTS),
+            "--duration", str(WIRE_BOT_S), "--strict",
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for t in WIRE_TRANSPORTS]
+        serve_keeper(keeper, bots)
+        out["bots_s"] = time.perf_counter() - t0
+        out["transports"] = {}
+        for t, p in zip(WIRE_TRANSPORTS, bots):
+            so, se = p.communicate()
+            check(p.returncode == 0
+                  and f"{WIRE_BOTS}/{WIRE_BOTS} bots OK" in so,
+                  f"24: {t} bots: {so[-3000:]}{se[-3000:]}" + dep.tails())
+            vis = re.search(r"visibility checks: (\d+)", so)
+            check(vis and int(vis.group(1)) > 0,
+                  f"24: {t}: no visibility check: {so[-2000:]}")
+            prof = bot_profile(so)
+            out["transports"][t] = {
+                "visibility_checks": int(vis.group(1)),
+                "login_p50_ms": prof["login"]["p50"],
+                "tick_p50_ms": prof["tick"]["p50"], "profile_ms": prof}
+        bots = []
+        metrics = game_metrics(http, CLI)
+        check(metrics["ticks"] > 0 and metrics["calc_level"] == 0
+              and metrics["launches"] > 0,
+              f"24: the game's metrics: {metrics}")
+        out["metrics"] = metrics
+        out["launches"] = int(metrics["launches"])
+        keeper.close()
+        keeper = None
+        out["stop_s"] = dep.stop()
+        # the keeper's record from mongo and its key from mysql, each read
+        # back over its wire
+        be = MongoEntityStorage(port=mongo.port, db=WIRE_DB)
+        rec = be.read("Player", kid)
+        out["players_saved"] = len(be.list_entity_ids("Player"))
+        be.close()
+        check(rec is not None and rec.get("name") == "keeper",
+              f"24: the keeper's record in mongo after stop: {rec}")
+        kv = MySQLKVDB(port=mysql.port, db=WIRE_DB)
+        val = kv.get("wire:keeper")
+        kv.close()
+        check(val == "keeper", f"24: the keeper's key in mysql: {val!r}")
+    finally:
+        for p in bots:
+            p.kill()
+            p.communicate()
+        if keeper is not None:
+            keeper.close()
+        dep.close()
+        mongo.close()
+        mysql.close()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("24", json.dumps(out))
+    return out
 
 
 def main():
@@ -6403,6 +6578,8 @@ def main():
     lap("23a")
     failover = phase_failover()
     lap("23b")
+    wire = phase_deploy_wire()
+    lap("24")
     log("phase seconds", json.dumps(laps))
     cohort_l = {"cohort": cohort["launches"], "ladder": ladder["launches"],
                 "demotion": demotion["launches"]}
@@ -6440,7 +6617,8 @@ def main():
                     ("aoi_step game script", game_script_out["launches"]),
                     ("aoi_step game live", game_live["launches"]),
                     ("aoi_step deploy", deploy["launches"]),
-                    ("aoi_step failover", failover["launches"])):
+                    ("aoi_step failover", failover["launches"]),
+                    ("aoi_step wire", wire["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -6474,7 +6652,8 @@ def main():
               + checkpoint["launches"]["aoi_step"]
               + sum(cohort_l.values()) + telemetry_out["launches"]
               + game_script_out["launches"] + game_live["launches"]
-              + deploy["launches"] + failover["launches"], rows,
+              + deploy["launches"] + failover["launches"]
+              + wire["launches"], rows,
               MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               cohort_shapes=rung_rows,
@@ -6496,7 +6675,8 @@ def main():
                              "game_script": game_script_out["launches"],
                              "game_live": game_live["launches"],
                              "deploy": deploy["launches"],
-                             "failover": failover["launches"]}),
+                             "failover": failover["launches"],
+                             "wire": wire["launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
               rect_launches + row_fault_l + paged_row_l
               + mig_l["aoi_step rect"], rect_rows,
@@ -6578,7 +6758,7 @@ def main():
     print(json.dumps({"deploy": {
         "note": "23a's launches are scraped from the game process's "
                 "/debug/metrics, 23b's from the surviving worker",
-        "cli": deploy, "failover": failover}}))
+        "cli": deploy, "failover": failover, "wire": wire}}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -6587,7 +6767,39 @@ def main():
     return 0
 
 
+def deploy_main(phases):
+    """``--deploy 24 23a 23b``: the kernels built, then the named
+    deployment phases alone, in the order given, one JSON line each (the
+    card's name and power limit first).  The children inherit this
+    process's environment, so ``OMP_NUM_THREADS`` set here sizes the game
+    process's OpenMP pool."""
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch sees no CUDA device")
+        return 2
+    from goworld_tpu_torch.ops import _build
+    from goworld_tpu_torch.ops import aoi_dense as AD
+
+    run = {"23a": lambda: phase_deploy(AD), "23b": phase_failover,
+           "24": phase_deploy_wire}
+    check(phases and set(phases) <= set(run), f"--deploy {phases}: "
+          f"name phases of {sorted(run)}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+    _build.build_all(force=True)
+    for name in phases:
+        t0 = time.perf_counter()
+        out = run[name]()
+        print(json.dumps({"phase": name, "wall_s": time.perf_counter() - t0,
+                          "omp_num_threads": os.environ.get(
+                              "OMP_NUM_THREADS"), "out": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bots"]:  # phase 22b's client process
         sys.exit(bots_main(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--deploy"]:
+        sys.exit(deploy_main(sys.argv[2:]))
     sys.exit(main())

@@ -10,9 +10,9 @@ Maintains:
   * positions updated from batched sync records;
   * the player (own) entity, re-bound on ownership handoff.
 
-The port's copy of the JAX package's ``client.py``, over TCP and TLS.
-``transport="kcp"`` and ``"ws"`` raise until the port's KCP and
-WebSocket transports come (ROADMAP.md queue 1, item 10c).
+The port's copy of the JAX package's ``client.py``: TCP (TLS optional),
+KCP (``transport="kcp"``; TLS over it raises ``ValueError``) and
+WebSocket (``transport="ws"``, TLS optional).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import threading
 import time
 
 from .engine.attrs import MapAttr, apply_delta
-from .netutil import Packet, PacketConnection, connect_tcp
+from .netutil import Packet, PacketConnection, connect_tcp, kcp, websocket
 from .proto import msgtypes as MT
 
 
@@ -47,12 +47,11 @@ class GameClientConnection:
     def __init__(self, addr: tuple[str, int], compression: str = "gwlz",
                  transport: str = "tcp", tls: bool = False,
                  tls_cafile: str | None = None, strict: bool = False):
-        if transport in ("kcp", "ws"):
-            raise NotImplementedError(
-                f"transport={transport!r}: the port's KCP and WebSocket "
-                "transports come with ROADMAP.md queue 1, item 10c "
-                "(netutil/kcp.py, netutil/websocket.py); use 'tcp'")
-        if transport == "tcp":
+        if transport == "kcp":
+            if tls or tls_cafile:
+                raise ValueError("tls over kcp is not supported")
+            sock = kcp.connect_kcp(addr)
+        elif transport in ("tcp", "ws"):
             sock = connect_tcp(addr)
             if tls or tls_cafile:
                 import ssl
@@ -64,6 +63,13 @@ class GameClientConnection:
                     ctx.check_hostname = False
                     ctx.verify_mode = ssl.CERT_NONE
                 sock = ctx.wrap_socket(sock, server_hostname=addr[0])
+            if transport == "ws":
+                residue = websocket.client_handshake(
+                    sock, f"{addr[0]}:{addr[1]}"
+                )
+                sock = websocket.WSSocket(
+                    sock, mask_outgoing=True, residue=residue
+                )
         else:
             raise ValueError(f"unknown transport {transport!r}")
         self.pc = PacketConnection(sock, compression=compression)

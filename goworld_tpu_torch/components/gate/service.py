@@ -14,11 +14,11 @@ Reference: components/gate/GateService.go.  Owns a ClientProxy per client
 Heartbeat timeout kicks dead clients (reference: :202-212).
 
 The port's copy of the JAX package's ``components/gate/service.py``: the
-TCP listener (TLS when ``tls_cert`` and ``tls_key`` are set),
-compression, heartbeats, the filter trees and the sync fan-out.  The KCP
-and WebSocket listeners come with ROADMAP.md queue 1, item 10c: until
-then a gate configured with ``kcp_port`` or ``websocket_port`` raises at
-:meth:`GateService.start`.
+TCP listener (TLS when ``tls_cert`` and ``tls_key`` are set), the
+WebSocket listener (``websocket_port``, TLS too) and the KCP listener
+(``kcp_port``), compression, heartbeats, the filter trees and the sync
+fan-out.  A listener that fails to bind raises at
+:meth:`GateService.start`; the gate never serves TCP alone in its place.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ...config import ClusterConfig
 from ...consts import COMPONENT_QUEUE_MAX
 from ...dispatchercluster import DispatcherCluster
 from ...engine.ids import gen_id
-from ...netutil import Packet, PacketConnection, serve_tcp
+from ...netutil import Packet, PacketConnection, kcp, serve_tcp, websocket
 from ...proto import GWConnection, msgtypes as MT
 from ...utils import binutil, gwlog, gwutils, gwvar, opmon
 from .filtertree import FilterTree
@@ -99,9 +99,13 @@ class GateService:
         # boot requests awaiting a live dispatcher connection
         self._pending_boots: list[ClientProxy] = []
         self._listener = None
+        self._ws_listener = None
+        self._kcp_server = None
+        self.kcp_addr: tuple[str, int] | None = None
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.addr = (self.gatecfg.host, self.gatecfg.port)
+        self.ws_addr: tuple[str, int] | None = None
         self._ssl_ctx = None
         if self.gatecfg.tls_cert and self.gatecfg.tls_key:
             self._ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
@@ -111,15 +115,24 @@ class GateService:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
-        for key in ("kcp_port", "websocket_port"):
-            if getattr(self.gatecfg, key):
-                raise NotImplementedError(
-                    f"gate{self.id}: {key} = {getattr(self.gatecfg, key)}: "
-                    "the port's KCP and WebSocket listeners come with "
-                    "ROADMAP.md queue 1, item 10c (netutil/kcp.py, "
-                    "netutil/websocket.py); set it to 0")
         self._listener = serve_tcp(self.addr, self._on_client_connection)
         self.addr = self._listener.getsockname()
+        if self.gatecfg.websocket_port:
+            # 0 = disabled; negative = ephemeral bind (tests)
+            self._ws_listener = serve_tcp(
+                (self.gatecfg.host, max(self.gatecfg.websocket_port, 0)),
+                self._on_ws_connection,
+            )
+            self.ws_addr = self._ws_listener.getsockname()
+            self.log.info("gate websocket on %s", self.ws_addr)
+        if self.gatecfg.kcp_port:
+            # 0 = disabled; negative = ephemeral bind (tests)
+            self._kcp_server = kcp.serve_kcp(
+                (self.gatecfg.host, max(self.gatecfg.kcp_port, 0)),
+                lambda sess, peer: self._serve_client(sess),
+            )
+            self.kcp_addr = self._kcp_server.addr
+            self.log.info("gate kcp on %s", self.kcp_addr)
         gwvar.set_var("component", f"gate{self.id}")
         if self.gatecfg.telemetry:
             telemetry.enable()
@@ -148,6 +161,10 @@ class GateService:
         self.cluster.stop()
         if self._listener:
             self._listener.close()
+        if self._ws_listener:
+            self._ws_listener.close()
+        if self._kcp_server:
+            self._kcp_server.close()
 
     # -- client connections ------------------------------------------------
     def _maybe_tls(self, sock):
@@ -161,6 +178,16 @@ class GateService:
         except (OSError, ValueError):
             return
         self._serve_client(sock)
+
+    def _on_ws_connection(self, sock, peer_addr):
+        try:
+            sock = self._maybe_tls(sock)
+            _headers, residue = websocket.server_handshake(sock)
+        except (OSError, ValueError):
+            return
+        self._serve_client(
+            websocket.WSSocket(sock, mask_outgoing=False, residue=residue)
+        )
 
     def _serve_client(self, sock):
         pc = PacketConnection(sock, compression=self.gatecfg.compression)

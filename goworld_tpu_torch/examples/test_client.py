@@ -104,6 +104,7 @@ class Stats:
             p95 = (statistics.quantiles(ms, n=20)[-1]
                    if len(ms) > 20 else max(ms))
             print(f"{op:8s} n={len(ms):<7d} avg={statistics.mean(ms):8.2f}ms "
+                  f"p50={statistics.median(ms):8.2f}ms "
                   f"p95={p95:8.2f}ms max={max(ms):8.2f}ms")
         for name, n in sorted(self.counters.items()):
             print(f"{name}: {n}")

@@ -32,13 +32,34 @@ def db_name(db: int | str) -> str:
 
 def connect_mysql(host: str, port: int, user: str, password: str,
                   database: str):
-    """The MySQL family (the wire driver ``mysqlwire`` and its hermetic
-    server) comes to the port with ROADMAP.md queue 1, item 10c; until
-    then this raises, and no other backend stands in for it."""
-    raise NotImplementedError(
-        "the mysql backends come to goworld_tpu_torch with ROADMAP.md "
-        "queue 1, item 10c (ext/db/mysqlwire); use sqlite, filesystem, "
-        "redis or redis_cluster")
+    """Open a MySQL connection via whichever driver is installed, with
+    autocommit on -- without it the first SELECT pins a REPEATABLE READ
+    snapshot and a long-lived connection never sees other processes'
+    committed writes."""
+    try:
+        import pymysql
+
+        return pymysql.connect(host=host, port=port, user=user,
+                               password=password, database=database,
+                               autocommit=True)
+    except ImportError:
+        try:
+            import mysql.connector
+
+            conn = mysql.connector.connect(
+                host=host, port=port, user=user, password=password,
+                database=database,
+            )
+            conn.autocommit = True
+            return conn
+        except ImportError:
+            # no external driver: the in-repo wire driver (real MySQL
+            # protocol -- mysql_native_password deployments and the
+            # hermetic MiniMySQLServer; see ext/db/mysqlwire)
+            from .mysqlwire import MySQLWireClient
+
+            return MySQLWireClient(host=host, port=port, user=user,
+                                   password=password, database=database)
 
 
 def backend_config_kwargs(cls, cfg, base_dir: str = ".") -> dict:

@@ -9,10 +9,10 @@ backends with native compare-and-set may override it.
 ``filesystem`` is an append-only log (one JSON record per line) replayed
 into a dict on open -- hermetic, crash-safe (partial trailing lines are
 discarded), and compacted when the log grows well past the live key count.
-``sqlite``, ``redis`` and ``redis_cluster`` sit behind the same seam;
-``mongodb`` and ``mysql`` are registered names whose drivers come with
-ROADMAP.md queue 1, item 10c (their constructors raise); other backends
-plug in via ``register_backend``.
+``sqlite``, ``redis``, ``redis_cluster``, ``mongodb`` and ``mysql`` sit
+behind the same seam (the last two over pymongo / pymysql when installed,
+else the port's wire drivers ``ext/db/mongowire`` / ``ext/db/mysqlwire``);
+other backends plug in via ``register_backend``.
 
 The port's copy of the JAX package's ``kvdb/backends.py``: the log
 lines, compaction, table and redis keys are the same bytes, so either
@@ -271,28 +271,89 @@ class RedisClusterKVDB(RedisKVDB):
         return out
 
 
-class _LaterBackend:
-    """A registered backend name whose driver comes to the port with
-    ROADMAP.md queue 1, item 10c: constructing it raises, and no other
-    backend stands in for it."""
+class MongoKVDB(KVDBBackend):
+    """MongoDB kvdb (reference: kvdb/backend/kvdb_mongodb).  pymongo when
+    installed, else the in-repo OP_MSG wire driver (ext/db/mongowire) --
+    see MongoEntityStorage."""
 
-    family = ""
     config_kind = "server"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the {self.family} kvdb backend comes to goworld_tpu_torch "
-            "with ROADMAP.md queue 1, item 10c; use filesystem, sqlite, "
-            "redis or redis_cluster")
+    def __init__(self, host: str = "127.0.0.1", port: int = 27017,
+                 db: int | str = "goworld", client=None):
+        from ..ext.db.dbutil import db_name
+
+        if client is None:
+            try:
+                import pymongo
+
+                client = pymongo.MongoClient(host, port)
+            except ImportError:
+                from ..ext.db.mongowire import MongoWireClient
+
+                client = MongoWireClient(host, port)
+        # pymongo-compatible client; tests may also inject minimongo
+        self._client = client
+        self._col = self._client[db_name(db)]["kvdb"]
+
+    def get(self, key: str) -> str | None:
+        doc = self._col.find_one({"_id": key})
+        return doc["v"] if doc else None
+
+    def put(self, key: str, val: str) -> None:
+        self._col.replace_one({"_id": key}, {"_id": key, "v": val},
+                              upsert=True)
+
+    def find(self, begin: str, end: str) -> list[tuple[str, str]]:
+        cur = self._col.find(
+            {"_id": {"$gte": begin, "$lt": end}}
+        ).sort("_id", 1)
+        return [(d["_id"], d["v"]) for d in cur]
+
+    def close(self) -> None:
+        self._client.close()
 
 
-class MongoKVDB(_LaterBackend, KVDBBackend):
-    family = "mongodb"
+class MySQLKVDB(KVDBBackend):
+    """MySQL kvdb (reference: kvdb/backend/kvdb_mysql).  pymysql or
+    mysql.connector when installed, else the in-repo wire driver
+    (ext/db/mysqlwire) -- see dbutil.connect_mysql."""
 
-
-class MySQLKVDB(_LaterBackend, KVDBBackend):
-    family = "mysql"
     config_kind = "sql_server"
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 3306,
+                 db: int | str = "goworld", user: str = "root",
+                 password: str = "", conn=None):
+        from ..ext.db.dbutil import connect_mysql, db_name
+
+        # DB-API connection with the %s paramstyle (tests inject a shim)
+        self._db = conn if conn is not None else connect_mysql(
+            host, port, user, password, db_name(db))
+        cur = self._db.cursor()
+        cur.execute(
+            "CREATE TABLE IF NOT EXISTS kv"
+            " (k VARCHAR(255) PRIMARY KEY, v TEXT NOT NULL)"
+        )
+
+    def get(self, key: str) -> str | None:
+        cur = self._db.cursor()
+        cur.execute("SELECT v FROM kv WHERE k = %s", (key,))
+        row = cur.fetchone()
+        return None if row is None else row[0]
+
+    def put(self, key: str, val: str) -> None:
+        cur = self._db.cursor()
+        cur.execute("REPLACE INTO kv (k, v) VALUES (%s, %s)", (key, val))
+
+    def find(self, begin: str, end: str) -> list[tuple[str, str]]:
+        cur = self._db.cursor()
+        cur.execute(
+            "SELECT k, v FROM kv WHERE k >= %s AND k < %s ORDER BY k",
+            (begin, end),
+        )
+        return [(k, v) for k, v in cur.fetchall()]
+
+    def close(self) -> None:
+        self._db.close()
 
 
 _REGISTRY = {

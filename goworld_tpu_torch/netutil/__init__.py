@@ -1,6 +1,6 @@
 """Wire layer of the port: packets, framing, connections, compression,
-packers (the port's copy of the JAX package's ``netutil/``; the KCP and
-WebSocket transports come with ROADMAP.md queue 1, item 10c)."""
+packers, and the KCP and WebSocket transports (the port's copy of the JAX
+package's ``netutil/``)."""
 
 from .compress import Compressor, new_compressor  # noqa: F401
 from .conn import (  # noqa: F401
@@ -12,3 +12,4 @@ from .conn import (  # noqa: F401
 )
 from .msgpacker import JSONMsgPacker, MessagePackMsgPacker, default_packer  # noqa: F401
 from .packet import MAX_PACKET_SIZE, Packet  # noqa: F401
+from . import kcp, websocket  # noqa: F401

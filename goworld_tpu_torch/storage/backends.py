@@ -17,8 +17,10 @@ mysql, storage/backend/*):
     against ext/db/miniredis;
   * ``redis_cluster`` -- same schema through the slot-aware cluster client
     (ext/db/respcluster), tested against MiniRedisCluster;
-  * ``mongodb`` / ``mysql`` -- registered names whose drivers come with
-    ROADMAP.md queue 1, item 10c: their constructors raise.
+  * ``mongodb`` / ``mysql`` -- pymongo / pymysql|mysql-connector when
+    installed, else the port's own wire drivers (ext/db/mongowire,
+    ext/db/mysqlwire), tested against MiniMongoServer / MiniMySQLServer;
+    a backend that cannot connect raises.
 
 The port's copy of the JAX package's ``storage/backends.py``: the same
 records (msgpack of the attrs, the same files, table and redis keys), so
@@ -210,28 +212,114 @@ class RedisClusterEntityStorage(RedisEntityStorage):
         return f"storage-index:{{{type_name}}}"
 
 
-class _LaterBackend:
-    """A registered backend name whose driver comes to the port with
-    ROADMAP.md queue 1, item 10c: constructing it raises, and no other
-    backend stands in for it."""
+class MongoEntityStorage(EntityStorageBackend):
+    """MongoDB backend (reference: backend/mongodb/mongodb.go).  One
+    collection per entity type, documents ``{_id: eid, data: <attrs>}``.
+    Uses pymongo when installed; otherwise the in-repo OP_MSG wire driver
+    (ext/db/mongowire.MongoWireClient), so the real socket/BSON path runs
+    without a mongo driver (hermetic tests pair it with
+    MiniMongoServer)."""
 
-    family = ""
     config_kind = "server"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the {self.family} storage backend comes to goworld_tpu_torch "
-            "with ROADMAP.md queue 1, item 10c; use filesystem, sqlite, "
-            "redis or redis_cluster")
+    def __init__(self, host: str = "127.0.0.1", port: int = 27017,
+                 db: int | str = "goworld", client=None):
+        from ..ext.db.dbutil import db_name
+
+        if client is None:
+            try:
+                import pymongo
+
+                client = pymongo.MongoClient(host, port)
+            except ImportError:
+                from ..ext.db.mongowire import MongoWireClient
+
+                client = MongoWireClient(host, port)
+        # ``client`` is any pymongo-compatible client -- a real MongoClient,
+        # the wire driver above, or an injected in-process fake
+        self._client = client
+        self._db = self._client[db_name(db)]
+
+    def write(self, type_name: str, eid: str, data: dict) -> None:
+        self._db[type_name].replace_one(
+            {"_id": eid}, {"_id": eid, "data": data}, upsert=True
+        )
+
+    def read(self, type_name: str, eid: str) -> dict | None:
+        doc = self._db[type_name].find_one({"_id": eid})
+        return doc["data"] if doc else None
+
+    def exists(self, type_name: str, eid: str) -> bool:
+        return self._db[type_name].count_documents({"_id": eid}, limit=1) > 0
+
+    def list_entity_ids(self, type_name: str) -> list[str]:
+        return sorted(
+            d["_id"] for d in self._db[type_name].find({}, {"_id": 1})
+        )
+
+    def close(self) -> None:
+        self._client.close()
 
 
-class MongoEntityStorage(_LaterBackend, EntityStorageBackend):
-    family = "mongodb"
+class MySQLEntityStorage(EntityStorageBackend):
+    """MySQL backend (reference: backend/mysql/entity_storage_mysql.go).
+    pymysql or mysql.connector when installed, else the in-repo wire
+    driver (ext/db/mysqlwire) -- see dbutil.connect_mysql.  Same table
+    shape as the sqlite backend."""
 
-
-class MySQLEntityStorage(_LaterBackend, EntityStorageBackend):
-    family = "mysql"
     config_kind = "sql_server"
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 3306,
+                 db: int | str = "goworld", user: str = "root",
+                 password: str = "", conn=None):
+        from ..ext.db.dbutil import connect_mysql, db_name
+
+        # ``conn`` is any DB-API connection speaking the %s paramstyle -- a
+        # real MySQL driver connection, or the tests' sqlite shim
+        self._db = conn if conn is not None else connect_mysql(
+            host, port, user, password, db_name(db))
+        cur = self._db.cursor()
+        cur.execute(
+            "CREATE TABLE IF NOT EXISTS entities ("
+            " type VARCHAR(64) NOT NULL, eid VARCHAR(32) NOT NULL,"
+            " data BLOB NOT NULL, PRIMARY KEY (type, eid))"
+        )
+
+    def write(self, type_name: str, eid: str, data: dict) -> None:
+        blob = msgpack.packb(data, use_bin_type=True)
+        cur = self._db.cursor()
+        cur.execute(
+            "REPLACE INTO entities (type, eid, data) VALUES (%s, %s, %s)",
+            (type_name, eid, blob),
+        )
+
+    def read(self, type_name: str, eid: str) -> dict | None:
+        cur = self._db.cursor()
+        cur.execute(
+            "SELECT data FROM entities WHERE type = %s AND eid = %s",
+            (type_name, eid),
+        )
+        row = cur.fetchone()
+        return msgpack.unpackb(row[0], raw=False) if row else None
+
+    def exists(self, type_name: str, eid: str) -> bool:
+        cur = self._db.cursor()
+        cur.execute(
+            "SELECT 1 FROM entities WHERE type = %s AND eid = %s",
+            (type_name, eid),
+        )
+        return cur.fetchone() is not None
+
+    def list_entity_ids(self, type_name: str) -> list[str]:
+        cur = self._db.cursor()
+        cur.execute(
+            "SELECT eid FROM entities WHERE type = %s ORDER BY eid",
+            (type_name,),
+        )
+        return [r[0] for r in cur.fetchall()]
+
+    def close(self) -> None:
+        self._db.close()
 
 
 _REGISTRY = {

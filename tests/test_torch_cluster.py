@@ -160,7 +160,10 @@ aoi_backend = {backend}
 
 [gate1]
 port = 0
+kcp_port = -1
+websocket_port = -1
 heartbeat_timeout_s = 0
+{gate_extra}
 """
 
 
@@ -186,7 +189,7 @@ def wait(pred, what):
         time.sleep(0.005)
 
 
-def start_cluster(pkg, tmp_path):
+def start_cluster(pkg, tmp_path, gate_extra=""):
     class TestScene(pkg.Space):
         __test__ = False
 
@@ -214,7 +217,7 @@ def start_cluster(pkg, tmp_path):
 
     ini = CLUSTER_INI.format(
         backend="cuda" if pkg.port else "cpu",
-        device="aoi_device = cpu" if pkg.port else "")
+        device="aoi_device = cpu" if pkg.port else "", gate_extra=gate_extra)
     cfg = pkg.config.loads(ini)
     disp = pkg.Dispatcher(1, cfg).start()
     cfg.dispatchers[1].host, cfg.dispatchers[1].port = disp.addr
@@ -251,16 +254,20 @@ def port_cluster(tmp_path):
     stop_cluster(*parts)
 
 
-def connect(client_mod, gate):
-    c = client_mod.GameClientConnection(gate.addr, strict=True)
+def connect(client_mod, gate, transport="tcp", tls=False):
+    addr = {"tcp": gate.addr, "kcp": gate.kcp_addr,
+            "ws": gate.ws_addr}[transport]
+    c = client_mod.GameClientConnection(addr, transport=transport, tls=tls,
+                                        strict=True)
     assert c.wait_for(lambda c: c.player is not None, WAIT), "no boot entity"
     return c
 
 
-def scene_flow(client_mod, games, gate, n=3):
+def scene_flow(client_mod, games, gate, n=3, transport="tcp", tls=False):
     """Boot, join, mirrors, an attr delta with client-class filtering, an
-    f32 bit-exact position sync, the leave-AOI destroy and a disconnect."""
-    cs = [connect(client_mod, gate) for _ in range(n)]
+    f32 bit-exact position sync, the leave-AOI destroy and a disconnect,
+    over ``transport`` (tcp, kcp or ws; ``tls`` on tcp and ws)."""
+    cs = [connect(client_mod, gate, transport, tls) for _ in range(n)]
     assert len({c.client_id for c in cs}) == n
     for c in cs:
         c.call_player("join_scene")
@@ -325,20 +332,34 @@ def test_jax_gate_serves_port_client(tmp_path):
         stop_cluster(*parts)
 
 
-def test_kcp_websocket_and_storage_wait_for_the_next_slice(tmp_path):
-    """KCP and WebSocket still wait (ROADMAP.md item 10c) and raise; the
-    storage half they once waited with attaches now."""
+@pytest.mark.parametrize("client_pkg", ["goworld_tpu_torch", "goworld_tpu"])
+@pytest.mark.parametrize("transport", ["kcp", "ws"])
+def test_kcp_websocket_and_storage_attach(transport, client_pkg, port_cluster,
+                                          tmp_path):
+    """The port's gate serves KCP and WebSocket beside TCP: the port's
+    and the JAX bot clients play the scene over each; a gate whose
+    listener cannot bind raises; the storage half attaches."""
+    import importlib
+
     from goworld_tpu_torch import client, config
     from goworld_tpu_torch.components.game.service import GameService
     from goworld_tpu_torch.components.gate.service import GateService
 
-    for transport in ("kcp", "ws"):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            client.GameClientConnection(("127.0.0.1", 1), transport=transport)
-    for key in ("kcp_port", "websocket_port"):
-        cfg = config.loads(f"[gate1]\nport = 0\n{key} = 1\n")
-        with pytest.raises(NotImplementedError, match=f"{key}.*item 10c"):
-            GateService(1, cfg).start()
+    disp, games, gate = port_cluster
+    scene_flow(importlib.import_module(f"{client_pkg}.client"), games, gate,
+               transport=transport)
+    if transport == "kcp":
+        with pytest.raises(ValueError, match="tls over kcp"):
+            client.GameClientConnection(gate.kcp_addr, transport="kcp",
+                                        tls=True)
+    # the listener's port is taken: start raises, no TCP-only gate
+    key = "kcp_port" if transport == "kcp" else "websocket_port"
+    busy = (gate.kcp_addr if transport == "kcp" else gate.ws_addr)[1]
+    cfg = config.loads(f"[gate1]\nport = 0\n{key} = {busy}\n")
+    g2 = GateService(1, cfg)
+    with pytest.raises(OSError):
+        g2.start()
+    g2.stop()
     cfg = config.loads("[game1]\naoi_device = cpu\n"
                        "aoi_checkpoint = interval\n")
     game = GameService(1, cfg, freeze_dir=str(tmp_path))

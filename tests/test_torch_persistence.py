@@ -3,12 +3,13 @@ backends and services, ext/db's RESP client, cluster client and
 miniredis, GameService.attach_storage / attach_kvdb / attach_checkpoints)
 against the JAX package's.
 
-Every backend of the port round-trips; each reads the records the JAX
-backend of the same name wrote, and the JAX backend reads the port's
-(byte for byte where the record is a file or a blob); one script of
-calls through both packages' services gives the same callbacks in the
-same order; the names whose drivers come later raise and name the
-ROADMAP item; a port game (``aoi_backend = cuda``, ``aoi_device = cpu``:
+Every backend of the port round-trips (mongodb and mysql over the port's
+``MiniMongoServer`` / ``MiniMySQLServer``); each reads the records the
+JAX backend of the same name wrote, and the JAX backend reads the port's
+(byte for byte where the record is a file, a blob, a row or a
+document); one script of calls through both packages' services gives
+the same callbacks in the same order; the mongodb and mysql backends of
+each package run over the other package's server; a port game (``aoi_backend = cuda``, ``aoi_device = cpu``:
 the step's plain version) saves on ``stop`` and loads through the
 dispatcher, and its checkpoints give the saved words back."""
 
@@ -22,7 +23,9 @@ from goworld_tpu.kvdb import backends as jkv
 from goworld_tpu.kvdb import service as jkvs
 from goworld_tpu.storage import backends as jst
 from goworld_tpu.storage import service as jsts
-from goworld_tpu_torch.ext.db import dbutil, miniredis
+from goworld_tpu.ext.db import mongowire as jmongowire
+from goworld_tpu.ext.db import mysqlwire as jmysqlwire
+from goworld_tpu_torch.ext.db import dbutil, miniredis, mongowire, mysqlwire
 from goworld_tpu_torch.ext.db.resp import RespClient
 from goworld_tpu_torch.ext.db.respcluster import key_slot
 from goworld_tpu_torch.kvdb import backends as kv
@@ -30,7 +33,8 @@ from goworld_tpu_torch.kvdb import service as kvs
 from goworld_tpu_torch.storage import backends as st
 from goworld_tpu_torch.storage import service as sts
 
-BACKENDS = ("filesystem", "sqlite", "redis", "redis_cluster")
+BACKENDS = ("filesystem", "sqlite", "redis", "redis_cluster", "mongodb",
+            "mysql")
 RECORDS = [("Avatar", "e1", {"name": "bob", "lv": 3,
                              "inv": [1, 2, {"id": "sword"}],
                              "blob": b"\x00\xff" * 8, "f": 0.25}),
@@ -42,13 +46,25 @@ PAIRS = [("k", "v"), ("b", "B"), ("a", "A"), ("ab", "AB"), ("k", "v2"),
 
 @pytest.fixture(scope="module")
 def servers():
-    """The port's miniredis and a 3-node cluster of it; both packages'
-    clients talk to them."""
-    one = miniredis.MiniRedis()
-    cluster = miniredis.MiniRedisCluster(3)
-    yield {"redis": one, "redis_cluster": cluster}
-    one.close()
-    cluster.close()
+    """The port's miniredis, a 3-node cluster of it, its MiniMongoServer
+    and its MiniMySQLServer; both packages' clients talk to them."""
+    srv = {"redis": miniredis.MiniRedis(),
+           "redis_cluster": miniredis.MiniRedisCluster(3),
+           "mongodb": mongowire.MiniMongoServer(),
+           "mysql": mysqlwire.MiniMySQLServer()}
+    yield srv
+    for s in srv.values():
+        s.close()
+
+
+@pytest.fixture(scope="module")
+def jax_servers():
+    """The JAX package's MiniMongoServer and MiniMySQLServer."""
+    srv = {"mongodb": jmongowire.MiniMongoServer(),
+           "mysql": jmysqlwire.MiniMySQLServer()}
+    yield srv
+    for s in srv.values():
+        s.close()
 
 
 DB_INDEX = iter(range(1, 1000))
@@ -56,12 +72,21 @@ DB_INDEX = iter(range(1, 1000))
 
 def kwargs(backend, servers, tmp_path):
     """One fresh namespace of ``backend``: a directory, a redis db index,
-    or the cluster emptied (a cluster has one db)."""
+    a mongo database, or the cluster or the mysql server emptied (each
+    has one db)."""
     if backend in ("filesystem", "sqlite"):
         return {"directory": str(tmp_path)}
     if backend == "redis":
         host, port = servers["redis"].addr
         return {"host": host, "port": port, "db": next(DB_INDEX)}
+    if backend == "mongodb":
+        return {"port": servers["mongodb"].port, "db": next(DB_INDEX)}
+    if backend == "mysql":
+        srv = servers["mysql"]._srv
+        with srv.db_lock:
+            for table in ("entities", "kv"):
+                srv.db.execute(f"DROP TABLE IF EXISTS {table}")
+        return {"port": servers["mysql"].port}
     for addr in servers["redis_cluster"].addrs:
         c = RespClient(*addr)
         c.command("FLUSHDB")
@@ -135,6 +160,17 @@ def raw_records(backend, be, servers, directory, kind):
         rows = sorted(db.execute(f"SELECT * FROM {table}").fetchall())
         db.close()
         return rows
+    if backend == "mysql":
+        srv = servers["mysql"]._srv
+        table = "entities" if kind == "storage" else "kv"
+        with srv.db_lock:
+            return sorted(srv.db.execute(f"SELECT * FROM {table}").fetchall())
+    if backend == "mongodb":
+        wire_db = be._db if kind == "storage" else be._col._db
+        db = servers["mongodb"].store[wire_db.name]
+        names = ("Avatar", "Monster") if kind == "storage" else ("kvdb",)
+        return {n: sorted(db[n].find({}), key=lambda d: d["_id"])
+                for n in names}
     c = be._c
     if kind == "storage":
         keys = [be._key(t, e) for t, e, _ in RECORDS]
@@ -333,13 +369,11 @@ def test_services_order_equal_jax(tmp_path, monkeypatch):
                                        ("storage", "mysql"),
                                        ("kvdb", "mongodb"),
                                        ("kvdb", "mysql")])
-def test_later_backends_raise_and_name_the_item(kind, name, tmp_path):
-    make = st.new_entity_storage if kind == "storage" else kv.new_kvdb_backend
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        make(name, host="127.0.0.1", port=1)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        dbutil.connect_mysql("127.0.0.1", 1, "u", "p", "db")
-    # the config path names the same keys as the JAX package's
+def test_wire_backends_on_both_packages_servers(kind, name, servers,
+                                                jax_servers):
+    """The mongodb and mysql backends of each package round-trip over
+    the other package's mini server, from the config path's kwargs (the
+    JAX package's keys); one that cannot connect raises."""
     from goworld_tpu_torch import config
 
     cfg = config.loads(f"[{kind}]\nbackend = {name}\n")
@@ -347,6 +381,25 @@ def test_later_backends_raise_and_name_the_item(kind, name, tmp_path):
     mod = st if kind == "storage" else kv
     jmod = jst if kind == "storage" else jkv
     assert mod.config_kwargs(name, sec) == jmod.config_kwargs(name, sec)
+    make = st.new_entity_storage if kind == "storage" else kv.new_kvdb_backend
+    jmake = (jst.new_entity_storage if kind == "storage"
+             else jkv.new_kvdb_backend)
+    for mk, srvs in ((make, jax_servers), (jmake, servers)):
+        k = dict(mod.config_kwargs(name, sec), **kwargs(name, srvs, None))
+        be = mk(name, **k)
+        (exercise_storage if kind == "storage" else exercise_kvdb)(be)
+        be.close()
+    if name == "mysql":
+        c = dbutil.connect_mysql("127.0.0.1", servers["mysql"].port, "root",
+                                 "", "goworld")
+        assert isinstance(c, mysqlwire.MySQLWireClient)
+        c.close()
+    probe = __import__("socket").socket()  # a port nothing listens on
+    probe.bind(("127.0.0.1", 0))
+    free = probe.getsockname()[1]
+    probe.close()
+    with pytest.raises(OSError):
+        make(name, port=free)
 
 
 def port_cluster_cfg(tmp_path, extra=""):
