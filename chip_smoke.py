@@ -53,9 +53,9 @@ Phases (any failure raises, so the exit code is non-zero):
                 tick is numpy, about 4 s a space) through FAULT_PLAN (the
                 plan of scripts/faults_smoke.py), then a second kernel
                 failure (to the host oracle), an emit failure (to the
-                host emit mode), reset_calc_chain() and 3 ticks:
-                sequential and cross_tick on the card, sequential on the
-                CPU path; per-tick CRCs equal to the fault-free card
+                host emit mode), reset_calc_chain() and 3 ticks (1 on
+                the CPU path): sequential and cross_tick on the card,
+                sequential on the CPU path; per-tick CRCs equal to the fault-free card
                 run's (shifted by one under cross_tick), the fault
                 counters, levels and fired faults as planned, the kernel
                 launched at the level-0 ticks only; the ms of the
@@ -153,6 +153,26 @@ Phases (any failure raises, so the exit code is non-zero):
                 `zipfshare`'s 16384 x 131072 block): a prime tick and 4
                 ticks, equal per-tick CRCs, the shards' words equal to the
                 square kernel's, derive_row/derive_col equal to them.
+ 12b. fused sharded tick -- the sharded buckets' fused dispatch
+                (ops/fused.FusedShards: one CUDA graph a distinct device,
+                the packet's scatter then every shard's step, mask and
+                codec) under a sparse walk (10% movers a tick, as phase
+                14): `million` on the mesh engine over 4 virtual shards
+                (unfused, fused, fused + cross_tick in turns) and
+                `zipf100k` on the row-sharded bucket over 8 (unfused,
+                fused); a prime tick, 11 warm-up ticks (the codec caps
+                refit at the 8th) and 8 measured ticks.
+                Fused CRCs equal the unfused ones per tick, cross_tick's
+                shifted by one; the final words equal the plain dense
+                words (mesh) or the square kernel's (row-sharded); a
+                measured tick counts 1 dispatch fused, unfused 2 a shard
+                (mesh) and 1 + 8 (row-sharded); fused_dispatches equal
+                the eligible ticks, no demotion, no new capture key after
+                warm-up, every launch a replay or a capture's warm-up;
+                one forced aoi.kernel fault at a fused tick of the mesh
+                counts one demotion with that tick's CRC unchanged;
+                tick_ms and its split, a replay's device ms (CUDA
+                events) and the graph pool's bytes.
 
  18. interest kernel -- csrc/interest_step.cu (the interest-policy
                 stack step over resident word planes) against its plain
@@ -209,7 +229,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 done, none rolled back; export, replay, cover flushes,
                 swap and migration ms, snapshot bytes, cover ticks beside
                 steady ticks;
- 19b. evacuation -- aoi.device:reset at the 4th dispatch of 2 of phase
+ 19b. evacuation -- aoi.device:reset at the 4th dispatch of 1 of phase
                 4's spaces on the single-device bucket and on the mesh
                 bucket (4 virtual shards; the faulted tick is recovered on
                 the host, about 4 s a space): per-tick CRCs equal the
@@ -286,7 +306,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 its logic thread here, 256 bot clients
                 (client.GameClientConnection) in 4 more children (two
                 spaces' clients each: one process saturated); 5 s of
-                warm-up, 30 s of steady traffic: ticks run against ticks
+                warm-up, 15 s of steady traffic: ticks run against ticks
                 due at 5 ms, the loop's split, launches, the clients'
                 move latency (A's send_position to B's mirror update)
                 and its legs (send to ingest, ingest to sync, sync to
@@ -327,15 +347,16 @@ Phases (any failure raises, so the exit code is non-zero):
                 survivor's restore ms and launches, ticks_to_recover and
                 the dispatcher's clu.* counters.
 
-Phases 13-17b and 17d run after phase 5, 17c after phase 12, 18-18c
-then 19-19c, then 20-21, 20d and 14c, then 22, and 23 last.  Every
+Phases 13-17b and 17d run after phase 5, 17c and 12b after phase 12,
+18-18c then 19-19c, then 20-21, 20d and 14c, then 22, and 23 last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
 are one card's, not a multi-card layout's.  The last lines are
 {"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
-{"paged": ...} (phases 17-17d), {"mesh": ...}, {"interest": ...} (phases
+{"paged": ...} (phases 17-17d), {"mesh": ...} (phases 10-12b),
+{"interest": ...} (phases
 18-18c), {"migration": ...} (phases 19-19c), {"cohort": ...} (phases
 20-20c), {"telemetry": ...} (phase 21), {"game": ...} (phase 22),
 {"deploy": ...} (phase 23),
@@ -349,7 +370,10 @@ deferred and fused run of phases 13 and 14 (a graph replay counts one
 launch), in phases 15 and 16 and on the mesh in phase 15b (its entry's
 "launches" is their sum, "path_launches" each), the culled kernels in
 phase 7, the rectangular step in phase 8 and on the row-sharded bucket
-in phase 15b, the entlv mode in phase 10; phase 17's runs (17, 17b,
+in phase 15b, the entlv mode in phase 10; phase 12b's runs add the
+mesh's to the square step and the row-sharded bucket's to the
+rectangular one (a shard graph's replay counts one launch a shard);
+phase 17's runs (17, 17b,
 17d on the card) and the mesh of 17c add to the square step, the
 row-sharded bucket of 17c to the rectangular one; the stack step's in
 phase 18b (sequential, pipelined, the cut run) and in phase 18c; phase
@@ -1237,6 +1261,9 @@ FAULT_PLAN = ("seed=7;aoi.h2d:oom@3;aoi.kernel:fail@5;aoi.scalars:poison@7;"
               "aoi.fetch:stall@2:0.001")
 FAULT_TICKS = 9       # a prime tick and 8 walk ticks under FAULT_PLAN
 FAULT_AFTER = 3       # ticks after reset_calc_chain()
+# the CPU path's ticks after it: one shows the re-arm (its plain ticks
+# take 2.2-2.8 s each)
+FAULT_AFTER_CPU = 1
 # phase 15b: the same schedule on the mesh and row-sharded buckets
 # (their levels, launches and fired faults differ from the single-device
 # bucket's: the seams are crossed as often as in the JAX package's
@@ -1273,7 +1300,7 @@ ROUTE_WARMUP, ROUTE_MEASURED = 2, 5
 
 
 def fault_run(Runtime, AK, device, mode, plan, spaces=FAULT_SPACES,
-              ticks=FAULT_TICKS, resets=1, **rt_kw):
+              ticks=FAULT_TICKS, resets=1, after=FAULT_AFTER, **rt_kw):
     """Phase 15's schedule on ``Runtime(device=device, fault_plan=plan,
     **RT_MODES[mode], **rt_kw)`` at ``spaces`` spaces of phase 4's world
     (one bucket): ``ticks`` ticks
@@ -1281,7 +1308,7 @@ def fault_run(Runtime, AK, device, mode, plan, spaces=FAULT_SPACES,
     5 demoting to the plain step, the poisoned count, the stalled fetch),
     a second kernel failure (to the host oracle), an emit failure (to the
     host emit mode), then ``resets`` times ``reset_calc_chain()`` and
-    FAULT_AFTER ticks.  Per tick: CRC, events, the calc level it dispatched at,
+    ``after`` ticks.  Per tick: CRC, events, the calc level it dispatched at,
     kernel launches, ms (a sync before and after).  Returns (rows, the
     drained trailing tick, stats, fired)."""
     import gc
@@ -1325,7 +1352,7 @@ def fault_run(Runtime, AK, device, mode, plan, spaces=FAULT_SPACES,
         tick("level 2 + emit fail")
         for i in range(resets):
             bucket.reset_calc_chain()
-            for t in range(FAULT_AFTER):
+            for t in range(after):
                 tick(f"after reset {i} {t}")
         crc["t"] = crc["te"] = 0
         rt.aoi.drain()
@@ -1417,7 +1444,8 @@ def phase_faults(Runtime, AK):
     seq = fault_run(Runtime, AK, DEV, "sequential", FAULT_PLAN)
     cross = fault_run(Runtime, AK, DEV, "cross_tick", FAULT_PLAN)
     launches = AK.launches["aoi_step"]
-    cpu = fault_run(Runtime, AK, "cpu", "sequential", FAULT_PLAN)
+    cpu = fault_run(Runtime, AK, "cpu", "sequential", FAULT_PLAN,
+                    after=FAULT_AFTER_CPU)
     want_stats = {"rebuilds": 3, "fallbacks": 2, "host_ticks": 4,
                   "poisoned": 1, "calc_level": 0, "fused_demotions": 0,
                   "emit_path": 2}
@@ -1433,7 +1461,8 @@ def phase_faults(Runtime, AK):
                                               ("cpu sequential", cpu)):
         got_st = {k: st[k] for k in want_stats}
         check(got_st == want_stats, f"phase 15 {label}: stats {got_st}")
-        check([r["level"] for r in rows] == want_levels,
+        n = len(rows)  # the CPU run stops FAULT_AFTER_CPU after the reset
+        check([r["level"] for r in rows] == want_levels[:n],
               f"phase 15 {label}: levels {[r['level'] for r in rows]}")
         got_fired = {(f["seam"], f["kind"], f["occurrence"]) for f in fired}
         emit = [f for f in fired if f["seam"] == "aoi.emit"]
@@ -1444,7 +1473,7 @@ def phase_faults(Runtime, AK):
             shifted(f"phase 15 {label}", [(r["crc"], r["events"])
                                           for r in rows], trailing, ref)
         else:
-            check([(r["crc"], r["events"]) for r in rows] == ref
+            check([(r["crc"], r["events"]) for r in rows] == ref[:n]
                   and trailing[1] == 0,
                   f"phase 15 {label}: CRCs differ from the fault-free run")
         if label != "cpu sequential":
@@ -2235,6 +2264,24 @@ MESH_RT_TICKS = 5  # phase 11a: a prime tick and 4 walk ticks
 MESH_WARMUP, MESH_MEASURED = 3, 8  # phase 11b, after a prime tick
 ROWSHARD_TICKS = 4  # phase 12, after a prime tick
 ROWSHARD_MIN = 65536  # phase 12's row-shard threshold (the engine default)
+# phase 12b: per world, its virtual shards, the runs in turns and the
+# engine's keywords; a prime tick, warm-up and measured ticks of a 10%
+# walk (bench.py:2697-2704); the forced kernel fault's crossing.  The
+# codec caps grow at the prime tick and refit once, at the 8th harvest
+# after it (engine/aoi._CapDecay): a new capture key at ticks 9-11 (the
+# deferred run's refit lands a tick later), so the warm-up runs to tick
+# 11 and the measured ticks see none.  The encode caps (max_gaps,
+# max_exc) only grow, a doubling at each tick past them: the fused runs
+# start from the unfused run's final caps, so their growth is the prime
+# tick's and the refit's alone
+FS_WORLDS = {"million": (4, ["unfused", "fused", "fused+cross_tick"], {}),
+             "zipf100k": (8, ["unfused", "fused"],
+                          {"rowshard_min_capacity": ROWSHARD_MIN})}
+FS_MODES = {"unfused": {}, "fused": {"fused": True},
+            "fused+cross_tick": {"fused": True, "cross_tick": True}}
+FS_WARMUP, FS_MEASURED, FS_FRAC = 11, 8, 0.1
+FS_FAULT = "aoi.kernel:fail@3"  # tick 2: the second fused attempt
+FS_FAULT_TICKS = 4
 
 
 def make_initial(cfg, rng):
@@ -2272,6 +2319,26 @@ def make_walk(cfg, rng, ticks):
         z = np.clip(z + qz[t].astype(np.float32) * scale, np.float32(0), w)
         xs[t + 1], zs[t + 1] = x, z
     return qx, qz, xs, zs
+
+
+def sparse_walk(cfg, rng, ticks, frac):
+    """The initial positions and ``ticks`` steps of make_walk's int8 walk
+    in which only ``frac`` of the entities move a tick (bench.py's
+    movers_frac); the positions of every tick."""
+    s, cap = cfg["s"], cfg["cap"]
+    x, z = make_initial(cfg, rng)
+    xs = np.empty((ticks + 1, s, cap), np.float32)
+    zs = np.empty((ticks + 1, s, cap), np.float32)
+    xs[0], zs[0] = x, z
+    w, scale = np.float32(cfg["world"]), np.float32(1.0 / 16.0)
+    for t in range(ticks):
+        mv = rng.random((s, cap)) < frac
+        for a, arr in ((x, xs), (z, zs)):
+            q = rng.integers(-QMAX, QMAX + 1, (s, cap)).astype(np.float32)
+            a[...] = np.where(mv, np.clip(a + q * scale, np.float32(0), w),
+                              a)
+            arr[t + 1] = a
+    return xs, zs
 
 
 def make_state(cfg):
@@ -2905,6 +2972,248 @@ def phase_rowshard(AOIEngine, AK, SpaceMesh):
     del sq
     torch.cuda.empty_cache()
     return runs
+
+
+def fs_run(AOIEngine, AK, DC, mesh, cfg, xs, zs, r, act, mode, extra,
+           plan=None, caps=None):
+    """One phase-12b run: the world's spaces on ``mesh`` through every
+    tick of ``xs``/``zs`` (submit, flush, the delivered arrays' CRC; a
+    sync before and after), from the codec caps ``caps`` (max_chunks,
+    kcap, max_gaps, max_exc) where given.  Per tick: CRC, events, dispatches
+    (ops/dispatch_count), aoi_step launches, fused_dispatches and
+    captures added.  Over the measured ticks: tick_ms and the bucket's
+    split, stats and capture keys new after warm-up.  Returns (out, the
+    engine, its handles)."""
+    from goworld_tpu_torch import faults
+
+    kw = dict(FS_MODES[mode], **extra)
+    if plan is not None:
+        faults.install(plan)
+    AK.reset_launches()
+    DC.clear_keys()
+    eng = AOIEngine(device=DEV, mesh=mesh, **kw)
+    hs = [eng.create_space(cfg["cap"]) for _ in range(cfg["s"])]
+    b = hs[0].bucket
+    if caps is not None:
+        b._max_chunks, b._kcap, b._max_gaps, b._max_exc = caps
+
+    def fold():
+        crc, n_ev = 0, 0
+        for h in hs:
+            for a in eng.take_events(h):
+                crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+                n_ev += len(a)
+        return f"{crc:08x}", n_ev
+
+    def captures():
+        return 0 if b._fz is None else b._fz.captures
+
+    rows, t_ms = [], 0.0
+    # the forced-fault run measures nothing
+    measure_from = len(xs) - FS_MEASURED if plan is None else len(xs)
+    perf0, st0, cap0 = dict(b.perf), dict(b.stats), 0
+    try:
+        for t in range(len(xs)):
+            if t == measure_from:
+                perf0, st0, cap0 = dict(b.perf), dict(b.stats), captures()
+                DC.reset_keys()
+            l0, f0, c0 = (AK.launches["aoi_step"],
+                          b.stats["fused_dispatches"], captures())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for si, h in enumerate(hs):
+                eng.submit(h, xs[t][si], zs[t][si], r[si], act[si])
+            DC.reset()
+            eng.flush()
+            disp = DC.read()
+            crc, n_ev = fold()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if t >= measure_from:
+                t_ms += dt
+            rows.append({"crc": crc, "events": n_ev, "dispatches": disp,
+                         "launches": AK.launches["aoi_step"] - l0,
+                         "fused": b.stats["fused_dispatches"] - f0,
+                         "captures": captures() - c0, "tick_ms": dt})
+        trailing = None
+        if eng.has_pending():  # deferred: the last tick out of drain()
+            eng.drain()
+            trailing = fold()
+        fired = [] if plan is None else [dict(f) for f in
+                                         faults.plan().fired]
+    finally:
+        if plan is not None:
+            faults.clear()
+    n = max(len(xs) - measure_from, 1)
+    out = {"mode": mode, "ticks": rows, "trailing": trailing,
+           "tick_ms": t_ms / n,
+           "perf_ms": {k[:-2] + "_ms": (b.perf[k] - perf0[k]) * 1e3 / n
+                       for k in b.perf},
+           "stats": dict(b.stats),
+           "measured_stats": {k: b.stats[k] - st0[k]
+                              for k in ("fused_dispatches",
+                                        "fused_demotions",
+                                        "delta_flushes", "full_flushes")},
+           "new_keys_measured": DC.new_keys(),
+           "captures": captures(), "captures_measured": captures() - cap0,
+           "caps": [caps, list(b._caps_now())],
+           "launches": AK.launches["aoi_step"], "fired": fired,
+           "graph_pool_bytes": 0 if b._fz is None else b._fz.pool_bytes()}
+    if plan is None:
+        healthy(out["stats"], f"phase 12b {cfg['name']} {mode}")
+    return out, eng, hs
+
+
+def fs_replay_ms(b, reps=5):
+    """The device ms of one replay of the bucket's last-used shard graph
+    (CUDA events; it recomputes the same tick from the same words)."""
+    fz = b._fz
+    graph = fz.graphs[next(reversed(fz.graphs))]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(reps + 1):
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sum(times[1:]) / reps
+
+
+def phase_fused_sharded(AOIEngine, AK, AD, DC, SpaceMesh):
+    """Phase 12b (module docstring): the fused tick of the mesh engine at
+    `million` on 4 virtual shards and of the row-sharded bucket at
+    `zipf100k` on 8, against the unfused runs of the same sparse walk,
+    with one forced demotion on the mesh."""
+    dev = torch.device(DEV)
+    out = {}
+    for name, (n_shards, modes, extra) in FS_WORLDS.items():
+        cfg = dict(GIANT[name], name=name)
+        ticks = 1 + FS_WARMUP + FS_MEASURED
+        xs, zs = sparse_walk(cfg, np.random.default_rng(5), ticks - 1,
+                             FS_FRAC)
+        r_t, act_t = make_state(cfg)
+        r, act = r_t.cpu().numpy(), act_t.cpu().numpy()
+        del r_t, act_t
+        mesh = SpaceMesh([dev] * n_shards)
+        eligible = ticks - 1  # every tick after the prime tick
+        unfused_steady = 2 * n_shards if name == "million" \
+            else 1 + n_shards
+        runs, ref = {}, None
+        for mode in modes:
+            label = f"phase 12b {name} {mode}"
+            run, eng, hs = fs_run(
+                AOIEngine, AK, DC, mesh, cfg, xs, zs, r, act, mode, extra,
+                caps=None if ref is None else tuple(
+                    runs["unfused"]["caps"][1]))
+            b = hs[0].bucket
+            want_kind = "_MeshCUDABucket" if name == "million" \
+                else "_RowShardCUDABucket"
+            check(type(b).__name__ == want_kind,
+                  f"{label}: landed on {type(b).__name__}")
+            got = [(t_["crc"], t_["events"]) for t_ in run["ticks"]]
+            measured = run["ticks"][-FS_MEASURED:]
+            st = run["stats"]
+            if mode == "unfused":
+                ref = got
+                check([t_["dispatches"] for t_ in measured]
+                      == [unfused_steady] * FS_MEASURED,
+                      f"{label}: dispatches a tick "
+                      f"{[t_['dispatches'] for t_ in measured]}")
+                check(st["fused_dispatches"] == 0
+                      and run["launches"] == n_shards * ticks,
+                      f"{label}: {run['launches']} launches")
+            else:
+                if "cross_tick" in mode:
+                    shifted(label, got, run["trailing"], ref)
+                else:
+                    check(got == ref, f"{label}: CRCs differ from the "
+                          f"unfused run's")
+                check([t_["dispatches"] for t_ in measured]
+                      == [1] * FS_MEASURED,
+                      f"{label}: dispatches a tick "
+                      f"{[t_['dispatches'] for t_ in measured]}")
+                check(st["fused_dispatches"] == eligible
+                      and st["fused_demotions"] == 0,
+                      f"{label}: fused_dispatches {st['fused_dispatches']}, "
+                      f"want {eligible}")
+                check(run["new_keys_measured"] == 0
+                      and run["captures_measured"] == 0,
+                      f"{label}: {run['new_keys_measured']} new keys, "
+                      f"{run['captures_measured']} captures after warm-up")
+                # each tick launches every shard's step once: an unfused
+                # tick's launches, a replay's, or a capture's warm-up
+                check(run["launches"] == n_shards * (ticks + run["captures"])
+                      and all(t_["fused"] == 1 and t_["launches"] == n_shards
+                              for t_ in measured),
+                      f"{label}: aoi_step launches {run['launches']} != "
+                      f"shards x (ticks + captures)")
+                run["replay_ms"] = fs_replay_ms(b)
+            if mode == "fused":
+                # the final words: the plain dense words (mesh) or the
+                # square kernel's (row-sharded) of the final positions
+                xt, zt = (torch.from_numpy(a[-1]).to(DEV) for a in (xs, zs))
+                rt_ = torch.from_numpy(r).to(DEV)
+                at = torch.from_numpy(act).to(DEV)
+                if name == "million":
+                    for si, h in enumerate(hs):
+                        want = AD.interest_words_dense(xt[si], zt[si],
+                                                       rt_[si], at[si])
+                        check(np.array_equal(
+                            h.bucket.get_prev(h.slot),
+                            want.cpu().numpy().view(np.uint32)),
+                            f"{label}: slot {si} words != plain dense")
+                        del want
+                else:
+                    zero = torch.zeros((1, cfg["cap"], cfg["cap"] // 32),
+                                       dtype=torch.int32, device=DEV)
+                    sq, _chg = AK.aoi_step_chg_cuda(xt, zt, rt_, at, zero)
+                    del _chg, zero
+                    cl = b.c_local
+                    for d, blk in enumerate(b.prev):
+                        words_equal(f"{label}: shard {d} words vs the "
+                                    f"square kernel", blk,
+                                    sq[0][d * cl:(d + 1) * cl])
+                    del sq
+            run.pop("ticks")
+            run["crcs"] = got
+            runs[mode] = run
+            del eng, hs, b
+            torch.cuda.empty_cache()
+            log(f"phase 12b {name}", mode, json.dumps(
+                {k: v for k, v in run.items() if k != "crcs"}))
+        res = {"shards": n_shards, "eligible": eligible, "runs": runs}
+        if name == "million":
+            # a kernel fault at a fused attempt: the same tick unfused
+            fx, fz = xs[:FS_FAULT_TICKS], zs[:FS_FAULT_TICKS]
+            run, eng, hs = fs_run(AOIEngine, AK, DC, mesh, cfg, fx, fz, r,
+                                  act, "fused", extra, plan=FS_FAULT)
+            st = run["stats"]
+            got = [(t_["crc"], t_["events"]) for t_ in run["ticks"]]
+            label = f"phase 12b {name} forced demotion"
+            check(st["fused_demotions"] == 1
+                  and st["fused_dispatches"] == FS_FAULT_TICKS - 2
+                  and st["calc_level"] == 0 and st["rebuilds"] == 0,
+                  f"{label}: stats {st}")
+            check(got == ref[:FS_FAULT_TICKS],
+                  f"{label}: CRCs differ from the unfused run's")
+            check(fired_set(run["fired"]) == [("aoi.kernel", "fail", 3)],
+                  f"{label}: fired {run['fired']}")
+            res["demotion"] = {"fused_demotions": st["fused_demotions"],
+                               "fused_dispatches": st["fused_dispatches"],
+                               "launches": run["launches"],
+                               "fired": run["fired"]}
+            del eng, hs
+            torch.cuda.empty_cache()
+        res["launches"] = sum(r_["launches"] for r_ in runs.values()) + \
+            res.get("demotion", {}).get("launches", 0)
+        res["split"] = {m: {"tick_ms": r_["tick_ms"], **r_["perf_ms"]}
+                        for m, r_ in runs.items()}
+        out[name] = res
+    log("fused sharded", json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "runs"}
+         for k, v in out.items()}))
+    return out
 
 
 # -- phases 18-18c: interest-policy stacks ------------------------------------
@@ -3586,7 +3895,7 @@ MIG_SHARDS = 4  # the mesh and row-sharded targets' virtual shards
 MIG_MOVES = [(3, 0, "cpp"), (6, 0, "cuda"), (9, 1, "mesh"),
              (12, 2, "rowshard"), (15, 3, "cuda")]
 MIG_TICKS = 19
-EVAC_SPACES = 2  # the faulted tick is recovered on the host: ~4 s a space
+EVAC_SPACES = 1  # the faulted tick is recovered on the host: ~4 s a space
 EVAC_TICKS, EVAC_AT = 8, 4  # 8 ticks; the 4th aoi.device crossing fires
 CKPT_SPACES, CKPT_TICKS, CKPT_AFTER = 2, 16, 8
 
@@ -4568,7 +4877,7 @@ def fused_graph_ms(AK, AS, FZ, reps=20, warm=3):
                 h[rows, cols] = np.clip(
                     h[rows, cols] + rng.uniform(-STEP, STEP, len(rows)), 0,
                     WORLD)
-            fz.load_packet(t % 2, *AS.pad_packet(
+            fz.load_packet(*AS.pad_packet(
                 rows, cols, hx[rows, cols], hz[rows, cols], length=fz.plen))
             e0.record()
             fz.run(t % 2, 1 << 20, x, z, r, act)
@@ -4731,7 +5040,8 @@ GAME_NPC_TICKS = (2, 12, 13)
 # 22b: warm-up and steady seconds of the live run; ticks run after the
 # clients' last move is ingested, before the mirrors are read; the longest
 # wait for a process or a state
-GAME_WARM_S, GAME_STEADY_S = 5.0, 30.0
+# (15 s: the mirror receipts start after the 6-8 s send -> ingest leg)
+GAME_WARM_S, GAME_STEADY_S = 5.0, 15.0
 # bot processes, each with whole spaces' clients: one Python process
 # saturates its core at 256 clients, sends fewer than the 2,560 moves a
 # second, and its backlog reads as move latency
@@ -6549,6 +6859,8 @@ def main():
                                         engine_mesh, rowshard)
     torch.cuda.empty_cache()
     lap("11-12, 17c")
+    fused_sharded = phase_fused_sharded(AOIEngine, AK, AD, DC, SpaceMesh)
+    lap("12b")
     interest_k = phase_interest_kernel(IC, K, TI)
     interest_slice = phase_interest_slice(Runtime, IC, TI, D)
     load_out = phase_load(TL, TI, IC, D)
@@ -6598,6 +6910,10 @@ def main():
                       for k, v in sharded_faults.items()
                       for m, r in v.items()),
                     ("aoi_step routing", routing["launches"]),
+                    ("aoi_step fused mesh",
+                     fused_sharded["million"]["launches"]),
+                    ("aoi_step rect fused rowshard",
+                     fused_sharded["zipf100k"]["launches"]),
                     ("aoi_step paged", paged_l),
                     ("aoi_step paged mesh", paged_mesh_l),
                     ("aoi_step rect paged rowshard", paged_row_l),
@@ -6653,8 +6969,8 @@ def main():
               + sum(cohort_l.values()) + telemetry_out["launches"]
               + game_script_out["launches"] + game_live["launches"]
               + deploy["launches"] + failover["launches"]
-              + wire["launches"], rows,
-              MAIN_SHAPE,
+              + wire["launches"] + fused_sharded["million"]["launches"],
+              rows, MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               cohort_shapes=rung_rows,
               path_launches={"main": main_out["kernel_launches"],
@@ -6676,15 +6992,20 @@ def main():
                              "game_live": game_live["launches"],
                              "deploy": deploy["launches"],
                              "failover": failover["launches"],
-                             "wire": wire["launches"]}),
+                             "wire": wire["launches"],
+                             "fused_mesh": fused_sharded["million"][
+                                 "launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
               rect_launches + row_fault_l + paged_row_l
-              + mig_l["aoi_step rect"], rect_rows,
+              + mig_l["aoi_step rect"]
+              + fused_sharded["zipf100k"]["launches"], rect_rows,
               RECT_PATH_SHAPE, main_path_ms=share_out["kernel_ms"],
               path_launches={"share": rect_launches,
                              "faults_rowshard": row_fault_l,
                              "paged_rowshard": paged_row_l,
-                             "migration_rowshard": mig_l["aoi_step rect"]}),
+                             "migration_rowshard": mig_l["aoi_step rect"],
+                             "fused_rowshard": fused_sharded["zipf100k"][
+                                 "launches"]}),
         entry("aoi_words_culled", "goworld_tpu/ops/aoi_grid.py:192",
               culled_launches["aoi_words_culled"],
               culled_rows["aoi_words_culled"], (64, 16384),
@@ -6739,7 +7060,7 @@ def main():
         "note": "virtual shards are shards of one card taking turns; "
                 "their times are one card's",
         "sharded_step": sharded, "engine": engine_mesh,
-        "rowshard": rowshard}}))
+        "rowshard": rowshard, "fused_sharded": fused_sharded}}))
     print(json.dumps({"interest": {
         "kernel": interest_k, "slice": interest_slice,
         "load": load_out["runs"]}}))

@@ -191,7 +191,7 @@ def _calc_step(level: int, *args, out=None, **kw):
     return out
 
 
-def _packed_predicate(x, z, r, act, block: int = 2048) -> np.ndarray:
+def _packed_predicate(x, z, r, act, block: int = 2048) -> np.ndarray:  # gwlint: allow[host-sync] -- pure host numpy on the durable copies (recovery path), never device values
     """Host recomputation of one slot's packed interest words [C, W] --
     bit-exact with every device backend (all evaluate the same f32
     predicate).  Blocked over observer rows so the boolean matrix never
@@ -244,8 +244,8 @@ def _build_snapshot(capacity: int, x, z, r, act, sub: bool,
     nonzero, so -0.0, NaN and subnormal positions travel and a 0.0 never
     written does not.  Undelivered events are not state: the migration
     swap and the evacuation carry them."""
-    x = np.asarray(x, np.float32)
-    z = np.asarray(z, np.float32)
+    x = np.asarray(x, np.float32)  # gwlint: allow[host-sync] -- host shadow
+    z = np.asarray(z, np.float32)  # gwlint: allow[host-sync] -- host shadow
     nz = np.nonzero((x.view(np.uint32) != 0) | (z.view(np.uint32) != 0))[0]
     pkt = None
     if len(nz):
@@ -468,7 +468,7 @@ def _grow_pool(bk, nw: int, bw: int, full: bool = False) -> None:
     bk._pages.reset_after_growth()
 
 
-def _paged_absorb_shard(bk, chg: torch.Tensor, new: torch.Tensor, W: int):
+def _paged_absorb_shard(bk, chg: torch.Tensor, new: torch.Tensor, W: int):  # gwlint: allow[host-sync] -- counted overflow absorber: fetches used pages + spilled bins instead of a shard's full diff grid
     """Absorb one shard's stream overflow through the paged pool (the
     sharded buckets with ``paged``; the JAX package's
     ``_paged_absorb_chip``): instead of growing the stream caps and
@@ -1481,7 +1481,7 @@ class _CPUBucket(_Bucket):
     def get_prev(self, slot: int) -> np.ndarray:
         return self._oracles[slot].prev_words.copy()
 
-    def set_prev(self, slot: int, words: np.ndarray) -> None:
+    def set_prev(self, slot: int, words: np.ndarray) -> None:  # gwlint: allow[host-sync] -- CPU-backend bucket: state is already host-resident
         self._oracles[slot].prev_words = np.asarray(words, np.uint32).copy()
 
     def clear_entity(self, slot: int, entity_slot: int) -> None:
@@ -1590,7 +1590,7 @@ class _Deferred(_CalcChain):
         if self._due is not None or self._oracle is not None:
             # re-entrant flush (get_prev mid-scheduler): deliver what is
             # already due first
-            self.harvest()
+            self.harvest()  # gwlint: allow[flush-phase] -- re-entrant flush drains the prior dispatch first
         if self._calc_level >= 2:
             # maintenance already reached the mirror when it was issued
             self._pending_reset.clear()
@@ -1668,7 +1668,7 @@ class _Deferred(_CalcChain):
         self._upload_prev(self._mirror)
         self.stats["h2d_bytes"] += self._mirror.nbytes
 
-    def _ensure_mirror(self) -> None:
+    def _ensure_mirror(self) -> None:  # gwlint: allow[host-sync] -- fault-recovery path, not the steady tick
         """Make the mirror exist: zeros with no device words, else a fetch
         of the words; if the device cannot be read, the predicate of the
         input shadows (exact for every slot whose words are the predicate
@@ -1707,7 +1707,7 @@ class _Deferred(_CalcChain):
         self._pending_reset.clear()
         self._pending_clear.clear()
 
-    def _recover(self, e: BaseException) -> None:
+    def _recover(self, e: BaseException) -> None:  # gwlint: allow[flush-phase] -- fault recovery: the device is gone, host sync is the point
         """Device fault at dispatch: deliver the record in flight, compute
         the faulted tick on the host, drop the device state.  A fault
         while inputs were staged (an upload's out-of-memory) rebuilds
@@ -1729,7 +1729,7 @@ class _Deferred(_CalcChain):
         if slots:
             self._host_tick(slots)
 
-    def _recover_harvest(self, e: BaseException, rec: dict) -> None:
+    def _recover_harvest(self, e: BaseException, rec: dict) -> None:  # gwlint: allow[flush-phase] -- fault recovery: the device is gone, host sync is the point
         """Device fault at harvest.  The mirror still holds the words
         before the record's tick and the shadows the newest inputs, so
         one host pass regenerates the lost events, published at once (in
@@ -2284,7 +2284,7 @@ class _CUDABucket(_Deferred, _Bucket):
         self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
         self.stats["delta_flushes"] += 1
         parity = fz.parity_of(self.prev)
-        fz.load_packet(parity, *pkt)
+        fz.load_packet(*pkt)
         fz.set_sub(self._hsub)
         # the graph steps all s_max rows; the rows this tick did not stage
         # (quiet spaces, free and never-acquired slots) are masked
@@ -2348,7 +2348,7 @@ class _CUDABucket(_Deferred, _Bucket):
                        t([e for _, e in rows]), t([s for s, _, _ in cols]),
                        t([w for _, w, _ in cols]), AS.h2d(masks, dev))
 
-    def _harvest(self, rec: dict) -> None:
+    def _harvest(self, rec: dict) -> None:  # gwlint: allow[host-sync] -- THE per-tick drain point: harvests kernel outputs once per flush
         """Wait for one record's count, fetch its triples (from the
         prefetched slice when it holds them all; past the cap, or when
         the count fails validation, the full grids), update the mirror
@@ -2445,7 +2445,7 @@ class _CUDABucket(_Deferred, _Bucket):
         self._publish(slots, epochs, chg_vals, ent_vals, gidx)
         self.perf["emit_s"] += time.perf_counter() - t0
 
-    def _harvest_paged(self, rec: dict) -> None:
+    def _harvest_paged(self, rec: dict) -> None:  # gwlint: allow[host-sync] -- paged-path drain point: fetches the used page prefix once per flush
         """Harvest one paged tick: wait for its scalars (and page table and
         spilled bins, or the fused tick's bundle), fetch the used page
         prefix (from the prefetched slice when it holds it), check the
@@ -2657,7 +2657,7 @@ class _CUDABucket(_Deferred, _Bucket):
 
     # -- the host mirror ---------------------------------------------------
 
-    def _mirror_xor_stream(self, slots, epochs, gidx, chg_vals) -> None:
+    def _mirror_xor_stream(self, slots, epochs, gidx, chg_vals) -> None:  # gwlint: allow[host-sync] -- harvest-phase mirror upkeep on already-fetched host arrays
         """Apply one harvested word stream (unique flat word indices over
         the [s_n, C, W] grid) to the host mirror."""
         if self._mirror is None or not len(gidx):
@@ -2671,7 +2671,7 @@ class _CUDABucket(_Deferred, _Bucket):
         srows = np.asarray(slots, np.int64)[g // wps]
         self._mirror.reshape(self.s_max, wps)[srows, g % wps] ^= v
 
-    def _mirror_xor_triples(self, slots, epochs, tri) -> None:
+    def _mirror_xor_triples(self, slots, epochs, tri) -> None:  # gwlint: allow[host-sync] -- harvest-phase mirror upkeep on already-fetched host arrays
         """Apply a tick's triples to the host mirror: each triple flips one
         unique (row, bit)."""
         c = self.capacity
@@ -2735,7 +2735,7 @@ class _CUDABucket(_Deferred, _Bucket):
             return self._mirror[slot].copy()
         return P.words_to_numpy(self.prev[slot])
 
-    def set_prev(self, slot: int, words: np.ndarray) -> None:
+    def set_prev(self, slot: int, words: np.ndarray) -> None:  # gwlint: allow[host-sync] -- parity/debug accessor, off the tick path
         """Seed a slot's previous-tick interest words [C, W] uint32 (into
         the mirror while the device is down; the rebuild uploads it)."""
         self.flush()
@@ -2750,7 +2750,7 @@ class _CUDABucket(_Deferred, _Bucket):
         if self._mirror is not None:
             self._mirror[slot] = w
 
-    def export_snapshot(self, slot: int) -> dict:
+    def export_snapshot(self, slot: int) -> dict:  # gwlint: allow[host-sync] -- migration snapshot, off the steady tick path
         """The slot's wire image from the input shadows and its words,
         after the tick in flight is delivered (so the delivered stream and
         the snapshot agree); on a lost device from the mirror."""

@@ -1,12 +1,13 @@
 """Mesh-sharded AOI bucket: the engine's multi-device path.
 
 Port of the JAX package's ``engine/aoi_mesh.py`` (``_MeshTPUBucket``),
-with its pipelined mode, its paged overflow absorber and its fault
-recovery, without its fused dispatch (ROADMAP.md queue 1, item 2:
-``fused`` is accepted and runs unfused).  The bucket's slots (spaces)
-are placed across a :class:`..parallel.SpaceMesh`: shard d holds slots
-``[d * S/n, (d + 1) * S/n)`` on its device, so every space's [C] rows
-live wholly on one shard and the tick needs no cross-device collective.
+with its pipelined mode, its fused dispatch, its paged overflow absorber
+and its fault recovery.  The bucket's slots (spaces) are placed across a
+:class:`..parallel.SpaceMesh`: shard d holds slots ``[d * S/n, (d + 1) *
+S/n)`` on its device, so every space's [C] rows live wholly on one shard
+and the tick needs no cross-device collective.  Each distinct device
+keeps one x/z tensor holding the blocks of the shards it carries (a
+shard's x/z are views of it).
 
 Per flush, every shard's work is enqueued before the first wait:
 
@@ -16,6 +17,18 @@ Per flush, every shard's work is enqueued before the first wait:
                 -> chunk-compacted diff extraction (ops/events.extract_chunks)
                 -> row-stream encode (ops/events.encode_row_stream)
                 -> five scalars, copied asynchronously to pinned host memory
+
+``fused`` runs an eligible steady tick (delta staging on, no stale x/z,
+r and act unchanged, at most ``_delta_max_frac`` of the staged entries
+moved, calc level 0) as one replay of a CUDA graph per distinct device
+(:class:`..ops.fused.FusedShards`: the packet's scatter into that
+device's x/z, then each of its shards' step, mask and codec), where the
+unfused tick pays a scatter per shard with movers and a step per shard.
+Its record has the unfused record's shape, so the harvest, the absorber,
+the mirror's epoch guard and the deferral take it unchanged.  An
+``aoi.delta``/``aoi.kernel`` fault in the attempt moves the tick to the
+unfused flow before any device work (``fused_demotions``), as the JAX
+bucket's does.
 
 Harvest then waits for each shard's scalars, fetches and decodes its
 stream (``decode_row_stream``) with the same overflow contract as the JAX
@@ -83,6 +96,8 @@ from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
 from ..ops import events as EV
+from ..ops import fused as FZ
+from ..telemetry import trace as _T
 from .aoi import (_LANES, _Bucket, _build_snapshot, _calc_step, _CapDecay,
                   _check_snapshot, _Deferred, _device_fault, _emit_expand,
                   _grid_stream, _log, _packed_predicate,
@@ -92,6 +107,14 @@ from .aoi import (_LANES, _Bucket, _build_snapshot, _calc_step, _CapDecay,
 def _np_words(t: torch.Tensor) -> np.ndarray:
     """Fetched int32 device words as host uint32."""
     return t.cpu().numpy().view(np.uint32)
+
+
+def _device_groups(devices) -> list[tuple[torch.device, list[int]]]:
+    """The distinct devices of a mesh, each with its shards in order."""
+    groups: dict[torch.device, list[int]] = {}
+    for d, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(d)
+    return list(groups.items())
 
 
 class _ShardCodec:
@@ -145,19 +168,19 @@ class _ShardCodec:
         return new, chg
 
     def _encode_shard(self, new, chg, caps, pred=None) -> dict:
-        """Enqueue the extraction, the encode and the async copy of the
-        five control scalars of one shard's (masked) diff, and with
-        ``pred`` = (rows, escapes, exceptions) the copy of the stream's
-        first slices of those sizes (the deferred prefetch)."""
-        mc, kcap, mg, mx = caps
-        vals, nv, lane, csel, ccnt, nd, mcc = EV.extract_chunks(
-            chg, mc, kcap, aux=new, lanes=_LANES)
-        (rowb, bitpos, woff, base_row, n_esc, esc_rows, exc_gidx, exc_chg,
-         exc_new, exc_n) = EV.encode_row_stream(
-            vals, nv, lane, csel, ccnt, w=_LANES, max_gaps=mg, max_exc=mx)
-        streams = (rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg, exc_new)
-        scalars = torch.stack([nd, mcc, base_row, n_esc, exc_n]).to(
-            torch.int64)
+        """Enqueue the extraction and the encode of one shard's (masked)
+        diff (:func:`..ops.fused.shard_codec`), then its record."""
+        return self._shard_record(new, chg, *FZ.shard_codec(new, chg, caps,
+                                                             _LANES),
+                                  caps, pred)
+
+    def _shard_record(self, new, chg, chunks, streams, scalars, caps,
+                      pred=None) -> dict:
+        """One shard's part of a record: the async copy of its five
+        control scalars to pinned host memory and, with ``pred`` = (rows,
+        escapes, exceptions), of the stream's first slices of those sizes
+        (the deferred prefetch)."""
+        mc, _kcap, mg, mx = caps
         ready = pf = None
         if pred is not None:
             ndp, escp, excp = min(mc, pred[0]), min(mg, pred[1]), \
@@ -181,7 +204,7 @@ class _ShardCodec:
             scal_h = scalars
             if pf is not None:
                 pf = pf[:3] + ([a.clone() for a in pf[3]],)
-        return {"new": new, "chg": chg, "chunks": (vals, nv, lane, csel),
+        return {"new": new, "chg": chg, "chunks": chunks,
                 "streams": streams, "scal": scal_h, "ready": ready,
                 "prefetch": pf}
 
@@ -194,7 +217,7 @@ class _ShardCodec:
                 if sh is not None and sh["new"] is self.prev[d]:
                     sh["new"] = sh["new"].clone()
 
-    def _decode_shards(self, rec, shard_words: int,
+    def _decode_shards(self, rec, shard_words: int,  # gwlint: allow[host-sync] -- THE per-tick drain point: harvests kernel outputs once per flush
                        filter_empty: bool = False):
         """Wait for every shard's scalars, then fetch (from the prefetched
         slices when they hold the stream) and decode its stream, or
@@ -353,7 +376,8 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self.delta_staging = delta_staging
         self.pipeline = bool(pipeline)
         self.cross_tick = bool(cross_tick)
-        self.fused = bool(fused)  # accepted; the mesh runs every tick unfused
+        self.fused = bool(fused)
+        self._fz: FZ.FusedShards | None = None  # the fused tick's graphs
         self._init_faults()
         self.s_max = 0
         self.prev: list[torch.Tensor] | None = None  # per shard [b, C, W]
@@ -374,10 +398,14 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                          ring=2 if self._defer else 1)
         # device copies of r/act/sub, re-uploaded only when values change
         self._h2d_cache: dict[str, tuple] = {}
-        # per-shard device x/z, bitwise equal to the shadows; steady
-        # flushes scatter a sparse packet into each shard's own rows.
-        # _xz_stale: the copies must re-upload whole (growth, a reset, a
-        # clear, an r/act/sub change, a recovery), as in the JAX bucket
+        # per-shard device x/z, bitwise equal to the shadows: views of
+        # one (x, z) pair per distinct device (_xz_dev, written in place,
+        # so a captured graph keeps reading it); steady flushes scatter a
+        # sparse packet into each shard's own rows.  _xz_stale: the copies
+        # must re-upload whole (growth, a reset, a clear, an r/act/sub
+        # change, a recovery), as in the JAX bucket
+        self._groups = _device_groups(mesh.devices)
+        self._xz_dev: list | None = None
         self._dx: list | None = None
         self._dz: list | None = None
         self._xz_stale = True
@@ -459,9 +487,10 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                                     np.uint32)
         self.s_max = new_s
         self._h2d_cache.clear()
-        self._dx = self._dz = None
+        self._dx = self._dz = self._xz_dev = None
         self._xz_stale = True
         self._scratch = None
+        self._fz = None
 
     def _regroup(self, new_s: int) -> list[torch.Tensor]:
         """The words regrouped into the blocks of ``new_s`` slots, device
@@ -524,10 +553,11 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
 
     def _drop_device(self) -> None:
         self.prev = None
-        self._dx = self._dz = None
+        self._dx = self._dz = self._xz_dev = None
         self._xz_stale = True
         self._h2d_cache.clear()
         self._scratch = None
+        self._fz = None
         self._page_free = None  # the free list lived on the devices
 
     def _prev_to_numpy(self) -> np.ndarray:
@@ -605,7 +635,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         if self._mirror is not None:
             self._mirror[slot] = words
 
-    def export_snapshot(self, slot: int) -> dict:
+    def export_snapshot(self, slot: int) -> dict:  # gwlint: allow[host-sync] -- migration snapshot, off the steady tick path
         """The slot's wire image (as the single-device bucket's: the tick
         in flight delivered first; on a lost device from the mirror)."""
         self.drain()
@@ -711,20 +741,46 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
             self.stats["delta_flushes"] += 1
             return
         faults.check("aoi.h2d")
-        self._dx = self.mesh.device_put(self._hx)
-        self._dz = self.mesh.device_put(self._hz)
+        self._put_xz()
         self.stats["h2d_bytes"] += self._hx.nbytes + self._hz.nbytes
         self._xz_stale = False
         self.stats["full_flushes"] += 1
 
+    def _put_xz(self) -> None:
+        """Upload the x/z shadows whole: per distinct device one [k * b,
+        C] pair holding its k shards' blocks (written in place when it
+        exists), and each shard's views of it."""
+        b = self.s_max // self.n_dev
+        if self._xz_dev is None:
+            self._xz_dev = [None] * len(self._groups)
+        self._dx, self._dz = [None] * self.n_dev, [None] * self.n_dev
+        for g, (dev, ds) in enumerate(self._groups):
+            rows = np.concatenate([np.arange(d * b, (d + 1) * b)
+                                   for d in ds])
+            pair = self._xz_dev[g] or (None, None)
+            if pair[0] is not None and pair[0].shape[0] != len(rows):
+                pair = (None, None)
+            pair = self._xz_dev[g] = tuple(
+                AS.h2d(h[rows], dev, out=o)
+                for h, o in zip((self._hx, self._hz), pair))
+            for j, d in enumerate(ds):
+                self._dx[d] = pair[0][j * b:(j + 1) * b]
+                self._dz[d] = pair[1][j * b:(j + 1) * b]
+
     def _h2d(self, role: str, arr: np.ndarray) -> list[torch.Tensor]:
         """The role's per-shard device copy, re-uploaded (an ``aoi.h2d``
-        crossing) only when its values changed."""
+        crossing) only when its values changed, in place when the copy
+        exists (so a captured graph keeps reading it)."""
         cached = self._h2d_cache.get(role)
         if cached is not None and np.array_equal(cached[0], arr):
             return cached[1]
         faults.check("aoi.h2d")
-        dev = self.mesh.device_put(arr)
+        if cached is not None and cached[0].shape == arr.shape:
+            b = self.mesh.block(arr.shape[0])
+            dev = [AS.h2d(arr[d * b:(d + 1) * b], t.device, out=t)
+                   for d, t in enumerate(cached[1])]
+        else:
+            dev = self.mesh.device_put(arr)
         self._h2d_cache[role] = (arr.copy(), dev)
         self.stats["h2d_bytes"] += arr.nbytes
         return dev
@@ -742,6 +798,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         if not self._staged:
             return None
         t0 = time.perf_counter()
+        ts = _T.t()
         slots = sorted(self._staged)
         sl = np.array(slots, np.intp)
         old = (self._hx[sl], self._hz[sl], self._hr[sl], self._hact[sl])
@@ -750,6 +807,11 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         self._check_restaged()
         if self._mirror is not None and self._unsub:
             self._mirror_stale.update(s for s in slots if s in self._unsub)
+        if self.fused:
+            rec = self._dispatch_fused(slots, sl, *old, ts)
+            if rec is not None:
+                self.perf["stage_s"] += time.perf_counter() - t0
+                return rec
         self._stage_xz(sl, *old)
         self._fault_phase = "kernel"
         faults.check("aoi.kernel")
@@ -758,7 +820,7 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
         sub = self._h2d("sub", self._hsub)
         # every staged slot unsubscribed (unstaged ones re-step identical
         # inputs): the stream is empty by construction, nothing to extract
-        all_unsub = bool(self._unsub) and all(s in self._unsub for s in slots)
+        all_unsub = all(s in self._unsub for s in slots)  # slots: non-empty
         masked = not self._hsub.all()
         caps = self._caps_now()
         pred = self._pred if self._defer else None
@@ -778,12 +840,105 @@ class _MeshCUDABucket(_ShardCodec, _Deferred, _Bucket):
                 chg.masked_fill_(~sub[d][:, None, None], 0)
             shards.append(self._encode_shard(new, chg, caps, pred))
         self.perf["stage_s"] += time.perf_counter() - t0
+        return self._tick_record(slots, caps, shards)
+
+    def _tick_record(self, slots, caps, shards) -> dict:
         return {
             "slots": slots, "caps": caps, "shards": shards,
             "b": self.s_max // self.n_dev,
             "epochs": np.fromiter((self._slot_epoch.get(s, 0)
                                    for s in range(self.s_max)), np.int64,
                                   self.s_max)}
+
+    def _dispatch_fused(self, slots, sl, old_x, old_z, old_r, old_act,
+                        ts) -> dict | None:
+        """The tick as one replay of a shard graph per distinct device
+        (:class:`..ops.fused.FusedShards`), or None when the unfused flow
+        runs it: silently when it is not a steady delta tick (stale x/z,
+        an r/act change, too many movers, a calculator below the kernel),
+        counted in ``fused_demotions`` when an ``aoi.delta``/``aoi.kernel``
+        seam fault fired in the attempt (before any device work, so the
+        unfused flow -- whose crossings then pass -- runs the tick in the
+        same call, bit-exact).  The port of the JAX bucket's
+        ``_dispatch_fused``; its record is the unfused record."""
+        if (not self.delta_staging or self._xz_stale or self._dx is None
+                or self._calc_level >= 1 or self._need_rebuild):
+            return None
+        if not (np.array_equal(self._hr[sl], old_r)
+                and np.array_equal(self._hact[sl], old_act)):
+            return None  # r/act moved: a full-restage tick
+        new_x, new_z = self._hx[sl], self._hz[sl]
+        diff = (new_x.view(np.uint32) != old_x.view(np.uint32)) \
+            | (new_z.view(np.uint32) != old_z.view(np.uint32))
+        n_changed = np.count_nonzero(diff)
+        if n_changed > self._delta_max_frac * max(diff.size, 1):
+            return None  # mass movement: a full restage
+        try:
+            if n_changed:
+                faults.check("aoi.delta")
+            self._fault_phase = "kernel"
+            faults.check("aoi.kernel")
+        except Exception as e:
+            if not _device_fault(e):
+                raise
+            self.stats["fused_demotions"] += 1
+            self._fault_phase = "stage"
+            return None
+        b, c = self.s_max // self.n_dev, self.capacity
+        fz = self._fz
+        if fz is None:
+            plens = [min(FZ.packet_len(self.s_max, c, self._delta_max_frac),
+                         FZ.packet_len(len(ds) * b, c, 1.0))
+                     for _dev, ds in self._groups]
+            fz = self._fz = FZ.FusedShards(
+                [dev for dev, _ds in self._groups], b, c, plens, _LANES)
+        parity = fz.parity_of(self.prev[0])
+        rows, cols = np.nonzero(diff)
+        grows = sl[rows]
+        shard = grows // b
+        for g, (_dev, ds) in enumerate(self._groups):
+            # each mover's row within its device's x/z
+            pos = np.full(self.n_dev, -1, np.intp)
+            pos[ds] = np.arange(len(ds))
+            m = pos[shard] >= 0
+            if m.any():
+                pkt = (pos[shard[m]] * b + grows[m] % b, cols[m],
+                       new_x[rows[m], cols[m]], new_z[rows[m], cols[m]])
+            else:
+                # no mover on this device: one entry rewriting a value it
+                # holds
+                r0 = ds[0] * b
+                pkt = (np.zeros(1, np.intp), np.zeros(1, np.intp),
+                       self._hx[r0, :1], self._hz[r0, :1])
+            pkt = AS.pad_packet(*pkt, length=fz.plens[g])
+            fz.load_packet(g, *pkt)
+            self.stats["h2d_bytes"] += AS.packet_nbytes(*pkt)
+        self.stats["delta_flushes"] += 1
+        r = self._h2d("r", self._hr)
+        act = self._h2d("act", self._hact)
+        sub = self._h2d("sub", self._hsub)
+        _T.lap("aoi.stage", ts)
+        tk = _T.t()
+        caps = self._caps_now()
+        steps = [[FZ.ShardStep(self._dx[d], self._dz[d], r[d], act[d],
+                               self.prev[d], *self._step_out(d, self.prev[d]),
+                               sub=sub[d]) for d in ds]
+                 for _dev, ds in self._groups]
+        outs = fz.run(parity, caps, self._xz_dev, steps)
+        _T.lap("aoi.kernel", tk)
+        _T.lap("aoi.fused", tk)
+        all_unsub = all(s in self._unsub for s in slots)  # slots: non-empty
+        pred = self._pred if self._defer else None
+        shards = [None] * self.n_dev
+        for (_dev, ds), sts, got in zip(self._groups, steps, outs):
+            for d, st, (chunks, streams, scalars) in zip(ds, sts, got):
+                self.prev[d] = st.new
+                if not all_unsub:
+                    shards[d] = self._shard_record(st.new, st.chg, chunks,
+                                                   streams, scalars, caps,
+                                                   pred)
+        self.stats["fused_dispatches"] += 1
+        return self._tick_record(slots, caps, shards)
 
     def _harvest(self, rec: dict) -> None:
         """Wait for each shard's scalars, fetch and decode its stream,

@@ -1,9 +1,8 @@
 """Observer-row-sharded AOI for ONE oversized space.
 
 Port of the JAX package's ``engine/aoi_rowshard.py``
-(``_RowShardTPUBucket``), with its fault recovery and its paged overflow
-absorber, without its fused dispatch (ROADMAP.md queue 1, item 2;
-``fused`` is accepted and runs unfused).
+(``_RowShardTPUBucket``), with its fused dispatch, its fault recovery and
+its paged overflow absorber.
 The mesh bucket keeps each space on one shard; a space too large for one
 device's tick budget (BASELINE's ``zipf100k``: 100k entities in one
 space) shards WITHIN the space: shard d owns the interest rows
@@ -26,6 +25,15 @@ needs no cross-device collective.
     ``d * (C/n) * W`` and expand with one space.  With ``paged``, a shard
     past its chunk caps is absorbed through the page pool
     (:func:`.aoi._paged_absorb_shard`), as on the mesh bucket.
+  * ``fused`` runs an eligible steady tick (delta staging on, no stale
+    inputs, r and act unchanged, at most ``_delta_max_frac`` of the
+    entries moved, calc level 0) as one replay of a CUDA graph per
+    distinct device (:class:`..ops.fused.FusedShards`): the one packet of
+    changed candidate columns scattered into that device's whole x/z,
+    then every shard it holds steps its observer block, masked and
+    encoded, in the same graph.  An ``aoi.delta``/``aoi.kernel`` fault in
+    the attempt moves the tick to the unfused flow before any device work
+    (``fused_demotions``), as in the JAX bucket.
   * The flush is synchronous: events arrive the tick they are computed.
     ``pipeline`` and ``cross_tick`` are accepted and change nothing, as in
     the JAX package: one giant space keeps zero added latency.
@@ -62,7 +70,9 @@ from ..ops import aoi_emit as AE
 from ..ops import aoi_predicate as P
 from ..ops import aoi_stage as AS
 from ..ops import dispatch_count as DC
-from .aoi import (_Bucket, _build_snapshot, _calc_step, _CalcChain,
+from ..ops import fused as FZ
+from ..telemetry import trace as _T
+from .aoi import (_LANES, _Bucket, _build_snapshot, _calc_step, _CalcChain,
                   _check_snapshot, _clear_words, _device_fault, _device_lost,
                   _emit_expand, _packed_predicate, _unpack_positions)
 from .aoi_mesh import _ShardCodec
@@ -80,9 +90,10 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
                  paged: bool = False):
         super().__init__(capacity)
         self.paged = bool(paged)  # the overflow absorber (module docstring)
-        # accepted and ignored: the flush stays synchronous and unfused
+        # accepted and ignored: the flush stays synchronous
         self.pipeline, self.cross_tick = bool(pipeline), bool(cross_tick)
         self.fused = bool(fused)
+        self._fz: FZ.FusedShards | None = None  # the fused tick's graphs
         self._emit = emit
         self._emit_requested = emit  # what reset_emit_path re-arms
         self.mesh = mesh
@@ -180,15 +191,17 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
             self._host_prev = None
 
     def _upload(self, roles) -> None:
-        """Whole-array upload of ``roles`` to every distinct device."""
+        """Whole-array upload of ``roles`` to every distinct device (in
+        place where the copy exists, so a captured graph keeps reading
+        it)."""
         if self._dev_in is None:
             self._dev_in = {dev: {} for dev in self._devs}
         arrs = {"x": self._hx, "z": self._hz, "r": self._hr,
                 "act": self._hact}
         for dev in self._devs:
+            t = self._dev_in[dev]
             for role in roles:
-                self._dev_in[dev][role] = torch.from_numpy(arrs[role]).to(
-                    dev, copy=True)
+                t[role] = AS.h2d(arrs[role], dev, out=t.get(role))
         self.stats["h2d_bytes"] += len(self._devs) * sum(
             arrs[r].nbytes for r in roles)
 
@@ -276,7 +289,7 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
         step, extraction, encode and scalar copy, enqueued without
         waiting (at calc level 2: the host tick, parked for harvest)."""
         if self._inflight is not None or self._oracle is not None:
-            self.harvest()
+            self.harvest()  # gwlint: allow[flush-phase] -- re-entrant flush drains the prior dispatch first
         if self._calc_level >= 2:
             self._dispatch_oracle()
             return
@@ -337,9 +350,12 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
         if not self._staged:
             return
         t0 = time.perf_counter()
+        ts = _T.t()
         self._restage_shadows()
         self._tick_inflight = True  # a restaged tick awaits its events
         self._ensure_prev()
+        if self.fused and self._dispatch_fused(t0, ts):
+            return
         self._stage_xz(*self._cur_old)
         # the crossings of the JAX bucket's uploads, in its order: the sub
         # flag, the kernel, then r, act and the candidates' act
@@ -370,6 +386,98 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
                           if self._subscribed else None)
         self._inflight = {"caps": caps, "shards": shards}
         self.perf["stage_s"] += time.perf_counter() - t0
+
+    def _dispatch_fused(self, t0, ts) -> bool:
+        """The tick as one replay of a shard graph per distinct device
+        (:class:`..ops.fused.FusedShards`); False when the unfused flow
+        runs it: silently when it is not a steady delta tick (inputs to
+        restage, an r/act change, too many movers, a calculator below the
+        kernel), counted in ``fused_demotions`` when an ``aoi.delta`` /
+        ``aoi.kernel`` seam fault fired in the attempt (before any device
+        work: the unfused flow runs the tick in the same call, bit-exact).
+        The port of the JAX bucket's ``_dispatch_fused``."""
+        old_x, old_z, old_r, old_act = self._cur_old
+        if (not self.delta_staging or self._xz_stale or self._dev_in is None
+                or "x" not in self._dev_in[self._devs[0]]
+                or self._calc_level >= 1):
+            return False
+        if not (np.array_equal(self._hr, old_r)
+                and np.array_equal(self._hact, old_act)):
+            return False  # r/act moved: a full-restage tick
+        diff = (self._hx.view(np.uint32) != old_x.view(np.uint32)) \
+            | (self._hz.view(np.uint32) != old_z.view(np.uint32))
+        n_changed = np.count_nonzero(diff)
+        if n_changed > self._delta_max_frac * diff.size:
+            return False  # mass movement: a full restage
+        try:
+            if n_changed:
+                faults.check("aoi.delta")
+            self._fault_phase = "kernel"
+            faults.check("aoi.kernel")
+        except Exception as e:
+            if not _device_fault(e):
+                raise
+            self.stats["fused_demotions"] += 1
+            self._fault_phase = "stage"
+            return False
+        c, cl = self.capacity, self.c_local
+        fz = self._fz
+        if fz is None:
+            fz = self._fz = FZ.FusedShards(
+                self._devs, cl, c,
+                [FZ.packet_len(1, c, self._delta_max_frac)] * len(self._devs),
+                _LANES)
+        parity = fz.parity_of(self.prev[0])
+        # no mover: one entry rewriting a value the devices hold
+        cols = np.nonzero(diff)[0] if n_changed else np.zeros(1, np.intp)
+        pkt = AS.pad_packet(np.zeros(len(cols), np.int32), cols,
+                            self._hx[cols], self._hz[cols],
+                            length=fz.plens[0])
+        for g in range(len(self._devs)):
+            fz.load_packet(g, *pkt)
+        self.stats["h2d_bytes"] += len(self._devs) * (
+            pkt[1].nbytes + pkt[2].nbytes + pkt[3].nbytes)
+        self.stats["delta_flushes"] += 1
+        # the JAX bucket's upload crossings, in its fused order
+        self._changed("sub", np.array(self._subscribed))
+        ra = [self._changed("r", self._hr), self._changed("act", self._hact)]
+        self._changed("act_all", self._hact)
+        if any(ra):
+            self._upload(("r", "act"))
+        _T.lap("aoi.stage", ts)
+        tk = _T.t()
+        caps = self._caps_now()
+        order, steps, xz = [], [], []  # order: (shard, new, chg) as run
+        for dev in self._devs:
+            t = self._dev_in[dev]
+            xz.append((t["x"].view(1, -1), t["z"].view(1, -1)))
+            sts = []
+            for d, ddev in enumerate(self.mesh.devices):
+                if ddev != dev:
+                    continue
+                lo = d * cl
+                new, chg = self._step_out(d, self.prev[d])
+                order.append((d, new, chg))
+                sts.append(FZ.ShardStep(
+                    *(t[k][lo:lo + cl][None] for k in ("x", "z", "r", "act")),
+                    self.prev[d][None], new[None], chg[None],
+                    cols=(t["x"][None], t["z"][None], t["act"][None]),
+                    row_ids=self._row_ids[d]))
+            steps.append(sts)
+        outs = fz.run(parity, caps, xz, steps)
+        _T.lap("aoi.kernel", tk)
+        _T.lap("aoi.fused", tk)
+        shards = [None] * self.n_dev
+        for (d, new, chg), (chunks, streams, scalars) in zip(
+                order, (o for got in outs for o in got)):
+            self.prev[d] = new
+            if self._subscribed:
+                shards[d] = self._shard_record(new, chg, chunks, streams,
+                                               scalars, caps)
+        self._inflight = {"caps": caps, "shards": shards}
+        self.stats["fused_dispatches"] += 1
+        self.perf["stage_s"] += time.perf_counter() - t0
+        return True
 
     def _harvest(self, rec: dict) -> None:
         got = self._decode_shards(rec, self.c_local * self.W,
@@ -413,7 +521,7 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
         self._pending_clear.clear()
         return old
 
-    def _recover(self, e: BaseException) -> None:
+    def _recover(self, e: BaseException) -> None:  # gwlint: allow[flush-phase] -- fault recovery: the device is gone, host sync is the point
         """Device fault: recompute the tick in flight on the host
         (bit-exact), publish it, and drop the device state."""
         self._count_fault(e)
@@ -431,6 +539,7 @@ class _RowShardCUDABucket(_ShardCodec, _CalcChain, _Bucket):
         self._xz_stale = True
         self._h2d_cache.clear()
         self._scratch = None
+        self._fz = None
         self._page_free = None  # the free list lived on the devices
         if staged:
             self._host_tick(old_prev)

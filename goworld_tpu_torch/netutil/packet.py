@@ -179,7 +179,7 @@ class Packet:
         n = self.read_u16()
         return tuple(self.read_data(packer) for _ in range(n))
 
-    def read_view(self, n: int) -> memoryview:
+    def read_view(self, n: int) -> memoryview:  # gwlint: allow[wire] -- read-only accessor: the append side is plain append_bytes (flat record arrays), no paired codec exists
         """Consume ``n`` bytes and return them as a zero-copy memoryview
         (the batched ingest decodes flat record arrays straight out of the
         packet buffer -- ingest/).  The view aliases the pooled

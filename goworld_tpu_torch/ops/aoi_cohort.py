@@ -47,7 +47,7 @@ DEFAULT_LADDER = (256, 1024, 4096)
 def validate_ladder(shapes) -> tuple[int, ...]:
     """Normalize and validate a ladder: ascending powers of two, each a
     valid capacity (a multiple of ``P.LANE``)."""
-    out = tuple(int(s) for s in shapes)
+    out = tuple(int(s) for s in shapes)  # gwlint: allow[host-sync] -- config ladder ints, never device values
     if not out:
         raise ValueError("cohort ladder must not be empty")
     for s in out:

@@ -49,9 +49,10 @@ def interest_words_dense(x, z, radius, active, cols=None,
     c_rows, c = x.shape[0], x_c.shape[0]
     w = words_per_row(c)
     out = torch.empty((c_rows, w), dtype=torch.int32, device=x.device)
-    col_ids = torch.arange(c, device=x.device)
+    col_ids = torch.arange(c, dtype=torch.int64, device=x.device)
     if row_ids is None:
-        row_ids = torch.arange(c_rows, device=x.device)
+        row_ids = torch.arange(c_rows, dtype=torch.int64,
+                               device=x.device)
     for lo in range(0, c_rows, _ROW_BLOCK):
         hi = min(lo + _ROW_BLOCK, c_rows)
         r = radius[lo:hi, None]

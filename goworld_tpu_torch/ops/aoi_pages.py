@@ -152,7 +152,7 @@ def allocate_pages(chg: torch.Tensor, new: torch.Tensor, free: torch.Tensor,
     return pool_g, pool_c, pool_n, page_tab, free_next, spill_bins, scalars
 
 
-def allocate_pages_host(chg, new, free, page_words: int, bin_words: int,
+def allocate_pages_host(chg, new, free, page_words: int, bin_words: int,  # gwlint: allow[host-sync] -- NumPy oracle
                         max_spill: int):
     """NumPy oracle of :func:`allocate_pages` (the JAX package's, copied):
     the same outputs on uint32 host words, the pools ``pool_c``/``pool_n``
@@ -216,7 +216,7 @@ def allocate_pages_host(chg, new, free, page_words: int, bin_words: int,
             page_tab, free_next, spill_bins, scalars)
 
 
-def decode_pages(pool_g, pool_c, pool_n):
+def decode_pages(pool_g, pool_c, pool_n):  # gwlint: allow[host-sync] -- host decode of fetched pages
     """Fetched pool rows (host arrays; words as uint32 or int32 bit
     patterns) -> the ``(gidx, chg_vals, new_vals)`` word stream of the
     valid entries, in rank order (ascending flat index within each
@@ -235,7 +235,7 @@ def _host_words(a) -> np.ndarray:
     return np.asarray(a).view(np.uint32)
 
 
-def spill_stream(chg_flat, new_flat, spill_bins, bin_words: int,
+def spill_stream(chg_flat, new_flat, spill_bins, bin_words: int,  # gwlint: allow[host-sync] -- spill-to-host fallback
                  n_words: int):
     """Re-read the spilled bins' word slices of the kept change/new grids
     (flat, on the host or on the device: one fetch per bin) -> ``(gidx,
@@ -259,7 +259,7 @@ def spill_stream(chg_flat, new_flat, spill_bins, bin_words: int,
     return (np.concatenate(gs), np.concatenate(cs), np.concatenate(ns))
 
 
-def validate_page_table(page_tab, n_used: int, n_pages: int) -> bool:
+def validate_page_table(page_tab, n_used: int, n_pages: int) -> bool:  # gwlint: allow[host-sync] -- validates an already-fetched table
     """The fetched page table's integrity: the first ``n_used`` entries
     unique in-range page ids, the rest -1.  A failure means the free list
     is corrupt."""

@@ -55,7 +55,8 @@ def _nonzero_fixed(mask: torch.Tensor, size: int) -> torch.Tensor:
     pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
     dest = torch.where(mask & (pos < size), pos, size)
     out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, dest, torch.arange(n, device=mask.device))
+    out.scatter_(0, dest, torch.arange(n, dtype=torch.int64,
+                                       device=mask.device))
     return out[:size]
 
 
@@ -236,7 +237,7 @@ def _pad(a: torch.Tensor, n: int, fill) -> torch.Tensor:
     return torch.cat([a, tail])
 
 
-def decode_row_stream(rowb, bitpos, woff, base_row, n_dirty, w,
+def decode_row_stream(rowb, bitpos, woff, base_row, n_dirty, w,  # gwlint: allow[host-sync] -- host-side decoder: consumes the already-drained stream
                       esc_rows, exc_gidx, exc_chg, exc_new):
     """Host-side (numpy) inverse of :func:`encode_row_stream`, on the
     already-fetched host copies of the stream (``exc_chg``/``exc_new`` as
@@ -312,7 +313,7 @@ def _sorted_pairs(s, i, j, capacity):
     return out[np.argsort(key)]
 
 
-def expand_words_host(vals, flat_idx, capacity: int):
+def expand_words_host(vals, flat_idx, capacity: int):  # gwlint: allow[host-sync] -- host-side expansion of the drained stream
     """Words (any value dtype holding uint32 bits) at flat word indices
     (``-1`` entries are dropped) -> int32 [K, 3] (space, observer,
     observed) rows, sorted lexicographically."""
@@ -327,7 +328,7 @@ def expand_words_host(vals, flat_idx, capacity: int):
     return _sorted_pairs(s, i, j, capacity)
 
 
-def expand_classified_host(chg_vals, ent_vals, flat_idx, capacity: int):
+def expand_classified_host(chg_vals, ent_vals, flat_idx, capacity: int):  # gwlint: allow[host-sync,flush-phase] -- host-side expansion of the drained stream: harvest feeds it decoded values after the fetch
     """Classified word stream (``chg`` words, their enter subsets ``chg &
     new``, flat word indices) -> (enter [K, 3], leave [L, 3]) int32
     (space, observer, observed) rows, each sorted lexicographically."""

@@ -26,11 +26,24 @@ On CPU tensors the same body runs eagerly: that is the plain version,
 and the tests hold it to the unfused path.  There is no kernel of this
 module's own: the fusion is the graph around ``aoi_step.cu``.
 
+The sharded buckets (``engine/aoi_mesh``, ``engine/aoi_rowshard``; the
+JAX package folds their packet scatter into the per-chip program,
+``_sharded_step(npk)``) take :class:`FusedShards`: one graph per
+distinct device and parity, whose body (:func:`shard_body`) scatters
+the packet into that device's x/z, then for each shard the device holds
+runs the chg step (square on the mesh, rect on the row-sharded bucket),
+the subscription mask and the shard codec (:func:`shard_codec`:
+``extract_chunks`` and ``encode_row_stream``, the unfused dispatch's own
+function), its outputs copied into static buffers of that parity.  Its
+words are the bucket's own ``prev`` and spare, so a fused bucket holds
+no second copy; its keys are :func:`capture_key` with the codec caps.
+
 Nothing host-bound sits inside the capture.  The packet is padded to one
 length per bucket (:func:`packet_len`) and uploaded into a static device
-buffer just before the replay, from one of two pinned staging buffers;
-the count's copy to pinned host memory follows the replay.  Those two
-copies are transfers, not dispatches.
+buffer just before the replay, through pinned memory
+(:func:`.aoi_stage.h2d` with ``out=``); the count's copy to pinned host
+memory follows the replay.  Those two copies are transfers, not
+dispatches.
 
 The words ping-pong by parity: the graph of parity p reads
 ``words[p]`` and writes the new words into ``words[1 - p]`` and the
@@ -58,6 +71,7 @@ bucket's does.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -71,6 +85,38 @@ from .aoi_predicate import words_per_row
 
 SITE = "aoi.fused_tri"
 PAGED_SITE = "aoi.fused_paged"
+SHARD_SITE = "aoi.fused_shards"
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes a graph memory pool holds on the card."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _capture(pool, device, body, prepare=None) -> torch.cuda.CUDAGraph:
+    """A new graph in ``pool`` on ``device`` holding ``body()``, after one
+    eager run of it on a side stream (``torch.cuda.graph``'s warm-up: a
+    real launch of the kernel, which builds its library and reads its
+    occupancy before any capture).  ``prepare(warm_out)``, where given,
+    runs between the two on the current stream and returns the body to
+    capture instead.  A capture launches nothing: its count is undone."""
+    with torch.cuda.device(device):
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            warm = body()
+        cur.wait_stream(side)
+        if prepare is not None:
+            body = prepare(warm)
+        del warm
+        graph = torch.cuda.CUDAGraph()
+        n0 = AK.launches["aoi_step"]
+        with torch.cuda.graph(graph, pool=pool):
+            body()
+        AK.launches["aoi_step"] = n0
+    return graph
 
 
 def packet_len(s: int, c: int, max_frac: float) -> int:
@@ -85,11 +131,13 @@ def packet_len(s: int, c: int, max_frac: float) -> int:
 
 
 def capture_key(s: int, c: int, plen: int, parity: int,
-                size: int) -> tuple:
+                size: int, caps: tuple = ()) -> tuple:
     """The graph key of one fused tick: a pure function of the bucket's
     shapes, its packet length, the words' parity and the size of its
-    outputs (the triple cap, or the page pool's ``n_pages``)."""
-    return (s, c, plen, parity, size)
+    outputs (the triple cap, or the page pool's ``n_pages``; a shard
+    graph's shard count), and of a shard graph's codec caps
+    ``(max_chunks, kcap, max_gaps, max_exc)``."""
+    return (s, c, plen, parity, size) + tuple(caps)
 
 
 def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, stg, idx, val,
@@ -164,13 +212,6 @@ class FusedTri:
         self.inputs: dict[tuple, tuple] = {}  # key -> captured input ptrs
         self.captures = 0
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
-        if self.cuda:
-            # pinned staging of the packet, one per parity, reused once
-            # the upload that last read it has run
-            self._stage = [
-                (torch.empty((2, plen), dtype=torch.int64).pin_memory(),
-                 torch.empty((2, plen), dtype=torch.float32).pin_memory(),
-                 torch.cuda.Event()) for _ in range(2)]
 
     def parity_of(self, prev: torch.Tensor) -> int:
         """The parity whose graph reads ``prev``: 0 or 1 when ``prev`` is
@@ -209,31 +250,22 @@ class FusedTri:
     def set_sub(self, hsub: np.ndarray) -> None:
         """Bring the device sub vector up to the host's subscription."""
         if not np.array_equal(hsub, self.sub_host):
-            self.sub.copy_(AS.h2d(hsub.astype(np.int32), self.device))
+            AS.h2d(hsub.astype(np.int32), self.device, out=self.sub)
             self.sub_host = hsub.copy()
 
     def set_staged(self, staged: np.ndarray) -> None:
         """Bring the device staged-row vector up to ``staged`` (bool [S]:
         the rows this tick staged).  A transfer, only when it changed."""
         if not np.array_equal(staged, self.stg_host):
-            self.stg.copy_(AS.h2d(staged.astype(np.int32), self.device))
+            AS.h2d(staged.astype(np.int32), self.device, out=self.stg)
             self.stg_host = staged.copy()
 
-    def load_packet(self, parity: int, rows, cols, xv, zv) -> None:
+    def load_packet(self, rows, cols, xv, zv) -> None:
         """Upload one packet of exactly ``plen`` entries into the static
-        device packet buffer."""
+        device packet buffer (through pinned memory, without a wait)."""
         idx, val = AS.packet_arrays(rows, cols, xv, zv)
-        if not self.cuda:
-            self.idx.copy_(torch.from_numpy(idx))
-            self.val.copy_(torch.from_numpy(val))
-            return
-        idx_h, val_h, done = self._stage[parity]
-        done.synchronize()
-        idx_h.numpy()[...] = idx
-        val_h.numpy()[...] = val
-        self.idx.copy_(idx_h, non_blocking=True)
-        self.val.copy_(val_h, non_blocking=True)
-        done.record(torch.cuda.current_stream(self.device))
+        AS.h2d(idx, self.device, out=self.idx)
+        AS.h2d(val, self.device, out=self.val)
 
     def run(self, parity: int, size: int, x, z, r, act):
         """One fused tick of parity ``parity`` at output size ``size`` over
@@ -265,25 +297,11 @@ class FusedTri:
     def pool_bytes(self) -> int:
         """Bytes the graphs' private memory pool holds on the card (0 on
         the CPU)."""
-        if not self.cuda:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) ==
-                   tuple(self.pool))
+        return _pool_bytes(self.pool) if self.cuda else 0
 
     def _capture(self, key, args, size) -> torch.cuda.CUDAGraph:
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._body(args, size)  # warm-up: a real launch of the kernel
-        cur.wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        n0 = AK.launches["aoi_step"]
-        with torch.cuda.graph(g, pool=self.pool):
-            self._body(args, size)
-        AK.launches["aoi_step"] = n0  # a capture launches nothing
-        self.graphs[key] = g
+        g = self.graphs[key] = _capture(self.pool, self.device,
+                                        lambda: self._body(args, size))
         self.captures += 1
         return g
 
@@ -343,3 +361,207 @@ class FusedPaged(FusedTri):
         new, chg, pg, pc, pn, bundle, free = self.run(parity, n_pages,
                                                       x, z, r, act)
         return new, chg, (pg, pc, pn), bundle, free
+
+
+# -- the sharded buckets' fused tick ------------------------------------------
+
+
+def shard_codec(new, chg, caps: tuple, lanes: int):
+    """The event path of one shard's (masked) diff, on its device:
+    :func:`.events.extract_chunks` then :func:`.events.encode_row_stream`
+    under the codec caps ``(max_chunks, kcap, max_gaps, max_exc)``.
+    Returns ``(chunks, streams, scalars)``: the chunk grids (vals, new
+    vals, lane, csel), the seven stream arrays (rowb, bitpos, woff,
+    esc_rows, exc_gidx, exc_chg, exc_new) and the five control scalars
+    (n_dirty, max_ccnt, base_row, n_esc, exc_n) in one int64 [5].  No
+    host work, so a CUDA graph can hold it; the unfused dispatch of the
+    sharded buckets runs the same function."""
+    mc, kcap, mg, mx = caps
+    vals, nv, lane, csel, ccnt, nd, mcc = EV.extract_chunks(
+        chg, mc, kcap, aux=new, lanes=lanes)
+    (rowb, bitpos, woff, base_row, n_esc, esc_rows, exc_gidx, exc_chg,
+     exc_new, exc_n) = EV.encode_row_stream(
+        vals, nv, lane, csel, ccnt, w=lanes, max_gaps=mg, max_exc=mx)
+    streams = (rowb, bitpos, woff, esc_rows, exc_gidx, exc_chg, exc_new)
+    scalars = torch.stack([nd, mcc, base_row, n_esc, exc_n]).to(torch.int64)
+    return (vals, nv, lane, csel), streams, scalars
+
+
+class ShardStep(NamedTuple):
+    """One shard's step inside a shard graph: its inputs (``x``, ``z``,
+    ``r``, ``act``: views of its device's tensors), its words (``prev``
+    read, ``new`` and ``chg`` written: the bucket's own buffers), its
+    subscription mask (bool [rows], or None: no mask) and, on the
+    row-sharded bucket, the rect step's candidates ``cols`` = (x, z, act)
+    and its ``row_ids``."""
+
+    x: torch.Tensor
+    z: torch.Tensor
+    r: torch.Tensor
+    act: torch.Tensor
+    prev: torch.Tensor
+    new: torch.Tensor
+    chg: torch.Tensor
+    sub: torch.Tensor | None = None
+    cols: tuple | None = None
+    row_ids: torch.Tensor | None = None
+
+
+def shard_body(dx, dz, idx, val, steps, caps: tuple, lanes: int) -> list:
+    """One device's part of a fused sharded tick, in place: scatter the
+    packet ``(idx, val)`` into the device's x/z (``dx``/``dz``, 2-D), then
+    for each :class:`ShardStep` the chg step (``aoi_step.cu`` on CUDA
+    tensors: square, or rect with ``cols``/``row_ids``) into its
+    ``new``/``chg``, the subscription mask, and :func:`shard_codec`.
+    Returns each shard's ``(chunks, streams, scalars)``.  No host work, so
+    a CUDA graph can hold it."""
+    AS.scatter_packet(dx, dz, idx, val)
+    out = []
+    for st in steps:
+        AK.aoi_step_chg(st.x, st.z, st.r, st.act, st.prev, cols=st.cols,
+                        row_ids=st.row_ids, out=(st.new, st.chg))
+        if st.sub is not None:
+            st.chg.masked_fill_(~st.sub[:, None, None], 0)
+        out.append(shard_codec(st.new, st.chg, caps, lanes))
+    return out
+
+
+def _tensors(tree):
+    """The tensors of a nested tuple/list (None skipped), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if tree is None:
+        return []
+    return [t for sub in tree for t in _tensors(sub)]
+
+
+def _like(tree):
+    """Fresh tensors shaped like those of ``tree``, nested the same."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree)
+    return type(tree)(_like(t) for t in tree)
+
+
+class FusedShards:
+    """The fused tick of a sharded bucket (the mesh's, or the row-sharded
+    bucket's): one CUDA graph per distinct device and parity, over the
+    bucket's own device tensors.  The graph of device g runs
+    :func:`shard_body` for the shards g holds: the packet's scatter into
+    g's x/z, then each shard's step, mask and codec, the codec's outputs
+    copied into static buffers (one set per parity, outside the graphs'
+    pool, so a deferred record's grids, streams and scalars survive the
+    next replay).  ``devices`` are the distinct devices, ``plens`` their
+    packet lengths (:func:`packet_len`), ``rows`` and ``capacity`` a
+    shard's step shape.
+
+    The words are the bucket's: each shard's ``prev`` and its spare
+    (``new``) swap every step, so the parity is which of the two shard
+    0's ``prev`` is, and its chg buffers are the bucket's ring.  A graph
+    records the pointers of every tensor it reads or writes; when they
+    moved (growth, a device rebuild, a new buffer) it is captured anew
+    under the same key.  A change of the codec caps drops every graph
+    and buffer of the old caps.  On CPU tensors the body runs eagerly:
+    the plain version.  Each device counts one dispatch a tick."""
+
+    site = SHARD_SITE
+
+    def __init__(self, devices, rows: int, capacity: int, plens, lanes: int):
+        self.devices = list(devices)
+        self.rows, self.capacity, self.lanes = rows, capacity, lanes
+        self.plens = list(plens)
+        self.cuda = self.devices[0].type == "cuda"
+        self.idx = [torch.zeros((2, n), dtype=torch.int64, device=d)
+                    for d, n in zip(self.devices, self.plens)]
+        self.val = [torch.zeros((2, n), dtype=torch.float32, device=d)
+                    for d, n in zip(self.devices, self.plens)]
+        self.graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
+        self.inputs: dict[tuple, tuple] = {}  # key -> captured pointers
+        self.outs: dict[tuple, list] = {}  # key -> static outputs
+        self.caps: tuple | None = None
+        self.captures = 0
+        self._words: list[int | None] = [None, None]
+        self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+
+    def parity_of(self, words: torch.Tensor) -> int:
+        """The parity of a tick stepping from ``words`` (shard 0's
+        ``prev``): 0 or 1 for the bucket's two word buffers; a buffer not
+        seen before takes parity 0 and starts a new pair."""
+        p = words.data_ptr()
+        if p in self._words:
+            return self._words.index(p)
+        if self._words[0] is not None and self._words[1] is None:
+            self._words[1] = p
+            return 1
+        self._words = [p, None]
+        return 0
+
+    def load_packet(self, g: int, rows, cols, xv, zv) -> None:
+        """Upload one padded packet of device ``g``'s rows (exactly
+        ``plens[g]`` entries) into its static packet buffer (through
+        pinned memory, without a wait)."""
+        idx, val = AS.packet_arrays(rows, cols, xv, zv)
+        AS.h2d(idx, self.devices[g], out=self.idx[g])
+        AS.h2d(val, self.devices[g], out=self.val[g])
+
+    def key(self, g: int, parity: int, n_shards: int, caps: tuple) -> tuple:
+        """Device ``g``'s graph key."""
+        return (str(self.devices[g]),) + capture_key(
+            self.rows, self.capacity, self.plens[g], parity, n_shards, caps)
+
+    def run(self, parity: int, caps: tuple, xz, steps) -> list:
+        """One fused tick of parity ``parity`` under the codec caps
+        ``caps``: ``xz[g]`` = device g's (x, z) 2-D tensors, ``steps[g]``
+        its shards' :class:`ShardStep`.  Returns, per device, its shards'
+        ``(chunks, streams, scalars)`` (the static buffers on the card).
+        Counts one dispatch a device (the replay, or the eager body on the
+        CPU) and, on the card, one ``aoi_step.cu`` launch a shard."""
+        if caps != self.caps:
+            for k in list(self.graphs):
+                del self.graphs[k]
+            self.inputs.clear()
+            self.outs.clear()
+            self.caps = caps
+        out = []
+        for g in range(len(self.devices)):
+            key = self.key(g, parity, len(steps[g]), caps)
+            DC.record_key(self.site, key)
+            DC.record()
+            args = (*xz[g], self.idx[g], self.val[g], steps[g])
+            if not self.cuda:
+                out.append(shard_body(*args, caps, self.lanes))
+                continue
+            ptrs = tuple(t.data_ptr() for t in _tensors(args))
+            graph = self.graphs.get(key)
+            if graph is None or self.inputs[key] != ptrs:
+                graph = self._capture(g, key, args, caps)
+                self.inputs[key] = ptrs
+            graph.replay()
+            AK.launches["aoi_step"] += len(steps[g])
+            out.append(self.outs[key])
+        return out
+
+    def pool_bytes(self) -> int:
+        """Bytes the graphs' private memory pool holds on the card (0 on
+        the CPU)."""
+        return _pool_bytes(self.pool) if self.cuda else 0
+
+    def _capture(self, g: int, key, args, caps) -> torch.cuda.CUDAGraph:
+        self.graphs.pop(key, None)
+
+        def body():
+            return shard_body(*args, caps, self.lanes)
+
+        def prepare(warm):
+            # the static outputs, shaped by the warm-up's, on the current
+            # stream (outside the graphs' pool)
+            static = self.outs[key] = _like(warm)
+
+            def copied():
+                for dst, src in zip(_tensors(static), _tensors(body())):
+                    dst.copy_(src)
+            return copied
+
+        graph = self.graphs[key] = _capture(self.pool, self.devices[g], body,
+                                            prepare)
+        self.captures += 1
+        return graph

@@ -60,7 +60,7 @@ def _f32(v, xp, like):
 
 def _arange(lo: int, hi: int, xp, like):
     if xp is torch:
-        return torch.arange(lo, hi, device=like.device)
+        return torch.arange(lo, hi, dtype=torch.int64, device=like.device)
     return np.arange(lo, hi)
 
 

@@ -21,6 +21,101 @@ the engine's behavior stays bit-identical.  Exposition (:func:`snapshot`,
 sources that are always on anyway.
 
 ``GW_TELEMETRY=1`` in the environment enables at import.
+
+The catalog: every span and metric name the port's code emits (the
+``telemetry`` gwlint rule holds the code to this table; counters of a
+bucket's ``stats`` not named here are exported as ``aoi.<stat>``).
+
+=============================  =========  ================================
+name                           kind       what it measures
+=============================  =========  ================================
+``tick.seconds``               histogram  whole-tick wall time
+``tick.aoi``                   span       the AOI flush of a tick
+``tick.timers``                span       timers fired by a tick
+``tick.sync``                  span       position syncs of a tick
+``tick.post``                  span       post callbacks of a tick
+``aoi.flush``                  span       one engine flush
+``aoi.dispatch``               span       every bucket's dispatch
+``aoi.harvest``                span       every bucket's harvest
+``aoi.stage``                  span       a sharded tick's staging
+``aoi.kernel``                 span       a step's launch (and the host
+                                          calculator's step)
+``aoi.fused``                  span       a sharded bucket's fused replay
+``aoi.emit``                   span       the native fan-out and publish
+``aoi.interest``               span       the interest stacks' steps
+``aoi.ingest``                 span       one batched movement ingest
+``aoi.evacuate``               span       a lost device's evacuation
+``aoi.migrate``                span       one live migration
+``aoi.migrate.snapshot``       span       a migration's export
+``aoi.migrate.replay``         span       a migration's import
+``aoi.migrate.cover``          span       a double-cover flush
+``aoi.migrate.swap``           span       a migration's swap
+``aoi.cohort.join``            span       a space joining a cohort
+``aoi.cohort.leave``           span       a space leaving a cohort
+``aoi.cohort.demote``          span       a cohort's demotion
+``aoi.buckets``                gauge      live AOI buckets of an engine
+``aoi.cohorts``                gauge      live cohort buckets
+``aoi.cohort_spaces``          gauge      spaces stacked into cohorts
+``aoi.calc_level``             gauge      worst calculator fallback level
+                                          (0 kernel, 1 plain, 2 host)
+``aoi.emit_path``              gauge      worst emit-path fallback level
+``aoi.page_occupancy``         gauge      fullest page pool at harvest
+``aoi.ingest_bytes``           counter    wire bytes the ingest decoded
+``aoi.ingest_batched_frac``    gauge      share of the last ingest batch
+                                          landed by columnar writes
+``interest.steps``             counter    policy-stack evaluations
+``interest.full_evals``        counter    full-cadence evaluations
+``interest.los_pair_evals``    counter    line-of-sight samples evaluated
+``interest.host_steps``        counter    steps redone on the host oracle
+``interest.demotions``         counter    sticky stack demotions
+``ops.dispatches``             counter    device dispatches
+                                          (``ops/dispatch_count``)
+``ops.kernel_launches``        counter    hand-kernel launches
+                                          (``ops/aoi_cuda.launches``)
+``faults.active``              gauge      1 while a fault plan is set
+``faults.fired``               counter    injected faults taken
+``faults.occurrences``         counter    seam crossings
+``ckpt.snapshot``              span       a checkpoint capture's export
+``ckpt.delta``                 span       a capture's dirty diff
+``ckpt.flush``                 span       the writer's drain
+``ckpt.restore``               span       one space's restore
+``ckpt.records``               counter    journal records written
+``ckpt.bytes``                 counter    journal bytes written
+``ckpt.epochs``                counter    epochs whose manifest landed
+``ckpt.torn``                  counter    torn records found at restore
+``ckpt.retries``               counter    ``store.*`` operations retried
+``ckpt.backlog``               gauge      captures queued to the writer
+``ckpt.lag_ticks``             gauge      worst enqueued-minus-durable
+                                          tick gap
+``conn.flush``                 op         a connection's flush
+``disp.route``                 op         the dispatcher routing a packet
+``disp.connected``             gauge      1 while the dispatcher link is
+                                          up
+``disp.attempts``              gauge      failed reconnect attempts
+``disp.backoff_s``             gauge      current reconnect backoff
+``disp.next_retry_in``         gauge      seconds to the next reconnect
+``disp.pending``               gauge      payloads buffered for replay
+``disp.dropped``               counter    payloads dropped on overflow
+``disp.replayed``              counter    payloads replayed on reconnect
+``clu.failover``               span       one host failover
+``clu.failovers``              counter    failovers orchestrated
+``clu.fenced_packets``         counter    stale-epoch packets dropped
+``clu.leases``                 counter    lease renewals accepted
+``clu.replayed_moves``         counter    movement batches replayed
+``clu.metric_sources``         gauge      components whose metrics the
+                                          dispatcher federates
+``game.outbox``                op         a game's client outbox drain
+``gate.client_pkt``            op         a gate handling a client packet
+``storage.op``                 op         an entity-storage operation
+                                          (``utils/opmon``)
+``opmon.count``                counter    operations timed, per name
+``opmon.total_seconds``        counter    their total seconds
+``opmon.peak_seconds``         gauge      their slowest
+``opmon.p50_seconds``          gauge      their median
+``opmon.p99_seconds``          gauge      their 99th percentile
+``load.clients``               gauge      clients of the load harness
+``load.moves``                 counter    movement records it pushed
+=============================  =========  ================================
 """
 
 from __future__ import annotations

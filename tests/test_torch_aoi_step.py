@@ -20,6 +20,7 @@ from goworld_tpu.ops.aoi_pallas import aoi_step_pallas
 from goworld_tpu_torch.ops import aoi_cuda as AK
 from goworld_tpu_torch.ops import aoi_predicate as TP
 from test_aoi_parity import random_walk_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def edge_inputs(s, c, seed, subnormal=False, inf_radius=False):

@@ -37,6 +37,7 @@ from goworld_tpu_torch.engine.checkpoint import (MANIFEST_PREFIX, RECORD_TYPE,
 from goworld_tpu_torch.interest import TieredRatePolicy
 from goworld_tpu_torch.parallel import SpaceMesh
 from goworld_tpu_torch.telemetry import trace
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAP = 256

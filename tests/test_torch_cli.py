@@ -17,6 +17,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "goworld_tpu_torch", "examples", "unity_demo.py")

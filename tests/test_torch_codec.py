@@ -18,6 +18,7 @@ from goworld_tpu.ops.aoi_pallas import aoi_step_pallas
 from goworld_tpu_torch.ops import cadence as CD
 from goworld_tpu_torch.ops import events as TE
 from goworld_tpu_torch.ops.aoi_predicate import words_to_numpy, words_to_torch
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 # the JAX codec jitted (eager mode compiles every primitive anew per shape)

@@ -29,6 +29,7 @@ from goworld_tpu_torch.ops import dispatch_count as DC
 from goworld_tpu_torch.telemetry import trace
 from test_aoi_delta import _pad, _scene, _sparse_step
 from test_cohort_roundtrip import _assert_snap_equal, _snap
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CAPS = (140, 200, 256, 300)  # mixed capacities; the first three share 256
 

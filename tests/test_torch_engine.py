@@ -13,6 +13,7 @@ from goworld_tpu.engine.aoi import AOIEngine as JaxEngine
 from goworld_tpu_torch.engine.aoi import AOIEngine
 from goworld_tpu_torch.ops import aoi_cuda as AK
 from test_aoi_parity import random_walk_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def sparse_walk(seed, cap, n, ticks, frac=0.05):

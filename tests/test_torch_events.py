@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from goworld_tpu.ops import events as JE
 from goworld_tpu_torch.ops import events as TE
 from goworld_tpu_torch.ops.aoi_predicate import words_to_torch
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _grids(s, c, density, seed):

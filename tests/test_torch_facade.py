@@ -20,6 +20,7 @@ import time
 import types
 
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

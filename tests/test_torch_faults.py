@@ -11,8 +11,8 @@ fault counters (``rebuilds``, ``fallbacks``, ``host_ticks``, ``poisoned``,
 ``calc_level``, ``fused_demotions``, ``emit_path``) and of the plans'
 ``fired`` lists: the same plan fires at the same seam occurrences in both
 packages.  The scenarios are ``tests/test_faults.py``'s, plus an emit
-demotion, a fused-tick demotion and the mesh and row-sharded buckets on 8
-virtual CPU shards.  Also here: the port's fault module against the JAX
+demotion, a fused-tick demotion (also on the sharded buckets' fused tick)
+and the mesh and row-sharded buckets on 8 virtual CPU shards.  Also here: the port's fault module against the JAX
 package's, the classifier of device faults, and a freed world.
 """
 
@@ -37,6 +37,7 @@ from goworld_tpu_torch.ops import aoi_cuda as AK
 from goworld_tpu_torch.parallel import SpaceMesh
 
 from test_aoi_delta import _assert_same, _drive, _pad, _scene, _sparse_step
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAULT_KEYS = ("rebuilds", "fallbacks", "host_ticks", "poisoned",
@@ -140,11 +141,19 @@ def test_runtime_installs_into_port_module():
 
 # -- the single-device bucket ------------------------------------------------
 
-def _three(cap=256, **kw):
-    """JAX oracle, JAX tpu bucket and the port's cuda bucket on the CPU."""
+def _three(cap=256, tier=None, **kw):
+    """JAX oracle, JAX tpu bucket and the port's cuda bucket on the CPU;
+    ``tier`` "mesh" or "rowshard": both packages' sharded bucket on 8
+    virtual CPU shards."""
+    jkw, tkw = dict(kw), dict(kw)
+    if tier is not None:
+        jkw["mesh"] = JaxMesh(jax_devices(8))
+        tkw["mesh"] = SpaceMesh(["cpu"] * 8)
+    if tier == "rowshard":
+        jkw["rowshard_min_capacity"] = tkw["rowshard_min_capacity"] = cap
     engines = {"cpu": JaxEngine(default_backend="cpu"),
-               "tpu": JaxEngine(default_backend="tpu", **kw),
-               "port": AOIEngine(device="cpu", **kw)}
+               "tpu": JaxEngine(default_backend="tpu", **jkw),
+               "port": AOIEngine(device="cpu", **tkw)}
     return engines, {k: e.create_space(cap) for k, e in engines.items()}
 
 
@@ -165,6 +174,11 @@ def _three(cap=256, **kw):
      {"emit_path": 2, "rebuilds": 0}),
     # a fault in the fused attempt moves the tick to the unfused flow
     ("aoi.kernel:fail@3", 6, 256, 180, {"fused": True},
+     {"fused_demotions": 1, "calc_level": 0}),
+    # the same on the sharded buckets' fused tick (8 virtual CPU shards)
+    ("aoi.kernel:fail@3", 6, 256, 180, {"fused": True, "tier": "mesh"},
+     {"fused_demotions": 1, "calc_level": 0}),
+    ("aoi.kernel:fail@3", 5, 2048, 300, {"fused": True, "tier": "rowshard"},
      {"fused_demotions": 1, "calc_level": 0}),
 ])
 def test_fault_scenarios_match_jax(plan, ticks, cap, n, kw, want):

@@ -20,6 +20,7 @@ from goworld_tpu_torch.ops import aoi_stage as AS
 from goworld_tpu_torch.ops import dispatch_count as DC
 from goworld_tpu_torch.ops import fused as FZ
 from test_aoi_delta import _pad, _scene, _sparse_step
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CAPS = (256, 512)
 TICKS = 9

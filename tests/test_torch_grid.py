@@ -23,6 +23,7 @@ from goworld_tpu.ops import aoi_predicate as JP
 from goworld_tpu_torch.ops import aoi_grid as TG
 from goworld_tpu_torch.ops import aoi_predicate as TP
 from test_torch_aoi_step import covered_tiles
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CW = 32  # col_words the JAX kernels take in interpret mode
 # the JAX cull table jitted (eager mode compiles every primitive anew)

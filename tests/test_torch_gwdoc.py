@@ -15,6 +15,7 @@ import pytest
 from goworld_tpu.ext.db import gwdoc as jgd
 from goworld_tpu_torch.ext.db import gwdoc as gd
 from test_torch_mongowire import outcome
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FIELDS = ("name", "lv", "tags", "eq.weapon.dmg", "eq", "missing", "_id")
 VALUES = ("bob", "alice", 3, 7, 12, 2.5, None, True, "a", ["a", "b"], [1])

@@ -34,6 +34,7 @@ from goworld_tpu_torch.ops import aoi_oracle as TO
 from goworld_tpu_torch.ops import aoi_predicate as TP
 
 from test_aoi_parity import random_walk_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # inf - inf and NaN inputs warn in numpy; the values are what is tested
 pytestmark = pytest.mark.filterwarnings("ignore::RuntimeWarning")

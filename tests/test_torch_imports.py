@@ -66,9 +66,35 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
                 "examples.chatroom_demo", "examples.nil_game",
                 "examples.test_client", "engine.failover", "ext.db.bson",
                 "ext.db.minimongo", "ext.db.mongowire", "ext.db.gwdoc",
-                "ext.db.mysqlwire", "netutil.kcp", "netutil.websocket"):
+                "ext.db.mysqlwire", "netutil.kcp", "netutil.websocket",
+                "analysis", "analysis.core", "analysis.index",
+                "analysis.host_sync", "analysis.recompile_churn"):
         assert "goworld_tpu_torch." + mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_analysis_imports_no_torch_and_no_goworld_tpu():
+    """The port's linter is stdlib-only: importing every module of
+    ``goworld_tpu_torch.analysis`` loads neither torch nor anything of
+    the JAX package (its own ``analysis/`` included)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import goworld_tpu_torch.analysis as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert int(out[0]) == 18  # the rules, core, index and the CLI
+    loaded = out[1:]
+    assert "goworld_tpu_torch.analysis.fused_dispatch" in loaded
+    bad = [m for m in loaded if _forbidden(m) or m == "torch"
+           or m.startswith("torch.") or m == "numpy"]
+    assert bad == []
 
 
 def test_chip_smoke_imports_no_jax_and_no_goworld_tpu():

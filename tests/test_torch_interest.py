@@ -51,6 +51,7 @@ from goworld_tpu_torch.ops import interest_kernels as K
 from goworld_tpu_torch.parallel import SpaceMesh
 
 from test_interest import COMBOS, TIER1_ENGINE, _walk
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CAP = 128
 ENGINE_CAP = 256

@@ -35,6 +35,7 @@ from goworld_tpu_torch.engine.space import Space
 from goworld_tpu_torch.engine.vector import Vector3
 from goworld_tpu_torch.netutil import Packet
 from goworld_tpu_torch.telemetry import trace
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N = 6
 

@@ -14,6 +14,7 @@ from goworld_tpu_torch.engine.aoi import AOIEngine
 from goworld_tpu_torch.engine.aoi_mesh import _MeshCUDABucket
 from goworld_tpu_torch.ops import aoi_cuda as AK
 from goworld_tpu_torch.parallel import SpaceMesh
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N_DEV = 8
 

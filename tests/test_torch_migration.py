@@ -27,6 +27,7 @@ from goworld_tpu_torch.engine.placement import (MigrationError,
 from goworld_tpu_torch.interest import TeamVisibilityPolicy, TieredRatePolicy
 from goworld_tpu_torch.parallel import SpaceMesh
 from goworld_tpu_torch.telemetry import trace
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TIERS = ("cpu", "cpp", "cuda", "mesh", "rowshard")
 CAP = 256

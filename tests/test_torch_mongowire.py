@@ -21,6 +21,7 @@ from goworld_tpu.storage import backends as jst
 from goworld_tpu_torch.ext.db import bson, mongowire as mw
 from goworld_tpu_torch.kvdb import backends as kv
 from goworld_tpu_torch.storage import backends as st
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SEED = 20260
 

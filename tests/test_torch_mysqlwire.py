@@ -24,6 +24,7 @@ from goworld_tpu_torch.kvdb import backends as kv
 from goworld_tpu_torch.storage import backends as st
 from test_torch_mongowire import (kvdb_script, outcome,
                                   storage_script)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

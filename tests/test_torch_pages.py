@@ -40,6 +40,7 @@ from goworld_tpu_torch.parallel import SpaceMesh
 
 from test_aoi_delta import _pad, _scene, _sparse_step
 from test_aoi_pages import clustered_frames
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 PAGE_KEYS = ("decode_overflow", "page_spills", "page_occupancy")
 FAULT_KEYS = ("rebuilds", "fallbacks", "host_ticks", "poisoned",

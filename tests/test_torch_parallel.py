@@ -17,6 +17,7 @@ from goworld_tpu_torch.ops import aoi_cuda as AK
 from goworld_tpu_torch.ops import aoi_predicate as TP
 from goworld_tpu_torch.parallel import (SpaceMesh, make_sharded_aoi_step,
                                         multichip_devices)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N_DEV = 8
 

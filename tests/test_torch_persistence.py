@@ -32,6 +32,7 @@ from goworld_tpu_torch.kvdb import backends as kv
 from goworld_tpu_torch.kvdb import service as kvs
 from goworld_tpu_torch.storage import backends as st
 from goworld_tpu_torch.storage import service as sts
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BACKENDS = ("filesystem", "sqlite", "redis", "redis_cluster", "mongodb",
             "mysql")

@@ -25,6 +25,7 @@ from goworld_tpu_torch.engine.aoi_rowshard import _RowShardCUDABucket
 from goworld_tpu_torch.ops import aoi_predicate as P
 from goworld_tpu_torch.parallel import SpaceMesh
 from test_aoi_delta import _pad, _scene, _sparse_step
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CAPS = (256, 512)  # two capacities: two buckets for the scheduler
 DEFERRED = {"pipe": {"pipeline": True}, "xt": {"cross_tick": True},

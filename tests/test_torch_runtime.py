@@ -18,6 +18,7 @@ import goworld_tpu_torch.engine.entity as TEnt
 import goworld_tpu_torch.engine.runtime as TRt
 import goworld_tpu_torch.engine.space as TSp
 import goworld_tpu_torch.engine.vector as TVec
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 class World:

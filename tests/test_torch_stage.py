@@ -11,6 +11,7 @@ import torch
 import jax.numpy as jnp
 from goworld_tpu.ops import aoi_stage as JS
 from goworld_tpu_torch.ops import aoi_stage as TS
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [1, 63, 64, 65, 300, 4097])

@@ -40,6 +40,7 @@ from goworld_tpu_torch.telemetry.metrics import (HIST_BOUNDS, Registry,
                                                  Sample, bucket_index)
 from goworld_tpu_torch.utils import crontab, gwlog
 from test_aoi_delta import _assert_same, _drive
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -29,6 +29,7 @@ from goworld_tpu_torch.netutil.packet import Packet
 
 from test_torch_cluster import (package, scene_flow, start_cluster,
                                 stop_cluster)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture()

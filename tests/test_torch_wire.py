@@ -30,6 +30,7 @@ import goworld_tpu_torch.netutil.msgpacker as PM
 import goworld_tpu_torch.proto.msgtypes as PT
 from goworld_tpu.netutil.packet import pack_args as j_pack_args
 from goworld_tpu_torch.netutil.packet import pack_args as p_pack_args
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {"port": PN, "jax": JN}
