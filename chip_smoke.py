@@ -49,8 +49,9 @@ Phases (any failure raises, so the exit code is non-zero):
                 ships a delta packet, a subscription change restages
                 x/z/sub in full (as the JAX bucket does); the ms, stage ms
                 and H2D bytes of each;
- 15. faults  -- phase 4's widths at 1 of its spaces (each host-recovered
-                tick is numpy, about 4 s a space) through FAULT_PLAN (the
+ 15. faults  -- 1 space of phase 4's world at 8192 slots and 5,000
+                entities (a host-recovered tick is numpy, O(slots^2):
+                about 5 s at 16384 slots) through FAULT_PLAN (the
                 plan of scripts/faults_smoke.py), then a second kernel
                 failure (to the host oracle), an emit failure (to the
                 host emit mode), reset_calc_chain() and 3 ticks (1 on
@@ -62,7 +63,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 recovered, level-1, level-2 and back-at-0 ticks;
  15b. sharded faults -- the same plan on the mesh bucket (1 space on 4
                 virtual shards; sequential and cross_tick) and on the
-                row-sharded bucket (one space of 16384 over 4 virtual
+                row-sharded bucket (one space of 8192 over 4 virtual
                 shards), each against its own fault-free run, with the
                 same checks;
  16. routing -- Runtime(aoi_backend="auto") with bench.py's unity1k
@@ -346,9 +347,30 @@ Phases (any failure raises, so the exit code is non-zero):
                 at tick 24: events_lost == 0, every parity flag, the
                 survivor's restore ms and launches, ticks_to_recover and
                 the dispatcher's clu.* counters.
+ 25. sharded cluster -- two port dispatchers, a gate, two games (each
+                one space of phase 22's widths on the card, its NPCs
+                walking every 100 ms) and 32 strict bot clients, each a
+                child process; every client's boot ClusterAccount hands
+                it by GiveClientTo to a ClusterAvatar created on the
+                other game; the avatars move every 100 ms (2 s warm-up,
+                10 s measured); a singleton service and one pubsub
+                subject span both games.  Checks: every handoff lands
+                (the avatar on the other game, at its client's last
+                position; every account destroyed), every client's
+                mirror equals its avatar's row of the device words and
+                of the plain interest_matrix, both games at calc level
+                0 with no recovery, no logged error and a square-kernel
+                launch each, one singleton, both lobbies hear both
+                publications, both dispatchers routed (disp.route on
+                their /debug/metrics).  Login, handoff and move latency,
+                the handoff's legs (its dispatcher's stamps, from
+                --cluster-dispatcher) and how many parked, each game's
+                loop stalls and a profile of its first second with a
+                client, each game's Runtime.tick p50/p99 and launches.
 
 Phases 13-17b and 17d run after phase 5, 17c and 12b after phase 12,
-18-18c then 19-19c, then 20-21, 20d and 14c, then 22, and 23 last.  Every
+18-18c then 19-19c, then 20-21, 20d and 14c, then 22, 23, 24, and 25
+last.  Every
 fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
@@ -359,7 +381,7 @@ are one card's, not a multi-card layout's.  The last lines are
 {"interest": ...} (phases
 18-18c), {"migration": ...} (phases 19-19c), {"cohort": ...} (phases
 20-20c), {"telemetry": ...} (phase 21), {"game": ...} (phase 22),
-{"deploy": ...} (phase 23),
+{"deploy": ...} (phases 23-24), {"cluster": ...} (phase 25),
 {"issue_floor": [...]} (each kernel's SASS instructions
 per pair test, counted with cuobjdump in the libraries this run built,
 and the least time to issue its pair tests at the SM clock read in phase
@@ -386,7 +408,8 @@ card run, 22b's steady window) to the square step, and phase 23's child
 processes too: 23a's game (its two processes around the reload, each
 count read from its /debug/metrics just before the reload and just
 before cli stop; a fresh process counts from 0) and 23b's surviving
-worker (written at its clean exit).
+worker (written at its clean exit), and phase 25's two game processes
+(each zeroed at the go mark and written with its result).
 """
 
 from __future__ import annotations
@@ -400,8 +423,61 @@ import sys
 import time
 import zlib
 
-import numpy as np
-import torch
+
+def cluster_dispatcher_main(a):
+    """One phase-25 dispatcher process (``--cluster-dispatcher``): the
+    port's dispatcher entry (``components.dispatcher.__main__.main``) for
+    ``dispid`` and ``ini``, its handlers of MT_GIVE_CLIENT_TO and
+    MT_NOTIFY_CREATE_ENTITY stamped (``time.monotonic``) before they run:
+    each handoff's target, arrival and whether its target was unknown (so
+    the handoff parks until the target's create notice), and each create
+    notice's arrival.  At SIGTERM the entry returns and the stamps go to
+    ``disp-<dispid>.json``.  It runs before this script's numpy and
+    torch imports (the dispatcher needs neither), so the phase's
+    dispatchers are up in the time the port's own entry takes."""
+    from goworld_tpu_torch.components.dispatcher import __main__ as entry
+    from goworld_tpu_torch.components.dispatcher.service import \
+        DispatcherService as DS
+    from goworld_tpu_torch.proto import msgtypes as MT
+
+    gives, creates = [], {}
+    H = DS._HANDLERS
+    give0, create0 = H[MT.MT_GIVE_CLIENT_TO], H[MT.MT_NOTIFY_CREATE_ENTITY]
+
+    def peek(pkt):
+        r = pkt.rpos
+        eid = pkt.read_entity_id()
+        pkt.rpos = r
+        return eid
+
+    def give(self, peer, pkt):
+        eid = peek(pkt)
+        ei = self.entities.get(eid)
+        gives.append((eid, time.monotonic(), ei is None or ei.game_id == 0))
+        give0(self, peer, pkt)
+
+    def create(self, peer, pkt):
+        creates[peek(pkt)] = time.monotonic()
+        create0(self, peer, pkt)
+
+    H[MT.MT_GIVE_CLIENT_TO] = give
+    H[MT.MT_NOTIFY_CREATE_ENTITY] = create
+    sys.argv = [sys.argv[0], "-dispid", str(a["dispid"]),
+                "-configfile", a["ini"]]
+    rc = entry.main()
+    path = os.path.join(a["dir"], f"disp-{a['dispid']}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({"gives": gives, "creates": {
+            eid: creates.get(eid) for eid, _, _ in gives}}, f)
+    os.replace(path + ".tmp", path)
+    return rc
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--cluster-dispatcher"]:
+    sys.exit(cluster_dispatcher_main(json.loads(sys.argv[2])))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # -- H100 SXM peaks (NVIDIA data sheet): memory rate and f32 rate ------------
 HBM_BYTES_PER_S = 3.35e12
@@ -1251,12 +1327,14 @@ def phase_sub_change(Runtime):
 
 # -- phases 15/16: the fault chains and the host calculators -------------
 
-# phase 15: phase 4's widths with 1 of its 8 spaces (each host-recovered
-# tick is the numpy predicate, about 4 s a space: cut from 2 spaces to
-# keep the script inside its time limit); the plan of
+# phase 15: 1 space of phase 4's world at half its slots and entities
+# (each host-recovered tick is the numpy predicate, O(slots^2): about 5 s
+# at 16384 slots, so the phase went from 2 spaces to 1, then to 8192
+# slots, to keep the script inside its time limit); the plan of
 # scripts/faults_smoke.py, then (added while the run goes, at the seam's
 # next crossing) a second kernel failure and an emit failure
 FAULT_SPACES = 1
+FAULT_PER_SPACE, FAULT_CAPACITY = 5_000, 8192
 FAULT_PLAN = ("seed=7;aoi.h2d:oom@3;aoi.kernel:fail@5;aoi.scalars:poison@7;"
               "aoi.fetch:stall@2:0.001")
 FAULT_TICKS = 9       # a prime tick and 8 walk ticks under FAULT_PLAN
@@ -1302,8 +1380,9 @@ ROUTE_WARMUP, ROUTE_MEASURED = 2, 5
 def fault_run(Runtime, AK, device, mode, plan, spaces=FAULT_SPACES,
               ticks=FAULT_TICKS, resets=1, after=FAULT_AFTER, **rt_kw):
     """Phase 15's schedule on ``Runtime(device=device, fault_plan=plan,
-    **RT_MODES[mode], **rt_kw)`` at ``spaces`` spaces of phase 4's world
-    (one bucket): ``ticks`` ticks
+    **RT_MODES[mode], **rt_kw)`` at ``spaces`` spaces of phase 4's world,
+    each of FAULT_CAPACITY slots and FAULT_PER_SPACE entities (one
+    bucket): ``ticks`` ticks
     (the h2d OOM recovered at the prime tick, the kernel failure at tick
     5 demoting to the plain step, the poisoned count, the stalled fetch),
     a second kernel failure (to the host oracle), an emit failure (to the
@@ -1316,7 +1395,7 @@ def fault_run(Runtime, AK, device, mode, plan, spaces=FAULT_SPACES,
     from goworld_tpu_torch import faults
 
     rt, crc, spaces_l, slots, pos, rng = build_world(
-        Runtime, device, spaces, PER_SPACE, CAPACITY, seed=7,
+        Runtime, device, spaces, FAULT_PER_SPACE, FAULT_CAPACITY, seed=7,
         fault_plan=plan, **RT_MODES[mode], **rt_kw)
     bucket = bucket_of(rt)
     fp = faults.plan()
@@ -1380,7 +1459,8 @@ def phase_sharded_faults(Runtime, AK, SpaceMesh):
     FAULT_AFTER ticks, on the sharded buckets of the card, each against
     its own fault-free run: the mesh bucket (FAULT_SPACES
     spaces on phase 11's 4 virtual shards; sequential and cross_tick) and
-    the row-sharded bucket (one space of CAPACITY over 4 virtual shards;
+    the row-sharded bucket (one space of FAULT_CAPACITY over 4 virtual
+    shards;
     synchronous).  Per-tick CRCs equal to the fault-free run's (shifted by
     one tick under cross_tick), the fault counters, the levels and the
     fired faults as planned, the kernel launched at the level-0 ticks
@@ -1390,7 +1470,7 @@ def phase_sharded_faults(Runtime, AK, SpaceMesh):
     for kind, want in SHARDED_FAULTS.items():
         kw = {"aoi_mesh": SpaceMesh([dev] * 4)}
         if kind == "rowshard":
-            kw["aoi_rowshard_min_capacity"] = CAPACITY
+            kw["aoi_rowshard_min_capacity"] = FAULT_CAPACITY
         free, _tr, free_st, _ = fault_run(
             Runtime, AK, DEV, "sequential", None, want["spaces"],
             SHARDED_FAULT_TICKS, 2, **kw)
@@ -1428,7 +1508,8 @@ def phase_sharded_faults(Runtime, AK, SpaceMesh):
 
 
 def phase_faults(Runtime, AK):
-    """Phase 15: phase 4's widths at 1 space through FAULT_PLAN and the
+    """Phase 15: 1 space of phase 4's world at FAULT_CAPACITY slots and
+    FAULT_PER_SPACE entities through FAULT_PLAN and the
     added faults, sequential and under cross_tick, on the card; the same
     plan sequential on the port's CPU path; the fault-free card run of the
     same world.  Per-tick CRCs: the sequential runs (card, CPU) equal the
@@ -5351,9 +5432,9 @@ class LoopSplit:
     """Times a game loop's parts on the host clock: inbound handling
     (``_handle``), ``Runtime.tick`` (``sync()`` at its end), the outbox
     drain, ``_send_position_syncs`` and ``flush_all``.  An iteration ends
-    at ``flush_all``; ``rows`` keeps each iteration's parts in ms, and
-    with ``probe`` (the kernel's launch count) whether its tick
-    launched the kernel."""
+    at ``flush_all``; ``rows`` keeps each iteration's parts in ms, its
+    end on ``time.monotonic`` (``at``), and with ``probe`` (the kernel's
+    launch count) whether its tick launched the kernel."""
 
     PARTS = ("inbound", "tick", "outbox", "syncs", "flush")
 
@@ -5385,6 +5466,7 @@ class LoopSplit:
                 if part == "flush":
                     row, self.cur = self.cur, dict.fromkeys(self.PARTS, 0.0)
                     row["loop"] = sum(row.values())
+                    row["at"] = time.monotonic()
                     if self.probe:
                         row["launched"], self.launched = self.launched, False
                     self.rows.append(row)
@@ -5505,10 +5587,11 @@ def scripted_run(m, backend, device, tmpdir, spaces, per_space, clients,
             "overflow": overflow}
 
 
-def interest_rows(game, AP):
-    """For every avatar in a smoke space: its row of the device's interest
-    words and of the plain ``interest_matrix`` over the bucket's staged
-    columns, as sets of entity ids.  Runs on the game's logic thread."""
+def interest_rows(game, AP, avatar="SmokeAvatar"):
+    """For every ``avatar`` in a smoke space: its row of the device's
+    interest words and of the plain ``interest_matrix`` over the bucket's
+    staged columns, as sets of entity ids.  Runs on the game's logic
+    thread."""
     out = {}
     for sp in game.smoke_spaces:
         h = sp._aoi_handle
@@ -5522,7 +5605,7 @@ def interest_rows(game, AP):
             return sorted(se[j].id for j in np.nonzero(row)[0])
 
         for e in list(sp.entities):
-            if e.type_name == "SmokeAvatar":
+            if e.type_name == avatar:
                 i = e.aoi_slot
                 out[e.id] = {
                     "device": ids(AP.unpack_rows(words[i:i + 1],
@@ -5695,12 +5778,91 @@ class LatencyProbe:
                 "moves_ingested": len(a), "moves_sent": len(moves)}
 
 
+def mark_at(d, name):
+    """Write the empty mark file ``<name>.mark`` in the directory ``d``
+    (how a phase and its child processes signal each other)."""
+    with open(os.path.join(d, f"{name}.mark"), "w"):
+        pass
+
+
+def marked_at(d, name):
+    return os.path.exists(os.path.join(d, f"{name}.mark"))
+
+
+def wait_until(pred, what, step=time.sleep, timeout=GAME_WAIT_S):
+    """Call ``step(0.01)`` until ``pred`` holds; raise when ``timeout``
+    seconds pass first (a child process's wait: the phase reads its log)."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what}: timed out")
+        step(0.01)
+
+
+class Children:
+    """A phase's child processes (``python`` with the checkout on the
+    PYTHONPATH), each logging to ``<name>.log`` in a temporary directory
+    that also holds the phase's marks.  ``wait_for`` fails the phase
+    ``tag`` with the children's log tails when one of them exits or the
+    wait times out; ``close`` kills what still runs."""
+
+    def __init__(self, tag):
+        import tempfile
+
+        self.tag = tag
+        self._tmpd = tempfile.TemporaryDirectory()
+        self.tmp = self._tmpd.name
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=self.root + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.procs, self.files = {}, {}
+
+    def path(self, name):
+        return os.path.join(self.tmp, name)
+
+    def spawn(self, name, args):
+        self.files[name] = open(self.path(f"{name}.log"), "w+")
+        self.procs[name] = subprocess.Popen(
+            [sys.executable, *args], cwd=self.root, env=self.env,
+            stdout=self.files[name], stderr=subprocess.STDOUT)
+
+    def text(self, name):
+        with open(self.path(f"{name}.log")) as f:
+            return f.read()
+
+    def wait_for(self, pred, what, timeout=GAME_WAIT_S):
+        """Poll ``pred`` until it holds."""
+        deadline = time.monotonic() + timeout
+        while not pred():
+            gone = [k for k, p in self.procs.items() if p.poll() is not None]
+            if gone or time.monotonic() >= deadline:
+                logs = "".join(f"\n--- {k}: {self.text(k)[-1500:]}"
+                               for k in (gone or self.procs))
+                check(False, f"{self.tag}: {what}: " + (
+                    f"{gone} exited" if gone else "timed out") + logs)
+            time.sleep(0.01)
+
+    def mark(self, name):
+        mark_at(self.tmp, name)
+
+    def marked(self, name):
+        return marked_at(self.tmp, name)
+
+    def close(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.files.values():
+            f.close()
+        self._tmpd.cleanup()
+
+
 def phase_game_live(AK):
     """22b: the port's dispatcher and gate as child processes, the game
     in this process on the card, 256 bot clients in GAME_BOT_PROCS more
     children."""
     import signal
-    import tempfile
 
     from goworld_tpu_torch.ops import aoi_predicate as AP
     from goworld_tpu_torch.utils import gwlog
@@ -5714,50 +5876,19 @@ def phase_game_live(AK):
     # frames)
     check(compress.new_compressor("gwlz").name == "gwlz",
           "22b: libgwlz.so did not load")
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    procs, files = {}, {}
-    tmpd = tempfile.TemporaryDirectory()
-    tmp = tmpd.name
+    ch = Children("22b")
+    tmp, procs, wait_for = ch.tmp, ch.procs, ch.wait_for
     disp_port, gate_port = free_port(), free_port()
-    ini = os.path.join(tmp, "goworld.ini")
+    ini = ch.path("goworld.ini")
     with open(ini, "w") as f:
         f.write(game_ini("cuda", DEV, disp_port, gate_port))
 
-    def spawn(name, args):
-        files[name] = open(os.path.join(tmp, f"{name}.log"), "w+")
-        procs[name] = subprocess.Popen(
-            [sys.executable, *args], cwd=root, env=env,
-            stdout=files[name], stderr=subprocess.STDOUT)
-
-    def logged(name, tag):
-        with open(os.path.join(tmp, f"{name}.log")) as f:
-            return tag in f.read()
-
-    def tail(name):
-        with open(os.path.join(tmp, f"{name}.log")) as f:
-            return f.read()[-3000:]
-
-    def wait_for(pred, what, timeout=GAME_WAIT_S):
-        """Poll ``pred`` until it holds; a child's exit or the timeout
-        fails the phase with the children's log tails."""
-        deadline = time.monotonic() + timeout
-        while not pred():
-            gone = [k for k, p in procs.items() if p.poll() is not None]
-            late = time.monotonic() >= deadline
-            if gone or late:
-                logs = "".join(f"\n--- {k}: {tail(k)[-1500:]}"
-                               for k in (gone or procs))
-                check(False, f"22b: {what}: " + (
-                    f"{gone} exited" if gone else "timed out") + logs)
-            time.sleep(0.01)
-
     game = errors = split = None
     try:
-        spawn("dispatcher", ["-m", "goworld_tpu_torch.components.dispatcher",
-                             "-dispid", "1", "-configfile", ini])
-        wait_for(lambda: logged("dispatcher", gwlog.READY_TAG),
+        ch.spawn("dispatcher", [
+            "-m", "goworld_tpu_torch.components.dispatcher", "-dispid", "1",
+            "-configfile", ini])
+        wait_for(lambda: gwlog.READY_TAG in ch.text("dispatcher"),
                  "dispatcher ready")
         gwlog.setup("warning")
         cfg = m.config.load(ini)
@@ -5777,16 +5908,16 @@ def phase_game_live(AK):
                           lambda: AK.launches["aoi_step"])
         probe = LatencyProbe(game)
         game.start()
-        spawn("gate", ["-m", "goworld_tpu_torch.components.gate",
-                       "-gateid", "1", "-configfile", ini])
-        wait_for(lambda: logged("gate", gwlog.READY_TAG), "gate ready")
+        ch.spawn("gate", ["-m", "goworld_tpu_torch.components.gate",
+                          "-gateid", "1", "-configfile", ini])
+        wait_for(lambda: gwlog.READY_TAG in ch.text("gate"), "gate ready")
         wait_for(lambda: game.deployment_ready, "deployment ready")
         check(SPACES % GAME_BOT_PROCS == 0, "22b: spaces per bot process")
         n = SPACES * GAME_CLIENTS
         share = n // GAME_BOT_PROCS
         bots_k = [f"bots{k}" for k in range(GAME_BOT_PROCS)]
         for k, name in enumerate(bots_k):
-            spawn(name, [os.path.abspath(__file__), "--bots", json.dumps({
+            ch.spawn(name, [os.path.abspath(__file__), "--bots", json.dumps({
                 "gate": ["127.0.0.1", gate_port], "proc": k,
                 "first": k * share, "count": share, "spaces": SPACES,
                 "per_space": GAME_CLIENTS, "seed": 12, "world": WORLD,
@@ -5798,8 +5929,7 @@ def phase_game_live(AK):
                        for k in range(GAME_BOT_PROCS))
 
         wait_for(lambda: marks("joined"), "bots joined")
-        with open(os.path.join(tmp, "go.mark"), "w"):
-            pass
+        ch.mark("go")
         wait_for(lambda: marks("steady"), "bots warm")
         bucket = bucket_of(game.rt)
         overflow0 = bucket.stats["decode_overflow"]
@@ -5842,12 +5972,12 @@ def phase_game_live(AK):
         game.rt.post.post(lambda: got.append(interest_rows(game, AP)))
         wait_for(lambda: got, "interest rows")
         rows = got[0]
-        with open(os.path.join(tmp, "snap.mark"), "w"):
-            pass
+        ch.mark("snap")
         bots = []
         for k, name in enumerate(bots_k):
             rc = procs[name].wait(timeout=GAME_WAIT_S)
-            check(rc == 0, f"22b: {name} exited {rc}: {tail(name)}")
+            check(rc == 0, f"22b: {name} exited {rc}: "
+                  f"{ch.text(name)[-3000:]}")
             with open(os.path.join(tmp, f"result-{k}.mark")) as f:
                 bots.append(json.load(f))
             bots[-1]["lat"] = np.load(os.path.join(tmp,
@@ -5863,22 +5993,17 @@ def phase_game_live(AK):
         for name in ("gate", "dispatcher"):
             procs[name].send_signal(signal.SIGTERM)
             rc = procs[name].wait(timeout=GAME_WAIT_S)
-            check(rc == 0, f"22b: {name} exited {rc} on SIGTERM: {tail(name)}")
+            check(rc == 0, f"22b: {name} exited {rc} on SIGTERM: "
+                  f"{ch.text(name)[-3000:]}")
         for name in procs:
-            check(not logged(name, "falling back to flate"),
+            check("falling back to flate" not in ch.text(name),
                   f"22b: {name} fell back to flate")
     finally:
         if game is not None:
             game.stop(save=False)
         if split is not None:
             split.restore()
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in files.values():
-            f.close()
-        tmpd.cleanup()
+        ch.close()
     check(errors.n == 0, f"22b: the game logged {errors.n} errors: "
           f"{errors.last}")
     errors.close()
@@ -5923,6 +6048,71 @@ def phase_game_live(AK):
     return out
 
 
+class BotPump:
+    """Serves many clients of one bot process from its one thread:
+    ``pump`` reads the sockets select finds readable (one recv each, so
+    none blocks: a client's ``poll()`` would wait out its socket timeout
+    after the data) and handles their frames, then calls ``after``;
+    ``until`` pumps until a predicate holds; ``drive`` moves every client
+    each 100 ms; ``settle`` keeps the clients alive until the parent's
+    snap mark and drains the wire."""
+
+    def __init__(self, bots, tag, after=None):
+        self.bots = bots
+        self.by_fd = {c.pc._sock.fileno(): c for c in bots}
+        self.tag, self.after = tag, after
+
+    def pump(self, timeout):
+        import select
+
+        r, _, _ = select.select(list(self.by_fd), [], [], timeout)
+        for fd in r:
+            c = self.by_fd[fd]
+            data = c.pc._sock.recv(65536)
+            if not data:
+                c.closed = True
+                continue
+            for pkt in c.pc._parser.feed(data):
+                c._handle(pkt)
+        if self.after is not None:
+            self.after()
+        return len(r)
+
+    def until(self, pred, what):
+        wait_until(pred, f"{self.tag}: {what}", self.pump)
+
+    def drive(self, seconds, move):
+        """For ``seconds``, call ``move(i)`` for client ``i`` every 100 ms
+        (the clients staggered over the period), pumping in between."""
+        n, period = len(self.bots), 0.1
+        t0 = time.perf_counter()
+        nxt = t0 + np.arange(n) * (period / n)
+        while True:
+            now = time.perf_counter()
+            if now >= t0 + seconds:
+                return
+            for i in np.nonzero(nxt <= now)[0]:
+                move(i)
+                nxt[i] += period
+            self.pump(max(0.0, min(0.005, float(nxt.min()) - now)))
+
+    def settle(self, d):
+        """Pump, with a heartbeat from every client each 5 s, until the
+        parent's ``snap`` mark shows in ``d``; then until the wire has
+        been quiet for a second."""
+        beat = time.monotonic()
+        while not marked_at(d, "snap"):
+            self.pump(0.01)
+            if time.monotonic() - beat > 5.0:
+                for c in self.bots:
+                    c.heartbeat()
+                beat = time.monotonic()
+        quiet = time.monotonic()
+        while time.monotonic() - quiet < 1.0:
+            if self.pump(0.05):
+                quiet = time.monotonic()
+
+
 def bots_main(a):
     """One 22b bot process: the clients ``first`` to ``first + count`` (whole
     spaces, so a move and its neighbors' mirrors share the process)
@@ -5930,8 +6120,6 @@ def bots_main(a):
     and stop; after the parent's snap mark they drain the wire, and the
     process reports each client's mirror set, the wire counts, and on
     ``time.monotonic`` its moves and its mirror updates of them."""
-    import select
-
     from goworld_tpu_torch.client import GameClientConnection
     from goworld_tpu_torch.proto import msgtypes as MT
 
@@ -5939,7 +6127,7 @@ def bots_main(a):
     lo, pos = client_patches(a["spaces"], per, a["seed"], a["world"])
     lo, pos = lo[first:first + n], pos[first:first + n]
     rng = np.random.default_rng((a["seed"], first))
-    mark = os.path.join(a["dir"], "{}" + f"-{a['proc']}.mark")
+    tmp, proc = a["dir"], a["proc"]
     wire = {"rx_packets": 0, "rx_bytes": 0, "tx_packets": 0, "tx_bytes": 0}
     sent, moves, receipts = {}, [], []
     measure = [False]
@@ -5963,17 +6151,6 @@ def bots_main(a):
             return getattr(self._s, k)
 
     class Bot(GameClientConnection):
-        def read_ready(self):
-            """One recv on a socket select found readable (so it does not
-            block), its frames handled: poll() would wait out a socket
-            timeout after the data, per client."""
-            data = self.pc._sock.recv(65536)
-            if not data:
-                self.closed = True
-                return
-            for pkt in self.pc._parser.feed(data):
-                self._handle(pkt)
-
         def _handle(self, pkt):
             wire["rx_packets"] += 1
             b = pkt.buf
@@ -5995,20 +6172,8 @@ def bots_main(a):
         c.pc._sock.settimeout(None)
         c.pc._sock = CountingSock(c.pc._sock)
         bots.append(c)
-    by_fd = {c.pc._sock.fileno(): c for c in bots}
-
-    def pump(timeout):
-        r, _, _ = select.select(list(by_fd), [], [], timeout)
-        for fd in r:
-            by_fd[fd].read_ready()
-        return len(r)
-
-    def until(pred, what):
-        deadline = time.monotonic() + GAME_WAIT_S
-        while not pred():
-            if time.monotonic() > deadline:
-                raise RuntimeError(f"bots: {what}: timed out")
-            pump(0.01)
+    bp = BotPump(bots, "bots")
+    until = bp.until
 
     until(lambda: all(c.player is not None for c in bots), "boot entities")
     for i, c in enumerate(bots):
@@ -6018,56 +6183,30 @@ def bots_main(a):
     eid_bytes = [c.player.id.encode() for c in bots]
     eid_arr = np.array(eid_bytes, "S16")
     idx_of = {e: first + i for i, e in enumerate(eid_bytes)}
-    with open(mark.format("joined"), "w"):
-        pass
-    until(lambda: os.path.exists(os.path.join(a["dir"], "go.mark")),
-          "the parent's go")
+    mark_at(tmp, f"joined-{proc}")
+    until(lambda: marked_at(tmp, "go"), "the parent's go")
 
-    def drive(seconds):
-        period = 0.1
-        t0 = time.perf_counter()
-        nxt = t0 + np.arange(n) * (period / n)
-        end = t0 + seconds
-        while True:
-            now = time.perf_counter()
-            if now >= end:
-                return
-            for i in np.nonzero(nxt <= now)[0]:
-                q = pos[i] + rng.uniform(-STEP, STEP, 2)
-                pos[i] = np.clip(q, lo[i], lo[i] + GAME_PATCH)
-                x, z = (float(v) for v in pos[i])
-                if measure[0]:
-                    t = time.monotonic()
-                    sent[(eid_bytes[i], x, z)] = t
-                    moves.append((first + i, x, z, t))
-                bots[i].send_position(x, 0.0, z)
-                nxt[i] += period
-            pump(max(0.0, min(0.005, float(nxt.min()) - now)))
+    def move(i):
+        q = pos[i] + rng.uniform(-STEP, STEP, 2)
+        pos[i] = np.clip(q, lo[i], lo[i] + GAME_PATCH)
+        x, z = (float(v) for v in pos[i])
+        if measure[0]:
+            t = time.monotonic()
+            sent[(eid_bytes[i], x, z)] = t
+            moves.append((first + i, x, z, t))
+        bots[i].send_position(x, 0.0, z)
 
-    drive(a["warm_s"])
-    with open(mark.format("steady"), "w"):
-        pass
+    bp.drive(a["warm_s"], move)
+    mark_at(tmp, f"steady-{proc}")
     w0 = dict(wire)
     t0 = time.perf_counter()
     measure[0] = True
-    drive(a["steady_s"])
+    bp.drive(a["steady_s"], move)
     measure[0] = False
     dt = time.perf_counter() - t0
     w1 = dict(wire)
-    with open(mark.format("stopped"), "w"):
-        pass
-    last_hb = time.monotonic()
-    snap = os.path.join(a["dir"], "snap.mark")
-    while not os.path.exists(snap):
-        pump(0.01)
-        if time.monotonic() - last_hb > 5.0:
-            for c in bots:
-                c.heartbeat()
-            last_hb = time.monotonic()
-    quiet = time.monotonic()
-    while time.monotonic() - quiet < 1.0:
-        if pump(0.05):
-            quiet = time.monotonic()
+    mark_at(tmp, f"stopped-{proc}")
+    bp.settle(tmp)
     check(not any(c.closed for c in bots), "bots: a client was disconnected")
     ot = os.times()
     result = {
@@ -6077,13 +6216,13 @@ def bots_main(a):
         "cpu_s": ot.user + ot.system,
         "players": [c.player.id for c in bots],
         "anomalies": [c.anomalies for c in bots if c.anomalies][:5]}
-    np.savez(os.path.join(a["dir"], f"latency-{a['proc']}.npz"),
+    np.savez(os.path.join(tmp, f"latency-{proc}.npz"),
              moves=np.array(moves, np.float64).reshape(-1, 4),
              receipts=np.array(receipts, np.float64).reshape(-1, 4))
-    tmp = mark.format("result") + ".tmp"
-    with open(tmp, "w") as f:
+    path = os.path.join(tmp, f"result-{proc}.mark")
+    with open(path + ".tmp", "w") as f:
         json.dump(result, f)
-    os.replace(tmp, mark.format("result"))
+    os.replace(path + ".tmp", path)
     for c in bots:
         c.close()
     return 0
@@ -6770,6 +6909,593 @@ def phase_deploy_wire():
     return out
 
 
+# -- phase 25: the sharded cluster (two dispatchers, two games) ---------------
+
+# phase 25: two port dispatchers, one gate and two games as child
+# processes; each game hosts one space of phase 22's widths (CAPACITY
+# slots, PER_SPACE - GAME_CLIENTS NPCs walking every 100 ms) ticking its
+# AOI on the card.  CLUSTER_BOTS strict clients in one more child log in
+# to a boot ClusterAccount, which hands its client by GiveClientTo to a
+# ClusterAvatar that the lobby of the *other* game creates in its space,
+# in a GAME_PATCH patch a game; the avatars then move every 100 ms for
+# CLUSTER_WARM_S, then CLUSTER_STEADY_S measured.  A ClusterCounter
+# singleton service and one pubsub subject (a wildcard subscriber on
+# game 1, an exact one on game 2, each game publishing once) span both.
+CLUSTER_BOTS = 32
+CLUSTER_WARM_S, CLUSTER_STEADY_S = 2.0, 10.0
+CLUSTER_SEED = 25
+CLUSTER_SUBJECT = "smoke.hello"
+CLUSTER_SUBS = {1: "smoke.*", 2: CLUSTER_SUBJECT}
+# a stall: a game's loop iteration before the steady window that took
+# longer (ms)
+SLOW_MS = 50.0
+
+
+def cluster_ini(disps, gate, device):
+    """Two dispatchers (``disps``: their (port, http_port)), two games
+    booting a ClusterAccount on ``device``'s step kernel, one gate."""
+    lines = ["[deployment]", "dispatchers = 2", "games = 2", "gates = 1", ""]
+    for i, (port, http) in enumerate(disps, 1):
+        lines += [f"[dispatcher{i}]", "host = 127.0.0.1", f"port = {port}",
+                  f"http_port = {http}", ""]
+    return "\n".join(lines + [
+        "[game_common]", "boot_entity = ClusterAccount",
+        "aoi_backend = cuda", f"aoi_device = {device}",
+        "save_interval_s = 0", "",
+        "[gate1]", "host = 127.0.0.1", f"port = {gate}", ""])
+
+
+def cluster_types(m, seen):
+    """Phase 25's entity types over the engine of ``m``: the scene and the
+    NPC of phase 22, the boot account, the avatar, the lobby (one a game)
+    and the singleton service.  ``seen`` collects the avatars' creation
+    and the accounts' give stamps (``time.monotonic``), the accounts'
+    deaths and the lobby's pubsub receipts."""
+    scene, npc, _ = game_types(m)
+
+    class ClusterAccount(m.Entity):
+        @m.rpc(expose=m.OWN_CLIENT)
+        def handoff(self, k):
+            game = self._runtime().game
+            game.call_entity(game.srvmap[f"lobby{3 - game.id}"],
+                             "make_avatar", self.id, k)
+
+        @m.rpc
+        def give_to(self, avatar_id):
+            seen["given"].append((avatar_id, time.monotonic()))
+            self.give_client_to(avatar_id)
+
+        def on_client_disconnected(self):
+            seen["accounts_dead"] += 1
+            self.destroy()
+
+    class ClusterAvatar(m.Entity):
+        use_aoi = True
+        aoi_distance = RADIUS
+        client_attrs = frozenset({"lx", "lz"})
+
+        def on_created(self):
+            self.set_client_syncing(True)
+
+        def on_client_disconnected(self):
+            self.destroy()
+
+    class ClusterLobby(m.Entity):
+        @m.rpc
+        def make_avatar(self, account_id, k):
+            game = self._runtime().game
+            lo = game.cluster_patch
+            rng = np.random.default_rng((CLUSTER_SEED, k))
+            x, z = (float(v) for v in (lo + rng.uniform(
+                0, GAME_PATCH, 2)).astype(np.float32))
+            av = game.rt.entities.create(
+                "ClusterAvatar", space=game.smoke_spaces[0],
+                pos=m.Vector3(x, 0.0, z))
+            seen["created"].append((av.id, time.monotonic()))
+            av.attrs.set("lx", float(lo[0]))
+            av.attrs.set("lz", float(lo[1]))
+            game.call_entity(account_id, "give_to", av.id)
+
+        @m.rpc
+        def on_published(self, subject, *args):
+            seen["heard"].append([subject, list(args)])
+
+    class ClusterCounter(m.Entity):
+        pass
+
+    return (scene, npc, ClusterAccount, ClusterAvatar, ClusterLobby), \
+        ClusterCounter
+
+
+def profile_first_ticks(game, since, window=1.0, top=10):
+    """Profile (cProfile) the ticks of ``game`` in the ``window`` seconds
+    from the first tick at which ``since()`` holds; returns a dict that
+    then holds the slowest of them: its ms and its ``top`` calls of the
+    port and of numpy by cumulative ms.  Phase 25 profiles the second
+    after a game's first handoff lands: its avatar takes the client, and
+    the space of plain NPCs subscribes to the event stream; the other
+    ticks run unprofiled."""
+    import cProfile
+    import pstats
+
+    timed, start = game.rt.tick, []
+    worst = {"ms": 0.0, "top": []}
+
+    def tick(*args, **kw):
+        if not start and since():
+            start.append(time.monotonic())
+        if not start or time.monotonic() - start[0] > window:
+            return timed(*args, **kw)
+        pr = cProfile.Profile()
+        t0 = time.perf_counter()
+        pr.enable()
+        try:
+            return timed(*args, **kw)
+        finally:
+            pr.disable()
+            ms = (time.perf_counter() - t0) * 1e3
+            if ms > worst["ms"]:
+                calls = sorted(
+                    (v[3] * 1e3, f"{os.path.basename(f)}:{line}({fn})")
+                    for (f, line, fn), v in pstats.Stats(pr).stats.items()
+                    if "goworld_tpu_torch" in f or "numpy" in f)
+                worst.update(ms=ms, top=[[c, t] for t, c in
+                                         calls[::-1][:top]])
+
+    game.rt.tick = tick
+    return worst
+
+
+def cluster_game_main(a):
+    """One phase-25 game process (``--cluster-game``): the game ``gid`` of
+    ``ini`` with its space, NPC walk, lobby and services; each tick timed
+    (a sync at its end) with whether it launched the square kernel.  The
+    launch count is zeroed at the parent's go mark; after the bots'
+    stopped mark the NPCs stop, the clients' last moves are drained and
+    the avatars' interest rows read on the logic thread; the result goes
+    to ``result-<gid>.json``, with the stamps of each avatar's creation,
+    each account's give and each handoff's arrival, the loop iterations
+    before the steady window that took over SLOW_MS (their parts,
+    ``LoopSplit``) and the profile of the ticks after the first handoff's
+    arrival (``profile_first_ticks``); the game stops at the exit
+    mark."""
+    from goworld_tpu_torch.ext.pubsub import PublishSubscribeService
+    from goworld_tpu_torch.ops import aoi_cuda as AK
+    from goworld_tpu_torch.ops import aoi_predicate as AP
+    from goworld_tpu_torch.proto import msgtypes as MT
+    from goworld_tpu_torch.services import ServiceManager
+    from goworld_tpu_torch.utils import gwlog
+
+    gid, tmp = a["gid"], a["dir"]
+
+    def until(pred, what):
+        wait_until(pred, f"game{gid}: {what}")
+
+    def marked(name):
+        return marked_at(tmp, name)
+
+    def on_logic(fn):
+        box = []
+        game.rt.post.post(lambda: box.append(fn()))
+        until(lambda: box, fn.__name__)
+        return box[0]
+
+    m = port_game_mods()
+    m.telemetry.disable()
+    gwlog.setup("warning")
+    game = m.GameService(gid, m.config.load(a["ini"]), freeze_dir=tmp)
+    seen = {"created": [], "given": [], "received": [], "heard": [],
+            "accounts_dead": 0}
+    types, counter = cluster_types(m, seen)
+    # the handoff's arrival here, stamped before the handler runs
+    give0 = m.GameService._HANDLERS[MT.MT_GIVE_CLIENT_TO]
+
+    def give_in(self, pkt):
+        r = pkt.rpos
+        seen["received"].append((pkt.read_entity_id(), time.monotonic()))
+        pkt.rpos = r
+        give0(self, pkt)
+
+    m.GameService._HANDLERS[MT.MT_GIVE_CLIENT_TO] = give_in
+    for cls in types:
+        game.register_entity_type(cls)
+    services = ServiceManager(game)
+    services.register(counter)
+    services.register(PublishSubscribeService)
+    services.setup()
+    build_game_world(game, m, 1, a["per_space"], a["clients"],
+                     a["capacity"], a["world"], seed=CLUSTER_SEED + gid)
+    game.cluster_patch = client_patches(2, 1, CLUSTER_SEED,
+                                        a["world"])[0][gid - 1]
+    walk = NpcWalk(game.smoke_spaces, CLUSTER_SEED + gid, a["world"])
+    interval = game.gcfg.position_sync_interval_ms / 1000.0
+    walk_tid = game.rt.timers.add(interval, walk, repeat=True,
+                                  interval=interval)
+    sync = torch.cuda.synchronize if a["device"] != "cpu" else (lambda: None)
+    bucket = bucket_of(game.rt)
+    ticks = LoopSplit(game, sync, lambda: AK.launches["aoi_step"]).rows
+    first = profile_first_ticks(game, lambda: bool(seen["received"]))
+    errors = ErrorCount(game.log)
+    probe = LatencyProbe(game)
+    game.start()
+    try:
+        until(lambda: game.deployment_ready, "deployment ready")
+
+        def make_lobby():
+            lobby = game.rt.entities.create("ClusterLobby")
+            game.declare_service(f"lobby{gid}", lobby.id)
+            return lobby.id
+
+        lobby = on_logic(make_lobby)
+        until(lambda: all(f"lobby{g}" in game.srvmap for g in (1, 2))
+              and services.service_entity_id("PublishSubscribeService")
+              and services.service_entity_id("ClusterCounter"),
+              "the lobbies and services")
+        mark_at(tmp, f"ready-{gid}")
+        until(lambda: marked("go"), "the parent's go")
+        AK.reset_launches()
+        until(lambda: marked("steady"), "the bots' steady window")
+        i0 = len(ticks)
+        # the services were claimed seconds ago: their entities exist now
+        on_logic(lambda: services.call_service(
+            "PublishSubscribeService", "subscribe", lobby, CLUSTER_SUBS[gid]))
+        until(lambda: marked("stopped"), "the bots' stop")
+        i1 = len(ticks)
+        # the subscriptions landed in the 10 s window
+        on_logic(lambda: services.call_service(
+            "PublishSubscribeService", "publish", CLUSTER_SUBJECT, gid))
+        on_logic(lambda: game.rt.timers.cancel(walk_tid))
+        quiet = {"last": probe.last, "tick": game.rt.tick_count}
+
+        def drained():
+            if probe.last != quiet["last"]:
+                quiet.update(last=probe.last, tick=game.rt.tick_count)
+            return (time.monotonic() - probe.last > GAME_DRAIN_S
+                    and game.rt.tick_count >= quiet["tick"]
+                    + GAME_QUIET_TICKS)
+
+        until(drained, "the clients' last moves")
+        until(lambda: len(seen["heard"]) >= 2, "both publications")
+
+        def state():
+            em = game.rt.entities
+            sp = game.smoke_spaces[0]
+            return {
+                "rows": interest_rows(game, AP, "ClusterAvatar"),
+                "positions": {e.id: [e.position.x, e.position.z]
+                              for e in sp.entities
+                              if e.type_name == "ClusterAvatar"},
+                "accounts": len(em.by_type.get("ClusterAccount", ())),
+                "counters": len(em.by_type.get("ClusterCounter", ())),
+                "counter_id": services.service_entity_id("ClusterCounter"),
+                "stats": dict(bucket.stats)}
+
+        out = on_logic(state)
+        launches = AK.launches["aoi_step"]
+        steady = np.array([r["tick"] for r in ticks[i0:i1]] or [0.0])
+        out.update(
+            gid=gid, launches=launches,
+            ticks_steady=i1 - i0,
+            ticks_launched=sum(r["launched"] for r in ticks[i0:i1]),
+            slow_loops=[r for r in ticks[:i0] if r["loop"] > SLOW_MS],
+            first_ticks=first,
+            tick_ms={"p50": float(np.percentile(steady, 50)),
+                     "p99": float(np.percentile(steady, 99)),
+                     "mean": float(steady.mean())},
+            created=seen["created"], given=seen["given"],
+            received=seen["received"], heard=seen["heard"],
+            accounts_dead=seen["accounts_dead"], errors=errors.n,
+            last_error=errors.last)
+        path = os.path.join(tmp, f"result-{gid}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+        until(lambda: marked("exit"), "the parent's exit")
+    finally:
+        game.stop(save=False)
+        errors.close()
+    return 0
+
+
+def cluster_bots_main(a):
+    """Phase 25's bot process (``--cluster-bots``): ``count`` strict
+    clients log in (login ms: the connect to the boot account's create),
+    call ``handoff`` and wait for their player to become the avatar (the
+    switch stamped on ``time.monotonic``), read their patch, move every
+    100 ms through the warm-up (then the ``steady`` mark) and the
+    measured window (then ``stopped``), stamping each move and every
+    other client's mirror update of it; after the parent's snap mark they
+    drain the wire, and the process reports each client's mirror, its
+    last position sent, the switch stamps, login and move latency."""
+    from goworld_tpu_torch.client import GameClientConnection
+    from goworld_tpu_torch.proto import msgtypes as MT
+
+    tmp, n = a["dir"], a["count"]
+    rec = LatencyProbe.REC
+    sent, lat = {}, []
+    measure = [False]
+
+    class Bot(GameClientConnection):
+        def _handle(self, pkt):
+            b = pkt.buf
+            if measure[0] and int.from_bytes(b[:2], "little") == \
+                    MT.MT_SYNC_POSITION_YAW_ON_CLIENTS:
+                now = time.monotonic()
+                for r in np.frombuffer(bytes(b[2:]), rec).tolist():
+                    t = sent.get((r[0], r[1], r[3]))
+                    if t is not None:
+                        lat.append(now - t)
+            super()._handle(pkt)
+
+    bots, t_conn = [], []
+    for _ in range(n):
+        t_conn.append(time.monotonic())
+        c = Bot(tuple(a["gate"]), strict=True)
+        c.pc._sock.settimeout(None)
+        bots.append(c)
+    stamps = {"login": [None] * n, "switch": [None] * n}
+
+    def stamp():
+        now = time.monotonic()
+        for i, c in enumerate(bots):
+            p = c.player
+            if p is not None and stamps["login"][i] is None:
+                stamps["login"][i] = now
+            if p is not None and p.type_name == "ClusterAvatar" \
+                    and stamps["switch"][i] is None:
+                stamps["switch"][i] = now
+
+    bp = BotPump(bots, "cluster bots", stamp)
+    until = bp.until
+
+    until(lambda: all(s is not None for s in stamps["login"]), "logins")
+    accounts = [c.player.id for c in bots]
+    for i, c in enumerate(bots):
+        c.call_player("handoff", i)
+    until(lambda: all(s is not None for s in stamps["switch"]), "handoffs")
+    avatars = [c.player.id for c in bots]
+    eids = [e.encode() for e in avatars]
+    lo = np.array([[c.player.attrs.get("lx"), c.player.attrs.get("lz")]
+                   for c in bots], np.float32)
+    pos = np.array([[c.player.position[0], c.player.position[2]]
+                    for c in bots], np.float32)
+    rng = np.random.default_rng(CLUSTER_SEED)
+
+    def move(i):
+        pos[i] = np.clip(pos[i] + rng.uniform(-STEP, STEP, 2),
+                         lo[i], lo[i] + GAME_PATCH)
+        x, z = (float(v) for v in pos[i])
+        if measure[0]:
+            sent[(eids[i], x, z)] = time.monotonic()
+        bots[i].send_position(x, 0.0, z)
+
+    bp.drive(a["warm_s"], move)
+    mark_at(tmp, "steady")
+    measure[0] = True
+    bp.drive(a["steady_s"], move)
+    measure[0] = False
+    mark_at(tmp, "stopped")
+    bp.settle(tmp)
+
+    def ms(ts, t0s):
+        return [(t - t0) * 1e3 for t, t0 in zip(ts, t0s)]
+
+    result = {
+        "accounts": accounts, "avatars": avatars,
+        "closed": sum(c.closed for c in bots),
+        "mirrors": {c.player.id: sorted(e for e in c.entities
+                                        if e != c.player.id) for c in bots},
+        "last": {av: [float(x), float(z)] for av, (x, z) in
+                 zip(avatars, pos)},
+        "switch": dict(zip(avatars, stamps["switch"])),
+        "login_ms": ms(stamps["login"], t_conn),
+        "move_ms": [t * 1e3 for t in lat], "moves": len(sent),
+        "anomalies": [c.anomalies for c in bots if c.anomalies][:5]}
+    path = os.path.join(tmp, "bots.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(path + ".tmp", path)
+    for c in bots:
+        c.close()
+    return 0
+
+
+def pct(v):
+    v = np.asarray(v, np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99)), "n": int(len(v))}
+
+
+def phase_cluster(card):
+    """25: two port dispatchers, a gate, two games on the card and the
+    CLUSTER_BOTS bots, each a child process; every client handed across
+    games, the mirrors held to the device words and the plain
+    ``interest_matrix``, one singleton, pubsub on both games, both
+    dispatchers routing (their ``/debug/metrics``)."""
+    import signal
+
+    from goworld_tpu_torch import cli as CLI
+    from goworld_tpu_torch.netutil import compress
+    from goworld_tpu_torch.utils import gwlog
+
+    t_phase = time.perf_counter()
+    check(compress.new_compressor("gwlz").name == "gwlz",
+          "25: libgwlz.so did not load")
+    ch = Children("25")
+    tmp, procs, spawn, text = ch.tmp, ch.procs, ch.spawn, ch.text
+    wait_for, mark, marked = ch.wait_for, ch.mark, ch.marked
+    disps = [(free_port(), free_port()) for _ in range(2)]
+    gate = free_port()
+    ini = ch.path("goworld.ini")
+    with open(ini, "w") as f:
+        f.write(cluster_ini(disps, gate, DEV))
+
+    def load(name):
+        with open(ch.path(name)) as f:
+            return json.load(f)
+
+    def route_count(http):
+        return sum(v for name, labels, v in CLI._parse_prometheus(
+            scrape(http)) if name == "gw_opmon_count_total"
+            and labels.get("op") == "disp.route")
+
+    me = os.path.abspath(__file__)
+    try:
+        for i in (1, 2):
+            spawn(f"dispatcher{i}", [me, "--cluster-dispatcher", json.dumps(
+                {"dispid": i, "ini": ini, "dir": tmp})])
+        wait_for(lambda: all(gwlog.READY_TAG in text(f"dispatcher{i}")
+                             for i in (1, 2)), "dispatchers ready")
+        for gid in (1, 2):
+            spawn(f"game{gid}", [me, "--cluster-game", json.dumps({
+                "gid": gid, "ini": ini, "dir": tmp, "device": DEV,
+                "capacity": CAPACITY, "per_space": PER_SPACE,
+                "clients": GAME_CLIENTS, "world": WORLD})])
+        spawn("gate", ["-m", "goworld_tpu_torch.components.gate",
+                       "-gateid", "1", "-configfile", ini])
+        wait_for(lambda: gwlog.READY_TAG in text("gate")
+                 and marked("ready-1") and marked("ready-2"),
+                 "gate and games ready")
+        ready_s = time.perf_counter() - t_phase
+        mark("go")
+        spawn("bots", [me, "--cluster-bots", json.dumps({
+            "gate": ["127.0.0.1", gate], "count": CLUSTER_BOTS, "dir": tmp,
+            "warm_s": CLUSTER_WARM_S, "steady_s": CLUSTER_STEADY_S})])
+        wait_for(lambda: marked("stopped"), "the bots' steady window")
+        wait_for(lambda: all(os.path.exists(os.path.join(
+            tmp, f"result-{g}.json")) for g in (1, 2)), "the games' results")
+        games = {g: load(f"result-{g}.json") for g in (1, 2)}
+        mark("snap")
+        wait_for(lambda: procs["bots"].poll() is not None
+                 or os.path.exists(os.path.join(tmp, "bots.json")),
+                 "the bots' mirrors")
+        rc = procs["bots"].wait(timeout=GAME_WAIT_S)
+        check(rc == 0, f"25: bots exited {rc}: {text('bots')[-3000:]}")
+        bots = load("bots.json")
+        routed = {f"dispatcher{i}": route_count(http)
+                  for i, (_port, http) in enumerate(disps, 1)}
+        mark("exit")
+        for g in (1, 2):
+            rc = procs[f"game{g}"].wait(timeout=GAME_WAIT_S)
+            check(rc == 0, f"25: game{g} exited {rc}: "
+                  f"{text(f'game{g}')[-3000:]}")
+        for name in ("gate", "dispatcher1", "dispatcher2"):
+            procs[name].send_signal(signal.SIGTERM)
+            rc = procs[name].wait(timeout=GAME_WAIT_S)
+            check(rc == 0, f"25: {name} exited {rc} on SIGTERM: "
+                  f"{text(name)[-3000:]}")
+        disp_stamps = [load(f"disp-{i}.json") for i in (1, 2)]
+        for name in procs:
+            check("falling back to flate" not in text(name),
+                  f"25: {name} fell back to flate")
+    finally:
+        ch.close()
+    # every handoff landed: each account on one game gave its client to an
+    # avatar on the other, which the client now drives; no account is left
+    n = CLUSTER_BOTS
+    check(bots["closed"] == 0, "25: a client was disconnected")
+    check(len(set(bots["avatars"])) == n, "25: clients share an avatar")
+    given = {av: (g, t) for g, r in games.items() for av, t in r["given"]}
+    check(set(given) == set(bots["avatars"]),
+          f"25: {len(given)} handoffs given for {n} clients")
+    handoff = []
+    for av, (g, t) in given.items():
+        check(av in games[3 - g]["rows"],
+              f"25: {av} given on game{g} but not in game{3 - g}'s space")
+        handoff.append((bots["switch"][av] - t) * 1e3)
+        got = games[3 - g]["positions"][av]
+        check([float(np.float32(v)) for v in got] == bots["last"][av],
+              f"25: avatar {av} at {got}, its client last sent "
+              f"{bots['last'][av]}")
+    # the handoff's legs, all on time.monotonic across the processes: the
+    # avatar's creation on the target game, the account's give on the
+    # source, the give's arrival at the avatar's dispatcher (parked there
+    # until the avatar's create notice when that came later), its arrival
+    # on the target game, and the client's switch
+    created = {av: t for r in games.values() for av, t in r["created"]}
+    received = {av: t for r in games.values() for av, t in r["received"]}
+    at_disp, released, parked = {}, {}, []
+    for d in disp_stamps:
+        for av, t, unknown in d["gives"]:
+            at_disp[av] = released[av] = t
+            if unknown:
+                parked.append(av)
+                released[av] = max(t, d["creates"][av] or t)
+    check(set(at_disp) == set(given) and set(received) == set(given),
+          f"25: {len(at_disp)} handoffs reached a dispatcher and "
+          f"{len(received)} their target game, of {len(given)}")
+    legs = {
+        "create_to_give": [given[av][1] - created[av] for av in given],
+        "give_to_dispatcher": [at_disp[av] - given[av][1] for av in given],
+        "parked": [released[av] - at_disp[av] for av in parked],
+        "dispatcher_to_game": [received[av] - released[av]
+                               for av in given],
+        "game_to_client": [bots["switch"][av] - received[av]
+                           for av in given]}
+    legs = {k: pct(np.array(v) * 1e3) if v else None
+            for k, v in legs.items()}
+    # each game's loop iterations over SLOW_MS from the first avatar's
+    # creation to the last switch: [its end in ms after the first give,
+    # ms, its slowest part]
+    t_give = min(t for _g, t in given.values())
+    lo_t, hi_t = min(created.values()), max(bots["switch"].values())
+    stalls = {f"game{g}": [
+        [(r["at"] - t_give) * 1e3, r["loop"], max(LoopSplit.PARTS,
+                                                  key=r.get)]
+        for r in games[g]["slow_loops"]
+        if lo_t <= r["at"] and r["at"] - r["loop"] / 1e3 <= hi_t]
+        for g in (1, 2)}
+    for g, r in games.items():
+        check(r["accounts"] == 0, f"25: game{g} kept {r['accounts']} accounts")
+    check(sum(r["accounts_dead"] for r in games.values()) == n,
+          "25: an account survived its handoff")
+    # the mirrors: each client's set equals its avatar's row of the device
+    # words and of the plain interest_matrix
+    bad = []
+    for av, seen in bots["mirrors"].items():
+        row = next(r["rows"][av] for r in games.values() if av in r["rows"])
+        check(row["device"] == row["plain"],
+              f"25: {av}: device interest row != plain interest_matrix")
+        if seen != row["device"]:
+            bad.append((av, len(set(row["device"]) - set(seen)),
+                        len(set(seen) - set(row["device"]))))
+    check(not bad, f"25: {len(bad)} clients' mirrors differ from their "
+          f"avatars' interest rows (avatar, missing, extra: {bad[:3]})")
+    for g, r in games.items():
+        healthy(r["stats"], f"25 game{g}")
+        check(r["errors"] == 0, f"25: game{g} logged {r['errors']} errors: "
+              f"{r['last_error']}")
+        heard = sorted(args[0] for subject, args in r["heard"]
+                       if subject == CLUSTER_SUBJECT)
+        check(heard == [1, 2], f"25: game{g}'s lobby heard {r['heard']}")
+    check(sum(r["counters"] for r in games.values()) == 1
+          and games[1]["counter_id"] == games[2]["counter_id"],
+          "25: the singleton is not exactly one: "
+          f"{[(r['counters'], r['counter_id']) for r in games.values()]}")
+    check(all(v > 0 for v in routed.values()),
+          f"25: a dispatcher routed nothing: {routed}")
+    check(bots["move_ms"], "25: no mirror update of a move was received")
+    for g, r in games.items():
+        check(r["launches"] > 0, f"25: game{g} launched no square kernel")
+    out = {"card": card, "clients": n, "ready_s": ready_s,
+           "login_ms": pct(bots["login_ms"]), "handoff_ms": pct(handoff),
+           "handoff_legs_ms": legs, "handoffs_parked": len(parked),
+           "handoff_stalls": stalls,
+           "first_client_ticks": {g: r["first_ticks"]
+                                  for g, r in games.items()},
+           "move_latency_ms": pct(bots["move_ms"]), "moves": bots["moves"],
+           "disp_route": routed,
+           "games": {g: {k: r[k] for k in ("tick_ms", "ticks_steady",
+                                           "ticks_launched", "launches")}
+                     | {"avatars": len(r["rows"])}
+                     for g, r in games.items()},
+           "anomalies": bots["anomalies"],
+           "launches": sum(r["launches"] for r in games.values()),
+           "phase_s": time.perf_counter() - t_phase}
+    log("25", json.dumps(out))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
@@ -6892,6 +7618,8 @@ def main():
     lap("23b")
     wire = phase_deploy_wire()
     lap("24")
+    cluster = phase_cluster(card)
+    lap("25")
     log("phase seconds", json.dumps(laps))
     cohort_l = {"cohort": cohort["launches"], "ladder": ladder["launches"],
                 "demotion": demotion["launches"]}
@@ -6934,7 +7662,8 @@ def main():
                     ("aoi_step game live", game_live["launches"]),
                     ("aoi_step deploy", deploy["launches"]),
                     ("aoi_step failover", failover["launches"]),
-                    ("aoi_step wire", wire["launches"])):
+                    ("aoi_step wire", wire["launches"]),
+                    ("aoi_step cluster", cluster["launches"])):
         check(n > 0, f"{name}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
@@ -6969,7 +7698,8 @@ def main():
               + sum(cohort_l.values()) + telemetry_out["launches"]
               + game_script_out["launches"] + game_live["launches"]
               + deploy["launches"] + failover["launches"]
-              + wire["launches"] + fused_sharded["million"]["launches"],
+              + wire["launches"] + cluster["launches"]
+              + fused_sharded["million"]["launches"],
               rows, MAIN_SHAPE,
               main_path_ms=main_out["kernel_ms"],
               cohort_shapes=rung_rows,
@@ -6993,6 +7723,7 @@ def main():
                              "deploy": deploy["launches"],
                              "failover": failover["launches"],
                              "wire": wire["launches"],
+                             "cluster": cluster["launches"],
                              "fused_mesh": fused_sharded["million"][
                                  "launches"]}),
         entry("aoi_step_rect", "goworld_tpu/ops/aoi_pallas.py:176",
@@ -7080,6 +7811,7 @@ def main():
         "note": "23a's launches are scraped from the game process's "
                 "/debug/metrics, 23b's from the surviving worker",
         "cli": deploy, "failover": failover, "wire": wire}}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps(issue))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -7089,7 +7821,7 @@ def main():
 
 
 def deploy_main(phases):
-    """``--deploy 24 23a 23b``: the kernels built, then the named
+    """``--deploy 25 24 23a 23b``: the kernels built, then the named
     deployment phases alone, in the order given, one JSON line each (the
     card's name and power limit first).  The children inherit this
     process's environment, so ``OMP_NUM_THREADS`` set here sizes the game
@@ -7100,14 +7832,15 @@ def deploy_main(phases):
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import aoi_dense as AD
 
-    run = {"23a": lambda: phase_deploy(AD), "23b": phase_failover,
-           "24": phase_deploy_wire}
-    check(phases and set(phases) <= set(run), f"--deploy {phases}: "
-          f"name phases of {sorted(run)}")
-    print(subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    run = {"23a": lambda: phase_deploy(AD), "23b": phase_failover,
+           "24": phase_deploy_wire, "25": lambda: phase_cluster(card)}
+    check(phases and set(phases) <= set(run), f"--deploy {phases}: "
+          f"name phases of {sorted(run)}")
+    print(card, flush=True)
     _build.build_all(force=True)
     for name in phases:
         t0 = time.perf_counter()
@@ -7121,6 +7854,10 @@ def deploy_main(phases):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bots"]:  # phase 22b's client process
         sys.exit(bots_main(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--cluster-game"]:  # phase 25's game process
+        sys.exit(cluster_game_main(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--cluster-bots"]:  # phase 25's client process
+        sys.exit(cluster_bots_main(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--deploy"]:
         sys.exit(deploy_main(sys.argv[2:]))
     sys.exit(main())

@@ -208,14 +208,17 @@ def _load_gwlz():
     its first connection, so several may build it at once: each builds
     apart and renames (:func:`_build_gwlz`), and none loads a half-written
     file -- which would fall back to flate and leave the peers on
-    different codecs."""
+    different codecs.  Within a process the links of a cluster with
+    several dispatchers connect on threads of their own at once: the
+    attempt is marked done only when it has ended, so a thread that
+    arrives meanwhile waits on the lock for its outcome instead of
+    reading "tried, none" and falling back alone."""
     global _gwlz, _gwlz_tried
     if _gwlz is not None or _gwlz_tried:
         return _gwlz
     with _build_lock:
         if _gwlz is not None or _gwlz_tried:
             return _gwlz
-        _gwlz_tried = True
         try:
             if not os.path.exists(_SO_PATH):
                 _build_gwlz()
@@ -226,28 +229,30 @@ def _load_gwlz():
                 # JAX package's loader runs make on the shared path)
                 _build_gwlz()
                 lib = ctypes.CDLL(_SO_PATH)
+            lib.gwlz_max_compressed.restype = ctypes.c_size_t
+            lib.gwlz_max_compressed.argtypes = [ctypes.c_size_t]
+            lib.gwlz_compress.restype = ctypes.c_size_t
+            lib.gwlz_compress.argtypes = [
+                ctypes.c_char_p,
+                ctypes.c_size_t,
+                ctypes.c_char_p,
+                ctypes.c_size_t,
+            ]
+            lib.gwlz_uncompressed_length.restype = ctypes.c_int64
+            lib.gwlz_uncompressed_length.argtypes = [ctypes.c_char_p,
+                                                     ctypes.c_size_t]
+            lib.gwlz_decompress.restype = ctypes.c_int64
+            lib.gwlz_decompress.argtypes = [
+                ctypes.c_char_p,
+                ctypes.c_size_t,
+                ctypes.c_char_p,
+                ctypes.c_size_t,
+            ]
+            _gwlz = lib
         except (OSError, subprocess.SubprocessError) as e:
             _log.warning("libgwlz.so: %r", e)
-            return None
-        lib.gwlz_max_compressed.restype = ctypes.c_size_t
-        lib.gwlz_max_compressed.argtypes = [ctypes.c_size_t]
-        lib.gwlz_compress.restype = ctypes.c_size_t
-        lib.gwlz_compress.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_size_t,
-            ctypes.c_char_p,
-            ctypes.c_size_t,
-        ]
-        lib.gwlz_uncompressed_length.restype = ctypes.c_int64
-        lib.gwlz_uncompressed_length.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
-        lib.gwlz_decompress.restype = ctypes.c_int64
-        lib.gwlz_decompress.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_size_t,
-            ctypes.c_char_p,
-            ctypes.c_size_t,
-        ]
-        _gwlz = lib
+        finally:
+            _gwlz_tried = True
         return _gwlz
 
 
