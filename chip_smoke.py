@@ -23,6 +23,19 @@ Phases (any failure raises, so the exit code is non-zero):
                 ticks through on-device triples, that the final interest
                 state equals the plain version over the staged inputs, and
                 that every tick launched the kernel;
+  3c. events -- the event compaction's kernels (csrc/events.cu:
+                extract_triples, extract_chunks, encode_row_stream)
+                against their plain versions (ops/events.*_plain), every
+                output equal: the triples on phase 4's last measured tick
+                (its cap, a cap inside a word), an empty grid, all-ones
+                and bit-31 words with caps at and around a block's edge;
+                the codec on sparse rows under caps that fit and under
+                caps forcing each overflow in turn (n_dirty > max_chunks,
+                max_ccnt > k, n_esc > max_gaps, exc_n > max_exc), an
+                empty diff, k at and past the 128 lanes; and, inside
+                phases 7-8, on each config's last diff under the run's
+                caps and under the forced overflows; each timed against
+                its plain version (CUDA events);
   5. parity  -- the same seeded walk at 2 spaces x 2,000 entities on
                 device="cuda" and device="cpu": the CRCs of the delivered
                 enter/leave arrays must be equal;
@@ -409,7 +422,15 @@ processes too: 23a's game (its two processes around the reload, each
 count read from its /debug/metrics just before the reload and just
 before cli stop; a fresh process counts from 0) and 23b's surviving
 worker (written at its clean exit), and phase 25's two game processes
-(each zeroed at the go mark and written with its result).
+(each zeroed at the go mark and written with its result).  The event
+compaction's kernels are counted the same way, each path's window zeroed
+just before it: the triple kernel in phases 4, 13, 14 (a replay counts
+one), 19-21, 22a, 22b and the child processes of 23a, 23b, 24 and 25;
+the codec's two in phases 7, 8, 11-12b, 15b and 17c (phase 10 runs
+extract_chunks alone); phase 3c's comparisons count on no path.
+`python3 chip_smoke.py --paths [ROOT]` runs phases 4 and 7-8 alone on
+the package under ROOT (a parent commit's unpacked tree, to hold a change
+against it on one card in turns).
 """
 
 from __future__ import annotations
@@ -500,6 +521,7 @@ MAIN_SHAPE = (8, 16384)
 SPACES, PER_SPACE, CAPACITY = 8, 10_000, 16384
 WORLD, RADIUS, STEP = 4000.0, 100.0, 5.0
 WARMUP, MEASURED = 3, 20
+MAIN_CRC = "ea2ea44f"  # phase 4's delivered arrays over its 24 ticks
 
 
 def check(cond, msg):
@@ -934,8 +956,10 @@ def phase_main(Runtime, AK, AD, EV):
 
     # device time of the step and of the triple compaction on the main
     # path: CUDA events around each call the bucket makes (the wrappers
-    # launch nothing of their own)
-    timers = [DeviceTimer(AK, "aoi_step_chg"), DeviceTimer(EV, "extract_triples")]
+    # launch nothing of their own); the last measured tick's grids are
+    # kept for phase 3c and the plain version's time
+    timers = [DeviceTimer(AK, "aoi_step_chg"),
+              KeepCall(EV, "extract_triples", MEASURED - 1)]
     tick_crcs = []  # per tick: (CRC of its delivered arrays, their count)
 
     def tick():
@@ -989,6 +1013,10 @@ def phase_main(Runtime, AK, AD, EV):
     check(0 < steady_events <= bucket._max_triples,
           f"steady events/tick {steady_events}")
     kernel_ms, extract_ms = (t.ms() / MEASURED for t in timers)
+    grids = timers[1].args
+    check(grids is not None, "main: no extract_triples call was kept")
+    extract_plain_ms = cuda_ms(
+        lambda: plain_of(EV, "extract_triples")(*grids), 5)
     perf = {k[:-2] + "_ms": (bucket.perf[k] - perf0[k]) * 1e3 / MEASURED
             for k in bucket.perf}
     # the final state against the plain version over the staged inputs
@@ -1005,13 +1033,16 @@ def phase_main(Runtime, AK, AD, EV):
         check(np.array_equal(got, want[h.slot].cpu().numpy().view(np.uint32)),
               f"slot {h.slot}: interest words != plain version")
     healthy(bucket.stats, "main")
+    check(f"{crc['v']:08x}" == MAIN_CRC,
+          f"main: CRC {crc['v']:08x}, want {MAIN_CRC}")
     out = {"spaces": SPACES, "entities_per_space": PER_SPACE,
            "capacity": CAPACITY, "ticks": ticks, "measured": MEASURED,
            "prime_s": prime_s, "prime_events": prime_events,
            "tick_ms": tick_s * 1e3 / MEASURED,
            "drive_ms": drive_s * 1e3 / MEASURED,
            "kernel_ms": kernel_ms, "extract_ms": extract_ms,
-           "perf_ms": perf, "events_per_tick": steady_events,
+           "extract_plain_ms": extract_plain_ms, "perf_ms": perf,
+           "events_per_tick": steady_events,
            "max_triples": bucket._max_triples,
            "decode_overflow": bucket.stats["decode_overflow"],
            "delta_flushes": bucket.stats["delta_flushes"],
@@ -1019,7 +1050,252 @@ def phase_main(Runtime, AK, AD, EV):
            "emit": bucket._emit, "crc": f"{crc['v']:08x}",
            "kernel_launches": launches}
     log("main", json.dumps(out))
-    return out, tick_crcs
+    return out, tick_crcs, grids
+
+
+# -- phase 3c: the event compaction's kernels (csrc/events.cu) ---------------
+
+
+def plain_of(module, name):
+    """``module.<name>_plain`` where the tree has it (the kernel's plain
+    version), else ``module.<name>`` (a tree whose entry is the plain
+    PyTorch version: the parent of the slice that ported it)."""
+    return getattr(module, name + "_plain", getattr(module, name))
+
+
+class KeepCall(DeviceTimer):
+    """A DeviceTimer that also keeps a copy of the tensor arguments of
+    its timed call number ``keep`` (0-based)."""
+
+    def __init__(self, module, name, keep):
+        super().__init__(module, name)
+        self.keep, self.args = keep, None
+
+    def timed(self, fn, *a, **kw):
+        if len(self.events) == self.keep:
+            self.args = tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                              for t in a)
+        return super().timed(fn, *a, **kw)
+
+
+class NoCount:
+    """Launches made inside the block (kernel against plain, timings) are
+    taken back out of ``EC.launches``: they are no path's."""
+
+    def __init__(self, EC):
+        self.EC = EC
+
+    def __enter__(self):
+        self.saved = dict(self.EC.launches)
+
+    def __exit__(self, *exc):
+        self.EC.launches.update(self.saved)
+
+
+def outputs_equal(name, got, want, label):
+    """Each of a kernel's outputs equals its plain version's: dtype, shape,
+    elements.  Returns the largest absolute difference (0)."""
+    err = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            check(a is None and b is None, f"{name} {label}: output {i} "
+                  f"is None on one side")
+            continue
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{name} {label}: output {i} {a.dtype} {list(a.shape)} != "
+              f"plain {b.dtype} {list(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+        check(torch.equal(a, b), f"{name} kernel != plain: {label}, "
+              f"output {i}")
+    return err
+
+
+def tri_bound_ms(chg, max_triples):
+    """Bytes extract_triples must move: chg once, new at the changed
+    words, the triple buffer and the count written once."""
+    nz = int((chg != 0).sum())
+    return (4 * chg.numel() + 4 * nz + 12 * max_triples + 8) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def chunks_bound_ms(words, out, kk):
+    """Bytes extract_chunks must move: every word once, aux at the kept
+    slots, its seven outputs once."""
+    vals, aux_vals, lane, csel, ccnt = out[:5]
+    kept = int(ccnt.clamp(max=kk).sum())
+    grids = sum(t.numel() * 4 for t in (vals, aux_vals, lane) if t is not None)
+    return (4 * words.numel() + 4 * kept + grids + 8 * csel.numel() + 8) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def encode_bound_ms(rcnt, k, enc):
+    """Bytes encode_row_stream must move: vals, new and the word index at
+    the valid slots, rsel and rcnt, and the ten outputs once."""
+    valid = int(rcnt.clamp(min=0, max=k).sum())
+    out = sum(t.numel() * t.element_size() for t in enc
+              if t.dim() > 0)
+    return (12 * valid + 8 * rcnt.numel() + out + 16) / HBM_BYTES_PER_S * 1e3
+
+
+def tri_same(EV, EC, chg, new, cap, mt, label):
+    with NoCount(EC):
+        got = EC.extract_triples_cuda(chg, new, cap, mt)
+        want = EV.extract_triples_plain(chg, new, cap, mt)
+        torch.cuda.synchronize()
+    err = outputs_equal("extract_triples", got, want, label)
+    return {"case": label, "shape": list(chg.shape), "max_triples": mt,
+            "count": int(want[1]), "max_abs_err": err}
+
+
+def codec_same(EV, EC, words, aux, mc, k, gaps, exc, label, lanes=128):
+    """extract_chunks, then encode_row_stream over the kernel's chunks,
+    each kernel against its plain version on the same inputs."""
+    with NoCount(EC):
+        got = EC.extract_chunks_cuda(words, mc, k, aux, lanes)
+        want = EV.extract_chunks_plain(words, mc, k, aux, lanes)
+        torch.cuda.synchronize()
+        err = outputs_equal("extract_chunks", got, want, label)
+        args = (got[0], got[1], got[2], got[3], got[4])
+        enc = EC.encode_row_stream_cuda(*args, w=lanes, max_gaps=gaps,
+                                        max_exc=exc)
+        enc_p = EV.encode_row_stream_plain(*args, w=lanes, max_gaps=gaps,
+                                           max_exc=exc)
+        torch.cuda.synchronize()
+    err = max(err, outputs_equal("encode_row_stream", enc, enc_p, label))
+    sc = {"n_dirty": int(want[5]), "max_ccnt": int(want[6]),
+          "n_esc": int(enc_p[4]), "exc_n": int(enc_p[9])}
+    return {"case": label, "words": words.numel(), "caps": [mc, k, gaps, exc],
+            **sc, "overflow": [sc["n_dirty"] > mc, sc["max_ccnt"] > k,
+                               sc["n_esc"] > gaps, sc["exc_n"] > exc],
+            "max_abs_err": err}, got, enc
+
+
+def codec_forced(EV, EC, words, aux, caps, sc, label):
+    """The same diff under caps that force each codec overflow in turn
+    (where its count allows one): n_dirty > max_chunks, max_ccnt > k,
+    n_esc > max_gaps, exc_n > max_exc."""
+    mc, k, gaps, exc = caps
+    rows = []
+    for i, (key, fit) in enumerate((("n_dirty", 2), ("max_ccnt", 2),
+                                    ("n_esc", 2), ("exc_n", 2))):
+        if sc[key] < fit:
+            continue
+        forced = [mc, k, gaps, exc]
+        forced[i] = sc[key] - 1
+        row, _, _ = codec_same(EV, EC, words, aux, *forced,
+                               f"{label}, {key} over its cap")
+        check(row["overflow"][i], f"{label}: {key} not over its cap {row}")
+        rows.append(row)
+    return rows
+
+
+def codec_path_check(EV, EC, new, chg, caps, label):
+    """Phases 7-8's real diff (its last tick) under the run's caps and
+    under caps forcing each overflow: each kernel against its plain
+    version; ms of each kernel and of its plain version, bound ms."""
+    c = (caps.max_chunks, caps.k, caps.max_gaps, caps.max_exc)
+    row, got, enc = codec_same(EV, EC, chg, new, *c, f"{label} tick")
+    kk = min(caps.k, 128)
+    with NoCount(EC):
+        ms_x = cuda_ms(lambda: EC.extract_chunks_cuda(chg, c[0], c[1], new,
+                                                      128), 10)
+        plain_x = cuda_ms(lambda: EV.extract_chunks_plain(chg, c[0], c[1],
+                                                          new, 128), 3)
+        args = got[:5]
+        ms_e = cuda_ms(lambda: EC.encode_row_stream_cuda(
+            *args, w=128, max_gaps=c[2], max_exc=c[3]), 10)
+        plain_e = cuda_ms(lambda: EV.encode_row_stream_plain(
+            *args, w=128, max_gaps=c[2], max_exc=c[3]), 3)
+    row.update(extract_chunks={"ms": ms_x, "plain_ms": plain_x,
+                               "bound_ms": chunks_bound_ms(chg, got, kk)},
+               encode_row_stream={"ms": ms_e, "plain_ms": plain_e,
+                                  "bound_ms": encode_bound_ms(
+                                      got[4], kk, enc)})
+    forced = codec_forced(EV, EC, chg, new, c, row, label)
+    log("kernel codec", json.dumps(row), json.dumps(forced))
+    return {"path": row, "forced": forced}
+
+
+def sparse_rows(nc, lanes, seed):
+    """int32 words [nc, lanes] on the card: 3% of rows dirty (so most
+    dirty rows escape), a few with 40 nonzero words, a third of the words
+    multi-bit, bit 31 and all-ones among them."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((nc, lanes), np.uint32)
+    rows = np.nonzero(rng.random(nc) < 0.03)[0]
+    for i, r in enumerate(rows):
+        n = 40 if i % 97 == 5 else 1 + i % 6
+        lanes_ = rng.choice(lanes, n, replace=False)
+        single = np.uint32(1) << rng.integers(0, 32, n).astype(np.uint32)
+        multi = rng.integers(1, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        w[r, lanes_] = np.where(rng.random(n) < 0.33, multi, single)
+    w[rows[1], 0] = 0xFFFFFFFF
+    w[rows[2], lanes - 1] = 0x80000000
+    return torch.from_numpy(w.view(np.int32)).to(DEV)
+
+
+def phase_events_kernel(EV, EC, grids):
+    """Phase 3c: the three kernels of csrc/events.cu against their plain
+    versions (ops/events.*_plain) on the card, outputs equal element for
+    element: extract_triples on phase 4's last measured tick (the path's
+    cap, and a cap inside a word), an empty grid, all-ones and bit-31
+    words with caps at a block's edge and inside a block; the codec on
+    sparse rows under caps that fit and under caps forcing each overflow,
+    an empty diff, kk at lanes and k past lanes.  Times the triples
+    kernel and its plain version at phase 4's grids (CUDA events)."""
+    chg, new, cap, mt = grids
+    rows = [tri_same(EV, EC, chg, new, cap, mt, "phase 4 tick")]
+    count = rows[0]["count"]
+    check(0 < count <= mt, f"3c: phase 4's tick has {count} triples")
+    # a cap inside a word and inside a block: the first word past the
+    # middle holding at least 2 bits, cut after its first bit
+    pc = EV.popcount_words(chg.reshape(-1))
+    half = chg.numel() // 2
+    at = half + int(torch.nonzero(pc[half:] >= 2)[0])
+    cut = int(pc[:at].sum(dtype=torch.int64)) + 1
+    check(cut < count, f"3c: cut {cut} of {count} at word {at}")
+    rows.append(tri_same(EV, EC, chg, new, cap, cut, "phase 4, a cap "
+                         "inside a word"))
+    zero = torch.zeros_like(chg)
+    rows.append(tri_same(EV, EC, zero, zero, cap, mt, "empty grid"))
+    del zero
+    ones = torch.full((1, 1024, 32), -1, dtype=torch.int32, device=DEV)
+    ones[0, 900, 3] = -2**31  # bit 31 alone, past the first blocks
+    ones[0, 700:720] = 0
+    span = EC.triples_plan(ones.numel(), 1).span
+    noise = sparse_rows(256, 128, 4).reshape(ones.shape)
+    for c_ in (span * 32 - 31, span * 32, span * 32 + 1, 3 * span * 32 + 17,
+               ones.numel() * 32):
+        rows.append(tri_same(EV, EC, ones, noise, 1024, c_,
+                             f"all-ones, cap {c_}"))
+    with NoCount(EC):
+        ms = cuda_ms(lambda: EC.extract_triples_cuda(chg, new, cap, mt), 20)
+        plain_ms = cuda_ms(lambda: EV.extract_triples_plain(chg, new, cap,
+                                                            mt), 5)
+    tri = {"shape": list(chg.shape), "max_triples": mt, "count": count,
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": tri_bound_ms(chg, mt), "bound_by": "bytes",
+           "cases": rows,
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    log("kernel extract_triples", json.dumps(tri))
+    # the codec on sparse rows: caps that fit, then each overflow forced
+    words, aux = sparse_rows(8192, 128, 5), sparse_rows(8192, 128, 6)
+    fit = (4096, 64, 4096, 65536)
+    row, _, _ = codec_same(EV, EC, words, aux, *fit, "sparse rows")
+    check(row["n_esc"] > 1 and row["exc_n"] > 1 and row["max_ccnt"] == 40
+          and not any(row["overflow"]), f"3c: sparse rows {row}")
+    codec = [row] + codec_forced(EV, EC, words, aux, fit, row, "sparse rows")
+    check(len(codec) == 5, "3c: a codec overflow was not forced")
+    for label, w_, k in (("empty", torch.zeros_like(words), 8),
+                         ("kk at lanes", words, 128),
+                         ("k past lanes", words, 200)):
+        codec.append(codec_same(EV, EC, w_, aux, 512, k, 256, 1024,
+                                label)[0])
+    log("kernel codec 3c", json.dumps(codec))
+    return {"extract_triples": tri, "codec": codec,
+            "max_abs_err": max([tri["max_abs_err"]]
+                               + [r["max_abs_err"] for r in codec])}
 
 
 def phase_parity(Runtime):
@@ -2513,7 +2789,9 @@ class StreamRun:
                 "caps": dataclasses.asdict(self.caps), "peaks": self.peaks}
 
 
-def phase_grid(AG, CD, name):
+def phase_grid(AG, CD, name, codec=None):
+    """``codec`` = (EV, EC): phase 3c's codec check on the last tick's
+    diff (codec_path_check), or None."""
     cfg = GIANT[name]
     qx, qz, xs, zs = make_walk(cfg, np.random.default_rng(0),
                                RESORT_K + TAIL_TICKS)
@@ -2560,6 +2838,8 @@ def phase_grid(AG, CD, name):
             new, chg, frac = grid.step(qx[t], qz[t])
             run.tick(new, chg)
             fracs.append(float(frac))
+        codec_rows = None if codec is None else codec_path_check(
+            *codec, new, chg, run.caps, name)
         del new, chg
         kernel_ms = step_timer.ms() / run.ticks
         words_ms = timers[1].each()
@@ -2597,12 +2877,13 @@ def phase_grid(AG, CD, name):
            "resort_split": split,
            "culled_frac_mean": sum(fracs) / len(fracs),
            "culled_frac_min": min(fracs),
-           "launches": {k: v - launches0[k] for k, v in AG.launches.items()}}
+           "launches": {k: v - launches0[k] for k, v in AG.launches.items()},
+           "codec_check": codec_rows}
     log("grid", json.dumps(out))
     return out
 
 
-def phase_share(AK, AD, CD):
+def phase_share(AK, AD, CD, codec=None):
     cfg = GIANT["zipf100k"]
     qx, qz, xs, zs = make_walk(cfg, np.random.default_rng(0),
                                SHARE_TICKS + 1)
@@ -2620,8 +2901,10 @@ def phase_share(AK, AD, CD):
         for t in range(1, SHARE_TICKS + 1):
             new, chg = blk.step(qx[t], qz[t])
             run.tick(new, chg)
-        del new, chg
         timer.on = False
+        codec_rows = None if codec is None else codec_path_check(
+            *codec, new, chg, run.caps, "zipfshare")
+        del new, chg
         kernel_ms = timer.ms() / run.ticks
     finally:
         timer.restore()
@@ -2638,7 +2921,7 @@ def phase_share(AK, AD, CD):
     out = {"config": "zipfshare", "rows": SHARE_ROWS,
            "candidates": cfg["cap"], "ticks": SHARE_TICKS + 1,
            "measured": run.ticks, "kernel_ms": kernel_ms, **run.report(),
-           "launches": dict(AK.launches)}
+           "launches": dict(AK.launches), "codec_check": codec_rows}
     log("zipfshare", json.dumps(out))
     return out
 
@@ -5074,6 +5357,44 @@ def phase_telemetry(Runtime, AK, DC, TEL, main_crcs, main_out, cohort_eng):
     return out
 
 
+def events_entries(events_k, main_out, grid_out, share_out, ev_l):
+    """The ``kernels`` line's entries of csrc/events.cu: ``ms`` /
+    ``plain_ms`` / ``bound_ms`` alone at phase 4's grids (triples) and at
+    `million`'s last diff under its caps (the codec; each giant config's
+    in ``shapes``), ``main_path_ms`` on the path (phase 4's
+    ``extract_ms``; phases 7-8's ``encode_ms``, extract and encode
+    together), launches on each path."""
+    codec = {g["config"]: g["codec_check"] for g in grid_out + [share_out]}
+    errs = [events_k["max_abs_err"]] + [
+        r["max_abs_err"] for c in codec.values()
+        for r in [c["path"]] + c["forced"]]
+    why = "no single PyTorch call computes the compaction"
+
+    def entry(name, line, alone, path_ms, **extra):
+        return {"name": name, "route": "cuda",
+                "source": "goworld_tpu_torch/csrc/events.cu",
+                "replaces": f"goworld_tpu/ops/events.py:{line}",
+                "launches": sum(ev_l[name].values()),
+                "path_launches": ev_l[name], "max_abs_err": max(errs),
+                "ms": alone["ms"], "plain_ms": alone["plain_ms"],
+                "bound_ms": alone["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "library_note": why,
+                "main_path_ms": path_ms, **extra}
+
+    tri = events_k["extract_triples"]
+    encode_ms = {c: g["encode_ms"] for c, g in (
+        *((g["config"], g) for g in grid_out), ("zipfshare", share_out))}
+    return [
+        entry("extract_triples", 385, tri, main_out["extract_ms"],
+              shape=tri["shape"], max_triples=tri["max_triples"],
+              main_path_plain_ms=main_out["extract_plain_ms"]),
+        *(entry(name, line, codec["million"]["path"][name], encode_ms,
+                shape="million", shapes={c: v["path"][name]
+                                         for c, v in codec.items()})
+          for name, line in (("extract_chunks", 66),
+                             ("encode_row_stream", 141)))]
+
+
 def interest_entry(interest_k, interest_slice, load_out, moved):
     """The ``kernels`` line's entry of csrc/interest_step.cu: its times
     at the main path's full team + tier + LOS step (C = 16384, a path
@@ -6394,10 +6715,11 @@ def scrape(port, path="/debug/metrics"):
 
 def game_metrics(port, CLI):
     """The game's ``/debug/metrics`` as ``cli gwtop`` reads it: the tick
-    count, the worst calc level, the step kernel's launches and the
-    dispatches (``ops/aoi_cuda``'s collector)."""
+    count, the worst calc level, the step kernel's launches, the triple
+    kernel's (``tri_launches``) and the dispatches (the collectors of
+    ``ops/aoi_cuda`` and ``ops/events_cuda``)."""
     out = {"ticks": 0.0, "calc_level": 0.0, "launches": 0.0,
-           "dispatches": 0.0}
+           "tri_launches": 0.0, "dispatches": 0.0}
     seen = set()
     for name, labels, val in CLI._parse_prometheus(scrape(port)):
         seen.add(name)
@@ -6408,6 +6730,9 @@ def game_metrics(port, CLI):
         elif name == "gw_ops_kernel_launches_total" \
                 and labels.get("kernel") == "aoi_step":
             out["launches"] += val
+        elif name == "gw_ops_kernel_launches_total" \
+                and labels.get("kernel") == "extract_triples":
+            out["tri_launches"] += val
         elif name == "gw_ops_dispatches_total":
             out["dispatches"] += val
     check({"gw_tick_seconds_count", "gw_aoi_calc_level",
@@ -6684,6 +7009,8 @@ def phase_deploy(AD):
               f"23a: the game's metrics after reload: {after}")
         out["metrics_after"] = after
         out["launches"] = int(before["launches"] + after["launches"])
+        out["tri_launches"] = int(before["tri_launches"]
+                                  + after["tri_launches"])
         keeper.close()
         keeper = None
         out["stop_s"] = dep.stop()
@@ -6763,6 +7090,7 @@ def phase_failover():
     check(len(surv.get("restore_ms", [])) == 1,
           f"23b: the survivor's restore: {surv}")
     res["launches"] = surv["launches"]["aoi_step"]
+    res["tri_launches"] = surv["launches"]["extract_triples"]
     log("23b", json.dumps(res))
     return res
 
@@ -6879,6 +7207,7 @@ def phase_deploy_wire():
               f"24: the game's metrics: {metrics}")
         out["metrics"] = metrics
         out["launches"] = int(metrics["launches"])
+        out["tri_launches"] = int(metrics["tri_launches"])
         keeper.close()
         keeper = None
         out["stop_s"] = dep.stop()
@@ -7062,6 +7391,7 @@ def cluster_game_main(a):
     from goworld_tpu_torch.ext.pubsub import PublishSubscribeService
     from goworld_tpu_torch.ops import aoi_cuda as AK
     from goworld_tpu_torch.ops import aoi_predicate as AP
+    from goworld_tpu_torch.ops import events_cuda as EC
     from goworld_tpu_torch.proto import msgtypes as MT
     from goworld_tpu_torch.services import ServiceManager
     from goworld_tpu_torch.utils import gwlog
@@ -7134,6 +7464,7 @@ def cluster_game_main(a):
         mark_at(tmp, f"ready-{gid}")
         until(lambda: marked("go"), "the parent's go")
         AK.reset_launches()
+        EC.reset_launches()
         until(lambda: marked("steady"), "the bots' steady window")
         i0 = len(ticks)
         # the services were claimed seconds ago: their entities exist now
@@ -7175,6 +7506,7 @@ def cluster_game_main(a):
         steady = np.array([r["tick"] for r in ticks[i0:i1]] or [0.0])
         out.update(
             gid=gid, launches=launches,
+            tri_launches=EC.launches["extract_triples"],
             ticks_steady=i1 - i0,
             ticks_launched=sum(r["launched"] for r in ticks[i0:i1]),
             slow_loops=[r for r in ticks[:i0] if r["loop"] > SLOW_MS],
@@ -7491,6 +7823,7 @@ def phase_cluster(card):
                      for g, r in games.items()},
            "anomalies": bots["anomalies"],
            "launches": sum(r["launches"] for r in games.values()),
+           "tri_launches": sum(r["tri_launches"] for r in games.values()),
            "phase_s": time.perf_counter() - t_phase}
     log("25", json.dumps(out))
     return out
@@ -7517,6 +7850,7 @@ def main():
     from goworld_tpu_torch.ops import dispatch_count as DC
     from goworld_tpu_torch.ops import aoi_stage as AS
     from goworld_tpu_torch.ops import events as EV
+    from goworld_tpu_torch.ops import events_cuda as EC
     from goworld_tpu_torch.ops import fused as FZ
     from goworld_tpu_torch.ops import interest_cuda as IC
     from goworld_tpu_torch.ops import interest_kernels as K
@@ -7545,18 +7879,34 @@ def main():
         laps[name] = now - lap_t[0]
         lap_t[0] = now
 
+    # the events.cu kernels' launches on each path: counts zeroed just
+    # before it, read just after (a child process's from its own counts)
+    ev_paths = {}
+
+    def on_path(name, fn, *a, **kw):
+        EC.reset_launches()
+        out = fn(*a, **kw)
+        ev_paths[name] = dict(EC.launches)
+        return out
+
     rows = phase_kernels(AK, AD)
     lap("3")
-    main_out, main_crcs = phase_main(Runtime, AK, AD, EV)
+    main_out, main_crcs, main_grids = on_path(
+        "main", phase_main, Runtime, AK, AD, EV)
     lap("4")
+    events_k = phase_events_kernel(EV, EC, main_grids)
+    del main_grids
+    lap("3c")
     phase_parity(Runtime)
-    pipelined = phase_pipeline(Runtime, AK, DC, main_crcs, main_out)
-    fused = phase_fused(Runtime, AK, DC)
+    pipelined = on_path("deferred", phase_pipeline, Runtime, AK, DC,
+                        main_crcs, main_out)
+    fused = on_path("fused", phase_fused, Runtime, AK, DC)
     sub_change = phase_sub_change(Runtime)
     lap("5, 13-14b")
     faults_out = phase_faults(Runtime, AK)
     lap("15")
-    sharded_faults = phase_sharded_faults(Runtime, AK, SpaceMesh)
+    sharded_faults = on_path("sharded_faults", phase_sharded_faults,
+                             Runtime, AK, SpaceMesh)
     lap("15b")
     routing = phase_routing(Runtime, AK)
     lap("16")
@@ -7568,49 +7918,57 @@ def main():
     culled_rows = phase_culled(AG, AK)
     phase_plans(AK, AG, AD)
     AG.reset_launches()  # phase 7 is the culled kernels' path
-    grid_out = [phase_grid(AG, CD, name) for name in GIANT]
+    grid_out = on_path("grid", lambda: [phase_grid(AG, CD, name, (EV, EC))
+                                        for name in GIANT])
     culled_launches = dict(AG.launches)
     AK.reset_launches()  # phase 8 is the rectangular step's path
-    share_out = phase_share(AK, AD, CD)
+    share_out = on_path("share", phase_share, AK, AD, CD, (EV, EC))
     rect_launches = AK.launches["aoi_step"]
     entlv_rows = phase_entlv(AK, AD)
     AK.reset_launches()  # phase 10 is the entlv mode's path
-    sharded = phase_sharded_step(AK, AD, EV, SpaceMesh,
-                                 make_sharded_aoi_step)
+    sharded = on_path("sharded_step", phase_sharded_step, AK, AD, EV,
+                      SpaceMesh, make_sharded_aoi_step)
     entlv_launches = AK.launches["aoi_step_entlv"]
     lap("6-10")
-    engine_mesh = phase_engine_mesh(Runtime, AOIEngine, AK, AD, SpaceMesh)
-    rowshard = phase_rowshard(AOIEngine, AK, SpaceMesh)
-    paged_sharded = phase_paged_sharded(AOIEngine, AK, SpaceMesh,
-                                        engine_mesh, rowshard)
+    engine_mesh = on_path("engine_mesh", phase_engine_mesh, Runtime,
+                          AOIEngine, AK, AD, SpaceMesh)
+    rowshard = on_path("rowshard", phase_rowshard, AOIEngine, AK, SpaceMesh)
+    paged_sharded = on_path("paged_sharded", phase_paged_sharded,
+                            AOIEngine, AK, SpaceMesh, engine_mesh, rowshard)
     torch.cuda.empty_cache()
     lap("11-12, 17c")
-    fused_sharded = phase_fused_sharded(AOIEngine, AK, AD, DC, SpaceMesh)
+    fused_sharded = on_path("fused_sharded", phase_fused_sharded, AOIEngine,
+                            AK, AD, DC, SpaceMesh)
     lap("12b")
     interest_k = phase_interest_kernel(IC, K, TI)
     interest_slice = phase_interest_slice(Runtime, IC, TI, D)
     load_out = phase_load(TL, TI, IC, D)
     torch.cuda.empty_cache()
     lap("18-18c")
-    migration = phase_migration(AOIEngine, SpaceMesh, AK, IC, PL, TI)
-    evacuation = phase_evacuation(AOIEngine, SpaceMesh, AK)
-    checkpoint = phase_checkpoint(Runtime, AOIEngine, AK, IC, TI)
+    migration = on_path("migration", phase_migration, AOIEngine, SpaceMesh,
+                        AK, IC, PL, TI)
+    evacuation = on_path("evacuation", phase_evacuation, AOIEngine,
+                         SpaceMesh, AK)
+    checkpoint = on_path("checkpoint", phase_checkpoint, Runtime, AOIEngine,
+                         AK, IC, TI)
     torch.cuda.empty_cache()
     lap("19-19c")
     with LaunchShapes(AK) as spy:
-        cohort, cohort_eng = phase_cohort(Runtime, AOIEngine, AK, DC)
-        ladder = phase_ladder(AOIEngine, AK, DC)
-        demotion = phase_demotion(AOIEngine, PL, AK, FT)
-    telemetry_out = phase_telemetry(Runtime, AK, DC, TEL, main_crcs,
-                                    main_out, cohort_eng)
+        cohort, cohort_eng = on_path("cohort", phase_cohort, Runtime,
+                                     AOIEngine, AK, DC)
+        ladder = on_path("ladder", phase_ladder, AOIEngine, AK, DC)
+        demotion = on_path("demotion", phase_demotion, AOIEngine, PL, AK,
+                           FT)
+    telemetry_out = on_path("telemetry", phase_telemetry, Runtime, AK, DC,
+                            TEL, main_crcs, main_out, cohort_eng)
     del cohort_eng
     lap("20-21")
     rung_rows = phase_rung_shapes(AK, AD, spy.shapes)
     fused_graph = fused_graph_ms(AK, AS, FZ)
     lap("20d, 14c")
-    game_script_out = phase_game_script(AK)
+    game_script_out = on_path("game_script", phase_game_script, AK)
     lap("22a")
-    game_live = phase_game_live(AK)
+    game_live = on_path("game_live", phase_game_live, AK)
     lap("22b")
     deploy = phase_deploy(AD)
     lap("23a")
@@ -7665,6 +8023,31 @@ def main():
                     ("aoi_step wire", wire["launches"]),
                     ("aoi_step cluster", cluster["launches"])):
         check(n > 0, f"{name}: no launch on its path")
+    # the events.cu kernels: each path's in-process window, and the child
+    # processes' own counts (23a, 24: /debug/metrics; 23b: the surviving
+    # worker; 25: each game from its go mark)
+    ev_l = {k: {p: v[k] for p, v in ev_paths.items() if v[k]}
+            for k in EC.launches}
+    ev_l["extract_triples"].update(
+        deploy=deploy["tri_launches"], failover=failover["tri_launches"],
+        wire=wire["tri_launches"], cluster=cluster["tri_launches"])
+    late = ("migration", "evacuation", "checkpoint", "cohort", "ladder",
+            "demotion", "telemetry")
+    for kernel, groups in (
+            ("extract_triples", [("main",), ("deferred",), ("fused",), late,
+                                 ("game_script",), ("game_live",),
+                                 ("deploy",), ("failover",), ("wire",),
+                                 ("cluster",)]),
+            ("extract_chunks", [("grid",), ("share",), ("sharded_step",),
+                                ("engine_mesh", "rowshard", "fused_sharded"),
+                                ("sharded_faults",), ("paged_sharded",)]),
+            ("encode_row_stream", [("grid",), ("share",),
+                                   ("engine_mesh", "rowshard",
+                                    "fused_sharded"),
+                                   ("sharded_faults",), ("paged_sharded",)])):
+        for g in groups:
+            n = sum(ev_l[kernel].get(p, 0) for p in g)
+            check(n > 0, f"{kernel} {'/'.join(g)}: no launch on its path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
         at = next(r for r in shape_rows if tuple(r["shape"]) == shape)
@@ -7755,7 +8138,8 @@ def main():
         interest_entry(interest_k, interest_slice, load_out,
                        {"migration": mig_l["interest_step"],
                         "checkpoint": checkpoint["launches"][
-                            "interest_step"]})]}
+                            "interest_step"]}),
+        *events_entries(events_k, main_out, grid_out, share_out, ev_l)]}
     issue = {"issue_floor": [
         issue_floors("aoi_step", rows, per_pair["aoi_step"]),
         issue_floors("aoi_step_rect", rect_rows, per_pair["aoi_step"]),
@@ -7769,6 +8153,7 @@ def main():
                        interest_pp[k]) for k in INTEREST_SASS)]}
     print(card)
     print(json.dumps({"main_path": main_out}))
+    print(json.dumps({"events_kernels": events_k}))
     print(json.dumps({"giant": grid_out + [share_out]}))
     print(json.dumps({"deferred": {"pipelined": pipelined["summary"],
                                    "fused": fused["summary"],
@@ -7820,6 +8205,53 @@ def main():
     return 0
 
 
+def paths_main(args):
+    """``--paths [ROOT]``: phase 4 and phases 7-8 alone, on the port's
+    package under ROOT (default: this script's checkout; give the parent
+    commit's unpacked tree to hold a change against its parent on one
+    card, in turns).  The kernels of ROOT are built first.  Prints the
+    card's name and power limit, then one JSON line: phase 4's
+    ``tick_ms``, its split, ``extract_ms`` (the tree's extract_triples
+    on the path, CUDA events) and the plain version's ms at its last
+    tick's grids, and each giant config's ms a tick (kernel, encode,
+    fetch, decode)."""
+    root = os.path.abspath(args[0]) if args else \
+        os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch sees no CUDA device")
+        return 2
+    from goworld_tpu_torch.engine.runtime import Runtime
+    from goworld_tpu_torch.ops import _build
+    from goworld_tpu_torch.ops import aoi_cuda as AK
+    from goworld_tpu_torch.ops import aoi_dense as AD
+    from goworld_tpu_torch.ops import aoi_grid as AG
+    from goworld_tpu_torch.ops import cadence as CD
+    from goworld_tpu_torch.ops import events as EV
+
+    check(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(EV.__file__)))) == root,
+          f"--paths: imported {EV.__file__}, not from {root}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    _build.build_all(force=True)
+    main_out, _, _ = phase_main(Runtime, AK, AD, EV)
+    giant = [phase_grid(AG, CD, name) for name in GIANT]
+    giant.append(phase_share(AK, AD, CD))
+    keys = ("kernel_ms", "encode_ms", "fetch_ms", "decode_ms")
+    print(json.dumps({"paths": {
+        "root": root, "card": card,
+        "main": {k: main_out[k] for k in (
+            "tick_ms", "kernel_ms", "extract_ms", "extract_plain_ms",
+            "perf_ms", "events_per_tick", "crc")},
+        "giant": {g["config"]: {k: g[k] for k in keys} for g in giant}}}),
+        flush=True)
+    return 0
+
+
 def deploy_main(phases):
     """``--deploy 25 24 23a 23b``: the kernels built, then the named
     deployment phases alone, in the order given, one JSON line each (the
@@ -7860,4 +8292,6 @@ if __name__ == "__main__":
         sys.exit(cluster_bots_main(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--deploy"]:
         sys.exit(deploy_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--paths"]:
+        sys.exit(paths_main(sys.argv[2:]))
     sys.exit(main())

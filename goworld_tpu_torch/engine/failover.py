@@ -248,13 +248,15 @@ class _Worker:
 
     def _write_stats(self) -> None:
         """The worker's own numbers beside its journals, at a clean exit:
-        the step kernel's launches (``ops/aoi_cuda.launches``) and each
-        adopted space's restore ms."""
-        from ..ops import aoi_cuda
+        the hand-written kernels' launches (``ops/aoi_cuda.launches`` and
+        ``ops/events_cuda.launches``) and each adopted space's restore
+        ms."""
+        from ..ops import aoi_cuda, events_cuda
 
         with open(os.path.join(self.args.journal_dir, "worker.json"),
                   "w") as f:
-            json.dump({"launches": dict(aoi_cuda.launches),
+            json.dump({"launches": {**aoi_cuda.launches,
+                                    **events_cuda.launches},
                        "restore_ms": self.restore_ms}, f)
 
 

@@ -14,8 +14,9 @@ its row-sharded ``zipfshare`` block).
 * :class:`RowBlock` is one device's observer-row block of a row-sharded
   space: the rectangular step of its rows against every candidate.
 * :func:`encode_tick` compacts a tick's diff on the device
-  (:func:`events.extract_chunks` -> :func:`events.encode_row_stream`) into
-  ONE uint8 buffer, with no host sync; :func:`decode_tick` reads the
+  (:func:`events.extract_chunks` -> :func:`events.encode_row_stream`:
+  ``csrc/events.cu`` on the card) into ONE uint8 buffer, with no host
+  sync; :func:`decode_tick` reads the
   fetched buffer on the host and checks the overflow contracts.
 * :class:`Caps` are the codec's static caps: a generous first guess,
   refit to the observed density (the counts are exact past the caps).

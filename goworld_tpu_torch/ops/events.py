@@ -8,13 +8,20 @@ PyTorch, and numpy copies of its host half (``decode_row_stream``,
 ``_expand_bits``, ``_sorted_pairs``, ``expand_words_host``,
 ``expand_classified_host``, ``triples_to_words``).
 
-The device side never waits for the device: ``jnp.nonzero(size=,
+The three device entries (``extract_triples``, ``extract_chunks``,
+``encode_row_stream``) dispatch on the device: a CUDA tensor launches
+the hand-written kernel of ``csrc/events.cu`` (:mod:`.events_cuda`; a
+refused launch raises, nothing falls back), a CPU tensor runs the plain
+version beside it (``*_plain``).  ``popcount_total`` stays plain PyTorch.
+
+The plain versions never wait for the device: ``jnp.nonzero(size=,
 fill_value=-1)`` and the top-k selections of ascending indices become a
 cumsum over the mask and a scatter into a buffer whose last row discards
 everything past the cap.  ``torch.nonzero`` and ``.item()`` are not used
 -- they synchronize the host on CUDA.  Pass order, fill values, caps and
 overflow semantics are the JAX functions', so every output buffer
-compares equal element for element (uint32 words carried as int32).
+compares equal element for element (uint32 words carried as int32), and
+the kernels are held to the plain versions the same way.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import events_cuda as EC
 from .aoi_predicate import WORD_BITS, words_per_row
 
 _M1 = 0x55555555
@@ -62,8 +70,19 @@ def _nonzero_fixed(mask: torch.Tensor, size: int) -> torch.Tensor:
 
 def extract_triples(chg: torch.Tensor, new: torch.Tensor, capacity: int,
                     max_triples: int):
+    """THE triple extraction: ``csrc/events.cu`` on CUDA tensors
+    (:func:`.events_cuda.extract_triples_cuda`), the plain version
+    :func:`extract_triples_plain` on CPU tensors."""
+    if chg.device.type == "cpu":
+        return extract_triples_plain(chg, new, capacity, max_triples)
+    return EC.extract_triples_cuda(chg, new, capacity, max_triples)
+
+
+def extract_triples_plain(chg: torch.Tensor, new: torch.Tensor,
+                          capacity: int, max_triples: int):
     """Classified diff words -> compact (observer, observed, kind) triples,
-    on the words' device, with no host sync.
+    on the words' device, with no host sync: the plain PyTorch version of
+    ``csrc/events.cu`` ``gw_extract_triples``.
 
     ``chg``/``new`` are int32 planar words of any leading shape whose flat
     word order defines the observer: ``obs = flat_word // W`` (for the
@@ -109,7 +128,18 @@ def extract_triples(chg: torch.Tensor, new: torch.Tensor, capacity: int,
 
 def extract_chunks(words: torch.Tensor, max_chunks: int, k: int, aux=None,
                    lanes: int = 128):
-    """Chunk-compacted extraction over ``lanes``-word windows.
+    """THE chunk extraction: ``csrc/events.cu`` on CUDA tensors
+    (:func:`.events_cuda.extract_chunks_cuda`), the plain version
+    :func:`extract_chunks_plain` on CPU tensors."""
+    if words.device.type == "cpu":
+        return extract_chunks_plain(words, max_chunks, k, aux, lanes)
+    return EC.extract_chunks_cuda(words, max_chunks, k, aux, lanes)
+
+
+def extract_chunks_plain(words: torch.Tensor, max_chunks: int, k: int,
+                         aux=None, lanes: int = 128):
+    """Chunk-compacted extraction over ``lanes``-word windows (the plain
+    PyTorch version of ``csrc/events.cu`` ``gw_extract_chunks``).
 
     Views the int32 words as rows of ``lanes`` words and keeps the first
     ``max_chunks`` dirty rows (ascending), and in each the first ``k``
@@ -171,9 +201,22 @@ _ROW_SLOTS = 2  # word slots shipped inline per row; the tail rides exc
 
 def encode_row_stream(vals, new_vals, widx, rsel, rcnt, *, w: int,
                       max_gaps: int = 2048, max_exc: int = 16384):
+    """THE row-stream encode: ``csrc/events.cu`` on CUDA tensors
+    (:func:`.events_cuda.encode_row_stream_cuda`), the plain version
+    :func:`encode_row_stream_plain` on CPU tensors."""
+    if vals.device.type == "cpu":
+        return encode_row_stream_plain(vals, new_vals, widx, rsel, rcnt, w=w,
+                                       max_gaps=max_gaps, max_exc=max_exc)
+    return EC.encode_row_stream_cuda(vals, new_vals, widx, rsel, rcnt, w=w,
+                                     max_gaps=max_gaps, max_exc=max_exc)
+
+
+def encode_row_stream_plain(vals, new_vals, widx, rsel, rcnt, *, w: int,
+                            max_gaps: int = 2048, max_exc: int = 16384):
     """Compress a row-extracted change stream for D2H (about 1 B per row
     plus 2-3 B per single-bit word): the port of the JAX package's
-    ``encode_row_stream``, equal to it element for element.
+    ``encode_row_stream``, equal to it element for element, and the plain
+    PyTorch version of ``csrc/events.cu`` ``gw_encode_row_stream``.
 
     Per row ONE byte: row-index delta in bits 0-5 (63 = escaped, absolute
     index in ``esc_rows``) and ``min(rcnt, 2) - 1`` in bit 6.  Two inline

@@ -24,7 +24,9 @@ reference's order:
 
 On CPU tensors the same body runs eagerly: that is the plain version,
 and the tests hold it to the unfused path.  There is no kernel of this
-module's own: the fusion is the graph around ``aoi_step.cu``.
+module's own: the fusion is the graph around ``aoi_step.cu`` and the
+``events.cu`` kernels its body launches (a replay counts one launch of
+each, as the eager body would).
 
 The sharded buckets (``engine/aoi_mesh``, ``engine/aoi_rowshard``; the
 JAX package folds their packet scatter into the per-chip program,
@@ -81,6 +83,7 @@ from . import aoi_pages as PG
 from . import aoi_stage as AS
 from . import dispatch_count as DC
 from . import events as EV
+from . import events_cuda as EC
 from .aoi_predicate import words_per_row
 
 SITE = "aoi.fused_tri"
@@ -100,7 +103,7 @@ def _capture(pool, device, body, prepare=None) -> torch.cuda.CUDAGraph:
     real launch of the kernel, which builds its library and reads its
     occupancy before any capture).  ``prepare(warm_out)``, where given,
     runs between the two on the current stream and returns the body to
-    capture instead.  A capture launches nothing: its count is undone."""
+    capture instead.  A capture launches nothing: its counts are undone."""
     with torch.cuda.device(device):
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -112,10 +115,11 @@ def _capture(pool, device, body, prepare=None) -> torch.cuda.CUDAGraph:
             body = prepare(warm)
         del warm
         graph = torch.cuda.CUDAGraph()
-        n0 = AK.launches["aoi_step"]
+        n0, e0 = AK.launches["aoi_step"], dict(EC.launches)
         with torch.cuda.graph(graph, pool=pool):
             body()
         AK.launches["aoi_step"] = n0
+        EC.launches.update(e0)
     return graph
 
 
@@ -187,6 +191,8 @@ class FusedTri:
     cap; :class:`FusedPaged` swaps them for the page allocator's."""
 
     site = SITE
+    # the events.cu kernels a replay of the body launches
+    replay_kernels = ("extract_triples",)
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):
@@ -271,7 +277,8 @@ class FusedTri:
         """One fused tick of parity ``parity`` at output size ``size`` over
         the loaded packet: ``(new, chg, *outputs)``, the static buffers it
         writes.  Counts one dispatch (the replay, or the eager body on
-        the CPU) and, on the card, one launch of ``aoi_step.cu``."""
+        the CPU) and, on the card, one launch of ``aoi_step.cu`` and of
+        each of ``replay_kernels``."""
         p = parity
         outs = self.outputs(p, size)
         args = (self.words[p], self.words[1 - p], self.chg[p], *outs,
@@ -292,6 +299,8 @@ class FusedTri:
                                    "moved since the graph was captured")
             g.replay()
             AK.launches["aoi_step"] += 1  # the replay launches aoi_step.cu
+            for k in self.replay_kernels:  # and the body's events.cu kernels
+                EC.launches[k] += 1
         return (self.words[1 - p], self.chg[p], *outs)
 
     def pool_bytes(self) -> int:
@@ -315,6 +324,7 @@ class FusedPaged(FusedTri):
     MAX_SPILL)`` of the [S, C, W] grid the graph steps."""
 
     site = PAGED_SITE
+    replay_kernels = ()
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):
@@ -514,7 +524,8 @@ class FusedShards:
         its shards' :class:`ShardStep`.  Returns, per device, its shards'
         ``(chunks, streams, scalars)`` (the static buffers on the card).
         Counts one dispatch a device (the replay, or the eager body on the
-        CPU) and, on the card, one ``aoi_step.cu`` launch a shard."""
+        CPU) and, on the card, one launch a shard of ``aoi_step.cu`` and
+        of the codec's two ``events.cu`` kernels."""
         if caps != self.caps:
             for k in list(self.graphs):
                 del self.graphs[k]
@@ -537,6 +548,8 @@ class FusedShards:
                 self.inputs[key] = ptrs
             graph.replay()
             AK.launches["aoi_step"] += len(steps[g])
+            for k in ("extract_chunks", "encode_row_stream"):  # shard_codec
+                EC.launches[k] += len(steps[g])
             out.append(self.outs[key])
         return out
 

@@ -68,6 +68,7 @@ EXTRACT_CASES = {
     "k-over-lanes": ((1, 64, 8), 0.3, 0.1, 8, 40),
     "padded": ((1, 128, 4), 0.02, 0.0, 64, 8),
     "empty": ((1, 128, 4), 0.0, 0.0, 16, 8),
+    "kk-at-lanes": ((1, 64, 8), 0.6, 0.3, 8, 128),
 }
 
 
@@ -101,6 +102,7 @@ ENCODE_CASES = {
     "gaps-overflow": ((1, 8192, 32), 0.0002, 0.0, 2048, 8, 4, 256),
     "exc-overflow": ((1, 512, 16), 0.05, 0.05, 256, 16, 64, 8),
     "wide-rows": ((1, 1024, 32), 0.01, 0.01, 512, 8, 64, 512),
+    "one-slot": ((1, 512, 16), 0.05, 0.05, 256, 1, 64, 256),
 }
 
 

@@ -35,7 +35,8 @@ def _both(chg, new, cap, mt):
     return (np.asarray(tri_j), int(cnt_j)), (tri_t.numpy(), int(cnt_t))
 
 
-@pytest.mark.parametrize("case", ["empty", "sparse", "bit31", "overflow"])
+@pytest.mark.parametrize("case", ["empty", "sparse", "bit31", "overflow",
+                                  "cap-in-word", "all-ones"])
 def test_extract_triples_matches_jax(case):
     s, c, mt = 2, 256, 512
     chg, new = _grids(s, c, 0.002, seed=len(case))
@@ -48,10 +49,16 @@ def test_extract_triples_matches_jax(case):
         chg[1, 255, 7] = np.uint32(0xFFFFFFFF)
     elif case == "overflow":
         chg, new = _grids(s, c, 0.03, seed=9)
+    elif case == "cap-in-word":  # the cap falls inside an all-ones word
+        chg[:] = 0
+        chg[0, 0, 1] = np.uint32(0x7)
+        chg[0, 9:12, 2:] = np.uint32(0xFFFFFFFF)  # 3 + 509 bits: mid-word
+    elif case == "all-ones":
+        chg[:] = np.uint32(0xFFFFFFFF)
     (tri_j, cnt_j), (tri_t, cnt_t) = _both(chg, new, c, mt)
     assert cnt_t == cnt_j
     np.testing.assert_array_equal(tri_t, tri_j)
-    if case == "overflow":
+    if case in ("overflow", "cap-in-word", "all-ones"):
         assert cnt_t > mt and (tri_t >= 0).all()
     elif case == "empty":
         assert cnt_t == 0 and (tri_t == -1).all()

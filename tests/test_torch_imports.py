@@ -41,6 +41,7 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
                 "engine.aoi_rowshard", "entry", "faults", "ops.aoi_oracle",
                 "ops.aoi_native", "ops.interest_kernels", "ops.interest_cuda",
+                "ops.events_cuda",
                 "interest", "interest.field", "interest.oracle",
                 "interest.device", "interest.policy", "ingest",
                 "ingest.movement", "load", "load.clients", "load.harness",
@@ -153,8 +154,11 @@ def test_cpu_path_launches_no_kernel():
     from goworld_tpu_torch.ops import aoi_grid as AG
     from goworld_tpu_torch.ops import cadence as CD
 
+    from goworld_tpu_torch.ops import events_cuda as EC
+
     AK.reset_launches()
     AG.reset_launches()
+    EC.reset_launches()
     eng = AOIEngine(device="cpu")
     h = eng.create_space(128)
     x = np.arange(128, dtype=np.float32)
@@ -191,3 +195,5 @@ def test_cpu_path_launches_no_kernel():
     assert AK.launches == {"aoi_step": 0, "aoi_step_entlv": 0}
     assert AG.launches == {"aoi_words_culled": 0, "aoi_step_culled": 0}
     assert IC.launches == {"interest_step": 0}
+    assert EC.launches == {"extract_triples": 0, "extract_chunks": 0,
+                           "encode_row_stream": 0}
