@@ -28,14 +28,22 @@ Phases (any failure raises, so the exit code is non-zero):
                 against their plain versions (ops/events.*_plain), every
                 output equal: the triples on phase 4's last measured tick
                 (its cap, a cap inside a word), an empty grid, all-ones
-                and bit-31 words with caps at and around a block's edge;
-                the codec on sparse rows under caps that fit and under
-                caps forcing each overflow in turn (n_dirty > max_chunks,
-                max_ccnt > k, n_esc > max_gaps, exc_n > max_exc), an
-                empty diff, k at and past the 128 lanes; and, inside
-                phases 7-8, on each config's last diff under the run's
-                caps and under the forced overflows; each timed against
-                its plain version (CUDA events);
+                and bit-31 words with caps at and around a tile's edge,
+                1 word and a tile's edges with caps inside the last tile,
+                an unaligned view, every tile's count full, launches
+                back to back and four replays of a captured graph (the
+                single pass's statuses reset each time); the codec on
+                sparse rows under caps that fit and under caps forcing
+                each overflow in turn (n_dirty > max_chunks, max_ccnt >
+                k, n_esc > max_gaps, exc_n > max_exc), an empty diff, k
+                at and past the 128 lanes, one row, rows not a multiple
+                of the encode's tile under each overflow, four replays
+                of a captured encode; and, inside phases 7-8, on each
+                config's last diff under the run's caps and under the
+                forced overflows; each timed (CUDA events around wrapper
+                calls, and around graph replays of them: device time)
+                against its plain version, the encode beside one empty
+                launch's time;
   5. parity  -- the same seeded walk at 2 spaces x 2,000 entities on
                 device="cuda" and device="cpu": the CRCs of the delivered
                 enter/leave arrays must be equal;
@@ -1148,6 +1156,107 @@ def tri_same(EV, EC, chg, new, cap, mt, label):
             "count": int(want[1]), "max_abs_err": err}
 
 
+def graph_ms(fn, reps=20):
+    """Device ms of one call of ``fn`` replayed from a CUDA graph that
+    holds ``reps`` calls back to back: its memsets and launches with no
+    host work between them (CUDA events around the replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the first call's allocations outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(g.replay, 5, warm=1) / reps
+    del g
+    return ms
+
+
+def launch_floor(EC):
+    """ms of one launch of csrc/events.cu's empty kernel on the current
+    stream: a loop of launches between CUDA events (the host's rate, as
+    ``ms`` of a wrapper) and the same launches replayed from a graph (the
+    device's, as ``graph_ms``).  None on a tree without the empty kernel
+    (a parent's, under ``--paths``)."""
+    if not hasattr(EC, "empty_launch"):
+        return None
+    return {"ms": cuda_ms(EC.empty_launch, 50),
+            "graph_ms": graph_ms(EC.empty_launch, 50)}
+
+
+def tri_timed(EV, EC, chg, new, cap, mt):
+    """extract_triples alone on one diff: ``ms`` (wrapper calls between
+    CUDA events: host time included), ``graph_ms`` (the same calls replayed
+    from a graph: device time), the plain version's ms, bound ms."""
+    with NoCount(EC):
+        ms = cuda_ms(lambda: EC.extract_triples_cuda(chg, new, cap, mt), 20)
+        g_ms = graph_ms(lambda: EC.extract_triples_cuda(chg, new, cap, mt))
+        plain_ms = cuda_ms(lambda: EV.extract_triples_plain(chg, new, cap,
+                                                            mt), 5)
+    return {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": tri_bound_ms(chg, mt)}
+
+
+def tri_rereads(EC, chg):
+    """Words extract_triples reads from chg a second time (csrc/events.cu
+    tri_pass keeps a thread's first two nonzero words; a third or later
+    is read again when its triples are made), beside all nonzero words."""
+    tile = EC.triples_plan(chg.numel(), 1).tile
+    flat = chg.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % tile)])
+    nz = (flat.view(-1, tile // (4 * EC.THREADS), EC.THREADS, 4) != 0).sum(
+        dim=(1, 3))
+    return {"reread_words": int((nz - 2).clamp(min=0).sum()),
+            "nonzero_words": int(nz.sum()), "words": chg.numel()}
+
+
+def tri_back_to_back(EV, EC, inputs, cap, mt, label):
+    """extract_triples on each input, launched one after another with no
+    sync between (the caching allocator hands each call the scratch the
+    last one freed), then each against its plain version."""
+    with NoCount(EC):
+        got = [EC.extract_triples_cuda(c, n, cap, mt) for c, n in inputs]
+        want = [EV.extract_triples_plain(c, n, cap, mt) for c, n in inputs]
+        torch.cuda.synchronize()
+    return [{"case": f"{label}, launch {i}", "count": int(w[1]),
+             "max_abs_err": outputs_equal("extract_triples", g, w,
+                                          f"{label}, launch {i}")}
+            for i, (g, w) in enumerate(zip(got, want))]
+
+
+def replayed(EC, statics, call, inputs, plain, name, label):
+    """``call`` on the tensors ``statics`` captured into a CUDA graph,
+    then replayed once for each of ``inputs`` (copied into ``statics``
+    first), each replay's outputs against ``plain`` on that input.  A
+    replay's scratch is the last replay's memory, its statuses in it:
+    each must start from the entry's reset."""
+    rows = []
+    with NoCount(EC):
+        for t, v in zip(statics, inputs[0]):
+            t.copy_(v)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call(*statics)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = call(*statics)
+        for i, inp in enumerate(inputs):
+            for t, v in zip(statics, inp):
+                t.copy_(v)
+            g.replay()
+            want = plain(*inp)
+            torch.cuda.synchronize()
+            rows.append({"case": f"{label}, replay {i}",
+                         "max_abs_err": outputs_equal(
+                             name, out, want, f"{label}, replay {i}")})
+        del g
+    return rows
+
+
 def codec_same(EV, EC, words, aux, mc, k, gaps, exc, label, lanes=128):
     """extract_chunks, then encode_row_stream over the kernel's chunks,
     each kernel against its plain version on the same inputs."""
@@ -1200,18 +1309,25 @@ def codec_path_check(EV, EC, new, chg, caps, label):
     with NoCount(EC):
         ms_x = cuda_ms(lambda: EC.extract_chunks_cuda(chg, c[0], c[1], new,
                                                       128), 10)
+        graph_x = graph_ms(lambda: EC.extract_chunks_cuda(
+            chg, c[0], c[1], new, 128), 10)
         plain_x = cuda_ms(lambda: EV.extract_chunks_plain(chg, c[0], c[1],
                                                           new, 128), 3)
         args = got[:5]
         ms_e = cuda_ms(lambda: EC.encode_row_stream_cuda(
             *args, w=128, max_gaps=c[2], max_exc=c[3]), 10)
+        graph_e = graph_ms(lambda: EC.encode_row_stream_cuda(
+            *args, w=128, max_gaps=c[2], max_exc=c[3]))
         plain_e = cuda_ms(lambda: EV.encode_row_stream_plain(
             *args, w=128, max_gaps=c[2], max_exc=c[3]), 3)
-    row.update(extract_chunks={"ms": ms_x, "plain_ms": plain_x,
+    row.update(extract_chunks={"ms": ms_x, "graph_ms": graph_x,
+                               "plain_ms": plain_x,
                                "bound_ms": chunks_bound_ms(chg, got, kk)},
-               encode_row_stream={"ms": ms_e, "plain_ms": plain_e,
+               encode_row_stream={"ms": ms_e, "graph_ms": graph_e,
+                                  "plain_ms": plain_e,
                                   "bound_ms": encode_bound_ms(
-                                      got[4], kk, enc)})
+                                      got[4], kk, enc),
+                                  "launch_floor": launch_floor(EC)})
     forced = codec_forced(EV, EC, chg, new, c, row, label)
     log("kernel codec", json.dumps(row), json.dumps(forced))
     return {"path": row, "forced": forced}
@@ -1235,20 +1351,36 @@ def sparse_rows(nc, lanes, seed):
     return torch.from_numpy(w.view(np.int32)).to(DEV)
 
 
+def dense_words(n, seed, density=0.3, offset=0):
+    """int32 words [n] on the card, a ``density`` share nonzero (random
+    bits), as a view ``offset`` words into its storage (1: not 16-byte
+    aligned)."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, n + offset, dtype=np.uint64).astype(np.uint32)
+    w[rng.random(n + offset) >= density] = 0
+    return torch.from_numpy(w.view(np.int32)).to(DEV)[offset:]
+
+
 def phase_events_kernel(EV, EC, grids):
     """Phase 3c: the three kernels of csrc/events.cu against their plain
     versions (ops/events.*_plain) on the card, outputs equal element for
-    element: extract_triples on phase 4's last measured tick (the path's
+    element.  extract_triples: phase 4's last measured tick (the path's
     cap, and a cap inside a word), an empty grid, all-ones and bit-31
-    words with caps at a block's edge and inside a block; the codec on
-    sparse rows under caps that fit and under caps forcing each overflow,
-    an empty diff, kk at lanes and k past lanes.  Times the triples
+    words with caps at and around a tile's edge; n of one word, a tile
+    less one, a tile and a tile and one, caps ending inside the last
+    tile; an unaligned view (the scalar loads); an all-ones grid, every
+    tile's count full; launches back to back on the same scratch; the
+    entry captured in a CUDA graph and replayed on four inputs.  The
+    codec: sparse rows under caps that fit and under caps forcing each
+    overflow, an empty diff, kk at lanes and k past lanes; one row, and
+    rows not a multiple of the encode's tile under each overflow; the
+    encode captured and replayed on four inputs.  Times the triples
     kernel and its plain version at phase 4's grids (CUDA events)."""
     chg, new, cap, mt = grids
     rows = [tri_same(EV, EC, chg, new, cap, mt, "phase 4 tick")]
     count = rows[0]["count"]
     check(0 < count <= mt, f"3c: phase 4's tick has {count} triples")
-    # a cap inside a word and inside a block: the first word past the
+    # a cap inside a word and inside a tile: the first word past the
     # middle holding at least 2 bits, cut after its first bit
     pc = EV.popcount_words(chg.reshape(-1))
     half = chg.numel() // 2
@@ -1259,24 +1391,60 @@ def phase_events_kernel(EV, EC, grids):
                          "inside a word"))
     zero = torch.zeros_like(chg)
     rows.append(tri_same(EV, EC, zero, zero, cap, mt, "empty grid"))
-    del zero
     ones = torch.full((1, 1024, 32), -1, dtype=torch.int32, device=DEV)
-    ones[0, 900, 3] = -2**31  # bit 31 alone, past the first blocks
+    ones[0, 900, 3] = -2**31  # bit 31 alone, past the first tiles
     ones[0, 700:720] = 0
-    span = EC.triples_plan(ones.numel(), 1).span
+    tile = EC.triples_plan(ones.numel(), 1).tile
     noise = sparse_rows(256, 128, 4).reshape(ones.shape)
-    for c_ in (span * 32 - 31, span * 32, span * 32 + 1, 3 * span * 32 + 17,
+    for c_ in (tile * 32 - 31, tile * 32, tile * 32 + 1, 3 * tile * 32 + 17,
                ones.numel() * 32):
         rows.append(tri_same(EV, EC, ones, noise, 1024, c_,
                              f"all-ones, cap {c_}"))
-    with NoCount(EC):
-        ms = cuda_ms(lambda: EC.extract_triples_cuda(chg, new, cap, mt), 20)
-        plain_ms = cuda_ms(lambda: EV.extract_triples_plain(chg, new, cap,
-                                                            mt), 5)
+    # the tile's edges, flat, and caps ending inside the last tile
+    words, nw = dense_words(3 * tile + 5, 21), dense_words(3 * tile + 5, 22)
+    words[tile] = 0x70F0F0F  # the last tile of tile + 1 words: 15 bits
+    words[3 * tile:] = -1
+    for n in (1, tile - 1, tile, tile + 1, 3 * tile + 5):
+        c, v = words[:n], nw[:n]
+        total = int(EV.popcount_total(c))
+        caps = [max(1, total)]
+        if n > tile:
+            last = (n - 1) // tile * tile
+            caps.append(int(EV.popcount_total(c[:last])) + 1 +
+                        int(EV.popcount_total(c[last:])) // 2)
+        for c_ in caps:
+            rows.append(tri_same(EV, EC, c, v, 1024, c_,
+                                 f"{n} words, cap {c_}"))
+    # an unaligned view: the kernel's scalar loads (vec = 0)
+    c, v = dense_words(2 * tile + 3, 23, offset=1), nw[:2 * tile + 3]
+    check(EC._aligned(c) == 0, "3c: the unaligned view is aligned")
+    total = int(EV.popcount_total(c))
+    for c_ in (total, total // 2 + 1):
+        rows.append(tri_same(EV, EC, c, v, 1024, c_,
+                             f"unaligned {c.numel()} words, cap {c_}"))
+    # every tile's count full (each step's block total 2^15)
+    full = torch.full((1, 2048, 32), -1, dtype=torch.int32, device=DEV)
+    bits = full.numel() * 32
+    for c_ in (bits, bits - tile * 32 - 1):
+        rows.append(tri_same(EV, EC, full, noise.repeat(1, 2, 1),
+                             1024, c_, f"all-ones {full.numel()} words, "
+                             f"cap {c_}"))
+    del full
+    # back to back on the same scratch, then graph replays: the statuses
+    # of the last call or replay are in the scratch, and must not count
+    half_chg = chg.clone()
+    half_chg.reshape(-1)[::2] = 0
+    inputs = [(chg, new), (half_chg, new), (zero, zero), (chg, new)]
+    rows += tri_back_to_back(EV, EC, inputs, cap, mt, "back to back")
+    rows += replayed(
+        EC, (torch.empty_like(chg), torch.empty_like(new)),
+        lambda a, b: EC.extract_triples_cuda(a, b, cap, mt), inputs,
+        lambda a, b: EV.extract_triples_plain(a, b, cap, mt),
+        "extract_triples", "graph")
+    del zero, half_chg, inputs
     tri = {"shape": list(chg.shape), "max_triples": mt, "count": count,
-           "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": tri_bound_ms(chg, mt), "bound_by": "bytes",
-           "cases": rows,
+           **tri_timed(EV, EC, chg, new, cap, mt), "bound_by": "bytes",
+           **tri_rereads(EC, chg), "cases": rows,
            "max_abs_err": max(r["max_abs_err"] for r in rows)}
     log("kernel extract_triples", json.dumps(tri))
     # the codec on sparse rows: caps that fit, then each overflow forced
@@ -1292,6 +1460,29 @@ def phase_events_kernel(EV, EC, grids):
                          ("k past lanes", words, 200)):
         codec.append(codec_same(EV, EC, w_, aux, 512, k, 256, 1024,
                                 label)[0])
+    # one row; rows not a multiple of the encode's tile, each overflow
+    codec.append(codec_same(EV, EC, words, aux, 1, 8, 256, 1024,
+                            "one row")[0])
+    many, many_aux = sparse_rows(65536, 128, 8), sparse_rows(65536, 128, 9)
+    fit = (2300, 64, 4096, 65536)
+    row, got, _ = codec_same(EV, EC, many, many_aux, *fit, "2300 rows")
+    check(row["n_dirty"] > 1800 and not any(row["overflow"]),
+          f"3c: 2300 rows {row}")
+    forced = codec_forced(EV, EC, many, many_aux, fit, row, "2300 rows")
+    check(len(forced) == 4, "3c: a 2300-row overflow was not forced")
+    codec += [row] + forced
+    # the encode captured, replayed on four chunk sets of one shape
+    sets = [got[:5]]
+    for w_ in (words, torch.zeros_like(many), many.flip(0)):
+        sets.append(EV.extract_chunks_plain(
+            w_, fit[0], fit[1], many_aux[:w_.shape[0]], 128)[:5])
+    codec += replayed(
+        EC, tuple(torch.empty_like(t) for t in sets[0]),
+        lambda *a: EC.encode_row_stream_cuda(*a, w=128, max_gaps=fit[2],
+                                             max_exc=fit[3]), sets,
+        lambda *a: EV.encode_row_stream_plain(*a, w=128, max_gaps=fit[2],
+                                              max_exc=fit[3]),
+        "encode_row_stream", "encode graph")
     log("kernel codec 3c", json.dumps(codec))
     return {"extract_triples": tri, "codec": codec,
             "max_abs_err": max([tri["max_abs_err"]]
@@ -5358,10 +5549,13 @@ def phase_telemetry(Runtime, AK, DC, TEL, main_crcs, main_out, cohort_eng):
 
 
 def events_entries(events_k, main_out, grid_out, share_out, ev_l):
-    """The ``kernels`` line's entries of csrc/events.cu: ``ms`` /
+    """The ``kernels`` line's entries of csrc/events.cu: ``ms`` (device
+    time: CUDA events around graph replays of the wrapper's calls) /
+    ``wrapper_ms`` (around the calls themselves, host included) /
     ``plain_ms`` / ``bound_ms`` alone at phase 4's grids (triples) and at
     `million`'s last diff under its caps (the codec; each giant config's
-    in ``shapes``), ``main_path_ms`` on the path (phase 4's
+    in ``shapes``; the encode's ``launch_floor_ms``, one empty launch
+    timed the same two ways), ``main_path_ms`` on the path (phase 4's
     ``extract_ms``; phases 7-8's ``encode_ms``, extract and encode
     together), launches on each path."""
     codec = {g["config"]: g["codec_check"] for g in grid_out + [share_out]}
@@ -5376,23 +5570,29 @@ def events_entries(events_k, main_out, grid_out, share_out, ev_l):
                 "replaces": f"goworld_tpu/ops/events.py:{line}",
                 "launches": sum(ev_l[name].values()),
                 "path_launches": ev_l[name], "max_abs_err": max(errs),
-                "ms": alone["ms"], "plain_ms": alone["plain_ms"],
+                "ms": alone["graph_ms"], "wrapper_ms": alone["ms"],
+                "plain_ms": alone["plain_ms"],
                 "bound_ms": alone["bound_ms"], "bound_by": "bytes",
                 "library_ms": None, "library_note": why,
                 "main_path_ms": path_ms, **extra}
 
     tri = events_k["extract_triples"]
+    enc = codec["million"]["path"]["encode_row_stream"]
     encode_ms = {c: g["encode_ms"] for c, g in (
         *((g["config"], g) for g in grid_out), ("zipfshare", share_out))}
     return [
         entry("extract_triples", 385, tri, main_out["extract_ms"],
               shape=tri["shape"], max_triples=tri["max_triples"],
               main_path_plain_ms=main_out["extract_plain_ms"]),
-        *(entry(name, line, codec["million"]["path"][name], encode_ms,
-                shape="million", shapes={c: v["path"][name]
-                                         for c, v in codec.items()})
-          for name, line in (("extract_chunks", 66),
-                             ("encode_row_stream", 141)))]
+        entry("extract_chunks", 66, codec["million"]["path"][
+            "extract_chunks"], encode_ms, shape="million",
+              shapes={c: v["path"]["extract_chunks"]
+                      for c, v in codec.items()}),
+        entry("encode_row_stream", 141, enc, encode_ms, shape="million",
+              shapes={c: v["path"]["encode_row_stream"]
+                      for c, v in codec.items()},
+              launch_floor_ms=enc["launch_floor"]["ms"],
+              launch_floor_graph_ms=enc["launch_floor"]["graph_ms"])]
 
 
 def interest_entry(interest_k, interest_slice, load_out, moved):
@@ -8214,7 +8414,10 @@ def paths_main(args):
     ``tick_ms``, its split, ``extract_ms`` (the tree's extract_triples
     on the path, CUDA events) and the plain version's ms at its last
     tick's grids, and each giant config's ms a tick (kernel, encode,
-    fetch, decode)."""
+    fetch, decode); the kernels alone (CUDA events): extract_triples at
+    phase 4's last tick's grids, extract_chunks and encode_row_stream at
+    each giant config's last diff, each held to its plain version there
+    (``codec_path_check``)."""
     root = os.path.abspath(args[0]) if args else \
         os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -8228,6 +8431,7 @@ def paths_main(args):
     from goworld_tpu_torch.ops import aoi_grid as AG
     from goworld_tpu_torch.ops import cadence as CD
     from goworld_tpu_torch.ops import events as EV
+    from goworld_tpu_torch.ops import events_cuda as EC
 
     check(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(EV.__file__)))) == root,
@@ -8238,16 +8442,23 @@ def paths_main(args):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _build.build_all(force=True)
-    main_out, _, _ = phase_main(Runtime, AK, AD, EV)
-    giant = [phase_grid(AG, CD, name) for name in GIANT]
-    giant.append(phase_share(AK, AD, CD))
+    main_out, _, grids = phase_main(Runtime, AK, AD, EV)
+    alone = tri_timed(EV, EC, *grids)
+    del grids
+    giant = [phase_grid(AG, CD, name, (EV, EC)) for name in GIANT]
+    giant.append(phase_share(AK, AD, CD, (EV, EC)))
     keys = ("kernel_ms", "encode_ms", "fetch_ms", "decode_ms")
+    codec_keys = ("extract_chunks", "encode_row_stream")
     print(json.dumps({"paths": {
         "root": root, "card": card,
         "main": {k: main_out[k] for k in (
             "tick_ms", "kernel_ms", "extract_ms", "extract_plain_ms",
             "perf_ms", "events_per_tick", "crc")},
-        "giant": {g["config"]: {k: g[k] for k in keys} for g in giant}}}),
+        "extract_triples_alone": alone,
+        "giant": {g["config"]: {
+            **{k: g[k] for k in keys},
+            **{k + "_alone": g["codec_check"]["path"][k]
+               for k in codec_keys}} for g in giant}}}),
         flush=True)
     return 0
 

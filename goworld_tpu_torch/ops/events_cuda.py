@@ -2,11 +2,14 @@
 ctypes bindings, their launch plans and the wrappers' checks.
 
 * :func:`extract_triples_cuda` -- the classified diff into (observer,
-  observed, kind) triples and their exact count (``gw_extract_triples``);
+  observed, kind) triples and their exact count (``gw_extract_triples``:
+  one pass that reads ``chg`` once, tiles of :data:`TRI_TILE` words
+  ranked by a decoupled look-back);
 * :func:`extract_chunks_cuda` -- the chunk extraction of the row-stream
-  codec (``gw_extract_chunks``);
+  codec (``gw_extract_chunks``: count, scan and write passes);
 * :func:`encode_row_stream_cuda` -- the row-stream encode
-  (``gw_encode_row_stream``).
+  (``gw_encode_row_stream``: one launch, tiles of :data:`ENC_TILE` rows
+  ranked by the same look-back).
 
 Each takes the arguments of its entry in :mod:`.events` (which calls it
 on CUDA tensors and its ``*_plain`` twin on CPU tensors) and returns the
@@ -19,6 +22,13 @@ refused, and adds one to ``launches[<kernel>]``: nowhere else counts.
 The launch plans are pure functions of the shapes and caps, so a capture
 key never has to know more.  ``launches`` is served as
 ``ops.kernel_launches{kernel=...}`` to ``/debug/metrics``.
+
+The two single-pass entries take their tiles by an atomic ticket and
+publish a status word a tile; the entry zeroes those words and the
+ticket with a memset on the stream just before its kernel, so inside a
+CUDA graph every replay resets the scratch it shares with the last
+replay (``csrc/events.cu`` says why the kernel cannot reset it itself).
+The lists' fills are memsets before the kernel too.
 """
 
 from __future__ import annotations
@@ -39,10 +49,11 @@ launches = {"extract_triples": 0, "extract_chunks": 0,
 
 THREADS = 256            # threads a block (csrc/events.cu THREADS)
 WARPS = THREADS // 32
-TRI_TILE = 4 * THREADS   # words a block ranks in one step (4 a thread)
-ROW_TILE = THREADS       # rows a block ranks in one step (1 a thread)
-MAX_BLOCKS = 4096        # count and write passes: at most this many blocks
-MAX_FILL_BLOCKS = 1024   # fill and gather passes
+TRI_TILE = 32 * THREADS  # words a triples tile: eight 16-byte loads a thread
+ENC_TILE = 2 * THREADS   # rows an encode tile: two a thread
+ROW_TILE = THREADS       # rows a chunk block ranks in one step (1 a thread)
+MAX_BLOCKS = 4096        # chunk count and write passes: at most this many
+MAX_FILL_BLOCKS = 1024   # chunk gather pass
 
 
 def reset_launches() -> None:
@@ -63,16 +74,31 @@ telemetry.register_collector(_telemetry_collect)
 
 
 class Plan(NamedTuple):
-    """One entry's launch: ``blocks`` blocks of the count and write
-    passes, each owning ``span`` units (words or rows; a multiple of its
-    tile); ``fill_blocks`` blocks of the fill (or gather) pass; ``scratch``
-    int64 entries of scratch; ``rows`` int32 entries of per-row scratch."""
+    """The chunk extraction's launch: ``blocks`` blocks of the count and
+    write passes, each owning ``span`` rows (a multiple of its tile);
+    ``fill_blocks`` blocks of the gather pass; ``scratch`` int64 entries
+    of scratch; ``rows`` int32 entries of per-row scratch."""
 
     span: int
     blocks: int
     fill_blocks: int
     scratch: int
     rows: int = 0
+
+
+class OnePass(NamedTuple):
+    """A single-pass entry's launch: ``tiles`` blocks of ``tile`` units
+    (words or rows), block by block taking tile ``t`` by ticket;
+    ``scratch`` int64 entries: a status word a tile for each ranked
+    count, then the ticket; ``reset_bytes`` the memset zeroing them
+    before the kernel; ``fill_bytes`` the memsets of the outputs' fills
+    (-1 rows and tails)."""
+
+    tile: int
+    tiles: int
+    scratch: int
+    reset_bytes: int
+    fill_bytes: int
 
 
 def span_plan(units: int, tile: int,
@@ -90,10 +116,17 @@ def fill_blocks(n: int, per_block: int) -> int:
     return max(1, min(-(-n // per_block), MAX_FILL_BLOCKS))
 
 
-def triples_plan(n_words: int, max_triples: int) -> Plan:
-    """Scratch: per-block bit counts and their exclusive prefix."""
-    span, blocks = span_plan(n_words, TRI_TILE)
-    return Plan(span, blocks, fill_blocks(max_triples, THREADS), 2 * blocks)
+def one_pass(units: int, tile: int, counts: int, fill_bytes: int) -> OnePass:
+    """A tile a block (one tile for 0 units), ``counts`` status words a
+    tile and the ticket."""
+    tiles = max(1, -(-units // tile))
+    scratch = counts * tiles + 1
+    return OnePass(tile, tiles, scratch, 8 * scratch, fill_bytes)
+
+
+def triples_plan(n_words: int, max_triples: int) -> OnePass:
+    """Fill: the triple buffer to -1 (12 bytes a row)."""
+    return one_pass(n_words, TRI_TILE, 1, 12 * max_triples)
 
 
 def chunks_plan(n_rows: int, max_chunks: int) -> Plan:
@@ -105,12 +138,10 @@ def chunks_plan(n_rows: int, max_chunks: int) -> Plan:
                 3 * blocks + 2, max(1, n_rows))
 
 
-def encode_plan(n_rows: int, max_gaps: int, max_exc: int) -> Plan:
-    """Scratch: per-block escape and exception counts, their prefixes,
-    then (n_esc, exc_n)."""
-    span, blocks = span_plan(n_rows, ROW_TILE)
-    return Plan(span, blocks, fill_blocks(max(max_gaps, max_exc), THREADS),
-                4 * blocks + 2)
+def encode_plan(n_rows: int, max_gaps: int, max_exc: int) -> OnePass:
+    """One status word a tile holds both its counts; fills: the escaped
+    rows and the exceptions' gidx to -1, chg and new to 0."""
+    return one_pass(n_rows, ENC_TILE, 1, 4 * max_gaps + 12 * max_exc)
 
 
 # -- checks -------------------------------------------------------------------
@@ -191,6 +222,8 @@ def check_encode(vals, new_vals, widx, rsel, rcnt, w: int, max_gaps: int,
         raise ValueError(f"w {w} exceeds int32")
     _cap("max_gaps", max_gaps)
     _cap("max_exc", max_exc)
+    if mr * k > 2**31 - 1:
+        raise ValueError(f"vals [{mr}, {k}]: more than 2^31 - 1 slots")
     return mr, k
 
 
@@ -204,9 +237,10 @@ def _on_cuda(name, t):
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = {
-    "gw_extract_triples": [_P, _P] + [_I64] * 6 + [_INT] + [_P] * 4,
+    "gw_extract_triples": [_P, _P] + [_I64] * 5 + [_INT] + [_P] * 4,
     "gw_extract_chunks": [_P, _P] + [_I64] * 7 + [_INT] + [_P] * 9,
-    "gw_encode_row_stream": [_P] * 5 + [_I64] * 8 + [_INT] + [_P] * 10,
+    "gw_encode_row_stream": [_P] * 5 + [_I64] * 7 + [_INT] + [_P] * 10,
+    "gw_empty_launch": [_P],
 }
 
 
@@ -254,8 +288,8 @@ def extract_triples_cuda(chg: torch.Tensor, new: torch.Tensor,
     count = torch.empty((), dtype=torch.int64, device=dev)
     scratch = torch.empty(plan.scratch, dtype=torch.int64, device=dev)
     _launch("extract_triples", dev, "gw_extract_triples", chg.data_ptr(),
-            new.data_ptr(), n, w, max_triples, plan.span, plan.blocks,
-            plan.fill_blocks, _aligned(chg), tri.data_ptr(),
+            new.data_ptr(), n, w, max_triples, plan.tile, plan.tiles,
+            _aligned(chg), tri.data_ptr(),
             count.data_ptr(), scratch.data_ptr())
     return tri, count
 
@@ -292,7 +326,10 @@ def encode_row_stream_cuda(vals, new_vals, widx, rsel, rcnt, *, w: int,
                            max_gaps: int = 2048, max_exc: int = 16384):
     """``csrc/events.cu`` ``gw_encode_row_stream``: the ten outputs of
     :func:`.events.encode_row_stream_plain`, ``base_row`` being the view
-    ``rsel[0]`` there too."""
+    ``rsel[0]`` there too.  ``n_esc`` and ``exc_n`` are exact past the
+    caps: ``n_esc > max_gaps`` or ``exc_n > max_exc`` is the caller's
+    counted overflow (the mesh and row-sharded buckets'
+    ``decode_overflow``; the giant path's decode returns no stream)."""
     mr, k = check_encode(vals, new_vals, widx, rsel, rcnt, w, max_gaps,
                          max_exc)
     _on_cuda("encode_row_stream", vals)
@@ -304,18 +341,28 @@ def encode_row_stream_cuda(vals, new_vals, widx, rsel, rcnt, *, w: int,
     woff = torch.empty((mr, ns), dtype=torch.uint8 if w <= 256
                        else torch.uint16, device=dev)
 
-    def out(n):
-        return torch.empty(n, dtype=torch.int32, device=dev)
-
-    esc_rows, scalars = out(max_gaps), out(2)
-    exc_gidx, exc_chg, exc_new = out(max_exc), out(max_exc), out(max_exc)
-    scratch = torch.empty(plan.scratch, dtype=torch.int64, device=dev)
+    # one allocation, laid out so that the fills the entry memsets are two
+    # runs: the scratch and the lists filled with 0, then those with -1
+    lists = torch.empty(2 * plan.scratch + max_gaps + 3 * max_exc + 2,
+                        dtype=torch.int32, device=dev)
+    scratch = lists[:2 * plan.scratch].view(torch.int64)
+    exc_chg, exc_new, esc_rows, exc_gidx, scalars = lists[
+        2 * plan.scratch:].split([max_exc, max_exc, max_gaps, max_exc, 2])
     _launch("encode_row_stream", dev, "gw_encode_row_stream",
             vals.data_ptr(), new_vals.data_ptr(), widx.data_ptr(),
             rsel.data_ptr(), rcnt.data_ptr(), mr, k, w, max_gaps, max_exc,
-            plan.span, plan.blocks, plan.fill_blocks, int(w > 256),
+            plan.tile, plan.tiles, int(w > 256),
             rowb.data_ptr(), bitpos.data_ptr(), woff.data_ptr(),
             esc_rows.data_ptr(), exc_gidx.data_ptr(), exc_chg.data_ptr(),
             exc_new.data_ptr(), scalars.data_ptr(), scratch.data_ptr())
     return (rowb, bitpos, woff, rsel[0], scalars[0], esc_rows, exc_gidx,
             exc_chg, exc_new, scalars[1])
+
+
+def empty_launch() -> None:
+    """One launch of ``csrc/events.cu``'s empty kernel on the current
+    stream: the floor under an entry's launch, which ``chip_smoke.py``
+    times beside the encode (``launch_floor_ms``).  Counts nowhere."""
+    rc = _fn("gw_empty_launch")(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")

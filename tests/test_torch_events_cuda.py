@@ -53,11 +53,14 @@ def no_kernel(monkeypatch):
 
 # (label, words): the diffs the card compacts -- phase 4's bucket grid, the
 # `million` / `zipf100k` words, `zipfshare`'s row block, a mesh shard of
-# `million` (4 shards), phase 20's cohort rungs, and int64 boundaries
+# `million` (4 shards), phase 20's cohort rungs, the triples tile's edges,
+# and int64 boundaries
 PLAN_WORDS = [("phase4", 8 * 16384 * 512), ("million", 64 * 16384 * 512),
               ("zipf100k", 131072 * 4096), ("zipfshare", 16384 * 4096),
               ("mesh shard", 16 * 16384 * 512), ("rung 256", 24 * 256 * 8),
               ("rung 128", 24 * 128 * 4), ("one word", 1), ("empty", 0),
+              ("tile - 1", EC.TRI_TILE - 1), ("tile", EC.TRI_TILE),
+              ("tile + 1", EC.TRI_TILE + 1),
               ("2^31 - 1", 2**31 - 1), ("2^31", 2**31), ("2^34", 2**34)]
 
 
@@ -68,34 +71,60 @@ def _covers(units, span, blocks, tile):
     assert blocks * span >= units
 
 
+def _one_pass(units, plan, tile, counts, fill_bytes):
+    """A tile a block, by ticket: the tiles cover the units (one tile for
+    none) within the grid's x limit; a status word a tile for each ranked
+    count, then the ticket, all zeroed by the reset memset."""
+    assert plan.tile == tile
+    assert 1 <= plan.tiles <= 2**31 - 1
+    assert (plan.tiles - 1) * tile < max(units, 1) <= plan.tiles * tile
+    assert plan.scratch == counts * plan.tiles + 1
+    assert plan.reset_bytes == 8 * plan.scratch
+    assert plan.fill_bytes == fill_bytes
+
+
 @pytest.mark.parametrize("label,n", PLAN_WORDS, ids=[p[0] for p in PLAN_WORDS])
 def test_launch_plans_cover_the_path_shapes(label, n):
     tp = EC.triples_plan(n, 1 << 18)
-    _covers(n, tp.span, tp.blocks, EC.TRI_TILE)
-    assert tp.scratch == 2 * tp.blocks
-    assert tp.fill_blocks == min((1 << 18) // EC.THREADS, EC.MAX_FILL_BLOCKS)
+    _one_pass(n, tp, EC.TRI_TILE, 1, 12 << 18)
     rows = n // 128
     cp = EC.chunks_plan(rows, 4096)
     _covers(rows, cp.span, cp.blocks, EC.ROW_TILE)
     assert cp.scratch == 3 * cp.blocks + 2 and cp.rows == max(1, rows)
     assert cp.fill_blocks == min(-(-4096 // EC.WARPS), EC.MAX_FILL_BLOCKS)
     ep = EC.encode_plan(max(rows, 1), 2048, 16384)
-    _covers(max(rows, 1), ep.span, ep.blocks, EC.ROW_TILE)
-    assert ep.scratch == 4 * ep.blocks + 2
-    assert ep.fill_blocks == 16384 // EC.THREADS
-    # a plan is a function of the shapes alone: the same call, the same plan
+    _one_pass(max(rows, 1), ep, EC.ENC_TILE, 1, 4 * 2048 + 12 * 16384)
+    # a plan is a function of its arguments alone: the same call, after
+    # others, gives the same plan
+    EC.triples_plan(7, 3), EC.encode_plan(3, 1, 1), EC.chunks_plan(3, 1)
     assert EC.triples_plan(n, 1 << 18) == tp
+    assert EC.chunks_plan(rows, 4096) == cp
+    assert EC.encode_plan(max(rows, 1), 2048, 16384) == ep
 
 
 def test_launch_plans_exact_at_phase4_and_million():
-    # phase 4: 67.1 M words in 4096 blocks of 16 tiles
-    assert EC.triples_plan(8 * 16384 * 512, 1 << 18)[:3] == (16384, 4096, 1024)
+    # phase 4: 67.1 M words in 8192 tiles of 8192, a status word each and
+    # the ticket; the 2^18 triple rows prefilled with -1
+    assert EC.triples_plan(8 * 16384 * 512, 1 << 18) == EC.OnePass(
+        8192, 8192, 8193, 65544, 3145728)
     # million: 4.19 M rows of 128 words, 1024 rows a block
     assert EC.chunks_plan(4194304, 65536)[:3] == (1024, 4096, 1024)
+    # its encode at the path's caps: 500,736 rows in 978 tiles of 512,
+    # one status word a tile (both counts); the four lists' fills
+    assert EC.encode_plan(500736, 8192, 16384) == EC.OnePass(
+        512, 978, 979, 7832, 229376)
     # zipfshare's row block: 524,288 rows, one tile a block
     assert EC.chunks_plan(524288, 8192)[:2] == (256, 2048)
-    # a small diff: one block, one tile
-    assert EC.triples_plan(5, 7) == EC.Plan(1024, 1, 1, 2)
+    # a small diff and an empty one: one tile (it writes count)
+    assert EC.triples_plan(5, 7) == EC.OnePass(8192, 1, 2, 16, 84)
+    assert EC.triples_plan(0, 1) == EC.OnePass(8192, 1, 2, 16, 12)
+    # the tile's edges, 2^34 words, one row, rows past a tile
+    assert [EC.triples_plan(n, 1).tiles for n in (8191, 8192, 8193)] == [
+        1, 1, 2]
+    assert EC.triples_plan(2**34, 1).tiles == 2**21
+    assert EC.encode_plan(1, 1, 1) == EC.OnePass(512, 1, 2, 16, 16)
+    assert [EC.encode_plan(n, 1, 1).tiles for n in (511, 512, 513, 65536)
+            ] == [1, 1, 2, 128]
     assert EC.span_plan(0, 256) == (256, 1)
     assert EC.span_plan(4097 * 256, 256) == (512, 2049)
 
@@ -203,10 +232,11 @@ def _triples_case(case):
         chg[0, 0, 9] = 0xFFFFFFFF
         chg[0, 5, 1] = 1
         return chg, new, 1024, 3 + 13
-    if case.startswith("cap-at-block"):  # block 0 of the plan: 1024 words
-        chg[:] = 0xFFFFFFFF
-        edge = EC.triples_plan(chg.size, 1).span * 32
-        return chg, new, 1024, edge + int(case[len("cap-at-block"):] or 0)
+    if case.startswith("cap-at-block"):  # tile 0 of the plan: 8192 words
+        chg = np.full((1, 1024, 32), 0xFFFFFFFF, np.uint32)
+        edge = EC.triples_plan(chg.size, 1).tile * 32
+        return (chg, _dense(chg.shape, 11, 0.7), 1024,
+                edge + int(case[len("cap-at-block"):] or 0))
     if case == "bit31-and-ones":
         chg[0, 0, 0] = 0x80000000
         chg[0, 63, 31] = 0xFFFFFFFF
