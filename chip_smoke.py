@@ -44,6 +44,17 @@ Phases (any failure raises, so the exit code is non-zero):
                 calls, and around graph replays of them: device time)
                 against its plain version, the encode beside one empty
                 launch's time;
+  3d. pages  -- the page allocator's kernel (csrc/pages.cu) against its
+                plain version (ops/aoi_pages.allocate_pages_plain), all
+                seven outputs equal: phase 4's last measured tick at its
+                pool floor (131,072 pages, a permuted free list), an
+                empty grid, a full one, bit-31 words, ties at the
+                boundary class, a pool that fits exactly (n_used =
+                n_pages), one page short, more than MAX_SPILL spills,
+                n_used = 0, a ragged last bin, four launches back to back
+                on one scratch and four replays of a captured graph;
+                timed (CUDA events around graph replays: device time, and
+                around the wrapper's calls) against its plain version;
   5. parity  -- the same seeded walk at 2 spaces x 2,000 entities on
                 device="cuda" and device="cpu": the CRCs of the delivered
                 enter/leave arrays must be equal;
@@ -396,7 +407,9 @@ fault-free phase checks that it
 ended at calc level 0 with no recovery and the resolved emit mode.
 Virtual shards are shards of one card taking turns on it: their times
 are one card's, not a multi-card layout's.  The last lines are
-{"main_path": ...}, {"giant": ...}, {"deferred": ...} (phases 13-14b),
+{"main_path": ...}, {"events_kernels": ...} (phase 3c),
+{"pages_kernel": ...} (phase 3d), {"giant": ...}, {"deferred": ...}
+(phases 13-14b),
 {"faults": ..., "sharded_faults": ..., "routing": ...} (phases 15-16),
 {"paged": ...} (phases 17-17d), {"mesh": ...} (phases 10-12b),
 {"interest": ...} (phases
@@ -435,8 +448,12 @@ compaction's kernels are counted the same way, each path's window zeroed
 just before it: the triple kernel in phases 4, 13, 14 (a replay counts
 one), 19-21, 22a, 22b and the child processes of 23a, 23b, 24 and 25;
 the codec's two in phases 7, 8, 11-12b, 15b and 17c (phase 10 runs
-extract_chunks alone); phase 3c's comparisons count on no path.
-`python3 chip_smoke.py --paths [ROOT]` runs phases 4 and 7-8 alone on
+extract_chunks alone); phase 3c's comparisons count on no path.  The
+page allocator's kernel too: in phases 17 (each run launches it once a
+step launch, a fused replay counting one of each), 17b, 17c, 17d and
+20b (the paged cohort); phase 3d's comparisons count on no path.
+`python3 chip_smoke.py --paths [ROOT]` runs phases 4, 7-8 and 17 (and
+3d where ROOT has the allocator's kernel) alone on
 the package under ROOT (a parent commit's unpacked tree, to hold a change
 against it on one card in turns).
 """
@@ -915,6 +932,19 @@ class DeviceTimer:
 
     def ms(self):
         return sum(self.each())
+
+
+class PacketTimer(DeviceTimer):
+    """A DeviceTimer of ``aoi_stage.scatter_packet`` that also keeps each
+    timed packet's length (its ``idx`` [2, n])."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.lens = []
+
+    def timed(self, fn, *a, **kw):
+        self.lens.append(int(a[2].shape[1]))
+        return super().timed(fn, *a, **kw)
 
 
 class HostTimer:
@@ -1487,6 +1517,168 @@ def phase_events_kernel(EV, EC, grids):
     return {"extract_triples": tri, "codec": codec,
             "max_abs_err": max([tri["max_abs_err"]]
                                + [r["max_abs_err"] for r in codec])}
+
+
+# -- phase 3d: the page allocator's kernel (csrc/pages.cu) --------------------
+
+# phase 3d's edge grid: 1 x 1024 rows of 64 words (phase 17b's W): 128 bins
+# of 512 words, need classes 0-8
+PAGES_EDGE = (1, 1024, 64)
+
+
+def pages_need_grid(need, bw, rng):
+    """Flat uint32 words, bin b holding ``64 * (need[b] - 1) + 1`` nonzero
+    words (need 0: none) at random places of its ``bw`` words."""
+    w = np.zeros(len(need) * bw, np.uint32)
+    for b, n in enumerate(need):
+        k = 0 if n == 0 else 64 * (n - 1) + 1
+        at = b * bw + rng.choice(bw, k, replace=False)
+        w[at] = rng.integers(1, 2**32, k, dtype=np.uint64)
+    return w
+
+
+def pages_edge_cases(device, seed=41):
+    """Phase 3d's edge inputs, ``(label, chg, new, free, bin_words)``: int32
+    words (uint32 bit patterns) and a seeded permutation for the free
+    list, on ``device`` (tests/test_torch_pages_cuda.py holds the same
+    cases to the JAX package on the CPU).  The need pattern of the tie
+    cases: bins alternate need 1 and 2 (64 + 128 pages in all), so a pool
+    of 105 cuts class 2 after its 20th bin by id."""
+    rng = np.random.default_rng(seed)
+    s, c, w = PAGES_EDGE
+    nw, bw = s * c * w, 8 * w
+    n_bins = nw // bw
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            device)
+
+    def rand(n, density, bits=None):
+        a = rng.integers(1, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        if bits is not None:
+            a[:] = bits
+        a[rng.random(n) >= density] = 0
+        return a
+
+    def free(n):
+        return torch.from_numpy(rng.permutation(n).astype(np.int32)).to(
+            device)
+
+    new = rand(nw + 300, 0.6)
+    ties = pages_need_grid([1 + b % 2 for b in range(n_bins)], bw, rng)
+    floor = max(64, nw // 64 // 8)
+    cases = [
+        ("empty grid", np.zeros(nw, np.uint32), floor),
+        ("full grid, all words nonzero", np.full(nw, 0xFFFFFFFF, np.uint32),
+         nw // 64 + n_bins),
+        ("bit-31 words", rand(nw, 0.3, bits=0x80000000), 200),
+        ("ties at the boundary class", ties, 105),
+        ("a pool that fits exactly (n_used = n_pages)", ties, 192),
+        ("one page short", ties, 191),
+        ("more than MAX_SPILL spills", rand(nw, 0.9), 4),
+        ("n_used = 0", pages_need_grid([2] * n_bins, bw, rng), 1)]
+    out = [(label, t(a).reshape(s, c, w), t(new[:nw]).reshape(s, c, w),
+            free(n), bw) for label, a, n in cases]
+    ragged = rand(nw + 300, 0.2)
+    out.append(("ragged last bin", t(ragged), t(new), free(floor), bw))
+    return out
+
+
+def pages_bound_ms(chg, n_pages, scalars, spill_width):
+    """Bytes allocate_pages must move: chg once, new at the granted
+    nonzero words, the three pools written once, free read and page_tab
+    and free_next written, the spill vector and the scalars."""
+    fit_words = int(scalars[2])
+    return (4 * chg.numel() + 4 * fit_words + 3 * 4 * 64 * n_pages
+            + 3 * 4 * n_pages + 4 * spill_width + 16) / HBM_BYTES_PER_S * 1e3
+
+
+def pages_same(PG, PC, chg, new, free, bw, label):
+    """The kernel against allocate_pages_plain on one input: the seven
+    outputs equal."""
+    with NoCount(PC):
+        got = PC.allocate_pages_cuda(chg, new, free, PG.PAGE_WORDS, bw,
+                                     PG.MAX_SPILL)
+        want = PG.allocate_pages_plain(chg, new, free, PG.PAGE_WORDS, bw,
+                                       PG.MAX_SPILL)
+        torch.cuda.synchronize()
+    err = outputs_equal("allocate_pages", got, want, label)
+    return {"case": label, "words": chg.numel(), "n_pages": free.numel(),
+            "scalars": [int(v) for v in want[6]], "max_abs_err": err}
+
+
+def phase_pages_kernel(PG, PC, grids):
+    """Phase 3d: csrc/pages.cu against allocate_pages_plain on the card,
+    every one of the seven outputs equal: phase 4's last measured tick at
+    its pool floor (131,072 pages, a permuted free list), the edge inputs
+    of :func:`pages_edge_cases`, four launches back to back on one
+    scratch and four replays of a captured graph.  Times the kernel
+    alone (CUDA events around graph replays: device time; and around the
+    wrapper's calls) and its plain version at phase 4's grids."""
+    chg, new = grids[:2]
+    bw = PG.bin_words_for(chg.shape[-1])
+    n_pages = PG.pool_floor(chg.numel())
+    rng = np.random.default_rng(43)
+    free = torch.from_numpy(rng.permutation(n_pages).astype(np.int32)).to(
+        DEV)
+    rows = [pages_same(PG, PC, chg, new, free, bw, "phase 4 tick")]
+    used, spills = rows[0]["scalars"][:2]
+    check(0 < used < n_pages and spills == 0,
+          f"3d: phase 4's tick used {used} of {n_pages} pages, {spills} "
+          f"spills")
+    edge = pages_edge_cases(DEV)
+    for label, c, n, f, b in edge:
+        rows.append(pages_same(PG, PC, c, n, f, b, label))
+    sc = {r["case"]: r["scalars"] for r in rows}
+    check(sc["ties at the boundary class"][:2] == [104, 44]
+          and sc["a pool that fits exactly (n_used = n_pages)"][:2]
+          == [192, 0] and sc["one page short"][:2] == [190, 1]
+          and sc["n_used = 0"][:2] == [0, 128]
+          and sc["more than MAX_SPILL spills"][1] > PG.MAX_SPILL
+          and sc["empty grid"] == [0, 0, 0, 0],
+          f"3d: the edge cases' scalars {sc}")
+    # back to back on one scratch, then four graph replays
+    half = chg.clone()
+    half.reshape(-1)[::2] = 0
+    zero = torch.zeros_like(chg)
+    rolled = free.roll(7)
+    inputs = [(chg, new, free), (half, new, rolled), (zero, zero, free),
+              (chg, new, rolled)]
+
+    def call(c, n, f):
+        return PC.allocate_pages_cuda(c, n, f, PG.PAGE_WORDS, bw,
+                                      PG.MAX_SPILL)
+
+    def plain(c, n, f):
+        return PG.allocate_pages_plain(c, n, f, PG.PAGE_WORDS, bw,
+                                       PG.MAX_SPILL)
+
+    with NoCount(PC):
+        got = [call(*i) for i in inputs]
+        want = [plain(*i) for i in inputs]
+        torch.cuda.synchronize()
+    rows += [{"case": f"back to back, launch {i}",
+              "max_abs_err": outputs_equal("allocate_pages", g, w,
+                                           f"back to back, launch {i}")}
+             for i, (g, w) in enumerate(zip(got, want))]
+    del got, want
+    rows += replayed(PC, tuple(torch.empty_like(t) for t in inputs[0]),
+                     call, inputs, plain, "allocate_pages", "graph")
+    with NoCount(PC):
+        ms = cuda_ms(lambda: call(chg, new, free), 20)
+        g_ms = graph_ms(lambda: call(chg, new, free))
+        plain_ms = cuda_ms(lambda: plain(chg, new, free), 3, warm=1)
+        scal = call(chg, new, free)[6]
+    del half, zero, inputs
+    out = {"shape": list(chg.shape), "n_pages": n_pages, "bin_words": bw,
+           "n_used": used, "graph_ms": g_ms, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": pages_bound_ms(chg, n_pages, scal,
+                                      min(-(-chg.numel() // bw),
+                                          PG.MAX_SPILL)),
+           "bound_by": "bytes", "cases": rows,
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    log("kernel allocate_pages 3d", json.dumps(out))
+    return out
 
 
 def phase_parity(Runtime):
@@ -2175,19 +2367,36 @@ def paged_fetch_bytes(n_used, n_pages, spill_width, fused):
     return 3 * pages * 64 * 4 + (4 + n_pages + spill_width) * 4
 
 
-def phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused):
+def allocator_launches(PC, n0, mode, out):
+    """``out["allocator_launches"]``: csrc/pages.cu's launches in a paged
+    run since ``n0``, one a launch of the step; left out for a tree
+    without the kernel (``PC`` None: a parent's, under ``--paths``)."""
+    if PC is None:
+        return
+    out["allocator_launches"] = PC.launches["allocate_pages"] - n0
+    check(out["allocator_launches"] == out["launches"],
+          f"{mode}: {out['allocator_launches']} allocator launches, "
+          f"{out['launches']} steps")
+
+
+def phase_paged(Runtime, AK, DC, PG, PC, AS, main_out, main_crcs,
+                fused):
     """Phase 17: paged storage on phase 4's main path.  The sequential
     paged Runtime through phase 4's schedule (its per-tick CRCs equal
     phase 4's), with CUDA events around the allocator beside phase 4's
     ``extract_triples``; pipeline and cross_tick (phase 4's CRCs shifted
     by one tick); phase 14's 10% walk unfused, fused (equal to unfused,
     1 dispatch a steady tick) and fused + cross-tick (shifted).  Every
-    run: no decode_overflow, no page spill, calc level 0."""
+    run: no decode_overflow, no page spill, calc level 0, one launch of
+    csrc/pages.cu a launch of the step (a replay counts one of each).
+    The unfused 10% walk also times the delta scatter alone
+    (``aoi_stage.scatter_packet``, CUDA events: ROADMAP item 4f-stage)."""
     pipe_runs, fused_runs = [], []
     launches = 0
     for mode in PAGED_PIPE_TURNS:
         timers = ([DeviceTimer(PG, "allocate_pages")]
                   if mode == "paged sequential" else [])
+        n0 = None if PC is None else PC.launches["allocate_pages"]
         try:
             out, rows, trailing = run_schedule(
                 Runtime, AK, DC, mode, PIPE_SCHEDULE, 1 + WARMUP, timers)
@@ -2195,6 +2404,7 @@ def phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused):
             for tm in timers:
                 tm.restore()
         launches += out["launches"]
+        allocator_launches(PC, n0, mode, out)
         check(out["launches"] == len(PIPE_SCHEDULE),
               f"{mode}: aoi_step launches {out['launches']}")
         if timers:
@@ -2228,9 +2438,25 @@ def phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused):
     eligible = len(FUSED_SCHEDULE) - len(FUSED_FALLBACK)
     ref = None
     for mode in PAGED_FUSED_TURNS:
-        out, rows, trailing = run_schedule(Runtime, AK, DC, mode,
-                                           FUSED_SCHEDULE, FUSED_MEASURE_FROM)
+        n0 = None if PC is None else PC.launches["allocate_pages"]
+        timers = ([PacketTimer(AS, "scatter_packet")]
+                  if mode == "paged unfused" else [])
+        try:
+            out, rows, trailing = run_schedule(
+                Runtime, AK, DC, mode, FUSED_SCHEDULE, FUSED_MEASURE_FROM,
+                timers)
+        finally:
+            for tm in timers:
+                tm.restore()
+        if timers:
+            each = timers[0].each()
+            check(len(each) > 0, f"{mode}: no delta scatter was timed")
+            out["scatter_ms"] = {"mean": sum(each) / len(each),
+                                 "min": min(each), "max": max(each),
+                                 "calls": len(each),
+                                 "packet_lens": sorted(set(timers[0].lens))}
         launches += out["launches"]
+        allocator_launches(PC, n0, mode, out)
         st = out["stats"]
         measured = [r[2] for r in rows[FUSED_MEASURE_FROM:]]
         check(st["decode_overflow"] == 0 and st["page_spills"] == 0,
@@ -2278,7 +2504,8 @@ def phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused):
         "modes": {r["mode"]: {k: r.get(k) for k in (
             "tick_ms", "loop_ms", "perf_ms", "n_used_pages",
             "fetch_bytes_per_tick", "prefetch_hit_rate", "captures",
-            "graphs", "graph_pool_bytes")} for r in pipe_runs + fused_runs}}
+            "graphs", "graph_pool_bytes", "allocator_launches",
+            "scatter_ms")} for r in pipe_runs + fused_runs}}
     return {"summary": summary, "runs": pipe_runs + fused_runs,
             "launches": launches}
 
@@ -5595,6 +5822,27 @@ def events_entries(events_k, main_out, grid_out, share_out, ev_l):
               launch_floor_graph_ms=enc["launch_floor"]["graph_ms"])]
 
 
+def pages_entry(pages_k, paged, pg_l):
+    """The ``kernels`` line's entry of csrc/pages.cu: ``ms`` (device time:
+    CUDA events around graph replays of the wrapper's calls) /
+    ``wrapper_ms`` / ``plain_ms`` / ``bound_ms`` alone at phase 4's grids
+    and pool floor (phase 3d), ``main_path_ms`` phase 17's sequential
+    ``allocator_ms``, launches on each path (17, 17b, 17c, 17d, 20b)."""
+    return {"name": "allocate_pages", "route": "cuda",
+            "source": "goworld_tpu_torch/csrc/pages.cu",
+            "replaces": "goworld_tpu/ops/aoi_pages.py:79",
+            "launches": sum(pg_l.values()), "path_launches": pg_l,
+            "max_abs_err": pages_k["max_abs_err"],
+            "ms": pages_k["graph_ms"], "wrapper_ms": pages_k["ms"],
+            "plain_ms": pages_k["plain_ms"],
+            "bound_ms": pages_k["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the "
+                            "allocation",
+            "main_path_ms": paged["summary"]["allocator_ms"],
+            "shape": pages_k["shape"], "n_pages": pages_k["n_pages"]}
+
+
 def interest_entry(interest_k, interest_slice, load_out, moved):
     """The ``kernels`` line's entry of csrc/interest_step.cu: its times
     at the main path's full team + tier + LOS step (C = 16384, a path
@@ -8053,6 +8301,7 @@ def main():
     from goworld_tpu_torch.ops import events_cuda as EC
     from goworld_tpu_torch.ops import fused as FZ
     from goworld_tpu_torch.ops import interest_cuda as IC
+    from goworld_tpu_torch.ops import pages_cuda as PC
     from goworld_tpu_torch.ops import interest_kernels as K
     from goworld_tpu_torch.parallel import SpaceMesh, make_sharded_aoi_step
 
@@ -8079,14 +8328,17 @@ def main():
         laps[name] = now - lap_t[0]
         lap_t[0] = now
 
-    # the events.cu kernels' launches on each path: counts zeroed just
-    # before it, read just after (a child process's from its own counts)
-    ev_paths = {}
+    # the events.cu and pages.cu kernels' launches on each path: counts
+    # zeroed just before it, read just after (a child process's from its
+    # own counts)
+    ev_paths, pg_paths = {}, {}
 
     def on_path(name, fn, *a, **kw):
         EC.reset_launches()
+        PC.reset_launches()
         out = fn(*a, **kw)
         ev_paths[name] = dict(EC.launches)
+        pg_paths[name] = PC.launches["allocate_pages"]
         return out
 
     rows = phase_kernels(AK, AD)
@@ -8095,8 +8347,10 @@ def main():
         "main", phase_main, Runtime, AK, AD, EV)
     lap("4")
     events_k = phase_events_kernel(EV, EC, main_grids)
-    del main_grids
     lap("3c")
+    pages_k = phase_pages_kernel(PG, PC, main_grids)
+    del main_grids
+    lap("3d")
     phase_parity(Runtime)
     pipelined = on_path("deferred", phase_pipeline, Runtime, AK, DC,
                         main_crcs, main_out)
@@ -8110,9 +8364,10 @@ def main():
     lap("15b")
     routing = phase_routing(Runtime, AK)
     lap("16")
-    paged = phase_paged(Runtime, AK, DC, PG, main_out, main_crcs, fused)
-    clustered = phase_clustered(AOIEngine, AK)
-    pages_seam = phase_pages_seam(Runtime, AK)
+    paged = on_path("paged", phase_paged, Runtime, AK, DC, PG, PC, AS,
+                    main_out, main_crcs, fused)
+    clustered = on_path("clustered", phase_clustered, AOIEngine, AK)
+    pages_seam = on_path("pages_seam", phase_pages_seam, Runtime, AK)
     lap("17, 17b, 17d")
     rect_rows = phase_rect(AK, AD)
     culled_rows = phase_culled(AG, AK)
@@ -8248,6 +8503,11 @@ def main():
         for g in groups:
             n = sum(ev_l[kernel].get(p, 0) for p in g)
             check(n > 0, f"{kernel} {'/'.join(g)}: no launch on its path")
+    # the pages.cu kernel: 17, 17b, 17c, 17d and 20b's paged cohort
+    pg_l = {p: n for p, n in pg_paths.items() if n}
+    for p in ("paged", "clustered", "paged_sharded", "pages_seam", "ladder"):
+        check(pg_l.get(p, 0) > 0, f"allocate_pages {p}: no launch on its "
+              f"path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
         at = next(r for r in shape_rows if tuple(r["shape"]) == shape)
@@ -8339,7 +8599,8 @@ def main():
                        {"migration": mig_l["interest_step"],
                         "checkpoint": checkpoint["launches"][
                             "interest_step"]}),
-        *events_entries(events_k, main_out, grid_out, share_out, ev_l)]}
+        *events_entries(events_k, main_out, grid_out, share_out, ev_l),
+        pages_entry(pages_k, paged, pg_l)]}
     issue = {"issue_floor": [
         issue_floors("aoi_step", rows, per_pair["aoi_step"]),
         issue_floors("aoi_step_rect", rect_rows, per_pair["aoi_step"]),
@@ -8354,6 +8615,7 @@ def main():
     print(card)
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"events_kernels": events_k}))
+    print(json.dumps({"pages_kernel": pages_k}))
     print(json.dumps({"giant": grid_out + [share_out]}))
     print(json.dumps({"deferred": {"pipelined": pipelined["summary"],
                                    "fused": fused["summary"],
@@ -8417,7 +8679,9 @@ def paths_main(args):
     fetch, decode); the kernels alone (CUDA events): extract_triples at
     phase 4's last tick's grids, extract_chunks and encode_row_stream at
     each giant config's last diff, each held to its plain version there
-    (``codec_path_check``)."""
+    (``codec_path_check``); then, where ROOT has ``ops/pages_cuda.py``,
+    phase 3d (the allocator's kernel alone), and phase 17 (the paged
+    runs, the allocator's device ms on the sequential one)."""
     root = os.path.abspath(args[0]) if args else \
         os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -8429,9 +8693,16 @@ def paths_main(args):
     from goworld_tpu_torch.ops import aoi_cuda as AK
     from goworld_tpu_torch.ops import aoi_dense as AD
     from goworld_tpu_torch.ops import aoi_grid as AG
+    from goworld_tpu_torch.ops import aoi_pages as PG
+    from goworld_tpu_torch.ops import aoi_stage as AS
     from goworld_tpu_torch.ops import cadence as CD
+    from goworld_tpu_torch.ops import dispatch_count as DC
     from goworld_tpu_torch.ops import events as EV
     from goworld_tpu_torch.ops import events_cuda as EC
+    try:
+        from goworld_tpu_torch.ops import pages_cuda as PC
+    except ImportError:  # a tree from before csrc/pages.cu
+        PC = None
 
     check(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(EV.__file__)))) == root,
@@ -8442,11 +8713,16 @@ def paths_main(args):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _build.build_all(force=True)
-    main_out, _, grids = phase_main(Runtime, AK, AD, EV)
+    main_out, main_crcs, grids = phase_main(Runtime, AK, AD, EV)
     alone = tri_timed(EV, EC, *grids)
+    pages_k = None if PC is None else phase_pages_kernel(PG, PC, grids)
     del grids
     giant = [phase_grid(AG, CD, name, (EV, EC)) for name in GIANT]
     giant.append(phase_share(AK, AD, CD, (EV, EC)))
+    _, ref, _ = run_schedule(Runtime, AK, DC, "unfused", FUSED_SCHEDULE,
+                             FUSED_MEASURE_FROM)
+    paged = phase_paged(Runtime, AK, DC, PG, PC, AS, main_out, main_crcs,
+                        {"ref_rows": [r[:2] for r in ref]})
     keys = ("kernel_ms", "encode_ms", "fetch_ms", "decode_ms")
     codec_keys = ("extract_chunks", "encode_row_stream")
     print(json.dumps({"paths": {
@@ -8458,8 +8734,10 @@ def paths_main(args):
         "giant": {g["config"]: {
             **{k: g[k] for k in keys},
             **{k + "_alone": g["codec_check"]["path"][k]
-               for k in codec_keys}} for g in giant}}}),
-        flush=True)
+               for k in codec_keys}} for g in giant},
+        "pages_alone": pages_k and {k: v for k, v in pages_k.items()
+                                    if k != "cases"},
+        "paged": paged["summary"]}}), flush=True)
     return 0
 
 

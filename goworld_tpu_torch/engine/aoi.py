@@ -505,6 +505,9 @@ def _paged_absorb_shard(bk, chg: torch.Tensor, new: torch.Tensor, W: int):  # gw
         return whole_shard(e)
     if spec is not None and spec.kind == "partial":
         return whole_shard("partial allocation")
+    # the kernel takes contiguous grids (a shard's kept grids are its own
+    # buffers; a view of them would be copied here, never by the wrapper)
+    chg, new = chg.contiguous(), new.contiguous()
     pg, pc, pn, tab, free_next, sb, scal = PG.allocate_pages(
         chg, new, bk._page_free, PG.PAGE_WORDS, bw, PG.MAX_SPILL)
     bk._page_free = free_next

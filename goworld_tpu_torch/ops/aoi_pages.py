@@ -13,8 +13,11 @@ sparse bins never needed.
 A page holds ``PAGE_WORDS`` word entries ``(gidx, chg_word, new_word)``:
 the stream the bucket's mirror XOR and publish consume, so decoding is a
 validity filter (:func:`decode_pages`).  The allocator
-(:func:`allocate_pages`) is plain PyTorch on the words' device, one pass
-with static shapes and no host sync, so a CUDA graph can hold it:
+(:func:`allocate_pages`) runs on the words' device with static shapes and
+no host sync, so a CUDA graph can hold it: the hand-written kernel of
+``csrc/pages.cu`` (:mod:`.pages_cuda`) on a CUDA tensor, the plain
+PyTorch version :func:`allocate_pages_plain` on a CPU tensor.  Both
+compute:
 
 1. count the nonzero change words per bin; ``need = ceil(cnt /
    PAGE_WORDS)``;
@@ -38,6 +41,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import pages_cuda as PC
 
 # word entries per page
 PAGE_WORDS = 64
@@ -70,9 +75,33 @@ def pool_ceiling(n_words: int, bin_words: int) -> int:
 
 def allocate_pages(chg: torch.Tensor, new: torch.Tensor, free: torch.Tensor,
                    page_words: int = PAGE_WORDS, bin_words: int | None = None,
-                   max_spill: int = MAX_SPILL):
-    """The allocate-and-compact pass on the words' device, bit-exact with
-    the JAX package's ``allocate_pages``.
+                   max_spill: int = MAX_SPILL, out=None):
+    """THE allocator: ``csrc/pages.cu`` on CUDA tensors
+    (:func:`.pages_cuda.allocate_pages_cuda`; a refused launch raises,
+    nothing falls back), the plain version :func:`allocate_pages_plain`
+    on CPU tensors.  ``out``: seven tensors or None to write the outputs
+    into (the fused paged graph's static pools and bundle slices; the
+    rotated free list's must not be ``free``); the outputs are returned
+    either way."""
+    if bin_words is None:
+        bin_words = bin_words_for(chg.shape[-1])
+    if chg.device.type != "cpu":
+        return PC.allocate_pages_cuda(chg, new, free, page_words, bin_words,
+                                      max_spill, out)
+    got = allocate_pages_plain(chg, new, free, page_words, bin_words,
+                               max_spill)
+    if out is None:
+        return got
+    PC.check_out(out, free.shape[0], got[5].shape[0], free)
+    return tuple(g if o is None else o.copy_(g) for o, g in zip(out, got))
+
+
+def allocate_pages_plain(chg: torch.Tensor, new: torch.Tensor,
+                         free: torch.Tensor, page_words: int = PAGE_WORDS,
+                         bin_words: int | None = None,
+                         max_spill: int = MAX_SPILL):
+    """The allocate-and-compact pass in plain PyTorch, bit-exact with the
+    JAX package's ``allocate_pages`` (the kernel's plain version).
 
     ``chg`` / ``new``: int32 word grids of any shape (flattened here);
     ``free``: the free list, int32 [n_pages].  ``bin_words`` defaults to

@@ -16,17 +16,17 @@ reference's order:
       -> the triple extraction (events.extract_triples), copied into a
          static triple buffer, and the count into a static count buffer
          (:class:`FusedTri`); or, on a paged bucket (:class:`FusedPaged`),
-         the page allocator (aoi_pages.allocate_pages) from a static free
-         list, its pools copied into static pool buffers and its page
-         table, spilled bins and four scalars into one int32 bundle, which
-         the harvest fetches with one copy where the unfused tick pays
-         three.
+         the page allocator (aoi_pages.allocate_pages: csrc/pages.cu on
+         CUDA tensors) from a static free list, writing its pools into
+         static pool buffers and its page table, spilled bins and four
+         scalars into one int32 bundle (``out=``), which the harvest
+         fetches with one copy where the unfused tick pays three.
 
 On CPU tensors the same body runs eagerly: that is the plain version,
 and the tests hold it to the unfused path.  There is no kernel of this
 module's own: the fusion is the graph around ``aoi_step.cu`` and the
-``events.cu`` kernels its body launches (a replay counts one launch of
-each, as the eager body would).
+``events.cu`` or ``pages.cu`` kernels its body launches (a replay counts
+one launch of each, as the eager body would).
 
 The sharded buckets (``engine/aoi_mesh``, ``engine/aoi_rowshard``; the
 JAX package folds their packet scatter into the per-chip program,
@@ -80,6 +80,7 @@ import torch
 
 from . import aoi_cuda as AK
 from . import aoi_pages as PG
+from . import pages_cuda as PC
 from . import aoi_stage as AS
 from . import dispatch_count as DC
 from . import events as EV
@@ -116,10 +117,12 @@ def _capture(pool, device, body, prepare=None) -> torch.cuda.CUDAGraph:
         del warm
         graph = torch.cuda.CUDAGraph()
         n0, e0 = AK.launches["aoi_step"], dict(EC.launches)
+        p0 = dict(PC.launches)
         with torch.cuda.graph(graph, pool=pool):
             body()
         AK.launches["aoi_step"] = n0
         EC.launches.update(e0)
+        PC.launches.update(p0)
     return graph
 
 
@@ -169,16 +172,12 @@ def paged_body(prev, new, chg, pg, pc, pn, bundle, free, x, z, r, act, sub,
     it."""
     AS.scatter_packet(x, z, idx, val)
     AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg), stg=stg, sub=sub)
-    g, c, n, tab, free_next, spill, scal = PG.allocate_pages(
-        chg, new, free, PG.PAGE_WORDS, bin_words, PG.MAX_SPILL)
-    pg.copy_(g)
-    pc.copy_(c)
-    pn.copy_(n)
-    free.copy_(free_next)
     k = free.shape[0]
-    bundle[:4].copy_(scal)
-    bundle[4:4 + k].copy_(tab)
-    bundle[4 + k:].copy_(spill)
+    free_next = PG.allocate_pages(
+        chg, new, free, PG.PAGE_WORDS, bin_words, PG.MAX_SPILL,
+        out=(pg, pc, pn, bundle[4:4 + k], None, bundle[4 + k:],
+             bundle[:4]))[4]
+    free.copy_(free_next)
 
 
 class FusedTri:
@@ -191,8 +190,9 @@ class FusedTri:
     cap; :class:`FusedPaged` swaps them for the page allocator's."""
 
     site = SITE
-    # the events.cu kernels a replay of the body launches
-    replay_kernels = ("extract_triples",)
+    # the hand kernels besides aoi_step.cu a replay of the body launches:
+    # (their module's launch counts, kernel)
+    replay_kernels = ((EC.launches, "extract_triples"),)
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):
@@ -299,8 +299,8 @@ class FusedTri:
                                    "moved since the graph was captured")
             g.replay()
             AK.launches["aoi_step"] += 1  # the replay launches aoi_step.cu
-            for k in self.replay_kernels:  # and the body's events.cu kernels
-                EC.launches[k] += 1
+            for counts, k in self.replay_kernels:  # and the body's others
+                counts[k] += 1
         return (self.words[1 - p], self.chg[p], *outs)
 
     def pool_bytes(self) -> int:
@@ -324,7 +324,7 @@ class FusedPaged(FusedTri):
     MAX_SPILL)`` of the [S, C, W] grid the graph steps."""
 
     site = PAGED_SITE
-    replay_kernels = ()
+    replay_kernels = ((PC.launches, "allocate_pages"),)
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):

@@ -41,7 +41,7 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
                 "engine.aoi_rowshard", "entry", "faults", "ops.aoi_oracle",
                 "ops.aoi_native", "ops.interest_kernels", "ops.interest_cuda",
-                "ops.events_cuda",
+                "ops.events_cuda", "ops.pages_cuda",
                 "interest", "interest.field", "interest.oracle",
                 "interest.device", "interest.policy", "ingest",
                 "ingest.movement", "load", "load.clients", "load.harness",
