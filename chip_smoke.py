@@ -51,10 +51,24 @@ Phases (any failure raises, so the exit code is non-zero):
                 empty grid, a full one, bit-31 words, ties at the
                 boundary class, a pool that fits exactly (n_used =
                 n_pages), one page short, more than MAX_SPILL spills,
-                n_used = 0, a ragged last bin, four launches back to back
-                on one scratch and four replays of a captured graph;
-                timed (CUDA events around graph replays: device time, and
-                around the wrapper's calls) against its plain version;
+                n_used = 0, a ragged last bin, one ending inside a
+                summary group, bins of 100 and of 132 words, an unaligned
+                view, four launches back to back on one scratch and four
+                replays of a captured graph; timed (CUDA events around
+                graph replays, three times, the median: device time; and
+                around the wrapper's calls) against its plain version,
+                and at the full grid (every granted bin reread whole);
+                each of its stages (memsets, count, ranks, write) apart
+                with torch.profiler, over calls and over graph replays;
+  3e. stage  -- the delta scatter's kernel (csrc/stage.cu) against its
+                plain version (ops/aoi_stage.scatter_packet_plain), both
+                planes bit for bit: phase 17's 10% walk packet (8192
+                entries), NaN payloads, -0.0 and subnormals, duplicates,
+                indices past either end and negative ones, a one-row
+                view, 64 and 2^16 entries, four launches back to back and
+                four replays of a captured graph; timed as 3d, beside the
+                two index_put_ that were the port's scatter and one empty
+                launch;
   5. parity  -- the same seeded walk at 2 spaces x 2,000 entities on
                 device="cuda" and device="cpu": the CRCs of the delivered
                 enter/leave arrays must be equal;
@@ -76,6 +90,8 @@ Phases (any failure raises, so the exit code is non-zero):
                 dispatches equal the eligible ticks; no new capture key
                 after warm-up; every aoi_step launch a replay, an unfused
                 tick's or a capture's warm-up; graphs, their pool bytes;
+                the unfused run's delta scatter timed a call (CUDA
+                events);
  14b. sub change -- phase 4's world under the 10% walk with space 0
                 opting out of the event stream and back in: a steady tick
                 ships a delta packet, a subscription change restages
@@ -113,6 +129,7 @@ Phases (any failure raises, so the exit code is non-zero):
                 steady tick) and fused + cross-tick (shifted); no
                 decode_overflow, no page spill; tick and split ms, used
                 pages, bytes fetched a tick, graphs and their pool bytes;
+                the unfused walk's delta scatter timed a call;
  17b. clustered crowd -- bench.py's bench_engine_clustered (1 x 2048,
                 1,800 entities into one r=100 cluster at tick 2 of 8) on
                 the cuda backend capped, paged and paged from a 4-page
@@ -1186,19 +1203,26 @@ def tri_same(EV, EC, chg, new, cap, mt, label):
             "count": int(want[1]), "max_abs_err": err}
 
 
-def graph_ms(fn, reps=20):
-    """Device ms of one call of ``fn`` replayed from a CUDA graph that
-    holds ``reps`` calls back to back: its memsets and launches with no
-    host work between them (CUDA events around the replays)."""
+def captured(fn, reps):
+    """A CUDA graph holding ``reps`` calls of ``fn`` back to back (the
+    first call, and its allocations, made outside the capture)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # the first call's allocations outside the capture
+        fn()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(reps):
             fn()
+    return g
+
+
+def graph_ms(fn, reps=20):
+    """Device ms of one call of ``fn`` replayed from a CUDA graph that
+    holds ``reps`` calls back to back: its memsets and launches with no
+    host work between them (CUDA events around the replays)."""
+    g = captured(fn, reps)
     ms = cuda_ms(g.replay, 5, warm=1) / reps
     del g
     return ms
@@ -1581,6 +1605,29 @@ def pages_edge_cases(device, seed=41):
             free(n), bw) for label, a, n in cases]
     ragged = rand(nw + 300, 0.2)
     out.append(("ragged last bin", t(ragged), t(new), free(floor), bw))
+    # the summary's edges (a bit a 4-word group, 32 groups a word): a last
+    # bin ending inside a group (sparse: 3 words, the last one in that
+    # group), bins of 100 words (no 16-byte loads) and of 132 (a summary
+    # word holding one group; bins this narrow are always dense), and a
+    # view 4 bytes off 16-byte alignment; sparse bins (fewer than 4
+    # nonzero words of 512) and dense ones in each grid of 512-word bins
+    new = rand(nw + 304, 0.6)
+    part = rand(nw + 301, 0.004)
+    part[nw // 2:nw] = rand(nw - nw // 2, 0.05)
+    part[-301:] = 0
+    part[[-301, -150, -1]] = rand(3, 1.0)
+    out.append(("ragged last bin, a partial group and summary word",
+                t(part), t(new[:nw + 301]), free(floor), bw))
+    for b in (100, 132):
+        a = rand(nw, 0.02)
+        a[:nw // 4] = rand(nw // 4, 0.5)
+        out.append((f"bins of {b} words", t(a), t(new[:nw]),
+                    free(nw // 64 // 4), b))
+    u = rand(nw, 0.004)
+    u[:nw // 4] = rand(nw // 4, 0.1)
+    view = t(np.concatenate([new[:1], u]))
+    out.append(("an unaligned view", view[1:], t(new[1:nw + 2])[1:],
+                free(floor), bw))
     return out
 
 
@@ -1591,6 +1638,53 @@ def pages_bound_ms(chg, n_pages, scalars, spill_width):
     fit_words = int(scalars[2])
     return (4 * chg.numel() + 4 * fit_words + 3 * 4 * 64 * n_pages
             + 3 * 4 * n_pages + 4 * spill_width + 16) / HBM_BYTES_PER_S * 1e3
+
+
+def stage_split(fn, reps=20):
+    """Device ms of each stage of one call of ``fn``: torch.profiler (CUDA
+    activity) over ``reps`` calls after two warm-up calls, each kernel's
+    and memset's device time summed by name and divided by ``reps``.
+    Kernel names are cut to the function's own (``page_count`` of
+    ``void (anonymous namespace)::page_count<true>(...)``); the memsets
+    are ``memset``.  Also ``sum`` (the stages' total) and ``n`` (device
+    events a call).  Raises when the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split, n = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        name = ev.name
+        if "memset" in name.lower():
+            key = "memset"
+        else:
+            head = name.replace("(anonymous namespace)::", "").split("(")[0]
+            key = re.sub(r"<.*", "", head).split("::")[-1].split()
+            key = key[-1] if key else name
+        split[key] = split.get(key, 0.0) + us / 1e3 / reps
+        n += 1
+    check(split, "stage_split: the profiler recorded no device time")
+    split["sum"] = sum(split.values())
+    split["n"] = n / reps
+    return split
+
+
+def graph_split(fn):
+    """:func:`stage_split` of replays of a CUDA graph holding one call of
+    ``fn``: each stage's device ms as :func:`graph_ms` runs it."""
+    g = captured(fn, 1)
+    split = stage_split(g.replay)
+    del g
+    return split
 
 
 def pages_same(PG, PC, chg, new, free, bw, label):
@@ -1666,12 +1760,24 @@ def phase_pages_kernel(PG, PC, grids):
                      call, inputs, plain, "allocate_pages", "graph")
     with NoCount(PC):
         ms = cuda_ms(lambda: call(chg, new, free), 20)
-        g_ms = graph_ms(lambda: call(chg, new, free))
+        g_runs = [graph_ms(lambda: call(chg, new, free)) for _ in range(3)]
+        split = stage_split(lambda: call(chg, new, free))
+        g_split = graph_split(lambda: call(chg, new, free))
+        # the full grid: every granted bin dense, reread whole
+        _, dc, dn, df, dbw = next(e for e in edge
+                                  if e[0].startswith("full grid"))
+        dense_ms = graph_ms(lambda: PC.allocate_pages_cuda(
+            dc, dn, df, PG.PAGE_WORDS, dbw, PG.MAX_SPILL))
         plain_ms = cuda_ms(lambda: plain(chg, new, free), 3, warm=1)
         scal = call(chg, new, free)[6]
     del half, zero, inputs
+    log("kernel allocate_pages 3d split", json.dumps(split))
+    log("kernel allocate_pages 3d split in a graph", json.dumps(g_split))
     out = {"shape": list(chg.shape), "n_pages": n_pages, "bin_words": bw,
-           "n_used": used, "graph_ms": g_ms, "ms": ms, "plain_ms": plain_ms,
+           "n_used": used, "graph_ms": sorted(g_runs)[1],
+           "graph_ms_runs": g_runs, "ms": ms, "split": split,
+           "graph_split": g_split, "full_grid_graph_ms": dense_ms,
+           "plain_ms": plain_ms,
            "bound_ms": pages_bound_ms(chg, n_pages, scal,
                                       min(-(-chg.numel() // bw),
                                           PG.MAX_SPILL)),
@@ -1679,6 +1785,212 @@ def phase_pages_kernel(PG, PC, grids):
            "max_abs_err": max(r["max_abs_err"] for r in rows)}
     log("kernel allocate_pages 3d", json.dumps(out))
     return out
+
+
+# -- phase 3e: the delta scatter's kernel (csrc/stage.cu) --------------------
+
+STAGE_PLANES = (SPACES, CAPACITY)  # the engine's x/z planes
+STAGE_ROW = 131072  # 3e's one-row view: a `zipf100k`-size row
+
+
+def stage_packets(seed=47):
+    """Phase 3e's packets, ``(label, plane shape, (rows, cols, xv, zv))``
+    padded as the engine pads them (tests/test_torch_stage.py holds the
+    plain version to JAX's delta_scatter on the same kinds of entry):
+    phase 17's 10% walk (1,000 movers a space of 10,000, 8 spaces: 8,000
+    entries padded to 8192), NaN payloads, -0.0 and subnormals, cells
+    repeated with identical bits, indices past either end and negative
+    ones (counting from the end), a one-row view, 64 and 2^16 entries."""
+    rng = np.random.default_rng(seed)
+    s, c = STAGE_PLANES
+
+    def cells(n, shape=STAGE_PLANES):
+        at = rng.permutation(shape[0] * shape[1])[:n]
+        return (at // shape[1]).astype(np.int32), \
+            (at % shape[1]).astype(np.int32)
+
+    def vals(n):
+        return (rng.uniform(0, WORLD, n).astype(np.float32),
+                rng.uniform(0, WORLD, n).astype(np.float32))
+
+    rows = np.concatenate([np.full(PER_SPACE // 10, sp, np.int32)
+                           for sp in range(s)])
+    cols = np.concatenate([rng.permutation(PER_SPACE)[:PER_SPACE // 10]
+                           for _ in range(s)]).astype(np.int32)
+    out = [("phase 17's walk packet", STAGE_PLANES, (rows, cols, *vals(
+        len(rows))))]
+    special = np.array([0x7FC00001, 0xFFC12345, 0x7F800001, 0x80000000,
+                        0x00000001, 0x807FFFFF, 0x7F800000, 0xFF800000],
+                       np.uint32).view(np.float32)
+    r, cc = cells(4096)
+    xv, zv = np.resize(special, 4096), np.resize(special[::-1], 4096)
+    out.append(("NaN, -0.0, subnormals", STAGE_PLANES, (r, cc, xv, zv)))
+    r, cc = cells(2048)
+    xv, zv = vals(2048)
+    dup = rng.permutation(np.repeat(np.arange(2048), 4))
+    out.append(("duplicates", STAGE_PLANES, (r[dup], cc[dup], xv[dup],
+                                             zv[dup])))
+    r, cc = cells(6000)
+    neg = rng.random(6000) < 0.3
+    r[neg] -= s
+    cc[neg & (rng.random(6000) < 0.5)] -= c
+    bad_r = rng.choice(np.array([s, s + 1, -s - 1, 2**31 - 1, -2**31],
+                                np.int64), 1000).astype(np.int32)
+    bad_c = rng.choice(np.array([c, -c - 1, 2**31 - 1, -2**31], np.int64),
+                       1000).astype(np.int32)
+    r = np.concatenate([r, bad_r, cells(1000)[0]])
+    cc = np.concatenate([cc, cells(1000)[1], bad_c])
+    order = rng.permutation(len(r))
+    out.append(("out-of-range entries", STAGE_PLANES,
+                (r[order], cc[order], *vals(len(r)))))
+    r, cc = cells(8000, (1, STAGE_ROW))
+    r[:100] = -1  # row -1 of one row is row 0
+    r[100:200] = rng.choice(np.array([1, 2, -2], np.int32), 100)  # dropped
+    out.append(("a 1-row view", (1, STAGE_ROW), (r, cc, *vals(8000))))
+    for n in (64, 2**16):
+        out.append((f"{n} entries", STAGE_PLANES, (*cells(n), *vals(n))))
+    return out
+
+
+def stage_planes(shape, seed):
+    """Two float32 planes of ``shape`` on the card, filled from ``seed``
+    (a 1-row shape is a [C] tensor seen as [1, C], as the row-sharded
+    bucket's is)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, WORLD, shape).astype(np.float32))
+    z = torch.from_numpy(rng.uniform(0, WORLD, shape).astype(np.float32))
+    if shape[0] == 1:
+        return [t.reshape(-1).to(DEV).view(1, -1) for t in (x, z)]
+    return [t.to(DEV) for t in (x, z)]
+
+
+def planes_equal(got, want, label):
+    """Both planes bit for bit (int32 views: NaN payloads, -0.0)."""
+    return outputs_equal("scatter_packet",
+                         [t.view(torch.int32) for t in got],
+                         [t.view(torch.int32) for t in want], label)
+
+
+def phase_stage_kernel(AS, SC, EC):
+    """Phase 3e: csrc/stage.cu against scatter_packet_plain on the card,
+    both planes bit for bit, over :func:`stage_packets`, four launches
+    back to back on one pair of planes and four replays of a captured
+    graph (a static packet buffer, each packet copied in).  Times the
+    kernel (CUDA events around graph replays: device time; and around
+    the wrapper's calls), its plain version and the two ``index_put_``
+    calls that were the port's scatter (the library call), at phase 17's
+    walk packet, beside one empty launch."""
+    rows = []
+    pkts = stage_packets()
+    with NoCount(SC):
+        for i, (label, shape, pkt) in enumerate(pkts):
+            host = AS.packet_arrays(*AS.pad_packet(*pkt))
+            dev = torch.from_numpy(host).to(DEV)
+            got, want = stage_planes(shape, i), stage_planes(shape, i)
+            SC.scatter_packet_cuda(*got, dev)
+            AS.scatter_packet_plain(*want, dev)
+            torch.cuda.synchronize()
+            rows.append({"case": label, "shape": list(shape),
+                         "entries": host.shape[1],
+                         "max_abs_err": planes_equal(got, want, label)})
+        # the walk, the specials, the duplicates and the out-of-range
+        # entries: 8192 entries each once padded (one graph's length)
+        walk = []
+        for _, _, p in pkts[:4]:
+            if len(p[0]) < 8000:  # the specials on the walk's cells
+                p = (*pkts[0][2][:2], np.resize(p[2], 8000),
+                     np.resize(p[3], 8000))
+            walk.append(torch.from_numpy(AS.packet_arrays(
+                *AS.pad_packet(*p))).to(DEV))
+        got, want = stage_planes(STAGE_PLANES, 90), \
+            stage_planes(STAGE_PLANES, 90)
+        for w in walk:
+            SC.scatter_packet_cuda(*got, w)
+        for w in walk:
+            AS.scatter_packet_plain(*want, w)
+        torch.cuda.synchronize()
+        rows.append({"case": "four launches back to back",
+                     "max_abs_err": planes_equal(got, want,
+                                                 "back to back")})
+        # four replays of one captured launch, a packet copied in each
+        static = torch.empty_like(walk[0])
+        got, want = stage_planes(STAGE_PLANES, 91), \
+            stage_planes(STAGE_PLANES, 91)
+        static.copy_(walk[0])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            SC.scatter_packet_cuda(*got, static)
+        torch.cuda.current_stream().wait_stream(side)
+        AS.scatter_packet_plain(*want, walk[0])
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            SC.scatter_packet_cuda(*got, static)
+        for i, w in enumerate(walk):
+            static.copy_(w)
+            g.replay()
+            AS.scatter_packet_plain(*want, w)
+            torch.cuda.synchronize()
+            rows.append({"case": f"graph, replay {i}",
+                         "max_abs_err": planes_equal(
+                             got, want, f"graph, replay {i}")})
+        del g
+        # times at the walk packet
+        x, z = stage_planes(STAGE_PLANES, 92)
+        pkt = walk[0]
+        n = pkt.shape[1]
+        idx = pkt[:2].long()
+        val = pkt[2:].view(torch.float32)
+
+        def library():
+            x.index_put_((idx[0], idx[1]), val[0])
+            z.index_put_((idx[0], idx[1]), val[1])
+
+        def call():
+            SC.scatter_packet_cuda(x, z, pkt)
+
+        # around the calls in turns (kernel, library, library, kernel):
+        # the host's pace drifts between calls
+        turns = [cuda_ms(f, 100) for f in (call, library, library, call)]
+        out = {"shape": list(STAGE_PLANES), "entries": n,
+               "graph_ms": graph_ms(call), "ms": (turns[0] + turns[3]) / 2,
+               "plain_ms": cuda_ms(lambda: AS.scatter_packet_plain(
+                   x, z, pkt), 20),
+               "library_ms": (turns[1] + turns[2]) / 2,
+               "library_graph_ms": graph_ms(library),
+               "launch_floor": launch_floor(EC),
+               "bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "cases": rows,
+               "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    # gated on device time; the pair around calls is paced by the host
+    # and is printed, not gated
+    check(out["graph_ms"] <= out["library_graph_ms"],
+          f"3e: the scatter kernel's {out['graph_ms']:.4f} ms of device "
+          f"time is more than the two index_put_'s "
+          f"{out['library_graph_ms']:.4f}")
+    log("kernel scatter_packet 3e", json.dumps(out))
+    return out
+
+
+def scatter_timed(Runtime, AK, DC, mode, schedule, measure_from):
+    """:func:`run_schedule` with the delta scatter
+    (``aoi_stage.scatter_packet``) timed over the measured ticks (CUDA
+    events around each call, with its packet's length):
+    ``out["scatter_ms"]``."""
+    from goworld_tpu_torch.ops import aoi_stage as AS
+
+    tm = PacketTimer(AS, "scatter_packet")
+    try:
+        out, rows, trailing = run_schedule(Runtime, AK, DC, mode, schedule,
+                                           measure_from, [tm])
+    finally:
+        tm.restore()
+    each = tm.each()
+    check(len(each) > 0, f"{mode}: no delta scatter was timed")
+    out["scatter_ms"] = {"mean": sum(each) / len(each), "min": min(each),
+                         "max": max(each), "calls": len(each),
+                         "packet_lens": sorted(set(tm.lens))}
+    return out, rows, trailing
 
 
 def phase_parity(Runtime):
@@ -1874,8 +2186,10 @@ def phase_fused(Runtime, AK, DC):
     eligible = len(FUSED_SCHEDULE) - len(FUSED_FALLBACK)
     runs, ref = [], None
     for mode in FUSED_TURNS:
-        out, rows, trailing = run_schedule(Runtime, AK, DC, mode,
-                                           FUSED_SCHEDULE, FUSED_MEASURE_FROM)
+        out, rows, trailing = (scatter_timed if mode == "unfused" else
+                               run_schedule)(Runtime, AK, DC, mode,
+                                             FUSED_SCHEDULE,
+                                             FUSED_MEASURE_FROM)
         st = out["stats"]
         measured = [r[2] for r in rows[FUSED_MEASURE_FROM:]]
         if mode == "unfused":
@@ -1919,6 +2233,8 @@ def phase_fused(Runtime, AK, DC):
         summary[m]["stage_ms"] = mean_of(
             [dict(mode=r["mode"], v=r["perf_ms"]["stage_ms"]) for r in runs],
             m, "v")
+    summary["unfused"]["scatter_ms"] = next(
+        r["scatter_ms"]["mean"] for r in runs if r["mode"] == "unfused")
     return {"runs": runs, "summary": summary, "eligible": eligible,
             "replays": sum(r["stats"]["fused_dispatches"] for r in runs),
             "launches": sum(r["launches"] for r in runs
@@ -2379,7 +2695,7 @@ def allocator_launches(PC, n0, mode, out):
           f"{out['launches']} steps")
 
 
-def phase_paged(Runtime, AK, DC, PG, PC, AS, main_out, main_crcs,
+def phase_paged(Runtime, AK, DC, PG, PC, main_out, main_crcs,
                 fused):
     """Phase 17: paged storage on phase 4's main path.  The sequential
     paged Runtime through phase 4's schedule (its per-tick CRCs equal
@@ -2439,22 +2755,9 @@ def phase_paged(Runtime, AK, DC, PG, PC, AS, main_out, main_crcs,
     ref = None
     for mode in PAGED_FUSED_TURNS:
         n0 = None if PC is None else PC.launches["allocate_pages"]
-        timers = ([PacketTimer(AS, "scatter_packet")]
-                  if mode == "paged unfused" else [])
-        try:
-            out, rows, trailing = run_schedule(
-                Runtime, AK, DC, mode, FUSED_SCHEDULE, FUSED_MEASURE_FROM,
-                timers)
-        finally:
-            for tm in timers:
-                tm.restore()
-        if timers:
-            each = timers[0].each()
-            check(len(each) > 0, f"{mode}: no delta scatter was timed")
-            out["scatter_ms"] = {"mean": sum(each) / len(each),
-                                 "min": min(each), "max": max(each),
-                                 "calls": len(each),
-                                 "packet_lens": sorted(set(timers[0].lens))}
+        out, rows, trailing = (scatter_timed if mode == "paged unfused"
+                               else run_schedule)(
+            Runtime, AK, DC, mode, FUSED_SCHEDULE, FUSED_MEASURE_FROM)
         launches += out["launches"]
         allocator_launches(PC, n0, mode, out)
         st = out["stats"]
@@ -5843,6 +6146,32 @@ def pages_entry(pages_k, paged, pg_l):
             "shape": pages_k["shape"], "n_pages": pages_k["n_pages"]}
 
 
+def stage_entry(stage_k, fused, paged, sc_l):
+    """The ``kernels`` line's entry of csrc/stage.cu: ``ms`` (device time:
+    CUDA events around graph replays of the wrapper's calls) /
+    ``wrapper_ms`` / ``plain_ms`` / ``bound_ms`` alone at phase 17's walk
+    packet (phase 3e), ``library_ms`` the two ``index_put_`` that were
+    the port's scatter, ``main_path_ms`` the mean scatter call of phases
+    14's and 17's unfused 10% walks, launches on each path."""
+    return {"name": "scatter_packet", "route": "cuda",
+            "source": "goworld_tpu_torch/csrc/stage.cu",
+            "replaces": "goworld_tpu/ops/aoi_stage.py:84",
+            "launches": sum(sc_l.values()), "path_launches": sc_l,
+            "max_abs_err": stage_k["max_abs_err"],
+            "ms": stage_k["graph_ms"], "wrapper_ms": stage_k["ms"],
+            "plain_ms": stage_k["plain_ms"],
+            "bound_ms": stage_k["bound_ms"], "bound_by": "bytes",
+            "library_ms": stage_k["library_ms"],
+            "library_graph_ms": stage_k["library_graph_ms"],
+            "launch_floor_ms": stage_k["launch_floor"]["ms"],
+            "launch_floor_graph_ms": stage_k["launch_floor"]["graph_ms"],
+            "main_path_ms": {
+                "14 unfused": fused["summary"]["unfused"]["scatter_ms"],
+                "17 unfused": paged["summary"]["modes"]["paged unfused"][
+                    "scatter_ms"]["mean"]},
+            "shape": stage_k["shape"], "entries": stage_k["entries"]}
+
+
 def interest_entry(interest_k, interest_slice, load_out, moved):
     """The ``kernels`` line's entry of csrc/interest_step.cu: its times
     at the main path's full team + tier + LOS step (C = 16384, a path
@@ -8302,6 +8631,7 @@ def main():
     from goworld_tpu_torch.ops import fused as FZ
     from goworld_tpu_torch.ops import interest_cuda as IC
     from goworld_tpu_torch.ops import pages_cuda as PC
+    from goworld_tpu_torch.ops import stage_cuda as SC
     from goworld_tpu_torch.ops import interest_kernels as K
     from goworld_tpu_torch.parallel import SpaceMesh, make_sharded_aoi_step
 
@@ -8328,17 +8658,19 @@ def main():
         laps[name] = now - lap_t[0]
         lap_t[0] = now
 
-    # the events.cu and pages.cu kernels' launches on each path: counts
-    # zeroed just before it, read just after (a child process's from its
-    # own counts)
-    ev_paths, pg_paths = {}, {}
+    # the events.cu, pages.cu and stage.cu kernels' launches on each path:
+    # counts zeroed just before it, read just after (a child process's
+    # from its own counts)
+    ev_paths, pg_paths, sc_paths = {}, {}, {}
 
     def on_path(name, fn, *a, **kw):
         EC.reset_launches()
         PC.reset_launches()
+        SC.reset_launches()
         out = fn(*a, **kw)
         ev_paths[name] = dict(EC.launches)
         pg_paths[name] = PC.launches["allocate_pages"]
+        sc_paths[name] = SC.launches["scatter_packet"]
         return out
 
     rows = phase_kernels(AK, AD)
@@ -8351,6 +8683,8 @@ def main():
     pages_k = phase_pages_kernel(PG, PC, main_grids)
     del main_grids
     lap("3d")
+    stage_k = phase_stage_kernel(AS, SC, EC)
+    lap("3e")
     phase_parity(Runtime)
     pipelined = on_path("deferred", phase_pipeline, Runtime, AK, DC,
                         main_crcs, main_out)
@@ -8364,7 +8698,7 @@ def main():
     lap("15b")
     routing = phase_routing(Runtime, AK)
     lap("16")
-    paged = on_path("paged", phase_paged, Runtime, AK, DC, PG, PC, AS,
+    paged = on_path("paged", phase_paged, Runtime, AK, DC, PG, PC,
                     main_out, main_crcs, fused)
     clustered = on_path("clustered", phase_clustered, AOIEngine, AK)
     pages_seam = on_path("pages_seam", phase_pages_seam, Runtime, AK)
@@ -8508,6 +8842,11 @@ def main():
     for p in ("paged", "clustered", "paged_sharded", "pages_seam", "ladder"):
         check(pg_l.get(p, 0) > 0, f"allocate_pages {p}: no launch on its "
               f"path")
+    # the stage.cu kernel: every delta-staged tick (14, 17, 12b)
+    sc_l = {p: n for p, n in sc_paths.items() if n}
+    for p in ("fused", "paged", "fused_sharded"):
+        check(sc_l.get(p, 0) > 0, f"scatter_packet {p}: no launch on its "
+              f"path")
 
     def entry(name, replaces, launches, shape_rows, shape, **extra):
         at = next(r for r in shape_rows if tuple(r["shape"]) == shape)
@@ -8600,7 +8939,8 @@ def main():
                         "checkpoint": checkpoint["launches"][
                             "interest_step"]}),
         *events_entries(events_k, main_out, grid_out, share_out, ev_l),
-        pages_entry(pages_k, paged, pg_l)]}
+        pages_entry(pages_k, paged, pg_l),
+        stage_entry(stage_k, fused, paged, sc_l)]}
     issue = {"issue_floor": [
         issue_floors("aoi_step", rows, per_pair["aoi_step"]),
         issue_floors("aoi_step_rect", rect_rows, per_pair["aoi_step"]),
@@ -8616,6 +8956,7 @@ def main():
     print(json.dumps({"main_path": main_out}))
     print(json.dumps({"events_kernels": events_k}))
     print(json.dumps({"pages_kernel": pages_k}))
+    print(json.dumps({"stage_kernel": stage_k}))
     print(json.dumps({"giant": grid_out + [share_out]}))
     print(json.dumps({"deferred": {"pipelined": pipelined["summary"],
                                    "fused": fused["summary"],
@@ -8680,8 +9021,11 @@ def paths_main(args):
     phase 4's last tick's grids, extract_chunks and encode_row_stream at
     each giant config's last diff, each held to its plain version there
     (``codec_path_check``); then, where ROOT has ``ops/pages_cuda.py``,
-    phase 3d (the allocator's kernel alone), and phase 17 (the paged
-    runs, the allocator's device ms on the sequential one)."""
+    phase 3d (the allocator's kernel alone, its stages apart), where it
+    has ``ops/stage_cuda.py`` phase 3e (the delta scatter's kernel
+    alone), phase 14's unfused 10% walk (the delta scatter's device ms a
+    call) and phase 17 (the paged runs, the allocator's device ms on the
+    sequential one, the scatter's on the unfused walk)."""
     root = os.path.abspath(args[0]) if args else \
         os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -8703,6 +9047,10 @@ def paths_main(args):
         from goworld_tpu_torch.ops import pages_cuda as PC
     except ImportError:  # a tree from before csrc/pages.cu
         PC = None
+    try:
+        from goworld_tpu_torch.ops import stage_cuda as SC
+    except ImportError:  # a tree from before csrc/stage.cu
+        SC = None
 
     check(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(EV.__file__)))) == root,
@@ -8717,11 +9065,12 @@ def paths_main(args):
     alone = tri_timed(EV, EC, *grids)
     pages_k = None if PC is None else phase_pages_kernel(PG, PC, grids)
     del grids
+    stage_k = None if SC is None else phase_stage_kernel(AS, SC, EC)
     giant = [phase_grid(AG, CD, name, (EV, EC)) for name in GIANT]
     giant.append(phase_share(AK, AD, CD, (EV, EC)))
-    _, ref, _ = run_schedule(Runtime, AK, DC, "unfused", FUSED_SCHEDULE,
-                             FUSED_MEASURE_FROM)
-    paged = phase_paged(Runtime, AK, DC, PG, PC, AS, main_out, main_crcs,
+    walk14, ref, _ = scatter_timed(Runtime, AK, DC, "unfused",
+                                   FUSED_SCHEDULE, FUSED_MEASURE_FROM)
+    paged = phase_paged(Runtime, AK, DC, PG, PC, main_out, main_crcs,
                         {"ref_rows": [r[:2] for r in ref]})
     keys = ("kernel_ms", "encode_ms", "fetch_ms", "decode_ms")
     codec_keys = ("extract_chunks", "encode_row_stream")
@@ -8737,6 +9086,10 @@ def paths_main(args):
                for k in codec_keys}} for g in giant},
         "pages_alone": pages_k and {k: v for k, v in pages_k.items()
                                     if k != "cases"},
+        "stage_alone": stage_k and {k: v for k, v in stage_k.items()
+                                    if k != "cases"},
+        "walk14_unfused": {k: walk14[k] for k in ("tick_ms", "loop_ms",
+                                                  "perf_ms", "scatter_ms")},
         "paged": paged["summary"]}}), flush=True)
     return 0
 

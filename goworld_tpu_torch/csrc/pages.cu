@@ -34,36 +34,64 @@
 //   16384 x 512 words), new at the granted nonzero words, write the three
 //   pools once (3 * 256 * n_pages bytes: 101 MB at 131,072 pages) and
 //   read free and write page_tab and free_next (12 * n_pages): about
-//   0.11 ms at 3.35 TB/s.  Three kernels behind the pools' memsets:
+//   0.11 ms at 3.35 TB/s.  So chg is read once, and no step runs in one
+//   block.  Three kernels behind the pools' memsets:
 //
 //   page_count  a warp a bin (grid-stride), four 16-byte loads a lane in
-//               flight: cnt[b].
-//   page_grant  one block.  need only takes the values 0 .. ceil(bw / 64)
+//               flight: cnt[b], and a summary of the bin, one bit for each
+//               group of four words that holds a nonzero word (a ballot
+//               per 32 groups; bw / 128 summary words a bin, 2.1 MB at
+//               phase 17).  need only takes the values 0 .. ceil(bw / 64)
 //               (the classes), so the stable argsort is a counting sort:
-//               a histogram of the classes, and its exclusive prefix of
-//               pages (prefix_v = the pages of every class below v).  The
+//               each bin of need > 0 adds one to its class in its rank
+//               tile's histogram (a global atomic; the histograms are
+//               zeroed by a memset before the kernel).
+//   page_rank   a block a rank tile of RANK_THREADS * items consecutive
+//               bins, all tiles at once.  Each block sums the tiles'
+//               histograms into the classes' and finds the boundary: the
 //               classes below the boundary class v* fit whole, those
-//               above not at all, and in v* the first k* by bin id fit,
-//               k* = (n_pages - prefix_v*) / v*: v* is the least class v
-//               >= 1 with bins and prefix_v + v * hist_v > n_pages.  This
-//               is cumsum(need[order]) <= n_pages exactly, ties included.
-//               Then one walk over the bins, 1024 at a time, ranks the
-//               bins of v*, the granted pages and the spills (block
-//               scans with a carry): rank0 (-1: not granted), spill_bins,
-//               the scalars.
+//               above not at all, and in v* the first k* bins by id fit,
+//               k* = (n_pages - prefix_v*) / v*, where prefix_v is the
+//               pages of every class below v and v* is the least class v
+//               >= 1 with bins and prefix_v + v * hist_v > n_pages (this
+//               is cumsum(need[order]) <= n_pages exactly, ties
+//               included).  The bins before the tile then hold eqP bins
+//               of v*, AP pages of the classes below and SP bins above,
+//               summed from the earlier tiles' histograms; so the tile's
+//               first page rank is AP + v* * min(eqP, k*) and its first
+//               spill rank SP + max(eqP - k*, 0), with no scan across
+//               blocks.  Block scans inside the tile give rank0 (-1: not
+//               granted) and spill_bins; block 0 writes n_used, n_spill
+//               and spill_bins' -1 tail, each tile its granted and all
+//               words.
 //   page_write  a warp a granted bin (the others skip: the grant is read
-//               on the device, no host sync): it reads the bin's chg
-//               again, ranks its nonzero words in flat order by a warp
-//               scan and writes them and their new words to their pages;
-//               the blocks past the bins write page_tab and free_next.
+//               on the device, no host sync).  A sparse bin reads its
+//               summary, a word a lane, loads only the flagged groups of
+//               chg and new (a lane's first group in one round trip, kept
+//               in registers; its later ones one after another), ranks
+//               their nonzero words by a warp scan and writes them to
+//               their pages.  A dense bin, whose nonzero words a summary
+//               word (cnt / sum_words) reach the steps of a whole reread
+//               (bw / SPAN), reads its chg again whole in 16-byte loads:
+//               its lanes' serial group loads would take longer
+//               (scripts/torch_pages_dense.py times both: bins of 512
+//               words are dense from 5 words on, bins of 4096 from 256,
+//               6.25%).
+//               The blocks past the bins write page_tab and free_next,
+//               and the first of them scalars[2] and [3].
 //
-// No scratch carries from one launch to the next: cnt and rank0 are
-// written whole before they are read, and the histogram lives in the
-// grant block's shared memory, zeroed by that block.  So back-to-back
-// launches on one scratch, and graph replays, each start clean.  The
-// second read of the granted bins' chg (the write pass) is the design's
-// known excess over the bound: a one-bit-a-word summary from the count
-// pass would spare it.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 0.158 ms of
+//   device time at phase 17's shapes against 0.234 for the earlier
+//   design with one grant block and a second read of chg (0.035 and
+//   0.069 ms of it); the count pass is most of it, 0.096-0.101 ms for the
+//   268 MB read.
+//
+// No scratch carries from one launch to the next: cnt, the summary, rank0
+// and the tiles' word sums are written whole before they are read, and
+// the tiles' histograms are zeroed by a memset on the stream inside the
+// entry (inside a CUDA graph that memset is a node of the graph).  So
+// back-to-back launches on one scratch, and graph replays, each start
+// clean.
 //
 // Arithmetic follows the port's int32 tensors: words are tested as
 // unsigned bits, the scalars narrow to int32 as the plain sums do.
@@ -75,17 +103,22 @@
 namespace {
 
 typedef long long i64;
+typedef unsigned long long u64;
 
 constexpr int THREADS = 256;  // page_count, page_write
 constexpr int WARPS = THREADS / 32;
-constexpr int GRANT_THREADS = 1024;
+constexpr int RANK_THREADS = 1024;  // page_rank: a thread a bin (x items)
 constexpr int PAGE_WORDS = 64;       // ops/pages_cuda.py PAGE_WORDS
 constexpr int MAX_CLASSES = 8193;    // ops/pages_cuda.py MAX_CLASSES
+constexpr int MAX_TILES = 1024;      // ops/pages_cuda.py MAX_TILES
+constexpr int GROUP_WORDS = 4;       // words a summary bit covers
+constexpr int SUM_SPAN = 32 * GROUP_WORDS;  // words a summary word covers
 constexpr int UNROLL = 4;            // 16-byte loads a lane in flight
 constexpr int SPAN = 4 * 32 * UNROLL;  // words a warp step covers
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ i64 imin(i64 a, i64 b) { return a < b ? a : b; }
+__device__ __forceinline__ i64 imax(i64 a, i64 b) { return a > b ? a : b; }
 
 template <typename T>
 __device__ __forceinline__ T warp_inclusive(T v) {
@@ -115,6 +148,24 @@ __device__ T block_exclusive(T v, T* total) {
   return (warp == 0 ? T(0) : part[warp - 1]) + inc - v;
 }
 
+template <typename T>
+__device__ __forceinline__ T block_sum(T v) {
+  T total;
+  block_exclusive(v, &total);
+  return total;
+}
+
+// Two counts in one scan: each half's sum over the block stays below
+// 2^32 (pages and bins of one grid, words of one grid), so no carry
+// crosses from the low half into the high one.
+__device__ __forceinline__ u64 pack(i64 hi, i64 lo) {
+  return static_cast<u64>(hi) << 32 | static_cast<u64>(lo);
+}
+__device__ __forceinline__ i64 hi32(u64 v) { return static_cast<i64>(v >> 32); }
+__device__ __forceinline__ i64 lo32(u64 v) {
+  return static_cast<i64>(v & 0xffffffffull);
+}
+
 // Words i .. i+3 of p (0 at and past end) as unsigned bits; VEC: p is
 // 16-byte aligned and i a multiple of 4, so a whole group is one load.
 template <bool VEC>
@@ -133,126 +184,217 @@ __device__ __forceinline__ void load4(const int32_t* __restrict__ p, i64 i,
   }
 }
 
-// cnt[b] = the nonzero words of bin b, a warp a bin.
+__device__ __forceinline__ int nonzero4(const uint32_t (&v)[4]) {
+  return (v[0] != 0u) + (v[1] != 0u) + (v[2] != 0u) + (v[3] != 0u);
+}
+
+// The nonzero words v of the group at g0, with their new words n, to the
+// pools from entry d on; returns the next entry.
+__device__ __forceinline__ i64 put4(i64 g0, const uint32_t (&v)[4],
+                                    const uint32_t (&n)[4], i64 d,
+                                    int32_t* __restrict__ pool_g,
+                                    int32_t* __restrict__ pool_c,
+                                    int32_t* __restrict__ pool_n) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (v[q] != 0u) {
+      pool_g[d] = static_cast<int32_t>(g0 + q);
+      pool_c[d] = static_cast<int32_t>(v[q]);
+      pool_n[d] = static_cast<int32_t>(n[q]);
+      ++d;
+    }
+  }
+  return d;
+}
+
+// cnt[b] = the nonzero words of bin b, a warp a bin; summary[b * sum_words
+// + j] bit k = group 32 j + k of the bin (its words 4 (32 j + k) .. + 3)
+// holds a nonzero word; hist[(b / tile) * n_classes + need] += 1 for need
+// > 0.  A warp step covers groups 128 s + 32 u + lane: summary word 4 s +
+// u is the ballot of load u.
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
     page_count(const int32_t* __restrict__ chg, i64 nw, i64 bw, i64 n_bins,
-               int32_t* __restrict__ cnt) {
+               i64 sum_words, i64 tile, int n_classes,
+               int32_t* __restrict__ cnt, uint32_t* __restrict__ summary,
+               int32_t* __restrict__ hist) {
   const int lane = threadIdx.x & 31;
   const i64 nwarps = static_cast<i64>(gridDim.x) * WARPS;
   for (i64 b = static_cast<i64>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
        b < n_bins; b += nwarps) {
     const i64 lo = b * bw, hi = imin(lo + bw, nw);
+    uint32_t* sum = summary + b * sum_words;
     unsigned c = 0;
-    for (i64 i = lo + 4 * lane; i < hi; i += SPAN) {
+    i64 j = 0;
+    // the loop is the same in the whole warp (the ballots)
+    for (i64 base = lo; base < hi; base += SPAN, j += UNROLL) {
+      const i64 i = base + 4 * lane;
       uint32_t v[UNROLL][4];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) load4<VEC>(chg, i + 128 * u, hi, v[u]);
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) c += v[u][q] != 0u;
+      for (int u = 0; u < UNROLL; ++u) {
+        const int n = nonzero4(v[u]);
+        c += n;
+        const unsigned bits = __ballot_sync(FULL, n != 0);
+        if (lane == u && j + u < sum_words) sum[j + u] = bits;
+      }
     }
+    // a ragged last bin's summary words past its last step
+    for (j += lane; j < sum_words; j += 32) sum[j] = 0u;
     c = __reduce_add_sync(FULL, c);
-    if (lane == 0) cnt[b] = static_cast<int32_t>(c);
+    if (lane == 0) {
+      cnt[b] = static_cast<int32_t>(c);
+      const int need = static_cast<int>((c + PAGE_WORDS - 1) / PAGE_WORDS);
+      if (need > 0) atomicAdd(&hist[(b / tile) * n_classes + need], 1);
+    }
   }
 }
 
-// The grant, in one block of GRANT_THREADS: rank0[b] (the bin's first
-// page rank, -1 when it is not granted), spill_bins [sw] and scalars [4].
-__global__ void __launch_bounds__(GRANT_THREADS)
-    page_grant(const int32_t* __restrict__ cnt, i64 n_bins, i64 n_pages,
-               int n_classes, i64 sw, int32_t* __restrict__ rank0,
-               int32_t* __restrict__ spill_bins,
-               int32_t* __restrict__ scalars) {
-  __shared__ int hist[MAX_CLASSES];
+// A block a rank tile of RANK_THREADS * items bins (thread t its items
+// consecutive bins from t * items): rank0 (-1: not granted), spill_bins,
+// the tile's granted and all words (tile_words[2 t], [2 t + 1]); block 0
+// also scalars[0], [1] and spill_bins' -1 tail.
+__global__ void __launch_bounds__(RANK_THREADS)
+    page_rank(const int32_t* __restrict__ cnt, i64 n_bins, i64 n_pages,
+              int n_classes, i64 items, i64 tiles, i64 sw,
+              const int32_t* __restrict__ hist, int32_t* __restrict__ rank0,
+              int32_t* __restrict__ spill_bins,
+              int32_t* __restrict__ tile_words,
+              int32_t* __restrict__ scalars) {
   __shared__ int s_vstar;
-  __shared__ i64 s_kstar;
-  const int t = threadIdx.x, lane = t & 31;
-  for (int v = t; v < n_classes; v += GRANT_THREADS) hist[v] = 0;
+  __shared__ i64 s_pre, s_bins_below;
+  const int t = threadIdx.x;
+  const i64 tile = blockIdx.x;
   if (t == 0) {
     s_vstar = n_classes;  // none: every class fits whole
-    s_kstar = 0;
+    s_pre = 0;
+    s_bins_below = 0;
   }
-  __syncthreads();
-  // the histogram of the classes, one shared atomic a class a warp
-  for (i64 base = 0; base < n_bins; base += GRANT_THREADS) {
-    const i64 b = base + t;
-    const int need = b < n_bins ? (cnt[b] + PAGE_WORDS - 1) / PAGE_WORDS : -1;
-    const unsigned same = __match_any_sync(FULL, need);
-    if (need >= 0 && lane == __ffs(same) - 1)
-      atomicAdd(&hist[need], __popc(same));
-  }
-  __syncthreads();
-  // the boundary class: the least v >= 1 with bins whose pages, on top of
-  // every class below it, pass n_pages
-  i64 carry = 0;
-  for (int base = 0; base < n_classes; base += GRANT_THREADS) {
+  // the classes' histogram and the boundary class: the least v >= 1 with
+  // bins whose pages, on top of every class below it, pass n_pages
+  i64 pages_all = 0, bins_all = 0;
+  for (int base = 0; base < n_classes; base += RANK_THREADS) {
     const int v = base + t;
-    const int h = v < n_classes ? hist[v] : 0;
+    i64 h = 0;
+    if (v >= 1 && v < n_classes)
+      for (i64 u = 0; u < tiles; ++u) h += hist[u * n_classes + v];
     const i64 pages = static_cast<i64>(v) * h;
-    i64 tot;
-    const i64 pre = carry + block_exclusive(pages, &tot);
-    if (v >= 1 && h > 0 && pre + pages > n_pages) atomicMin(&s_vstar, v);
+    u64 tot;
+    const u64 ex = block_exclusive(pack(pages, h), &tot);
+    const i64 pre = pages_all + hi32(ex);
+    if (h > 0 && pre + pages > n_pages) atomicMin(&s_vstar, v);
     __syncthreads();
-    const int vs = s_vstar;
-    if (v < n_classes && v == vs) s_kstar = (n_pages - pre) / v;  // pre <= n_pages
-    __syncthreads();
-    if (vs < n_classes) break;  // the same in every thread
-    carry += tot;
+    if (v < n_classes && v == s_vstar) {  // one thread over the chunks
+      s_pre = pre;  // <= n_pages: the classes below it fit
+      s_bins_below = bins_all + lo32(ex);
+    }
+    pages_all += hi32(tot);
+    bins_all += lo32(tot);
   }
+  __syncthreads();
   const int vs = s_vstar;
-  const i64 ks = s_kstar;
-  // the bins in id order: v*'s ranks, then page ranks and spill ranks
-  i64 eq_carry = 0, used = 0, spilled = 0, fit_words = 0, all_words = 0;
-  for (i64 base = 0; base < n_bins; base += GRANT_THREADS) {
-    const i64 b = base + t;
-    const int c = b < n_bins ? cnt[b] : 0;
-    const int need = (c + PAGE_WORDS - 1) / PAGE_WORDS;
-    const bool eq = b < n_bins && need == vs;
-    i64 eq_tot;
-    const i64 eq_rank = eq_carry + block_exclusive<i64>(eq, &eq_tot);
-    const bool fit = need > 0 && (need < vs || (eq && eq_rank < ks));
-    const bool spill = need > 0 && !fit;
-    // granted pages (< 2^23 a chunk) above, spills below
-    const i64 packed = (static_cast<i64>(fit ? need : 0) << 32) | spill;
-    i64 p_tot;
-    const i64 p_ex = block_exclusive(packed, &p_tot);
-    if (b < n_bins)
-      rank0[b] = fit ? static_cast<int32_t>(used + (p_ex >> 32)) : -1;
-    const i64 s_rank = spilled + (p_ex & 0xffffffffLL);
-    if (spill && s_rank < sw) spill_bins[s_rank] = static_cast<int32_t>(b);
-    if (fit) fit_words += c;
-    all_words += c;
-    eq_carry += eq_tot;
-    used += p_tot >> 32;
-    spilled += p_tot & 0xffffffffLL;
+  const bool cut = vs < n_classes;
+  const i64 ks = cut ? (n_pages - s_pre) / vs : 0;
+  // the bins before this tile: eqP of class v*, AP pages of the classes
+  // below it, SP bins of the classes above it
+  i64 eqp = 0, ap = 0, sp = 0;
+  for (i64 i = t; i < tile * n_classes; i += RANK_THREADS) {
+    const int v = static_cast<int>(i % n_classes);
+    const i64 h = hist[i];
+    if (v == vs) eqp += h;
+    else if (v < vs) ap += static_cast<i64>(v) * h;
+    else sp += h;
   }
-  for (i64 i = spilled + t; i < sw; i += GRANT_THREADS) spill_bins[i] = -1;
-  i64 fit_tot, all_tot;
-  block_exclusive(fit_words, &fit_tot);
-  block_exclusive(all_words, &all_tot);
+  const u64 eq_sp = block_sum(pack(eqp, sp));
+  eqp = hi32(eq_sp);
+  sp = lo32(eq_sp);
+  ap = block_sum(ap);
+  const i64 b0 = (tile * RANK_THREADS + t) * items;
+  const i64 b1 = imin(b0 + items, n_bins);
+  // this thread's bins of v*, ranked over the tile
+  i64 e = 0;
+  for (i64 b = b0; b < b1; ++b)
+    e += (cnt[b] + PAGE_WORDS - 1) / PAGE_WORDS == vs;
+  i64 e_tot;
+  const i64 er0 = eqp + block_exclusive(e, &e_tot);
+  // granted pages, spills and words
+  i64 pg = 0, spn = 0, fw = 0, aw = 0;
+  for (i64 b = b0, er = er0; b < b1; ++b) {
+    const int c = cnt[b];
+    const int need = (c + PAGE_WORDS - 1) / PAGE_WORDS;
+    const bool eq = need == vs;
+    const bool fit = need > 0 && (need < vs || (eq && er < ks));
+    er += eq;
+    pg += fit ? need : 0;
+    spn += need > 0 && !fit;
+    fw += fit ? c : 0;
+    aw += c;
+  }
+  u64 ps_tot;
+  const u64 ps = block_exclusive(pack(pg, spn), &ps_tot);
+  i64 p = ap + vs * imin(eqp, ks) + hi32(ps);
+  i64 s = sp + imax(eqp - ks, 0) + lo32(ps);
+  for (i64 b = b0, er = er0; b < b1; ++b) {
+    const int need = (cnt[b] + PAGE_WORDS - 1) / PAGE_WORDS;
+    const bool eq = need == vs;
+    const bool fit = need > 0 && (need < vs || (eq && er < ks));
+    er += eq;
+    rank0[b] = fit ? static_cast<int32_t>(p) : -1;
+    if (fit) p += need;
+    if (need > 0 && !fit) {
+      if (s < sw) spill_bins[s] = static_cast<int32_t>(b);
+      ++s;
+    }
+  }
+  const u64 words = block_sum(pack(fw, aw));
   if (t == 0) {
-    scalars[0] = static_cast<int32_t>(used);
-    scalars[1] = static_cast<int32_t>(spilled);
-    scalars[2] = static_cast<int32_t>(fit_tot);
-    scalars[3] = static_cast<int32_t>(all_tot);
+    tile_words[2 * tile] = static_cast<int32_t>(hi32(words));
+    tile_words[2 * tile + 1] = static_cast<int32_t>(lo32(words));
+  }
+  if (tile == 0) {
+    // n_used: every class below v* and its first k* bins; n_spill: the
+    // bins of need > 0 that do not fit
+    const i64 n_used = cut ? s_pre + vs * ks : pages_all;
+    const i64 n_spill = cut ? bins_all - s_bins_below - ks : 0;
+    if (t == 0) {
+      scalars[0] = static_cast<int32_t>(n_used);
+      scalars[1] = static_cast<int32_t>(n_spill);
+    }
+    for (i64 i = n_spill + t; i < sw; i += RANK_THREADS) spill_bins[i] = -1;
   }
 }
 
 // Blocks [0, bin_blocks): a warp a granted bin, its nonzero words to their
 // pages.  The blocks after them: page_tab and free_next, n_used read from
-// scalars[0] (the grant's).
+// scalars[0] (page_rank's); the first of them scalars[2], [3].
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
     page_write(const int32_t* __restrict__ chg, const int32_t* __restrict__ nv,
-               i64 nw, i64 bw, i64 n_bins, const int32_t* __restrict__ rank0,
-               int bin_blocks, const int32_t* __restrict__ free_list,
-               i64 n_pages, const int32_t* __restrict__ scalars,
-               int32_t* __restrict__ pool_g, int32_t* __restrict__ pool_c,
-               int32_t* __restrict__ pool_n, int32_t* __restrict__ page_tab,
+               i64 nw, i64 bw, i64 n_bins, i64 sum_words,
+               const int32_t* __restrict__ cnt,
+               const uint32_t* __restrict__ summary,
+               const int32_t* __restrict__ rank0, int bin_blocks,
+               const int32_t* __restrict__ free_list, i64 n_pages,
+               i64 tiles, const int32_t* __restrict__ tile_words,
+               int32_t* __restrict__ scalars, int32_t* __restrict__ pool_g,
+               int32_t* __restrict__ pool_c, int32_t* __restrict__ pool_n,
+               int32_t* __restrict__ page_tab,
                int32_t* __restrict__ free_next) {
   if (static_cast<int>(blockIdx.x) >= bin_blocks) {
+    if (static_cast<int>(blockIdx.x) == bin_blocks) {
+      i64 fw = 0, aw = 0;
+      for (i64 u = threadIdx.x; u < tiles; u += THREADS) {
+        fw += tile_words[2 * u];
+        aw += tile_words[2 * u + 1];
+      }
+      fw = block_sum(fw);
+      aw = block_sum(aw);
+      if (threadIdx.x == 0) {
+        scalars[2] = static_cast<int32_t>(fw);
+        scalars[3] = static_cast<int32_t>(aw);
+      }
+    }
     const i64 n_used = scalars[0];
     const i64 step = static_cast<i64>(gridDim.x - bin_blocks) * THREADS;
     for (i64 i = static_cast<i64>(blockIdx.x - bin_blocks) * THREADS +
@@ -272,30 +414,70 @@ __global__ void __launch_bounds__(THREADS)
     if (r0 < 0) continue;  // not granted: the same in the whole warp
     const i64 lo = b * bw, hi = imin(lo + bw, nw);
     i64 dst = static_cast<i64>(r0) * PAGE_WORDS;
-    for (i64 base = lo; base < hi; base += SPAN) {
-      const i64 i = base + 4 * lane;
-      uint32_t v[UNROLL][4];
+    // dense: a lane's expected flagged groups (cnt / sum_words), each
+    // loaded one after another, reach the steps of a whole reread (bw /
+    // SPAN): chg whole
+    if (static_cast<i64>(cnt[b]) * SPAN >= bw * sum_words) {
+      for (i64 base = lo; base < hi; base += SPAN) {
+        const i64 i = base + 4 * lane;
+        uint32_t v[UNROLL][4];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) load4<VEC>(chg, i + 128 * u, hi, v[u]);
+        for (int u = 0; u < UNROLL; ++u)
+          load4<VEC>(chg, i + 128 * u, hi, v[u]);
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        int c = 0;
+        for (int u = 0; u < UNROLL; ++u) {
+          const int c = nonzero4(v[u]);
+          const int inc = warp_inclusive(c);
+          i64 d = dst + inc - c;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) c += v[u][q] != 0u;
-        const int inc = warp_inclusive(c);
-        i64 d = dst + inc - c;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (v[u][q] != 0u) {
-            const i64 g = i + 128 * u + q;
-            pool_g[d] = static_cast<int32_t>(g);
-            pool_c[d] = static_cast<int32_t>(v[u][q]);
-            pool_n[d] = nv[g];
-            ++d;
+          for (int q = 0; q < 4; ++q) {
+            if (v[u][q] != 0u) {
+              const i64 g = i + 128 * u + q;
+              pool_g[d] = static_cast<int32_t>(g);
+              pool_c[d] = static_cast<int32_t>(v[u][q]);
+              pool_n[d] = nv[g];
+              ++d;
+            }
           }
+          dst += __shfl_sync(FULL, inc, 31);
         }
-        dst += __shfl_sync(FULL, inc, 31);
       }
+      continue;
+    }
+    // sparse: summary word j0 + lane of the bin, its flagged groups.  The
+    // lane's first group comes in with its new words (one round trip) and
+    // stays in registers; a lane's later groups (rare in a sparse bin)
+    // are read again when they are written.
+    const uint32_t* sum = summary + b * sum_words;
+    for (i64 j0 = 0; j0 < sum_words; j0 += 32) {
+      const i64 j = j0 + lane;
+      uint32_t m = j < sum_words ? sum[j] : 0u;
+      const i64 at = lo + j * SUM_SPAN;  // the summary word's first word
+      i64 g1 = at;
+      uint32_t c1[4] = {0u, 0u, 0u, 0u}, n1[4] = {0u, 0u, 0u, 0u};
+      if (m) {
+        g1 = at + GROUP_WORDS * (__ffs(static_cast<int>(m)) - 1);
+        load4<VEC>(chg, g1, hi, c1);
+        load4<VEC>(nv, g1, hi, n1);
+        m &= m - 1;
+      }
+      int c = nonzero4(c1);
+      for (uint32_t r = m; r; r &= r - 1) {
+        uint32_t v[4];
+        load4<VEC>(chg, at + GROUP_WORDS * (__ffs(static_cast<int>(r)) - 1),
+                   hi, v);
+        c += nonzero4(v);
+      }
+      const int inc = warp_inclusive(c);
+      i64 d = put4(g1, c1, n1, dst + inc - c, pool_g, pool_c, pool_n);
+      for (uint32_t r = m; r; r &= r - 1) {
+        const i64 g0 = at + GROUP_WORDS * (__ffs(static_cast<int>(r)) - 1);
+        uint32_t v[4], n[4];
+        load4<VEC>(chg, g0, hi, v);
+        load4<VEC>(nv, g0, hi, n);
+        d = put4(g0, v, n, d, pool_g, pool_c, pool_n);
+      }
+      dst += __shfl_sync(FULL, inc, 31);
     }
   }
 }
@@ -321,53 +503,66 @@ inline cudaError_t fill(void* p, int byte, i64 bytes, cudaStream_t s) {
 // chg, nv: int32 [nw]; free_list: int32 [n_pages]; pools: int32 [n_pages,
 // 64]; page_tab, free_next: int32 [n_pages] (free_next apart from
 // free_list); spill_bins: int32 [sw]; scalars: int32 [4]; scratch: int32
-// [2 * n_bins]: the counts, then the ranks.  vec: chg 16-byte aligned and
-// bw % 4 == 0.  Memsets pool_g to -1 and pool_c, pool_n to 0 (one memset
-// where they lie next to each other), then the three kernels.
+// [2 * n_bins + n_bins * sum_words + tiles * n_classes + 2 * tiles]: the
+// counts, the ranks, the summaries, the tiles' histograms and the tiles'
+// word sums.  vec: chg and nv 16-byte aligned and bw % 4 == 0.  Memsets
+// pool_g to -1 and pool_c, pool_n to 0 (a memset each: pools that lie
+// next to each other may still be two allocations, and one memset may not
+// cross from one into the next) and the histograms to 0, then the three
+// kernels.
 extern "C" int gw_allocate_pages(
     const int32_t* chg, const int32_t* nv, const int32_t* free_list,
     int64_t nw, int64_t bw, int64_t n_bins, int64_t n_pages, int64_t n_classes,
-    int64_t sw, int64_t blocks, int64_t rot_blocks, int vec, int32_t* pool_g,
-    int32_t* pool_c, int32_t* pool_n, int32_t* page_tab, int32_t* free_next,
+    int64_t sw, int64_t blocks, int64_t rot_blocks, int64_t sum_words,
+    int64_t items, int64_t tiles, int vec, int32_t* pool_g, int32_t* pool_c,
+    int32_t* pool_n, int32_t* page_tab, int32_t* free_next,
     int32_t* spill_bins, int32_t* scalars, int32_t* scratch, void* stream) {
+  const i64 tile = RANK_THREADS * items;
   if (nw < 0 || bw < 1 || n_bins != (nw + bw - 1) / bw ||
       n_bins * bw > INT32_MAX || n_pages < 0 ||
       n_classes != (bw + PAGE_WORDS - 1) / PAGE_WORDS + 1 ||
       n_classes > MAX_CLASSES || sw < 0 || sw > n_bins || blocks < 1 ||
-      blocks > (1 << 20) || rot_blocks < 1 || rot_blocks > (1 << 20))
+      blocks > (1 << 20) || rot_blocks < 1 || rot_blocks > (1 << 20) ||
+      sum_words != (bw + SUM_SPAN - 1) / SUM_SPAN || items < 1 ||
+      tiles > MAX_TILES ||
+      tiles != (n_bins > 0 ? (n_bins + tile - 1) / tile : 1))
     return err(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const i64 pool_bytes = 4 * PAGE_WORDS * n_pages;
-  cudaError_t e = fill(pool_g, 0xFF, pool_bytes, s);
-  if (e != cudaSuccess) return err(e);
-  if (reinterpret_cast<char*>(pool_n) ==
-      reinterpret_cast<char*>(pool_c) + pool_bytes) {
-    e = fill(pool_c, 0, 2 * pool_bytes, s);
-  } else if ((e = fill(pool_c, 0, pool_bytes, s)) == cudaSuccess) {
-    e = fill(pool_n, 0, pool_bytes, s);
-  }
-  if (e != cudaSuccess) return err(e);
   int32_t* cnt = scratch;
-  int32_t* rank0 = scratch + n_bins;
+  int32_t* rank0 = cnt + n_bins;
+  uint32_t* summary = reinterpret_cast<uint32_t*>(rank0 + n_bins);
+  int32_t* hist = reinterpret_cast<int32_t*>(summary + n_bins * sum_words);
+  int32_t* tile_words = hist + tiles * n_classes;
+  cudaError_t e = fill(pool_g, 0xFF, pool_bytes, s);
+  if (e == cudaSuccess) e = fill(pool_c, 0, pool_bytes, s);
+  if (e == cudaSuccess) e = fill(pool_n, 0, pool_bytes, s);
+  if (e == cudaSuccess) e = fill(hist, 0, 4 * tiles * n_classes, s);
+  if (e != cudaSuccess) return err(e);
   const unsigned nb = static_cast<unsigned>(blocks);
+  const int nc = static_cast<int>(n_classes);
   if (vec)
-    page_count<true><<<nb, THREADS, 0, s>>>(chg, nw, bw, n_bins, cnt);
+    page_count<true><<<nb, THREADS, 0, s>>>(chg, nw, bw, n_bins, sum_words,
+                                            tile, nc, cnt, summary, hist);
   else
-    page_count<false><<<nb, THREADS, 0, s>>>(chg, nw, bw, n_bins, cnt);
+    page_count<false><<<nb, THREADS, 0, s>>>(chg, nw, bw, n_bins, sum_words,
+                                             tile, nc, cnt, summary, hist);
   if ((e = cudaGetLastError()) != cudaSuccess) return err(e);
-  page_grant<<<1, GRANT_THREADS, 0, s>>>(cnt, n_bins, n_pages,
-                                         static_cast<int>(n_classes), sw,
-                                         rank0, spill_bins, scalars);
+  page_rank<<<static_cast<unsigned>(tiles), RANK_THREADS, 0, s>>>(
+      cnt, n_bins, n_pages, nc, items, tiles, sw, hist, rank0, spill_bins,
+      tile_words, scalars);
   if ((e = cudaGetLastError()) != cudaSuccess) return err(e);
   const unsigned grid = static_cast<unsigned>(blocks + rot_blocks);
   const int bb = static_cast<int>(blocks);
   if (vec)
     page_write<true><<<grid, THREADS, 0, s>>>(
-        chg, nv, nw, bw, n_bins, rank0, bb, free_list, n_pages, scalars,
-        pool_g, pool_c, pool_n, page_tab, free_next);
+        chg, nv, nw, bw, n_bins, sum_words, cnt, summary, rank0, bb,
+        free_list, n_pages, tiles, tile_words, scalars, pool_g, pool_c,
+        pool_n, page_tab, free_next);
   else
     page_write<false><<<grid, THREADS, 0, s>>>(
-        chg, nv, nw, bw, n_bins, rank0, bb, free_list, n_pages, scalars,
-        pool_g, pool_c, pool_n, page_tab, free_next);
+        chg, nv, nw, bw, n_bins, sum_words, cnt, summary, rank0, bb,
+        free_list, n_pages, tiles, tile_words, scalars, pool_g, pool_c,
+        pool_n, page_tab, free_next);
   return err(cudaGetLastError());
 }

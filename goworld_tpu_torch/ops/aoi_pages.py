@@ -75,19 +75,20 @@ def pool_ceiling(n_words: int, bin_words: int) -> int:
 
 def allocate_pages(chg: torch.Tensor, new: torch.Tensor, free: torch.Tensor,
                    page_words: int = PAGE_WORDS, bin_words: int | None = None,
-                   max_spill: int = MAX_SPILL, out=None):
+                   max_spill: int = MAX_SPILL, out=None, scratch=None):
     """THE allocator: ``csrc/pages.cu`` on CUDA tensors
     (:func:`.pages_cuda.allocate_pages_cuda`; a refused launch raises,
     nothing falls back), the plain version :func:`allocate_pages_plain`
     on CPU tensors.  ``out``: seven tensors or None to write the outputs
     into (the fused paged graph's static pools and bundle slices; the
     rotated free list's must not be ``free``); the outputs are returned
-    either way."""
+    either way.  ``scratch``: the kernel's scratch (the fused paged
+    graph's static one), or None; the plain version needs none."""
     if bin_words is None:
         bin_words = bin_words_for(chg.shape[-1])
     if chg.device.type != "cpu":
         return PC.allocate_pages_cuda(chg, new, free, page_words, bin_words,
-                                      max_spill, out)
+                                      max_spill, out, scratch)
     got = allocate_pages_plain(chg, new, free, page_words, bin_words,
                                max_spill)
     if out is None:

@@ -6,7 +6,14 @@ entries that changed since the last staged tick: a ``(rows, cols, xv,
 zv)`` packet (:func:`pad_packet`, numpy, copied verbatim) applied by
 :func:`apply_packet`.  Where JAX donates the [S, C] arrays to a jitted
 scatter and rebinds the results, the port writes into the persistent
-tensors in place with ``index_put_``.
+tensors in place: the packet rides as one int32 [4, n] array (rows,
+cols, the x and z values' bit patterns: :func:`packet_arrays`) in one
+H2D copy, and :func:`scatter_packet` sets both planes from it, through
+the hand-written kernel of ``csrc/stage.cu`` (:mod:`.stage_cuda`) on
+CUDA tensors and the plain version :func:`scatter_packet_plain` on CPU
+tensors.  Both take the reference's ``mode="drop"``: a negative index
+counts from the end (the reference normalises indices first) and an
+entry still outside the planes is dropped.
 
 Packets are padded by repeating their last entry: the scatter is an
 idempotent set, so the padding never changes what lands (and it keeps the
@@ -21,6 +28,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import stage_cuda as SC
 
 _MIN_PACKET = 64
 # page-granular padding (paged buckets): one page of packet entries; the
@@ -86,26 +95,49 @@ def packet_nbytes(rows, cols, xv, zv) -> int:
     return rows.nbytes + cols.nbytes + xv.nbytes + zv.nbytes
 
 
-def packet_arrays(rows, cols, xv, zv):
-    """One padded numpy packet as the two host arrays the scatter reads:
-    indices int64 [2, n] (rows, cols) and values float32 [2, n] (x, z)."""
-    return (np.stack([rows, cols]).astype(np.int64),
-            np.stack([xv, zv]).astype(np.float32, copy=False))
+def packet_arrays(rows, cols, xv, zv) -> np.ndarray:
+    """One padded numpy packet (what :func:`pad_packet` gives: int32
+    indices, float32 values) as the one host array the scatter reads:
+    int32 [4, n] of the rows, the cols and the x and z values' bit
+    patterns."""
+    return np.stack([rows, cols, xv.view(np.int32),
+                     zv.view(np.int32)]).astype(np.int32, copy=False)
 
 
-def scatter_packet(dx: torch.Tensor, dz: torch.Tensor, idx: torch.Tensor,
-                   val: torch.Tensor) -> None:
-    """The scatter alone, on device tensors: ``idx`` int64 [2, n], ``val``
-    float32 [2, n] (what :func:`packet_arrays` gives).  No host work, so
-    a CUDA graph can hold it."""
-    dx.index_put_((idx[0], idx[1]), val[0])
-    dz.index_put_((idx[0], idx[1]), val[1])
+def scatter_packet(dx: torch.Tensor, dz: torch.Tensor,
+                   pkt: torch.Tensor) -> None:
+    """THE delta scatter, on device tensors: ``pkt`` int32 [4, n] (what
+    :func:`packet_arrays` gives) into the float32 [S, C] planes ``dx`` /
+    ``dz`` in place.  ``csrc/stage.cu`` on CUDA tensors
+    (:func:`.stage_cuda.scatter_packet_cuda`; a refused launch raises,
+    nothing falls back), :func:`scatter_packet_plain` on CPU tensors.  No
+    host work, so a CUDA graph can hold it."""
+    if dx.device.type != "cpu":
+        SC.scatter_packet_cuda(dx, dz, pkt)
+    else:
+        scatter_packet_plain(dx, dz, pkt)
+
+
+def scatter_packet_plain(dx: torch.Tensor, dz: torch.Tensor,
+                         pkt: torch.Tensor) -> None:
+    """The scatter in plain PyTorch (the kernel's plain version): two
+    ``index_put_`` of the values' bit patterns (int32 views of the
+    planes, so no float arithmetic touches them) at the entries that
+    land, negative indices normalised first as the reference's are."""
+    SC.check_scatter(dx, dz, pkt)
+    s, c = dx.shape
+    rows, cols = pkt[0].long(), pkt[1].long()
+    rows = torch.where(rows < 0, rows + s, rows)
+    cols = torch.where(cols < 0, cols + c, cols)
+    keep = (rows >= 0) & (rows < s) & (cols >= 0) & (cols < c)
+    at = (rows[keep], cols[keep])
+    dx.view(torch.int32).index_put_(at, pkt[2][keep])
+    dz.view(torch.int32).index_put_(at, pkt[3][keep])
 
 
 def apply_packet(dx: torch.Tensor, dz: torch.Tensor, rows, cols, xv,
                  zv) -> None:
     """Scatter one padded numpy packet into the persistent [S, C] float32
-    tensors ``dx``/``dz`` in place.  The packet rides one H2D copy for the
-    indices and one for the values."""
-    idx, val = packet_arrays(rows, cols, xv, zv)
-    scatter_packet(dx, dz, h2d(idx, dx.device), h2d(val, dx.device))
+    tensors ``dx``/``dz`` in place.  The packet rides one H2D copy."""
+    scatter_packet(dx, dz, h2d(packet_arrays(rows, cols, xv, zv),
+                               dx.device))

@@ -7,7 +7,8 @@ here it is one ``torch.cuda.CUDAGraph``, captured over static buffers and
 replayed each steady tick.  The body is the port's own functions, in the
 reference's order:
 
-    the packet's scatter (aoi_stage.scatter_packet)
+    the packet's scatter (aoi_stage.scatter_packet: csrc/stage.cu on
+    CUDA tensors)
       -> the step (aoi_cuda.aoi_step_chg with out=: csrc/aoi_step.cu,
          chg mode, on CUDA tensors) under two row masks, applied in the
          kernel's store from the device-resident vectors: the staged-row
@@ -24,9 +25,10 @@ reference's order:
 
 On CPU tensors the same body runs eagerly: that is the plain version,
 and the tests hold it to the unfused path.  There is no kernel of this
-module's own: the fusion is the graph around ``aoi_step.cu`` and the
-``events.cu`` or ``pages.cu`` kernels its body launches (a replay counts
-one launch of each, as the eager body would).
+module's own: the fusion is the graph around ``stage.cu``,
+``aoi_step.cu`` and the ``events.cu`` or ``pages.cu`` kernels its body
+launches (a replay counts one launch of each, as the eager body
+would).
 
 The sharded buckets (``engine/aoi_mesh``, ``engine/aoi_rowshard``; the
 JAX package folds their packet scatter into the per-chip program,
@@ -41,8 +43,9 @@ words are the bucket's own ``prev`` and spare, so a fused bucket holds
 no second copy; its keys are :func:`capture_key` with the codec caps.
 
 Nothing host-bound sits inside the capture.  The packet is padded to one
-length per bucket (:func:`packet_len`) and uploaded into a static device
-buffer just before the replay, through pinned memory
+length per bucket (:func:`packet_len`) and uploaded, as one int32 [4, n]
+array (:func:`.aoi_stage.packet_arrays`), into a static device buffer
+just before the replay, through pinned memory
 (:func:`.aoi_stage.h2d` with ``out=``); the count's copy to pinned host
 memory follows the replay.  Those two copies are transfers, not
 dispatches.
@@ -82,6 +85,7 @@ from . import aoi_cuda as AK
 from . import aoi_pages as PG
 from . import pages_cuda as PC
 from . import aoi_stage as AS
+from . import stage_cuda as SC
 from . import dispatch_count as DC
 from . import events as EV
 from . import events_cuda as EC
@@ -117,12 +121,13 @@ def _capture(pool, device, body, prepare=None) -> torch.cuda.CUDAGraph:
         del warm
         graph = torch.cuda.CUDAGraph()
         n0, e0 = AK.launches["aoi_step"], dict(EC.launches)
-        p0 = dict(PC.launches)
+        p0, s0 = dict(PC.launches), dict(SC.launches)
         with torch.cuda.graph(graph, pool=pool):
             body()
         AK.launches["aoi_step"] = n0
         EC.launches.update(e0)
         PC.launches.update(p0)
+        SC.launches.update(s0)
     return graph
 
 
@@ -147,15 +152,15 @@ def capture_key(s: int, c: int, plen: int, parity: int,
     return (s, c, plen, parity, size) + tuple(caps)
 
 
-def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, stg, idx, val,
+def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, stg, pkt,
              capacity: int, max_triples: int) -> None:
-    """One fused tick, in place: scatter ``(idx, val)`` into ``x``/``z``,
+    """One fused tick, in place: scatter ``pkt`` into ``x``/``z``,
     step from ``prev`` into ``new``/``chg`` under the staged-row mask
     ``stg`` and the subscription mask ``sub`` (both int32 [S], 1 or 0),
     extract the triples into ``tri`` [max_triples, 3] and their count
     into ``count`` [1] int64.  No host work, so a CUDA graph can hold
     it."""
-    AS.scatter_packet(x, z, idx, val)
+    AS.scatter_packet(x, z, pkt)
     AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg), stg=stg, sub=sub)
     t, n = EV.extract_triples(chg, new, capacity, max_triples)
     tri.copy_(t)
@@ -163,20 +168,21 @@ def tri_body(prev, new, chg, tri, count, x, z, r, act, sub, stg, idx, val,
 
 
 def paged_body(prev, new, chg, pg, pc, pn, bundle, free, x, z, r, act, sub,
-               stg, idx, val, bin_words: int) -> None:
+               stg, pkt, bin_words: int, scratch=None) -> None:
     """One fused paged tick, in place: :func:`tri_body`'s scatter, step and
     masks, then the page allocator over ``free`` (int32 [n_pages], updated
     to the rotated list), its pools into ``pg``/``pc``/``pn`` [n_pages,
     PAGE_WORDS] and ``bundle`` (int32) = [scalars (4), page table
-    (n_pages), spilled bins].  No host work, so a CUDA graph can hold
-    it."""
-    AS.scatter_packet(x, z, idx, val)
+    (n_pages), spilled bins], with the kernel's scratch ``scratch``
+    (static: outside the graphs' pool).  No host work, so a CUDA graph
+    can hold it."""
+    AS.scatter_packet(x, z, pkt)
     AK.aoi_step_chg(x, z, r, act, prev, out=(new, chg), stg=stg, sub=sub)
     k = free.shape[0]
     free_next = PG.allocate_pages(
         chg, new, free, PG.PAGE_WORDS, bin_words, PG.MAX_SPILL,
         out=(pg, pc, pn, bundle[4:4 + k], None, bundle[4 + k:],
-             bundle[:4]))[4]
+             bundle[:4]), scratch=scratch)[4]
     free.copy_(free_next)
 
 
@@ -192,7 +198,8 @@ class FusedTri:
     site = SITE
     # the hand kernels besides aoi_step.cu a replay of the body launches:
     # (their module's launch counts, kernel)
-    replay_kernels = ((EC.launches, "extract_triples"),)
+    replay_kernels = ((SC.launches, "scatter_packet"),
+                      (EC.launches, "extract_triples"))
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):
@@ -207,8 +214,7 @@ class FusedTri:
         self.chg = [buf(*shape), buf(*shape)]
         # output size (triple cap or n_pages) -> per parity, the outputs
         self.outs: dict[int, list[tuple]] = {}
-        self.idx = buf(2, plen, dtype=torch.int64)
-        self.val = buf(2, plen, dtype=torch.float32)
+        self.pkt = buf(4, plen)
         self.sub = torch.ones(s, dtype=torch.int32, device=device)
         self.sub_host = np.ones(s, bool)  # what self.sub holds
         self.stg = torch.ones(s, dtype=torch.int32, device=device)
@@ -269,9 +275,8 @@ class FusedTri:
     def load_packet(self, rows, cols, xv, zv) -> None:
         """Upload one packet of exactly ``plen`` entries into the static
         device packet buffer (through pinned memory, without a wait)."""
-        idx, val = AS.packet_arrays(rows, cols, xv, zv)
-        AS.h2d(idx, self.device, out=self.idx)
-        AS.h2d(val, self.device, out=self.val)
+        AS.h2d(AS.packet_arrays(rows, cols, xv, zv), self.device,
+               out=self.pkt)
 
     def run(self, parity: int, size: int, x, z, r, act):
         """One fused tick of parity ``parity`` at output size ``size`` over
@@ -282,7 +287,7 @@ class FusedTri:
         p = parity
         outs = self.outputs(p, size)
         args = (self.words[p], self.words[1 - p], self.chg[p], *outs,
-                x, z, r, act, self.sub, self.stg, self.idx, self.val)
+                x, z, r, act, self.sub, self.stg, self.pkt)
         key = capture_key(self.s, self.capacity, self.plen, p, size)
         DC.record_key(self.site, key)
         DC.record()
@@ -324,7 +329,8 @@ class FusedPaged(FusedTri):
     MAX_SPILL)`` of the [S, C, W] grid the graph steps."""
 
     site = PAGED_SITE
-    replay_kernels = ((PC.launches, "allocate_pages"),)
+    replay_kernels = ((SC.launches, "scatter_packet"),
+                      (PC.launches, "allocate_pages"))
 
     def __init__(self, s: int, capacity: int, plen: int,
                  device: torch.device):
@@ -333,6 +339,12 @@ class FusedPaged(FusedTri):
         self.bin_words = PG.bin_words_for(w)
         n_bins = -(-(s * capacity * w) // self.bin_words)
         self.spill_width = min(n_bins, PG.MAX_SPILL)
+        # the allocator's scratch, one for both parities (a replay needs
+        # none of it after): static, so the graphs' pool stays small
+        self.scratch = None if not self.cuda else torch.empty(
+            PC.pages_plan(s * capacity * w, 1, self.bin_words,
+                          PG.MAX_SPILL).scratch, dtype=torch.int32,
+            device=device)
 
     def _make_outputs(self, n_pages: int) -> list[tuple]:
         dev = self.device
@@ -348,7 +360,7 @@ class FusedPaged(FusedTri):
                 for _ in range(2)]
 
     def _body(self, args: tuple, n_pages: int) -> None:
-        paged_body(*args, self.bin_words)
+        paged_body(*args, self.bin_words, self.scratch)
 
     def _capture(self, key, args, size) -> torch.cuda.CUDAGraph:
         # the warm-up run rotates the free list: put it back, so the
@@ -417,15 +429,15 @@ class ShardStep(NamedTuple):
     row_ids: torch.Tensor | None = None
 
 
-def shard_body(dx, dz, idx, val, steps, caps: tuple, lanes: int) -> list:
+def shard_body(dx, dz, pkt, steps, caps: tuple, lanes: int) -> list:
     """One device's part of a fused sharded tick, in place: scatter the
-    packet ``(idx, val)`` into the device's x/z (``dx``/``dz``, 2-D), then
+    packet ``pkt`` into the device's x/z (``dx``/``dz``, 2-D), then
     for each :class:`ShardStep` the chg step (``aoi_step.cu`` on CUDA
     tensors: square, or rect with ``cols``/``row_ids``) into its
     ``new``/``chg``, the subscription mask, and :func:`shard_codec`.
     Returns each shard's ``(chunks, streams, scalars)``.  No host work, so
     a CUDA graph can hold it."""
-    AS.scatter_packet(dx, dz, idx, val)
+    AS.scatter_packet(dx, dz, pkt)
     out = []
     for st in steps:
         AK.aoi_step_chg(st.x, st.z, st.r, st.act, st.prev, cols=st.cols,
@@ -480,9 +492,7 @@ class FusedShards:
         self.rows, self.capacity, self.lanes = rows, capacity, lanes
         self.plens = list(plens)
         self.cuda = self.devices[0].type == "cuda"
-        self.idx = [torch.zeros((2, n), dtype=torch.int64, device=d)
-                    for d, n in zip(self.devices, self.plens)]
-        self.val = [torch.zeros((2, n), dtype=torch.float32, device=d)
+        self.pkt = [torch.zeros((4, n), dtype=torch.int32, device=d)
                     for d, n in zip(self.devices, self.plens)]
         self.graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
         self.inputs: dict[tuple, tuple] = {}  # key -> captured pointers
@@ -509,9 +519,8 @@ class FusedShards:
         """Upload one padded packet of device ``g``'s rows (exactly
         ``plens[g]`` entries) into its static packet buffer (through
         pinned memory, without a wait)."""
-        idx, val = AS.packet_arrays(rows, cols, xv, zv)
-        AS.h2d(idx, self.devices[g], out=self.idx[g])
-        AS.h2d(val, self.devices[g], out=self.val[g])
+        AS.h2d(AS.packet_arrays(rows, cols, xv, zv), self.devices[g],
+               out=self.pkt[g])
 
     def key(self, g: int, parity: int, n_shards: int, caps: tuple) -> tuple:
         """Device ``g``'s graph key."""
@@ -524,8 +533,9 @@ class FusedShards:
         its shards' :class:`ShardStep`.  Returns, per device, its shards'
         ``(chunks, streams, scalars)`` (the static buffers on the card).
         Counts one dispatch a device (the replay, or the eager body on the
-        CPU) and, on the card, one launch a shard of ``aoi_step.cu`` and
-        of the codec's two ``events.cu`` kernels."""
+        CPU) and, on the card, one launch of ``stage.cu``'s scatter a
+        device and one launch a shard of ``aoi_step.cu`` and of the
+        codec's two ``events.cu`` kernels."""
         if caps != self.caps:
             for k in list(self.graphs):
                 del self.graphs[k]
@@ -537,7 +547,7 @@ class FusedShards:
             key = self.key(g, parity, len(steps[g]), caps)
             DC.record_key(self.site, key)
             DC.record()
-            args = (*xz[g], self.idx[g], self.val[g], steps[g])
+            args = (*xz[g], self.pkt[g], steps[g])
             if not self.cuda:
                 out.append(shard_body(*args, caps, self.lanes))
                 continue
@@ -547,6 +557,7 @@ class FusedShards:
                 graph = self._capture(g, key, args, caps)
                 self.inputs[key] = ptrs
             graph.replay()
+            SC.launches["scatter_packet"] += 1
             AK.launches["aoi_step"] += len(steps[g])
             for k in ("extract_chunks", "encode_row_stream"):  # shard_codec
                 EC.launches[k] += len(steps[g])

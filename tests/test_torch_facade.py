@@ -208,14 +208,25 @@ def test_facade_round_trip_on_bound_game(cluster):
     goworld.bind(g1)
 
 
+def registered(disp, eid):
+    """The dispatcher's directory knows ``eid``'s game.  A call routed to
+    an entity the directory does not know yet is dropped (the reference
+    dispatcher's rule, in both packages): a service's creation reaches
+    the dispatcher a loop iteration after the entity exists on its game,
+    so a call from the other game must wait for it."""
+    ei = disp.entities.get(eid)
+    return ei is not None and ei.game_id != 0
+
+
 def test_service_singleton_created_once_over_two_games(cluster):
-    _disp, games, mgrs = cluster
+    disp, games, mgrs = cluster
     assert wait(lambda: all(m.service_entity_id("CounterService")
                             for m in mgrs)), "service never registered"
     eid = mgrs[0].service_entity_id("CounterService")
     assert mgrs[1].service_entity_id("CounterService") == eid
     assert wait(lambda: sum(g.rt.entities.get(eid) is not None
                             for g in games) == 1)
+    assert wait(lambda: registered(disp, eid))
     for mgr, g in zip(mgrs, games):
         assert on_logic(g, lambda mgr=mgr: mgr.call_service(
             "CounterService", "bump"))

@@ -128,12 +128,12 @@ def test_fused_packet_has_one_length():
         eng.flush()
         fz = h.bucket._fz
         if fz is not None:
-            lens.add(tuple(fz.idx.shape))
+            lens.add(tuple(fz.pkt.shape))
             if t == 2:
-                idx = fz.idx.numpy()
-                assert (idx[0] == h.slot).all() and (idx[1] == 0).all()
-                assert fz.val.numpy()[0, 0] == np.float32(xs[0])
-    assert lens == {(2, FZ.packet_len(1, 256, 0.25))}
+                pkt = fz.pkt.numpy()
+                assert (pkt[0] == h.slot).all() and (pkt[1] == 0).all()
+                assert pkt[2:, 0].view(np.float32)[0] == np.float32(xs[0])
+    assert lens == {(4, FZ.packet_len(1, 256, 0.25))}
     assert h.bucket.stats["fused_dispatches"] == 3
 
 

@@ -41,7 +41,7 @@ def test_port_modules_import_no_jax_and_no_goworld_tpu():
                 "ops.events", "parallel.mesh", "engine.aoi_mesh",
                 "engine.aoi_rowshard", "entry", "faults", "ops.aoi_oracle",
                 "ops.aoi_native", "ops.interest_kernels", "ops.interest_cuda",
-                "ops.events_cuda", "ops.pages_cuda",
+                "ops.events_cuda", "ops.pages_cuda", "ops.stage_cuda",
                 "interest", "interest.field", "interest.oracle",
                 "interest.device", "interest.policy", "ingest",
                 "ingest.movement", "load", "load.clients", "load.harness",
@@ -197,3 +197,21 @@ def test_cpu_path_launches_no_kernel():
     assert IC.launches == {"interest_step": 0}
     assert EC.launches == {"extract_triples": 0, "extract_chunks": 0,
                            "encode_row_stream": 0}
+    # a delta-staged tick scatters its packet with the plain version
+    from goworld_tpu_torch.ops import aoi_stage as AS
+    from goworld_tpu_torch.ops import stage_cuda as SC
+
+    SC.reset_launches()
+    plain, calls = AS.scatter_packet_plain, []
+    AS.scatter_packet_plain = lambda *a: calls.append(1) or plain(*a)
+    try:
+        hd = eng.create_space(128)
+        xd = x.copy()
+        for t in range(3):
+            xd[:4] += 1.0  # 4 movers of 128: a delta packet
+            eng.submit(hd, xd, x, np.full(128, 3.0, np.float32),
+                       np.ones(128, bool))
+            eng.flush()
+    finally:
+        AS.scatter_packet_plain = plain
+    assert calls and SC.launches == {"scatter_packet": 0}
